@@ -1,0 +1,361 @@
+// Per-cell StVK chains of the structured-lattice kernels (lattice_kernels.cu).
+//
+// Layout: channel-first vertex fields (C, X, Y, Z) in float32, Z minor; the
+// cell mask is (X-1, Y-1, Z-1). Vertex index v = (x*Y + y)*Z + z, cell index
+// c = (cx*(Y-1) + cy)*(Z-1) + cz. Local corner i = 4*di + 2*dj + dk.
+//
+// All chains take DISPLACEMENTS u = x - x0: F = I + sum_i u_i g_iq^T with the
+// identity added analytically (the position form cancels |x|*(2/dx)-sized
+// terms and sets a coordinate-dependent f32 noise floor).
+//
+// The loops over corners, quadrature points and 3x3 components are fully
+// unrolled, so every index into the g table is a compile-time constant and
+// the per-cell state (8 corners x 3, F, M, dF, dM, the 24 or 48 corner
+// accumulators) lives in registers.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// g[i][q][d] = dN_i/dxi_d at Gauss point q, times 2/dx (uniform lattice:
+// J = (dx/2) I, so the table is the same for every cell).
+struct GTab {
+    float g[8][8][3];
+};
+
+struct Lattice {
+    int X, Y, Z;  // vertex grid
+    int N;        // X*Y*Z vertices
+    int C;        // (X-1)*(Y-1)*(Z-1) cells
+};
+
+// Everything a cell chain needs besides the fields.
+struct ChainArgs {
+    GTab G;
+    Lattice L;
+    float det;  // (dx/2)^3
+    float mu;
+    float la;
+};
+
+__device__ __forceinline__ void cell_coords(const Lattice& L, int c, int& cx,
+                                            int& cy, int& cz) {
+    const int Cz = L.Z - 1, Cy = L.Y - 1;
+    cz = c % Cz;
+    const int t = c / Cz;
+    cy = t % Cy;
+    cx = t / Cy;
+}
+
+__device__ __forceinline__ int corner_vertex(const Lattice& L, int cx, int cy,
+                                             int cz, int i) {
+    const int di = (i >> 2) & 1, dj = (i >> 1) & 1, dk = i & 1;
+    return ((cx + di) * L.Y + (cy + dj)) * L.Z + (cz + dk);
+}
+
+// The 8 corners x 3 channels of a channel-first field around one cell.
+__device__ __forceinline__ void load_corners(const float* f, const Lattice& L,
+                                             int cx, int cy, int cz,
+                                             float us[8][3]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int v = corner_vertex(L, cx, cy, cz, i);
+#pragma unroll
+        for (int r = 0; r < 3; ++r) us[i][r] = f[r * L.N + v];
+    }
+}
+
+// sum_i us[i][r] g[i][q][c] for all r, c (no identity).
+__device__ __forceinline__ void grad_at(const float us[8][3], const GTab& G,
+                                        int q, float F[3][3]) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            float s = 0.f;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) s += us[i][r] * G.g[i][q][c];
+            F[r][c] = s;
+        }
+    }
+}
+
+// F = I + grad u at quad point q.
+__device__ __forceinline__ void deformation(const float us[8][3],
+                                            const GTab& G, int q,
+                                            float F[3][3]) {
+    grad_at(us, G, q, F);
+    F[0][0] += 1.f;
+    F[1][1] += 1.f;
+    F[2][2] += 1.f;
+}
+
+// Green strain E = (F^T F - I)/2; returns tr E.
+__device__ __forceinline__ float green_strain(const float F[3][3],
+                                              float E[3][3]) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int b = a; b < 3; ++b) {
+            const float s = F[0][a] * F[0][b] + F[1][a] * F[1][b]
+                          + F[2][a] * F[2][b];
+            E[a][b] = 0.5f * (s - (a == b ? 1.f : 0.f));
+            E[b][a] = E[a][b];
+        }
+    }
+    return E[0][0] + E[1][1] + E[2][2];
+}
+
+// M = 2 mu E + la tr(E) I
+__device__ __forceinline__ void stvk_stress(const float E[3][3], float trE,
+                                            float mu, float la,
+                                            float M[3][3]) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+            M[a][b] = 2.f * mu * E[a][b] + (a == b ? la * trE : 0.f);
+    }
+}
+
+// acc[i][r] += sum_c P[r][c] g[i][q][c]
+__device__ __forceinline__ void emit_corners(const float P[3][3],
+                                             const GTab& G, int q,
+                                             float acc[8][3]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+            acc[i][r] += P[r][0] * G.g[i][q][0] + P[r][1] * G.g[i][q][1]
+                       + P[r][2] * G.g[i][q][2];
+    }
+}
+
+// Force chain: acc[i][r] = sum_q (P(F_q) g_iq)[r], P = F M. The caller
+// scales by -det * cell mask.
+__device__ __forceinline__ void force_chain(const float us[8][3],
+                                            const GTab& G, float mu, float la,
+                                            float acc[8][3]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) acc[i][r] = 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+        float F[3][3], E[3][3], M[3][3], P[3][3];
+        deformation(us, G, q, F);
+        const float trE = green_strain(F, E);
+        stvk_stress(E, trE, mu, la, M);
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+                P[r][c] = F[r][0] * M[0][c] + F[r][1] * M[1][c]
+                        + F[r][2] * M[2][c];
+        }
+        emit_corners(P, G, q, acc);
+    }
+}
+
+// Analytic HVP chain along ps: dF = grad p, dE = (dF^T F + F^T dF)/2,
+// dM = 2 mu dE + la tr(dE) I, dP = dF M + F dM; acc[i][r] = sum_q (dP g_iq)[r].
+// The caller scales by +det * cell mask (positive-definite convention).
+__device__ __forceinline__ void hvp_chain(const float us[8][3],
+                                          const float ps[8][3],
+                                          const GTab& G, float mu, float la,
+                                          float acc[8][3]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) acc[i][r] = 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+        float F[3][3], E[3][3], M[3][3], dF[3][3], dE[3][3], dM[3][3],
+            dP[3][3];
+        deformation(us, G, q, F);
+        const float trE = green_strain(F, E);
+        stvk_stress(E, trE, mu, la, M);
+        grad_at(ps, G, q, dF);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+#pragma unroll
+            for (int b = a; b < 3; ++b) {
+                float s = 0.f;
+#pragma unroll
+                for (int r = 0; r < 3; ++r)
+                    s += dF[r][a] * F[r][b] + F[r][a] * dF[r][b];
+                dE[a][b] = 0.5f * s;
+                dE[b][a] = dE[a][b];
+            }
+        }
+        const float trdE = dE[0][0] + dE[1][1] + dE[2][2];
+        stvk_stress(dE, trdE, mu, la, dM);
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                float s = 0.f;
+#pragma unroll
+                for (int b = 0; b < 3; ++b)
+                    s += dF[r][b] * M[b][c] + F[r][b] * dM[b][c];
+                dP[r][c] = s;
+            }
+        }
+        emit_corners(dP, G, q, acc);
+    }
+}
+
+// Symmetric channel order of the 3x3 vertex-diagonal blocks.
+__device__ __forceinline__ int diag_r(int ch) {
+    return ch < 3 ? 0 : (ch < 5 ? 1 : 2);
+}
+__device__ __forceinline__ int diag_s(int ch) {
+    // (0,0) (0,1) (0,2) (1,1) (1,2) (2,2)
+    return ch < 3 ? ch : (ch < 5 ? ch - 2 : 2);
+}
+
+// Vertex-diagonal Hessian chain, 6 symmetric channels per corner: with
+// a = g_iq and v = F a,
+//   acc[i][rs] = sum_q delta_rs a^T M a + (mu+la) v_r v_s + mu |a|^2 (F F^T)_rs.
+// The caller scales by det * cell mask.
+__device__ __forceinline__ void diag_chain(const float us[8][3],
+                                           const GTab& G, float mu, float la,
+                                           float acc[8][6]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch) acc[i][ch] = 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+        float F[3][3], E[3][3], M[3][3], Gm[6];
+        deformation(us, G, q, F);
+        const float trE = green_strain(F, E);
+        stvk_stress(E, trE, mu, la, M);
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch) {
+            const int r = diag_r(ch), s = diag_s(ch);
+            Gm[ch] = F[r][0] * F[s][0] + F[r][1] * F[s][1] + F[r][2] * F[s][2];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const float a0 = G.g[i][q][0], a1 = G.g[i][q][1],
+                        a2 = G.g[i][q][2];
+            const float gg = a0 * a0 + a1 * a1 + a2 * a2;
+            float v[3];
+#pragma unroll
+            for (int r = 0; r < 3; ++r)
+                v[r] = F[r][0] * a0 + F[r][1] * a1 + F[r][2] * a2;
+            const float aMa = a0 * (M[0][0] * a0 + M[0][1] * a1 + M[0][2] * a2)
+                            + a1 * (M[1][0] * a0 + M[1][1] * a1 + M[1][2] * a2)
+                            + a2 * (M[2][0] * a0 + M[2][1] * a1 + M[2][2] * a2);
+#pragma unroll
+            for (int ch = 0; ch < 6; ++ch) {
+                const int r = diag_r(ch), s = diag_s(ch);
+                float contrib = (mu + la) * v[r] * v[s] + (mu * gg) * Gm[ch];
+                if (r == s) contrib += aMa;
+                acc[i][ch] += contrib;
+            }
+        }
+    }
+}
+
+// Per-cell StVK energy density sum over quad points:
+// sum_q mu |E|^2 + la/2 tr(E)^2. The caller scales by det * cell mask.
+__device__ __forceinline__ float energy_chain(const float us[8][3],
+                                              const GTab& G, float mu,
+                                              float la) {
+    float acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+        float F[3][3], E[3][3];
+        deformation(us, G, q, F);
+        const float trE = green_strain(F, E);
+        float ee = 0.f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+#pragma unroll
+            for (int b = 0; b < 3; ++b) ee += E[a][b] * E[a][b];
+        }
+        acc += mu * ee + 0.5f * la * trE * trE;
+    }
+    return acc;
+}
+
+// Cell passes: write one cell's corner contributions, summed over q, to the
+// scratch cf[(i*NCH + ch)*C + c] (coalesced across neighbouring cells).
+__device__ __forceinline__ void cell_force(const ChainArgs& A, const float* u,
+                                           const float* cm, float* cf, int c) {
+    int cx, cy, cz;
+    cell_coords(A.L, c, cx, cy, cz);
+    float us[8][3], acc[8][3];
+    load_corners(u, A.L, cx, cy, cz, us);
+    force_chain(us, A.G, A.mu, A.la, acc);
+    const float w = -A.det * cm[c];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) cf[(i * 3 + r) * A.L.C + c] = acc[i][r] * w;
+    }
+}
+
+__device__ __forceinline__ void cell_hvp(const ChainArgs& A, const float* u,
+                                         const float* p, const float* cm,
+                                         float* cf, int c) {
+    int cx, cy, cz;
+    cell_coords(A.L, c, cx, cy, cz);
+    float us[8][3], ps[8][3], acc[8][3];
+    load_corners(u, A.L, cx, cy, cz, us);
+    load_corners(p, A.L, cx, cy, cz, ps);
+    hvp_chain(us, ps, A.G, A.mu, A.la, acc);
+    const float w = A.det * cm[c];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) cf[(i * 3 + r) * A.L.C + c] = acc[i][r] * w;
+    }
+}
+
+__device__ __forceinline__ void cell_diag(const ChainArgs& A, const float* u,
+                                          const float* cm, float* cd, int c) {
+    int cx, cy, cz;
+    cell_coords(A.L, c, cx, cy, cz);
+    float us[8][3], acc[8][6];
+    load_corners(u, A.L, cx, cy, cz, us);
+    diag_chain(us, A.G, A.mu, A.la, acc);
+    const float w = A.det * cm[c];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch)
+            cd[(i * 6 + ch) * A.L.C + c] = acc[i][ch] * w;
+    }
+}
+
+// Vertex pass: the sum of channel ch over the up-to-8 cells incident to
+// vertex (x, y, z), in fixed corner order (deterministic, no atomics).
+template <int NCH>
+__device__ __forceinline__ float gather_vertex(const Lattice& L,
+                                               const float* cf, int ch, int x,
+                                               int y, int z) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int cx = x - ((i >> 2) & 1), cy = y - ((i >> 1) & 1),
+                  cz = z - (i & 1);
+        if (cx >= 0 && cx < L.X - 1 && cy >= 0 && cy < L.Y - 1 && cz >= 0
+            && cz < L.Z - 1)
+            s += cf[(i * NCH + ch) * L.C + (cx * (L.Y - 1) + cy) * (L.Z - 1)
+                    + cz];
+    }
+    return s;
+}
+
+__device__ __forceinline__ void vertex_coords(const Lattice& L, int v, int& x,
+                                              int& y, int& z) {
+    z = v % L.Z;
+    const int t = v / L.Z;
+    y = t % L.Y;
+    x = t / L.Y;
+}

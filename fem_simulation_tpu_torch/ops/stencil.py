@@ -1,0 +1,158 @@
+"""Structured-lattice StVK operators in plain torch.
+
+Port of `fem_simulation_tpu/ops/stencil.py:32-48, 68-74, 101-196`. These are
+the plain versions the CUDA kernels (`ops/lattice_kernels.py`) are held
+against, and what the kernel wrappers run on CPU tensors.
+
+Layout: vertex fields (X, Y, Z, 3) on the bounding lattice; cell mask
+(X-1, Y-1, Z-1), 1.0 on real cells. All operators take DISPLACEMENTS
+u = x - x0 from the rest lattice: F = I + sum_i u_i g_iq^T with the identity
+added analytically, so the f32 noise of F does not grow with the coordinate
+magnitude (the position form sums eight |x|*(2/dx)-sized terms that cancel).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .elastic import shape_func_grad
+
+_CORNERS = [(i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1)]
+
+
+def build_lattice_map(lvl):
+    """Map a LevelTopology onto its bounding lattice.
+
+    Returns (shape, lat_of_vert (N,3) int32 zero-based, vert_of_lat (X,Y,Z)
+    int32 with -1 holes, fill fraction).
+    """
+    ijk = lvl.ijk
+    real = ijk[:, 0] > -(10 ** 5)  # exclude phantom padding rows
+    lo = ijk[real].min(axis=0)
+    hi = ijk[real].max(axis=0)
+    shape = tuple((hi - lo + 1).tolist())
+    lat = np.where(real[:, None], ijk - lo, 0).astype(np.int32)
+    vert_of_lat = np.full(shape, -1, dtype=np.int32)
+    idx = np.nonzero(real)[0]
+    vert_of_lat[lat[idx, 0], lat[idx, 1], lat[idx, 2]] = idx
+    fill = real.sum() / float(np.prod(shape))
+    return shape, lat, vert_of_lat, fill
+
+
+def field_to_lattice(x: torch.Tensor, lat: torch.Tensor, shape) -> torch.Tensor:
+    """Scatter per-vertex rows x (N, C) onto a zero lattice (X, Y, Z, C)."""
+    lat = lat.long()
+    out = torch.zeros(tuple(shape) + (x.shape[-1],), dtype=x.dtype,
+                      device=x.device)
+    out[lat[:, 0], lat[:, 1], lat[:, 2]] = x
+    return out
+
+
+def field_from_lattice(x_lat: torch.Tensor, lat: torch.Tensor) -> torch.Tensor:
+    lat = lat.long()
+    return x_lat[lat[:, 0], lat[:, 1], lat[:, 2]]
+
+
+def g_table(dx: float) -> np.ndarray:
+    """g[i, q, :] = S[i, q, :] * 2/dx in float32 (8, 8, 3)."""
+    return shape_func_grad() * np.float32(2.0 / dx)
+
+
+def lattice_material_tables(dx: float, device="cpu"):
+    """On a uniform lattice J = (dx/2) I exactly, so the material shape
+    gradients are constant across cells: g = S * 2/dx, det = (dx/2)^3."""
+    return torch.from_numpy(g_table(dx)).to(device), (dx / 2.0) ** 3
+
+
+def _cell_slices(x_lat):
+    """The 8 corner fields of every cell as shifted slices."""
+    X, Y, Z = x_lat.shape[:3]
+    return [x_lat[di:di + X - 1, dj:dj + Y - 1, dk:dk + Z - 1]
+            for (di, dj, dk) in _CORNERS]
+
+
+def _deformation(u_lat, g):
+    """F[x, y, z, q, r, d] = I + sum_i u_i[r] g[i, q, d] over the cells."""
+    xs = _cell_slices(u_lat)
+    F = sum(torch.einsum("xyzr,qd->xyzqrd", xs[i], g[i]) for i in range(8))
+    return F + torch.eye(3, dtype=u_lat.dtype, device=u_lat.device)
+
+
+def _strain_stress(F, mu, la):
+    """Green strain E = (F^T F - I)/2 and M = 2 mu E + la tr(E) I."""
+    eye = torch.eye(3, dtype=F.dtype, device=F.device)
+    E = 0.5 * (torch.einsum("...ba,...bc->...ac", F, F) - eye)
+    trE = torch.diagonal(E, dim1=-2, dim2=-1).sum(-1)
+    M = 2.0 * mu * E + la * trE[..., None, None] * eye
+    return E, trE, M
+
+
+def _gather_corners(cell_field, g, shape, sign_det):
+    """out[vertex] = sign_det * sum over incident cells and q of
+    cell_field[..., q, r, d] g[i, q, d] (cell_field already masked)."""
+    X, Y, Z = shape
+    out = torch.zeros((X, Y, Z, 3), dtype=cell_field.dtype,
+                      device=cell_field.device)
+    for i, (di, dj, dk) in enumerate(_CORNERS):
+        fi = sign_det * torch.einsum("xyzqrd,qd->xyzr", cell_field, g[i])
+        out[di:di + X - 1, dj:dj + Y - 1, dk:dk + Z - 1] += fi
+    return out
+
+
+def elastic_force_lattice(u_lat, cell_mask, g, det, mu, la):
+    """Elastic force on the vertex lattice: corner i of every cell gets
+    -det * sum_q P(F_q) g_iq with P = F M, masked by the cell mask."""
+    F = _deformation(u_lat, g)
+    _, _, M = _strain_stress(F, mu, la)
+    P = F @ M
+    Pm = P * cell_mask[..., None, None, None]
+    return _gather_corners(Pm, g, u_lat.shape[:3], -det)
+
+
+def elastic_hvp_lattice(u_lat, p_lat, cell_mask, g, det, mu, la):
+    """Analytic Hessian-vector product (positive-definite convention, the
+    negated directional derivative of elastic_force_lattice along p):
+      dF = sum_i p_i g_i^T, dE = (dF^T F + F^T dF)/2,
+      dP = dF M + F (2 mu dE + la tr(dE) I), (H p)_i = det sum_q dP g_iq."""
+    F = _deformation(u_lat, g)
+    _, _, M = _strain_stress(F, mu, la)
+    ps = _cell_slices(p_lat)
+    dF = sum(torch.einsum("xyzr,qd->xyzqrd", ps[i], g[i]) for i in range(8))
+    eye = torch.eye(3, dtype=F.dtype, device=F.device)
+    dE = 0.5 * (torch.einsum("...ba,...bc->...ac", dF, F)
+                + torch.einsum("...ba,...bc->...ac", F, dF))
+    trdE = torch.diagonal(dE, dim1=-2, dim2=-1).sum(-1)
+    dM = 2.0 * mu * dE + la * trdE[..., None, None] * eye
+    dP = dF @ M + F @ dM
+    dPm = dP * cell_mask[..., None, None, None]
+    return _gather_corners(dPm, g, u_lat.shape[:3], det)
+
+
+def elastic_energy_lattice(u_lat, cell_mask, g, det, mu, la):
+    """Total StVK energy sum_cells det * sum_q (mu |E|^2 + la/2 tr(E)^2)."""
+    F = _deformation(u_lat, g)
+    E, trE, _ = _strain_stress(F, mu, la)
+    psi = mu * torch.sum(E * E, dim=(-2, -1)) + 0.5 * la * trE * trE
+    return torch.sum(psi * cell_mask[..., None] * det)
+
+
+def elastic_hessian_diag_lattice(u_lat, cell_mask, g, det, mu, la):
+    """Vertex-diagonal 3x3 Hessian blocks (X, Y, Z, 3, 3): per cell, q and
+    corner i with a = g_iq and v = F a,
+      D_i = det (a^T M a I + (mu + la) v v^T + mu |a|^2 F F^T)."""
+    F = _deformation(u_lat, g)
+    _, _, M = _strain_stress(F, mu, la)
+    C = torch.einsum("...rc,...sc->...rs", F, F)
+    X, Y, Z = u_lat.shape[:3]
+    out = torch.zeros((X, Y, Z, 3, 3), dtype=u_lat.dtype, device=u_lat.device)
+    eye = torch.eye(3, dtype=u_lat.dtype, device=u_lat.device)
+    cm = cell_mask[..., None, None]
+    for i, (di, dj, dk) in enumerate(_CORNERS):
+        v = torch.einsum("xyzqrc,qc->xyzqr", F, g[i])
+        s1 = torch.einsum("qc,xyzqcd,qd->xyzq", g[i], M, g[i])
+        gg_q = torch.einsum("qc,qc->q", g[i], g[i])
+        Hd = det * (torch.einsum("xyzq,ji->xyzji", s1, eye)
+                    + (mu + la) * torch.einsum("xyzqj,xyzqi->xyzji", v, v)
+                    + mu * torch.einsum("q,xyzqji->xyzji", gg_q, C))
+        out[di:di + X - 1, dj:dj + Y - 1, dk:dk + Z - 1] += Hd * cm
+    return out
