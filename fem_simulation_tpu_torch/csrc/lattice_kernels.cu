@@ -41,6 +41,12 @@
 //   block sums the same partials in the same order, so all blocks hold
 //   bit-identical scalars and take the same loop branch (a divergent
 //   branch around grid.sync() would deadlock).
+// * lat_fused_pcg replaces _run_pcg (pallas_call at :608), entry fused_pcg;
+//   _make_pcg_kernel at :538-554 with the same _pcg_in_kernel. It is the
+//   fused Newton kernel instantiated without its residual and trial phases
+//   (template flag kPcg): the diagonal cell pass, the ctrl shift, and the
+//   PCG loop on the given right-hand side, returning dx and k. Same bound
+//   and the same deterministic partial sums and identical-branch guarantee.
 //
 // No --use_fast_math: the build keeps IEEE division and square root.
 #include <cooperative_groups.h>
@@ -235,14 +241,15 @@ sum_partials(const float* __restrict__ part, int n, float* __restrict__ out) {
 struct NewtonArgs {
     ChainArgs A;
     const float* u;     // (3, N) displacement
-    const float* s;     // (3, N) affine residual part (includes -rc*x0)
+    const float* s;     // (3, N) affine residual part (includes -rc*x0);
+                        // with kPcg the right-hand side of the solve
     const float* cm;    // (C,) cell mask
     const float* ctrl;  // (N,) Hessian diagonal shift
-    const float* rc;    // (N,) residual linear coefficient
+    const float* rc;    // (N,) residual linear coefficient (not kPcg)
     const float* vm;    // (N,) vertex mask
     float* dx;          // (3, N) out: Newton step
-    float* f;           // (3, N) out: residual at u
-    float* fn;          // (1,) out: ||f(u + dx vm)||_inf
+    float* f;           // (3, N) out: residual at u (not kPcg)
+    float* fn;          // (1,) out: ||f(u + dx vm)||_inf (not kPcg)
     int* k;             // (1,) out: PCG count (matvecs = k - 1)
     float* r;           // (3, N) scratch
     float* p;           // (3, N) scratch
@@ -255,6 +262,10 @@ struct NewtonArgs {
     int iterations;     // PCG budget
 };
 
+// kPcg = false: one Newton iteration (_make_newton_kernel).
+// kPcg = true: the PCG solve alone on the right-hand side s
+// (_make_pcg_kernel): no residual phase, no trial phase.
+template <bool kPcg>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
     cg::grid_group grid = cg::this_grid();
@@ -272,24 +283,32 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
     float* part_rr = P.part + 5 * nb;
     float* part_fn = P.part + 6 * nb;
 
-    // -- force and diagonal cell passes at u --
+    // -- force (not kPcg) and diagonal cell passes at u --
     for (int c = t0; c < L.C; c += stride) {
-        cell_force(P.A, P.u, P.cm, P.cf, c);
+        if (!kPcg) cell_force(P.A, P.u, P.cm, P.cf, c);
         cell_diag(P.A, P.u, P.cm, P.cd, c);
     }
     grid.sync();
 
-    // -- residual f = (f_el(u) + s - rc u) vm; d6 = diag + ctrl I; ||f||^2 --
+    // -- right-hand side b: the residual f = (f_el(u) + s - rc u) vm, or s
+    //    itself with kPcg; d6 = diag + ctrl I; ||b||^2 --
+    const float* b = kPcg ? P.s : P.f;
     float acc = 0.f;
     for (int v = t0; v < N; v += stride) {
         int x, y, z;
         vertex_coords(L, v, x, y, z);
-        const float vm = P.vm[v], rc = P.rc[v], ct = P.ctrl[v];
+        const float ct = P.ctrl[v];
+        const float vm = kPcg ? 0.f : P.vm[v], rc = kPcg ? 0.f : P.rc[v];
 #pragma unroll
         for (int rr = 0; rr < 3; ++rr) {
-            const float fr = (gather_vertex<3>(L, P.cf, rr, x, y, z)
-                              + P.s[rr * N + v] - rc * P.u[rr * N + v]) * vm;
-            P.f[rr * N + v] = fr;
+            float fr;
+            if (kPcg) {
+                fr = P.s[rr * N + v];
+            } else {
+                fr = (gather_vertex<3>(L, P.cf, rr, x, y, z) + P.s[rr * N + v]
+                      - rc * P.u[rr * N + v]) * vm;
+                P.f[rr * N + v] = fr;
+            }
             acc += fr * fr;
         }
 #pragma unroll
@@ -316,7 +335,7 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
         float r[3], z[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-            r[c] = P.f[c * N + v] / inv_scale;
+            r[c] = b[c * N + v] / inv_scale;
             P.r[c * N + v] = r[c];
             P.dx[c * N + v] = 0.f;
         }
@@ -415,6 +434,15 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
         k += 1;
         alive = alive && ok;
         grid.sync();
+    }
+
+    if (kPcg) {
+        for (int v = t0; v < N; v += stride) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) P.dx[c * N + v] *= scale_back;
+        }
+        if (blockIdx.x == 0 && threadIdx.x == 0) P.k[0] = k;
+        return;
     }
 
     // -- trial full step: ||f(u + dx vm)||_inf (ap holds u + dx vm) --
@@ -518,10 +546,11 @@ int lat_energy(const float* u, const float* cm, float* out, float* part,
     return static_cast<int>(cudaGetLastError());
 }
 
-// Cooperative grid of the fused Newton kernel for this lattice: at most
-// what can be co-resident (SMs x occupancy), at most one thread per cell or
-// vertex. Returns a CUDA error code; *grid is set on success.
-int lat_newton_grid(int X, int Y, int Z, int* grid) {
+// Cooperative grid of the fused Newton kernel (pcg = 0) or the fused PCG
+// kernel (pcg = 1) for this lattice: at most what can be co-resident (SMs x
+// occupancy), at most one thread per cell or vertex. Returns a CUDA error
+// code; *grid is set on success.
+int lat_newton_grid(int X, int Y, int Z, int pcg, int* grid) {
     int dev = 0, sms = 0, per_sm = 0, coop = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
@@ -530,8 +559,10 @@ int lat_newton_grid(int X, int Y, int Z, int* grid) {
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, fused_newton_kernel, kThreads, 0);
+        e = pcg ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, fused_newton_kernel<true>, kThreads, 0)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, fused_newton_kernel<false>, kThreads, 0);
     if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
     if (e != cudaSuccess) return static_cast<int>(e);
     const int N = X * Y * Z, C = (X - 1) * (Y - 1) * (Z - 1);
@@ -572,7 +603,41 @@ int lat_fused_newton(float tol, const float* u, const float* s,
     P.iterations = iterations;
     void* args[] = {&P};
     const cudaError_t e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(fused_newton_kernel), dim3(grid),
+        reinterpret_cast<const void*>(fused_newton_kernel<false>), dim3(grid),
+        dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+    const cudaError_t last = cudaGetLastError();
+    return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// One-launch PCG solve of (H(u) + diag(ctrl)) dx = f. part: 7*grid floats;
+// grid from lat_newton_grid(..., pcg = 1, ...).
+int lat_fused_pcg(float tol, const float* u, const float* f, const float* cm,
+                  const float* ctrl, const float* vm, float* dx, int* k,
+                  float* r, float* p, float* ap, float* d6, float* cf,
+                  float* cd, float* part, int grid, int X, int Y, int Z,
+                  const float* g, float det, float mu, float la,
+                  int iterations, void* stream) {
+    NewtonArgs P = {};
+    P.A = make_chain_args(X, Y, Z, g, det, mu, la);
+    P.u = u;
+    P.s = f;
+    P.cm = cm;
+    P.ctrl = ctrl;
+    P.vm = vm;
+    P.dx = dx;
+    P.k = k;
+    P.r = r;
+    P.p = p;
+    P.ap = ap;
+    P.d6 = d6;
+    P.cf = cf;
+    P.cd = cd;
+    P.part = part;
+    P.tol = tol;
+    P.iterations = iterations;
+    void* args[] = {&P};
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(fused_newton_kernel<true>), dim3(grid),
         dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
     const cudaError_t last = cudaGetLastError();
     return static_cast<int>(e != cudaSuccess ? e : last);

@@ -2,7 +2,7 @@
 
 Port of the entry points of `fem_simulation_tpu/ops/pallas_lattice.py`
 (`force_cf`, `hvp_cf`, `hess_diag_lattice`, `elastic_energy_lattice`,
-`fused_newton`) with the same signatures and layouts. The Pallas kernels
+`fused_newton`, `fused_pcg`) with the same signatures and layouts. The Pallas kernels
 become the CUDA kernels of `csrc/lattice_kernels.cu`.
 
 Dispatch: a wrapper runs its plain version (`*_plain`) only when its tensors
@@ -25,7 +25,8 @@ FORCE_FLOPS_PER_CELL = 449 * 8
 HVP_FLOPS_PER_CELL = 763 * 8
 DIAG_FLOPS_PER_CELL = 930 * 8
 
-launches = {"force": 0, "hvp": 0, "diag": 0, "energy": 0, "fused_newton": 0}
+launches = {"force": 0, "hvp": 0, "diag": 0, "energy": 0, "fused_newton": 0,
+            "fused_pcg": 0}
 
 _newton_grids: dict = {}
 _tables_cache: dict = {}
@@ -36,29 +37,6 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _on_cpu(*tensors) -> bool:
-    """True for CPU tensors; False for CUDA tensors on one device; raises on
-    anything else."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return False
-
-
-def _require(t: torch.Tensor, shape, name: str, dtype=torch.float32) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
 def _vertex_grid(x_cf: torch.Tensor, cell_mask: torch.Tensor):
     """(X, Y, Z) after checking the channel-first field and the cell mask."""
     if x_cf.dim() != 4 or x_cf.shape[0] != 3:
@@ -66,8 +44,8 @@ def _vertex_grid(x_cf: torch.Tensor, cell_mask: torch.Tensor):
     X, Y, Z = (int(s) for s in x_cf.shape[1:])
     if min(X, Y, Z) < 2:
         raise ValueError(f"lattice {X, Y, Z} has no cells")
-    _require(x_cf, (3, X, Y, Z), "field")
-    _require(cell_mask, (X - 1, Y - 1, Z - 1), "cell_mask")
+    _cuda.require(x_cf, (3, X, Y, Z), "field")
+    _cuda.require(cell_mask, (X - 1, Y - 1, Z - 1), "cell_mask")
     return X, Y, Z
 
 
@@ -118,6 +96,39 @@ def elastic_energy_lattice_plain(x_lat, cell_mask, dx: float, mu: float,
     return stencil.elastic_energy_lattice(x_lat, cell_mask, g, det, mu, la)
 
 
+def _pcg_plain(u, b, cell_mask, ctrl, vert_mask, g, det, mu, la, iterations,
+               tol):
+    """Block-Jacobi PCG of (H(u) + diag(ctrl)) dx = b on the lattice, with
+    the analytic HVP and the ctrl-shifted vertex diagonal; u, b (X, Y, Z, 3).
+    Returns (dx (X, Y, Z, 3), k)."""
+    vm3 = vert_mask[..., None]
+    eye = torch.eye(3, dtype=u.dtype, device=u.device)
+    diag = (stencil.elastic_hessian_diag_lattice(u, cell_mask, g, det, mu, la)
+            + ctrl[..., None, None] * eye)
+
+    def matvec(p):
+        hp = stencil.elastic_hvp_lattice(u, p, cell_mask, g, det, mu, la)
+        return (hp + ctrl[..., None] * p) * vm3
+
+    def minv(r):
+        return ell.solve3x3(diag, r) * vm3
+
+    return cgmod.pcg_operator(matvec, minv, b, iterations=iterations,
+                              tol=float(tol), return_iters=True)
+
+
+def fused_pcg_plain(u_cf, f_cf, cell_mask, ctrl, vert_mask, dx: float,
+                    mu: float, la: float, iterations: int = 50, tol=1e-5):
+    """The fused PCG solve as a composition of the plain operators and
+    pcg_operator. Returns (dx_cf, k) with k a 0-d int32 tensor."""
+    g, det = _tables(dx, u_cf.device)
+    dxl, k = _pcg_plain(u_cf.permute(1, 2, 3, 0), f_cf.permute(1, 2, 3, 0),
+                        cell_mask, ctrl, vert_mask, g, det, mu, la,
+                        iterations, tol)
+    return (dxl.permute(3, 0, 1, 2).contiguous(),
+            torch.tensor(k, dtype=torch.int32, device=u_cf.device))
+
+
 def fused_newton_plain(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
                        mu: float, la: float, iterations: int = 50, tol=1e-5):
     """The fused Newton iteration as a composition of the plain operators:
@@ -134,19 +145,8 @@ def fused_newton_plain(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
         return (fe + s - rc3 * uu) * vm3
 
     f = resid(u)
-    eye = torch.eye(3, dtype=u.dtype, device=u.device)
-    diag = (stencil.elastic_hessian_diag_lattice(u, cell_mask, g, det, mu, la)
-            + ctrl[..., None, None] * eye)
-
-    def matvec(p):
-        hp = stencil.elastic_hvp_lattice(u, p, cell_mask, g, det, mu, la)
-        return (hp + ctrl[..., None] * p) * vm3
-
-    def minv(r):
-        return ell.solve3x3(diag, r) * vm3
-
-    dxl, k = cgmod.pcg_operator(matvec, minv, f, iterations=iterations,
-                                tol=tol, return_iters=True)
+    dxl, k = _pcg_plain(u, f, cell_mask, ctrl, vert_mask, g, det, mu, la,
+                        iterations, tol)
     fn = ell.inf_norm(resid(u + dxl * vm3))
     return (dxl.permute(3, 0, 1, 2).contiguous(),
             f.permute(3, 0, 1, 2).contiguous(), fn,
@@ -157,7 +157,7 @@ def fused_newton_plain(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
 
 def force_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
     """Elastic force of a displacement field; (3, X, Y, Z) -> (3, X, Y, Z)."""
-    if _on_cpu(x_cf, cell_mask):
+    if _cuda.on_cpu(x_cf, cell_mask):
         return force_cf_plain(x_cf, cell_mask, dx, mu, la)
     X, Y, Z = _vertex_grid(x_cf, cell_mask)
     lib = _cuda.load()
@@ -175,10 +175,10 @@ def force_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
 
 def hvp_cf(x_cf, p_cf, cell_mask, dx: float, mu: float, la: float):
     """Elastic Hessian-vector product (positive-definite convention)."""
-    if _on_cpu(x_cf, p_cf, cell_mask):
+    if _cuda.on_cpu(x_cf, p_cf, cell_mask):
         return hvp_cf_plain(x_cf, p_cf, cell_mask, dx, mu, la)
     X, Y, Z = _vertex_grid(x_cf, cell_mask)
-    _require(p_cf, x_cf.shape, "p_cf")
+    _cuda.require(p_cf, x_cf.shape, "p_cf")
     lib = _cuda.load()
     out = torch.empty_like(x_cf)
     cf = torch.empty((24 * cell_mask.numel(),), dtype=torch.float32,
@@ -195,7 +195,7 @@ def hvp_cf(x_cf, p_cf, cell_mask, dx: float, mu: float, la: float):
 
 def hess_diag_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
     """Vertex-diagonal Hessian blocks: (X, Y, Z, 3) -> (X, Y, Z, 3, 3)."""
-    if _on_cpu(x_lat, cell_mask):
+    if _cuda.on_cpu(x_lat, cell_mask):
         return hess_diag_lattice_plain(x_lat, cell_mask, dx, mu, la)
     x_cf = x_lat.permute(3, 0, 1, 2).contiguous()
     X, Y, Z = _vertex_grid(x_cf, cell_mask)
@@ -219,7 +219,7 @@ def hess_diag_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
 def elastic_energy_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
     """Total StVK elastic energy of a displacement field, a 0-d tensor on
     the field's device."""
-    if _on_cpu(x_lat, cell_mask):
+    if _cuda.on_cpu(x_lat, cell_mask):
         return elastic_energy_lattice_plain(x_lat, cell_mask, dx, mu, la)
     x_cf = x_lat.permute(3, 0, 1, 2).contiguous()
     X, Y, Z = _vertex_grid(x_cf, cell_mask)
@@ -236,12 +236,13 @@ def elastic_energy_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
     return out
 
 
-def _newton_grid(lib, X, Y, Z, device) -> int:
-    key = (str(device), X, Y, Z)
+def _newton_grid(lib, X, Y, Z, device, pcg: bool = False) -> int:
+    key = (str(device), X, Y, Z, pcg)
     if key not in _newton_grids:
         grid = ctypes.c_int(0)
         with torch.cuda.device(device):
-            _cuda.check(lib.lat_newton_grid(X, Y, Z, grid), "lat_newton_grid")
+            _cuda.check(lib.lat_newton_grid(X, Y, Z, int(pcg), grid),
+                        "lat_newton_grid")
         _newton_grids[key] = grid.value
     return _newton_grids[key]
 
@@ -257,13 +258,13 @@ def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
     m/dt^2, a SUM) and ctrl the Hessian diagonal shift (max(pin, drag) +
     m/dt^2 + (1 - vm)). Returns (dx_cf, f_cf, fn_full, k) with fn_full a
     0-d float32 and k a 0-d int32 tensor (matvecs executed = k - 1)."""
-    if _on_cpu(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask):
+    if _cuda.on_cpu(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask):
         return fused_newton_plain(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask,
                                   dx, mu, la, iterations, tol)
     X, Y, Z = _vertex_grid(u_cf, cell_mask)
-    _require(s_cf, u_cf.shape, "s_cf")
+    _cuda.require(s_cf, u_cf.shape, "s_cf")
     for name, t in (("ctrl", ctrl), ("rc", rc), ("vert_mask", vert_mask)):
-        _require(t, (X, Y, Z), name)
+        _cuda.require(t, (X, Y, Z), name)
     lib = _cuda.load()
     dev = u_cf.device
     grid = _newton_grid(lib, X, Y, Z, dev)
@@ -289,3 +290,43 @@ def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
     launches["fused_newton"] += 1
     _cuda.check(err, "lat_fused_newton")
     return dxc, fc, fn, k
+
+
+def fused_pcg(u_cf, f_cf, cell_mask, ctrl, vert_mask, dx: float, mu: float,
+              la: float, iterations: int = 50, tol=1e-5):
+    """One-launch block-Jacobi PCG solve of (H(u) + diag(ctrl)) dx = f on
+    the dense lattice (pcg_operator semantics, normalized RHS).
+    u_cf, f_cf: (3, X, Y, Z) displacement and right-hand side; ctrl,
+    vert_mask: (X, Y, Z); tol a float or a 0-d tensor. Returns (dx_cf, k)
+    with k a 0-d int32 tensor (matvecs executed = k - 1); a zero RHS gives
+    dx == 0 and k == 1."""
+    if _cuda.on_cpu(u_cf, f_cf, cell_mask, ctrl, vert_mask):
+        return fused_pcg_plain(u_cf, f_cf, cell_mask, ctrl, vert_mask, dx, mu,
+                               la, iterations, tol)
+    X, Y, Z = _vertex_grid(u_cf, cell_mask)
+    _cuda.require(f_cf, u_cf.shape, "f_cf")
+    for name, t in (("ctrl", ctrl), ("vert_mask", vert_mask)):
+        _cuda.require(t, (X, Y, Z), name)
+    lib = _cuda.load()
+    dev = u_cf.device
+    grid = _newton_grid(lib, X, Y, Z, dev, pcg=True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dxc = torch.empty_like(u_cf)
+    k = torch.empty((), dtype=torch.int32, device=dev)
+    r = torch.empty_like(u_cf)
+    p = torch.empty_like(u_cf)
+    ap = torch.empty_like(u_cf)
+    d6 = torch.empty((6, X, Y, Z), **f32)
+    ncell = cell_mask.numel()
+    cf = torch.empty((24 * ncell,), **f32)
+    cd = torch.empty((48 * ncell,), **f32)
+    part = torch.empty((7 * grid,), **f32)
+    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
+    ptrs = [t.data_ptr() for t in (u_cf, f_cf, cell_mask, ctrl, vert_mask,
+                                   dxc, k, r, p, ap, d6, cf, cd, part)]
+    with torch.cuda.device(dev):
+        err = lib.lat_fused_pcg(float(tol), *ptrs, grid, *tail[:-1],
+                                int(iterations), tail[-1])
+    launches["fused_pcg"] += 1
+    _cuda.check(err, "lat_fused_pcg")
+    return dxc, k

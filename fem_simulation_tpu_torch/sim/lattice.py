@@ -21,10 +21,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fem_simulation_tpu import hierarchy as hl
-from fem_simulation_tpu import mesh as meshlib
-from fem_simulation_tpu.config import DynamicsConfig, MaterialConfig
-
+from .. import device_or_cuda
+from .. import hierarchy as hl
+from .. import mesh as meshlib
+from ..config import DynamicsConfig, MaterialConfig
 from ..ops import ell, stencil
 from ..ops import lattice_kernels as lk
 from ..solvers import cg as cgmod
@@ -42,10 +42,10 @@ class LatticeScene:
 
     def __init__(self, mesh: meshlib.HexMesh,
                  material: MaterialConfig = MaterialConfig(), pins=None,
-                 device="cpu"):
+                 device=None):
         self.mesh = mesh
         self.material = material
-        self.device = torch.device(device)
+        self.device = device_or_cuda(device)
         lvl = hl.build_level_topology(mesh.x, mesh.ijk, mesh.hexes, mesh.dx)
         self.lvl = lvl
         self.shape, lat, _, self.fill = stencil.build_lattice_map(lvl)
@@ -260,7 +260,7 @@ class LatticeDynamicSim:
     def __init__(self, mesh: meshlib.HexMesh,
                  material: MaterialConfig = MaterialConfig(),
                  dyn: DynamicsConfig = DynamicsConfig(), pins=None,
-                 device="cpu"):
+                 device=None):
         self.scene = LatticeScene(mesh, material, pins=pins, device=device)
         self.dyn = dyn
         self.state = self.scene.init_state()
@@ -275,9 +275,11 @@ class LatticeDynamicSim:
         return self.state, k, f
 
 
-def state_from_numpy(x, v, drag_mask, drag_pos, device="cpu") -> LatState:
-    """A LatState on `device` from numpy arrays (e.g. a JAX LatState read
-    back with np.asarray)."""
+def state_from_numpy(x, v, drag_mask, drag_pos, device=None) -> LatState:
+    """A LatState on `device` (the GPU by default) from numpy arrays (e.g. a
+    JAX LatState read back with np.asarray)."""
+    device = device_or_cuda(device)
+
     def t(a):
         return torch.from_numpy(np.array(a, np.float32)).to(device)
     return LatState(x=t(x), v=t(v), drag_mask=t(drag_mask),

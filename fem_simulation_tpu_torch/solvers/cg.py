@@ -1,10 +1,11 @@
-"""Newton guards and the preconditioned CG of the lattice step.
+"""Newton guards and the conjugate-gradient solvers.
 
-Port of `fem_simulation_tpu/solvers/cg.py:20-60, 82-90, 134-189`. The loops
-run on the host: each CG iteration reads ||r||^2 to test convergence (one
-device sync per iteration on a GPU; the fused Newton kernel runs the same
-loop on the device). Host-side scalar tests are made in float32, as the
-reference makes them on device scalars.
+Port of `fem_simulation_tpu/solvers/cg.py` (`newton_cond`,
+`newton_exit_norm`, `_normalize_rhs`, `cg_operator`, `pcg_operator`, `cg`).
+The loops run on the host: each CG iteration reads its loop condition
+back (one device sync per iteration on a GPU; the fused lattice kernels
+run the same loop on the device). Host-side scalar tests are made in
+float32, as the reference makes them on device scalars.
 """
 from __future__ import annotations
 
@@ -59,6 +60,63 @@ def _normalize_rhs(b):
             inv_scale)
 
 
+def _go(alive, rr, limit) -> bool:
+    """The CG loop condition after the budget test, read back in one sync:
+    no guard tripped (alive), rr > limit and rr finite."""
+    return bool(alive & (rr > limit) & torch.isfinite(rr))
+
+
+def _guarded_div(ok, num, den):
+    """num / den where ok, else 0 (a step not taken)."""
+    return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
+                       torch.zeros_like(num))
+
+
+def cg_operator(matvec, b, iterations: int = 10, tol: float = 1e-5, x0=None):
+    """CG on an abstract linear operator, on the normalized RHS (so the
+    absolute small-denominator guards are scale-free), from x0 (zero by
+    default).
+
+    Runs while k <= iterations, ||r||^2 > tol ||r0||^2, ||r0||^2 > EPSILON,
+    ||r||^2 finite and the previous iteration had p.Ap >= 1e-10; k starts
+    at 1 and the first iteration takes p = r."""
+    b, scale_back, inv_scale = _normalize_rhs(b)
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = x0 / inv_scale
+        r = b - matvec(x)
+    rs0 = ell.vdot(r, r)
+    rs = rs0
+    p = r
+    k = 1
+    alive = rs0 > EPSILON
+    while k <= iterations and _go(alive, rs, tol * rs0):
+        ap = matvec(p)
+        pap = ell.vdot(p, ap)
+        ok = pap >= 1e-10
+        alpha = _guarded_div(ok, rs, pap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = ell.vdot(r, r)
+        beta = rs_new / rs
+        p = r + beta * p
+        rs = rs_new
+        k += 1
+        alive = alive & ok
+    return x * scale_back
+
+
+def cg(op, values, b, iterations: int = 10, tol: float = 1e-5, x0=None):
+    """Solve A x = b on a block-ELL operator (op: smoothers.EllOperator),
+    at most `iterations` steps from x0 (zero by default), on the normalized
+    RHS; every matvec is one block-ELL SpMV."""
+    full_vals = values * op.mask[..., None, None]
+    return cg_operator(lambda v: ell.spmv(full_vals, op.nbr, op.mask, v), b,
+                       iterations, tol, x0)
+
+
 def pcg_operator(matvec, minv, b, iterations: int = 50, tol: float = 1e-5,
                  return_iters: bool = False):
     """Preconditioned CG on an abstract operator, on the normalized RHS.
@@ -76,13 +134,12 @@ def pcg_operator(matvec, minv, b, iterations: int = 50, tol: float = 1e-5,
     rr0 = ell.vdot(r, r)
     rr = rr0
     k = 1
-    alive = True
-    while (alive and k <= iterations and bool(rr > tol * rr0)
-           and bool(rr0 > EPSILON) and bool(torch.isfinite(rr))):
+    alive = rr0 > EPSILON
+    while k <= iterations and _go(alive, rr, tol * rr0):
         ap = matvec(p)
         pap = ell.vdot(p, ap)
-        ok = bool(pap >= 1e-12)
-        alpha = rz / pap if ok else torch.zeros_like(pap)
+        ok = pap >= 1e-12
+        alpha = _guarded_div(ok, rz, pap)
         x = x + alpha * p
         r = r - alpha * ap
         z = minv(r)
@@ -92,6 +149,6 @@ def pcg_operator(matvec, minv, b, iterations: int = 50, tol: float = 1e-5,
         rz = rz_new
         rr = ell.vdot(r, r)
         k += 1
-        alive = ok
+        alive = alive & ok
     x = x * scale_back
     return (x, k) if return_iters else x

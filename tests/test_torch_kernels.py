@@ -6,6 +6,9 @@ interpret mode) and through the port's public kernel wrappers, which run
 their plain torch versions on CPU tensors. mu=250, la=37: the default la=0
 would hide every lambda term.
 """
+import os
+import shutil
+
 import numpy as np
 import pytest
 import jax
@@ -36,7 +39,7 @@ def t(a):
 @pytest.fixture(scope="module")
 def scenes():
     m = meshlib.beam(4, 4, 8, dx=0.1)
-    return JScene(m, MAT), LatticeScene(m, MAT)
+    return JScene(m, MAT), LatticeScene(m, MAT, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -108,7 +111,8 @@ def test_force_translation_invariance():
     u = 0.02 * rng.normal(size=(4 * 4 * 9, 3)).astype(np.float32)
     outs = []
     for origin in (np.zeros(3), np.array([173.0, -58.0, 940.0])):
-        sc = LatticeScene(meshlib.hex_mesh_from_cells(cells, 0.05, origin))
+        sc = LatticeScene(meshlib.hex_mesh_from_cells(cells, 0.05, origin),
+                          device="cpu")
         du = stencil.field_to_lattice(t(u), sc.lat, sc.shape) \
             * sc.vert_mask[..., None]
         f = sc.elastic_force(sc.x0 + du)
@@ -174,13 +178,49 @@ def test_pcg_operator_matches_jax(scenes):
     assert k_tight == int(k_tight_ref) > k_got
 
 
+def test_fused_pcg_plain_matches_jax(scenes):
+    """fused_pcg on CPU tensors (its plain version) == the JAX pcg_operator
+    composition that tests/test_lattice.py:463 holds plat.fused_pcg to: same
+    k, dx to rtol 1e-4; a zero RHS is a no-op with k == 1; a tighter tol,
+    given as a 0-d tensor, runs as many more iterations as JAX's."""
+    js, sc = scenes
+    x, ctrl, f = _pcg_problem(js)
+    vm3 = js.vert_mask[..., None]
+    hvp = js.elastic_hvp_fn(x, False)
+    diag = js.elastic_diag(x, False) + ctrl[..., None, None] * jnp.eye(3)
+
+    def jsolve(tol):
+        return jcg.pcg_operator(
+            lambda p: (hvp(p) + ctrl[..., None] * p) * vm3,
+            lambda r: jell.solve3x3(diag, r) * vm3, f,
+            iterations=20, tol=tol, return_iters=True)
+
+    u_cf = t(x - js.x0).permute(3, 0, 1, 2).contiguous()
+    f_cf = t(f).permute(3, 0, 1, 2).contiguous()
+
+    def tsolve(rhs, tol):
+        return lk.fused_pcg(u_cf, rhs, sc.cell_mask, t(ctrl), sc.vert_mask,
+                            sc.mesh.dx, MU, LA, iterations=20, tol=tol)
+
+    dx_ref, k_ref = jsolve(1e-2)
+    dx_got, k_got = tsolve(f_cf, 1e-2)
+    assert k_got.dtype == torch.int32 and int(k_got) == int(k_ref) > 2
+    np.testing.assert_allclose(dx_got.permute(1, 2, 3, 0).numpy(),
+                               np.asarray(dx_ref), rtol=1e-4, atol=1e-6)
+    dx0, k0 = tsolve(torch.zeros_like(f_cf), 1e-2)
+    assert float(dx0.abs().max()) == 0.0 and int(k0) == 1
+    _, k_tight_ref = jsolve(1e-6)
+    _, k_tight = tsolve(f_cf, torch.tensor(1e-6))
+    assert int(k_tight) == int(k_tight_ref) > int(k_got)
+
+
 def test_fused_newton_plain_matches_jax_with_drag_over_pin(scenes):
     """(d) fused_newton on CPU tensors == the JAX composition dyn_force +
     elastic_hvp_fn + ctrl + elastic_diag + pcg_operator + trial inf_norm,
     with a drag constraint overlapping the pinned slab: the residual's rc
     SUMS pin and drag, the Hessian shift ctrl takes their MAX."""
     m = meshlib.beam(3, 3, 5, dx=0.1)
-    js, sc = JScene(m, MAT), LatticeScene(m, MAT)
+    js, sc = JScene(m, MAT), LatticeScene(m, MAT, device="cpu")
     mat = js.material
     rng = np.random.default_rng(11)
     vm = np.asarray(js.vert_mask)
@@ -237,7 +277,8 @@ def test_fused_newton_plain_matches_jax_with_drag_over_pin(scenes):
     assert float(fn) == pytest.approx(fn_ref, rel=1e-3, abs=1e-5 * fscale)
 
 
-@pytest.mark.parametrize("op", ["force", "hvp", "diag", "energy", "newton"])
+@pytest.mark.parametrize("op", ["force", "hvp", "diag", "energy", "newton",
+                                "pcg"])
 def test_wrappers_take_plain_path_only_on_cpu(scenes, op):
     """Dispatch: tensors on another device type, or on two devices, raise;
     only CPU tensors reach the plain versions."""
@@ -253,6 +294,8 @@ def test_wrappers_take_plain_path_only_on_cpu(scenes, op):
         "energy": lambda cm: lk.elastic_energy_lattice(meta, cm, 0.1, MU, LA),
         "newton": lambda cm: lk.fused_newton(
             f_cf, f_cf, cm, sc.mass, sc.mass, sc.vert_mask, 0.1, MU, LA),
+        "pcg": lambda cm: lk.fused_pcg(f_cf, f_cf, cm, sc.mass,
+                                       sc.vert_mask, 0.1, MU, LA),
     }[op]
     with pytest.raises(ValueError):
         args(cm_meta)
@@ -264,6 +307,7 @@ def test_failed_kernel_build_raises(tmp_path, monkeypatch):
     from fem_simulation_tpu_torch.ops import _cuda
     (tmp_path / "lattice_chain.cuh").write_text("#error broken\n")
     (tmp_path / "lattice_kernels.cu").write_text('#include "lattice_chain.cuh"\n')
+    shutil.copy(os.path.join(_cuda._CSRC, "ell_kernels.cu"), tmp_path)
     monkeypatch.setattr(_cuda, "_CSRC", str(tmp_path))
     monkeypatch.setattr(_cuda, "_BUILD", str(tmp_path / "build"))
     monkeypatch.setattr(_cuda, "_lib", None)

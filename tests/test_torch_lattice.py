@@ -54,7 +54,7 @@ def test_scene_tensors_equal_jax(beam, pins):
     if pins == "zmin":
         pins = np.nonzero(beam.ijk[:, 2] == beam.ijk[:, 2].min())[0]
     js = jlat.LatticeScene(beam, pins=pins)
-    sc = tlat.LatticeScene(beam, pins=pins)
+    sc = tlat.LatticeScene(beam, pins=pins, device="cpu")
     assert sc.shape == js.shape and js.boxes is None
     assert sc.det == js.det
     for name in ("lat", "cell_mask", "vert_mask", "mass", "x0", "pin_mask",
@@ -69,7 +69,7 @@ def test_excited_frames_match_jax(beam, jax_run):
     """(f) 8 excited frames: equal per-frame Newton counts, states within
     atol 2e-5 (the bound tests/test_lattice.py holds Pallas to XLA with)."""
     _, frames = jax_run
-    sc = tlat.LatticeScene(beam)
+    sc = tlat.LatticeScene(beam, device="cpu")
     st = sc.init_state()
     ks = []
     for i, (jst, jk, jfn) in enumerate(frames):
@@ -89,7 +89,7 @@ def test_state_from_numpy_continues_jax_trajectory(beam, jax_run):
     """(h) a JAX state after 3 frames, carried over with state_from_numpy
     and stepped once, lands on the JAX package's 4th frame."""
     _, frames = jax_run
-    sc = tlat.LatticeScene(beam)
+    sc = tlat.LatticeScene(beam, device="cpu")
     jst = frames[2][0]
     st = tlat.state_from_numpy(*(np.asarray(a) for a in jst), device="cpu")
     back = tlat.state_to_numpy(st)
@@ -106,7 +106,7 @@ def test_violent_kick_rescue_keeps_frames_finite():
     """(g) port of tests/test_lattice.py:415: a violent rigid-rotation kick
     blows full Newton steps up; the Armijo rescue on the incremental
     potential must engage and keep every frame finite."""
-    sc = tlat.LatticeScene(meshlib.beam(3, 3, 12, dx=0.05))
+    sc = tlat.LatticeScene(meshlib.beam(3, 3, 12, dx=0.05), device="cpu")
     st = sc.init_state()
     x = st.x.numpy()
     r = x - x.reshape(-1, 3).mean(0)
@@ -122,15 +122,27 @@ def test_violent_kick_rescue_keeps_frames_finite():
 
 
 def test_port_imports_no_jax():
-    """(i) the port runs a CPU frame without loading jax."""
+    """(i) every module of the port, and chip_smoke.py, import without
+    loading jax or any module of the JAX package; a CPU frame runs."""
     code = (
-        "import sys\n"
-        "from fem_simulation_tpu import mesh\n"
+        "import importlib, pkgutil, sys\n"
+        "import fem_simulation_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                               pkg.__name__ + '.')]\n"
+        "assert {'fem_simulation_tpu_torch.sim.dynamic',\n"
+        "        'fem_simulation_tpu_torch.ops.ell_kernels'} <= set(names)\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "from fem_simulation_tpu_torch import mesh\n"
         "from fem_simulation_tpu_torch.sim.lattice import LatticeDynamicSim\n"
-        "sim = LatticeDynamicSim(mesh.beam(2, 2, 4, dx=0.05))\n"
+        "sim = LatticeDynamicSim(mesh.beam(2, 2, 4, dx=0.05), device='cpu')\n"
         "st, k, fn = sim.frame_to_tol()\n"
         "assert fn <= 1e-4, fn\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'fem_simulation_tpu'\n"
+        "             or m.startswith('fem_simulation_tpu.'))\n"
+        "assert not bad, bad\n"
         "print('no-jax ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
