@@ -18,13 +18,17 @@ Phase 3  reruns the first 8 frames of the 16x16x64 beam on the CPU with the
          plain versions and compares Newton counts and the final state.
 Phase 4  the block-ELL SpMV against its plain version on the fine-level
          Hessian of the unstructured Scene of each beam (full range and every
-         color range), and the fused PCG solve against its plain version on
-         the lattice Newton inputs of phase 1; then the fused_pcg entry path
-         (one solve per beam at two tolerances) with its launches counted.
+         color range); the fused Gauss-Seidel and Jacobi kernels against
+         their plain versions on every multigrid level of each scene (1 and
+         3 iterations, with and without x0, two runs bit-identical); the
+         fused PCG solve
+         against its plain version on the lattice Newton inputs of phase 1;
+         then the fused_pcg entry path (one solve per beam at two
+         tolerances) with its launches counted.
 Phase 5  the unstructured main path: QuasiStaticSim Newton-MG and FAS v3 on
          the three beams and DynamicSim.frame_to_tol for 16 frames on the
-         8x8x24 beam, with every ell.spmv / spmv_rows call and every SpMV
-         kernel launch counted.
+         8x8x24 beam, with every SpMV and smoother call on CUDA tensors and
+         every kernel launch counted, per Newton-MG step too.
 Phase 6  reruns the first 5 Newton-MG steps of the 16x16x64 beam on the CPU
          with the plain versions and compares the ||f||_inf series and x.
 
@@ -50,6 +54,7 @@ from fem_simulation_tpu_torch.sim import lattice as tlat
 from fem_simulation_tpu_torch.sim import quasistatic as qs
 from fem_simulation_tpu_torch.sim.dynamic import DynamicSim
 from fem_simulation_tpu_torch.sim.scene import Scene
+from fem_simulation_tpu_torch.solvers import smoothers
 
 MU, LA = 250.0, 37.0
 TOL = 1e-4
@@ -66,6 +71,9 @@ TPU_KERNELS = {   # the pallas_call each kernel replaces
     "energy": "fem_simulation_tpu/ops/pallas_lattice.py:200",
     "fused_pcg": "fem_simulation_tpu/ops/pallas_lattice.py:608",
     "spmv": "fem_simulation_tpu/ops/pallas_kernels.py:68",
+    # the smoothers are fused around the SpMV's row pass
+    "gs": "fem_simulation_tpu/ops/pallas_kernels.py:68",
+    "jacobi": "fem_simulation_tpu/ops/pallas_kernels.py:68",
 }
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
 # FLOP/s outside the tensor cores. Every kernel here computes in float32.
@@ -98,6 +106,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(fn, reps: int, kernel: str, per_call: int = 1):
+    """Device time in us of one call of fn(): the mean span of the launches
+    of `kernel` (a substring of its name) in a torch.profiler trace of reps
+    calls, times the launches a call makes (a short trace can lose its last
+    events, so the spans are averaged, not summed). None when two traces
+    in a row hold no such launch."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):              # a trace can come back empty: once more
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if spans:
+            return round(float(np.mean(spans)) * per_call, 1)
+    return None
 
 
 def check(ok: bool, what: str) -> None:
@@ -251,6 +281,12 @@ def phase1(scenes, reps):
         cases["fused_newton"] = (lambda: lk.fused_newton(*args),
                                  lambda: lk.fused_newton_plain(*args))
         bounds = lattice_bounds(sc, kk)
+        plan = lk._newton_plan(_cuda.load(), *sc.shape, sc.device)
+        us = device_us(lambda: lk.fused_newton(*args), 10,
+                       "fused_newton_kernel<false>")
+        log(f"phase1 fused_newton {label:4s} grid {plan[0]} tiles "
+            f"{plan[1]}x{plan[2]}x{plan[3]} "
+            f"{'halo' if plan[6] else 'exchange'}  device us {us}")
         for name, (kern, plain) in cases.items():
             n = reps if name != "fused_newton" else max(reps // 4, 3)
             ms = cuda_ms(kern, n)
@@ -449,6 +485,105 @@ def phase4_spmv(uscenes, reps):
     return row
 
 
+def smoother_bound(n, k, iterations, sweeps, with_x0):
+    """Every row's values, nbr and mask once per sweep, b and x0 in, x out;
+    18 K + 60 FLOPs a row and sweep (the row product and the 3x3 solve)."""
+    return bound(iterations * sweeps * n * k * 44
+                 + 12 * n * (3 if with_x0 else 2),
+                 iterations * sweeps * n * (18.0 * k + 60.0))
+
+
+def phase4_smoothers(uscenes, reps):
+    """The fused Gauss-Seidel and Jacobi kernels against their plain versions
+    on every level of each scene's Galerkin chain."""
+    rows = {name: {"max_abs_err": 0.0, "by_beam": {}}
+            for name in ("gs", "jacobi")}
+    for label, sc in uscenes.items():
+        rng = np.random.default_rng(11)
+        x = sc.x0 + torch.from_numpy(0.01 * rng.standard_normal(
+            tuple(sc.x0.shape)).astype(np.float32)).to(sc.device)
+        chain = qs.galerkin_chain(sc, sc.params,
+                                  qs.assemble_fine(sc, sc.params, x))
+        for li, vals in enumerate(chain):
+            op = sc.make_op(li)
+            n, k = vals.shape[0], vals.shape[1]
+            b = torch.from_numpy(rng.standard_normal((n, 3)).astype(
+                np.float32)).to(sc.device)
+            x0 = torch.from_numpy(0.1 * rng.standard_normal((n, 3)).astype(
+                np.float32)).to(sc.device)
+            gs_args = (vals, op.nbr, op.mask, op.diag_slot, op.color_offsets,
+                       b)
+            worst = 0.0
+            for iters in (1, 3):
+                for start in (None, x0):
+                    ref = ek.gs_plain(*gs_args, start, iters)
+                    two = smoothers.gauss_seidel_plain(op, vals, b, iters,
+                                                       x0=start)
+                    scale = float(ref.abs().max())
+                    got = ek.gs(*gs_args, start, iters)
+                    again = ek.gs(*gs_args, start, iters)
+                    torch.cuda.synchronize()
+                    check(bool(torch.equal(got, again)), f"gs {label} "
+                          f"level {li}: two runs differ")
+                    # the kernel sums a row's 26 off-diagonal products in
+                    # one butterfly, the plain versions in torch's
+                    # contraction order (the two-stage one the lower and
+                    # upper parts apart)
+                    for what, r in (("one-pass", ref), ("two-stage", two)):
+                        err = max_err(got, r)
+                        check(err <= 1e-5 * scale, f"gs {label} level {li} "
+                              f"iters {iters} vs {what}: max|d| {err:.3e} "
+                              f"> 1e-5 * {scale:.3e}")
+                        worst = max(worst, err / scale)
+                        rows["gs"]["max_abs_err"] = max(
+                            rows["gs"]["max_abs_err"], err)
+            jref = smoothers.jacobi_plain(op, vals, b, 2)
+            for start in (None, x0):
+                got = ek.jacobi(vals, op.nbr, op.mask, op.diag_slot, b, start,
+                                2)
+                again = ek.jacobi(vals, op.nbr, op.mask, op.diag_slot, b,
+                                  start, 2)
+                ref = smoothers.jacobi_plain(op, vals, b, 2, x0=start)
+                torch.cuda.synchronize()
+                check(bool(torch.equal(got, again)), f"jacobi {label} level "
+                      f"{li}: two runs differ")
+                err, scale = max_err(got, ref), float(ref.abs().max())
+                check(err <= 1e-5 * scale, f"jacobi {label} level {li}: "
+                      f"max|d| {err:.3e} > 1e-5 * {scale:.3e}")
+                rows["jacobi"]["max_abs_err"] = max(
+                    rows["jacobi"]["max_abs_err"], err)
+            # 3 iterations from zero: what a V-cycle asks of gauss_seidel
+            ms = cuda_ms(lambda: ek.gs(*gs_args, None, 3), reps)
+            us = device_us(lambda: ek.gs(*gs_args, None, 3), 10,
+                           "ell_gs_coop_kernel")
+            plain_ms = cuda_ms(
+                lambda: smoothers.gauss_seidel_plain(op, vals, b, 3), 3,
+                warmup=1)
+            b_ms, b_by = smoother_bound(n, k, 3, 2, False)
+            log(f"phase4 gs {label:4s} level {li} N {n} K {k} max rel |d| "
+                f"{worst:.3e}  3 iterations: kernel {ms:.4f} ms (device "
+                f"{us} us)  plain {plain_ms:.3f} ms  bound {b_ms:.5f} ms ({b_by})")
+            jms = cuda_ms(lambda: ek.jacobi(vals, op.nbr, op.mask,
+                                            op.diag_slot, b, None, 2), reps)
+            jus = device_us(lambda: ek.jacobi(
+                vals, op.nbr, op.mask, op.diag_slot, b, None, 2), 10,
+                "ell_relax_rows_kernel", per_call=2)
+            jplain = cuda_ms(lambda: smoothers.jacobi_plain(op, vals, b, 2),
+                             3, warmup=1)
+            jb_ms, jb_by = smoother_bound(n, k, 2, 1, False)
+            log(f"phase4 jacobi {label:4s} level {li} N {n} 2 iterations: "
+                f"kernel {jms:.4f} ms (device {jus} us)  plain "
+                f"{jplain:.3f} ms  bound {jb_ms:.5f} ms ({jb_by})")
+            if li == 0:        # the table's numbers: the fine level
+                rows["gs"]["by_beam"][label] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None, device_us=us)
+                rows["jacobi"]["by_beam"][label] = dict(
+                    ms=jms, plain_ms=jplain, bound_ms=jb_ms, bound_by=jb_by,
+                    library_ms=None, device_us=jus)
+    return rows
+
+
 def phase4_pcg(scenes, inputs, reps):
     """fused_pcg kernel vs plain on the Newton inputs of phase 1, with the
     residual there as the right-hand side; the zero-RHS no-op."""
@@ -481,6 +616,8 @@ def phase4_pcg(scenes, inputs, reps):
               f"fused_pcg {label}: zero RHS gave k {int(k0)}, "
               f"max|dx| {float(dx0.abs().max()):.3e}")
         ms = cuda_ms(lambda: lk.fused_pcg(*args), max(reps // 4, 3))
+        us = device_us(lambda: lk.fused_pcg(*args), 10,
+                       "fused_newton_kernel<true>")
         plain_ms = cuda_ms(lambda: lk.fused_pcg_plain(*args), 3, warmup=1)
         n, c = vm.numel(), cm.numel()
         active = float(cm.sum())
@@ -488,7 +625,8 @@ def phase4_pcg(scenes, inputs, reps):
             lk.DIAG_FLOPS_PER_CELL + (kk - 1) * lk.HVP_FLOPS_PER_CELL))
         row["by_beam"][label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=None, k=kk)
-        log(f"phase4 time fused_pcg {label:4s} kernel {ms:.4f} ms  plain "
+        log(f"phase4 time fused_pcg {label:4s} kernel {ms:.4f} ms (device "
+            f"{us} us)  plain "
             f"{plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})")
     return row, rhs
 
@@ -540,10 +678,11 @@ def quasi_runs(label, sc, runs):
         warm = qs.QuasiStaticSim(sc)
         getattr(warm, method)(1)
         sim = qs.QuasiStaticSim(sc)
-        calls0 = ell.cuda_calls["spmv"]
+        before = dict(ek.launches)
         torch.cuda.reset_peak_memory_stats()
         (e, fn), ms, wall = timed_run(getattr(sim, method), steps)
-        calls = ell.cuda_calls["spmv"] - calls0
+        per_step = {name: (ek.launches[name] - before[name]) / steps
+                    for name in ek.launches}
         fn = fn.numpy()
         peak = torch.cuda.max_memory_allocated() / 2**20
         check(bool(np.isfinite(fn).all() & np.isfinite(e.numpy()).all()),
@@ -554,14 +693,21 @@ def quasi_runs(label, sc, runs):
         else:
             check(fn[-1] < fn[0], f"{label} {method}({steps}): ||f|| "
                   f"{fn[0]:.3e} -> {fn[-1]:.3e} did not decrease")
+        if method == "newton_multigrid":
+            # a V-cycle: two residual SpMVs and two smoother calls per
+            # level above the coarsest, one smoother call there
+            want = dict(spmv=2 * (sc.n_levels - 1),
+                        gs=2 * (sc.n_levels - 1) + 1, jacobi=0)
+            check(per_step == want, f"{label} {method}: launches per step "
+                  f"{per_step}, expected {want}")
         out[method] = dict(fn_first=float(fn[0]), fn_last=float(fn[-1]),
                            ms_per_step=ms, wall_ms_per_step=wall,
-                           spmv_calls_per_step=calls / steps,
-                           peak_mib=peak)
+                           launches_per_step=per_step, peak_mib=peak)
         log(f"phase5 {label:4s} {method:16s} levels {sc.n_levels} steps "
             f"{steps} ||f|| {fn[0]:.3e} -> {fn[-1]:.3e}  ms/step {ms:.2f} "
-            f"(host clock {wall:.2f})  spmv calls/step {calls / steps:.0f}  "
-            f"peak {peak:.0f} MiB")
+            f"(host clock {wall:.2f})  launches/step "
+            + " ".join(f"{k} {v:g}" for k, v in per_step.items())
+            + f"  peak {peak:.0f} MiB")
     return out
 
 
@@ -569,7 +715,8 @@ def phase5(uscenes):
     """The unstructured path: Newton-MG, FAS v3 and the dynamic frames."""
     torch.cuda.synchronize()
     ek.reset_launches()
-    ell.cuda_calls["spmv"] = 0
+    for name in ell.cuda_calls:
+        ell.cuda_calls[name] = 0
     results = {}
     for label, sc in uscenes.items():
         if label == "2k":
@@ -600,11 +747,13 @@ def phase5(uscenes):
                                     newton_mean=float(np.mean(ks)),
                                     fn_max=float(max(fns)))
     torch.cuda.synchronize()
-    launches, calls = ek.launches["spmv"], ell.cuda_calls["spmv"]
-    log(f"phase5 spmv launches {launches}, ell.spmv + spmv_rows calls on "
-        f"CUDA tensors {calls}")
-    check(launches == calls > 0,
-          f"spmv launches {launches} != CUDA calls {calls}")
+    launches, calls = dict(ek.launches), dict(ell.cuda_calls)
+    log(f"phase5 kernel launches {launches}, asked for by the SpMV and "
+        f"smoother calls on CUDA tensors {calls} (jacobi: one per iteration)")
+    check(launches == calls, f"launches {launches} != those the calls on "
+          f"CUDA tensors ask for {calls}")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the path was never launched: {launches}")
     return results, launches
 
 
@@ -677,9 +826,11 @@ def main() -> int:
             + f" K {sc.level(0).K}")
     log(f"phase4 unstructured scenes built in {time.perf_counter() - t0:.1f} s")
     rows["spmv"] = phase4_spmv(uscenes, reps=50)
+    rows.update(phase4_smoothers(uscenes, reps=20))
     rows["fused_pcg"], rhs = phase4_pcg(scenes, inputs, reps=20)
     counts["fused_pcg"] = phase4_pcg_path(scenes, inputs, rhs)
-    uresults, counts["spmv"] = phase5(uscenes)
+    uresults, ell_counts = phase5(uscenes)
+    counts.update(ell_counts)
     rel6, err6 = phase6(uscenes["19k"])
 
     summary = {label: {k: v for k, v in r.items() if k != "state8"}
@@ -694,7 +845,8 @@ def main() -> int:
         r = rows[name]
         at = r["by_beam"]["19k"]     # the line's numbers: the 19k beam
         return {"name": name, "route": "cuda",
-                "source": ELL_SOURCE if name == "spmv" else LATTICE_SOURCE,
+                "source": (ELL_SOURCE if name in ("spmv", "gs", "jacobi")
+                           else LATTICE_SOURCE),
                 "replaces": TPU_KERNELS[name], "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": at["ms"],
                 "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
@@ -704,7 +856,7 @@ def main() -> int:
     print(json.dumps({
         "kernels": [row(n, counts[n]) for n in ("fused_newton", "force",
                                                 "energy", "fused_pcg",
-                                                "spmv")],
+                                                "spmv", "gs", "jacobi")],
         # built and checked above; the main path runs their chains inside
         # fused_newton and does not launch these two entry points
         "not_on_main_path": [row(n, counts[n]) for n in ("hvp", "diag")],

@@ -359,3 +359,177 @@ __device__ __forceinline__ void vertex_coords(const Lattice& L, int v, int& x,
     y = t % L.Y;
     x = t / L.Y;
 }
+
+// ---------------------------------------------------------------------------
+// One quadrature point per lane (the fused Newton / PCG kernel)
+// ---------------------------------------------------------------------------
+//
+// Eight neighbouring lanes share a cell, lane q of the eight takes
+// quadrature point q. A lane keeps its column of the g table in registers
+// (gq[i][d] = g[i][q][d], 24 floats: q is not a compile-time constant
+// here), streams the 8 corners' values through F (and dF), and forms the
+// contributions of its point to the 8 corners. A three-step exchange
+// between the eight lanes (xor 4, 2, 1) sums the points in a fixed order and
+// leaves lane i with corner i's total: every lane ends with NCH values
+// instead of 8 * NCH accumulators.
+
+struct QuadLane {
+    float gq[8][3];
+};
+
+__device__ __forceinline__ QuadLane quad_lane(const GTab& G, int q) {
+    QuadLane L;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) L.gq[i][d] = G.g[i][q][d];
+    }
+    return L;
+}
+
+// F += us_i gq_i^T for corner i (us: the corner's 3 components)
+__device__ __forceinline__ void grad_add(const float us[3], const float gq[3],
+                                         float F[3][3]) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) F[r][c] += us[r] * gq[c];
+    }
+}
+
+__device__ __forceinline__ void zero3x3(float A[3][3]) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) A[r][c] = 0.f;
+    }
+}
+
+// (F, M) of the displacement gradient Du accumulated by grad_add: F = I + Du,
+// M = 2 mu E + la tr(E) I.
+__device__ __forceinline__ void deformation_stress(float F[3][3], float mu,
+                                                   float la, float M[3][3]) {
+    float E[3][3];
+    F[0][0] += 1.f;
+    F[1][1] += 1.f;
+    F[2][2] += 1.f;
+    const float trE = green_strain(F, E);
+    stvk_stress(E, trE, mu, la, M);
+}
+
+// P = F M (first Piola-Kirchhoff stress)
+__device__ __forceinline__ void force_stress(const float F[3][3],
+                                             const float M[3][3],
+                                             float P[3][3]) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+            P[r][c] = F[r][0] * M[0][c] + F[r][1] * M[1][c] + F[r][2] * M[2][c];
+    }
+}
+
+// dP = dF M + F dM along dF (hvp_chain's arithmetic for one point)
+__device__ __forceinline__ void hvp_stress(const float F[3][3],
+                                           const float M[3][3],
+                                           const float dF[3][3], float mu,
+                                           float la, float dP[3][3]) {
+    float dE[3][3], dM[3][3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int b = a; b < 3; ++b) {
+            float s = 0.f;
+#pragma unroll
+            for (int r = 0; r < 3; ++r)
+                s += dF[r][a] * F[r][b] + F[r][a] * dF[r][b];
+            dE[a][b] = 0.5f * s;
+            dE[b][a] = dE[a][b];
+        }
+    }
+    const float trdE = dE[0][0] + dE[1][1] + dE[2][2];
+    stvk_stress(dE, trdE, mu, la, dM);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            float s = 0.f;
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                s += dF[r][b] * M[b][c] + F[r][b] * dM[b][c];
+            dP[r][c] = s;
+        }
+    }
+}
+
+// out[r] = (P gq_i)[r]: one point's contribution to corner i
+__device__ __forceinline__ void emit_corner(const float P[3][3],
+                                            const float gq[3], float out[3]) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+        out[r] = P[r][0] * gq[0] + P[r][1] * gq[1] + P[r][2] * gq[2];
+}
+
+// One point's contribution to corner i's 6 diagonal channels (diag_chain's
+// arithmetic): Gm = F F^T in the symmetric channel order.
+__device__ __forceinline__ void diag_corner(const float F[3][3],
+                                            const float M[3][3],
+                                            const float Gm[6],
+                                            const float gq[3], float mu,
+                                            float la, float out[6]) {
+    const float a0 = gq[0], a1 = gq[1], a2 = gq[2];
+    const float gg = a0 * a0 + a1 * a1 + a2 * a2;
+    float v[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) v[r] = F[r][0] * a0 + F[r][1] * a1 + F[r][2] * a2;
+    const float aMa = a0 * (M[0][0] * a0 + M[0][1] * a1 + M[0][2] * a2)
+                    + a1 * (M[1][0] * a0 + M[1][1] * a1 + M[1][2] * a2)
+                    + a2 * (M[2][0] * a0 + M[2][1] * a1 + M[2][2] * a2);
+#pragma unroll
+    for (int ch = 0; ch < 6; ++ch) {
+        const int r = diag_r(ch), s = diag_s(ch);
+        float contrib = (mu + la) * v[r] * v[s] + (mu * gg) * Gm[ch];
+        if (r == s) contrib += aMa;
+        out[ch] = contrib;
+    }
+}
+
+// Sum over the 8 lanes (points) of a cell, scattered: contrib(i, out) gives
+// this lane's NCH contributions to corner i; on return lane i of the eight
+// holds corner i's sums over the 8 points. Every lane of the warp must call
+// it. The order of the sums is fixed.
+template <int NCH, class Contrib>
+__device__ __forceinline__ void sum_points_to_corners(Contrib contrib, int lane,
+                                                      float out[NCH]) {
+    const unsigned full = 0xffffffffu;
+    const bool hi = lane & 4, mid = lane & 2, lo = lane & 1;
+    float a4[4][NCH];  // corner 4*hi + i
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float c0[NCH], c1[NCH];
+        contrib(i, c0);
+        contrib(i + 4, c1);
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+            const float keep = hi ? c1[ch] : c0[ch];
+            const float send = hi ? c0[ch] : c1[ch];
+            a4[i][ch] = keep + __shfl_xor_sync(full, send, 4);
+        }
+    }
+    float a2[2][NCH];  // corner 4*hi + 2*mid + i
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+            const float keep = mid ? a4[i + 2][ch] : a4[i][ch];
+            const float send = mid ? a4[i][ch] : a4[i + 2][ch];
+            a2[i][ch] = keep + __shfl_xor_sync(full, send, 2);
+        }
+    }
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+        const float keep = lo ? a2[1][ch] : a2[0][ch];
+        const float send = lo ? a2[0][ch] : a2[1][ch];
+        out[ch] = keep + __shfl_xor_sync(full, send, 1);
+    }
+}

@@ -31,13 +31,19 @@
 // * lat_fused_newton replaces _run_newton (pallas_call at :638), entry
 //   fused_newton; _make_newton_kernel at :557-593, _pcg_in_kernel :480-535,
 //   _sym_solve :462-477. One Newton iteration in one cooperative launch
-//   (cudaLaunchCooperativeKernel) with grid-stride loops and grid.sync()
-//   between phases. Bound: grid-wide barriers and the dependent reductions
-//   of PCG (4 barriers per CG iteration) at the small grids of the main
-//   path, the HVP chain at the large ones. Design: the Pallas kernel kept
-//   r, p, ap and the diagonal in VMEM; here they live in device memory
-//   (the 19k grid's whole PCG state is ~1 MB and stays in the 50 MB L2).
-//   Every dot is summed as per-block partials; after the barrier EVERY
+//   (cudaLaunchCooperativeKernel) with grid.sync() between phases. Bound:
+//   grid-wide barriers and the dependent reductions of PCG at the small
+//   grids of the main path, the HVP chain at the large ones. Design: the
+//   Pallas kernel kept r, p, ap and the diagonal in VMEM and walked the grid
+//   in order. Here a block owns a tile of vertices and computes the cells
+//   around them, eight lanes to a cell, one quadrature point each, and
+//   sums the corner contributions through shared memory: the small
+//   lattices fill the card, a thread holds a fraction of the accumulators
+//   (128 registers, no spill by ptxas -v), and a PCG iteration needs 2 grid
+//   barriers where a block computes its halo cells itself, 3 where blocks
+//   exchange partial sums. r, z, p, ap and the diagonal live in device
+//   memory (the 19k grid's whole PCG state is ~1 MB and stays in the 50 MB
+//   L2). Every dot is summed as per-block partials; after the barrier EVERY
 //   block sums the same partials in the same order, so all blocks hold
 //   bit-identical scalars and take the same loop branch (a divergent
 //   branch around grid.sync() would deadlock).
@@ -60,6 +66,17 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kEpsilon = 1e-7f;  // solvers.cg.EPSILON
+// The fused kernels run 512 threads a block, one block an SM (128
+// registers a thread fill the register file): 16 warps hide the latency of
+// the per-point chains, and a grid of at most one block per SM keeps the
+// grid barriers cheap.
+constexpr int kFusedThreads = 512;
+// Dynamic shared memory the fused kernels may ask for: the 48 corner
+// channels of the diagonal pass for every cell of a tile (kScratchRows rows
+// of `stride` floats), then two boxes of one float4 per vertex around the
+// tile's cells. One block of this size fits an SM's 227 KB.
+constexpr int kSmemCap = 200 * 1024;
+constexpr int kScratchRows = 48;
 
 ChainArgs make_chain_args(int X, int Y, int Z, const float* g_host,
                           float det, float mu, float la) {
@@ -117,6 +134,32 @@ __device__ float block_sum(float v, float* sh) {
     return sh[32];
 }
 
+// Two block-wide sums at once, behind one set of barriers; each is summed
+// as block_sum sums it. sh holds 66 floats.
+__device__ void block_sum2(float& a, float& b, float* sh) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    a = warp_sum(a);
+    b = warp_sum(b);
+    __syncthreads();
+    if (lane == 0) {
+        sh[w] = a;
+        sh[33 + w] = b;
+    }
+    __syncthreads();
+    if (w == 0) {
+        const bool in = lane < (int)(blockDim.x >> 5);
+        a = warp_sum(in ? sh[lane] : 0.f);
+        b = warp_sum(in ? sh[33 + lane] : 0.f);
+        if (lane == 0) {
+            sh[32] = a;
+            sh[65] = b;
+        }
+    }
+    __syncthreads();
+    a = sh[32];
+    b = sh[65];
+}
+
 __device__ float block_max(float v, float* sh) {
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
     v = warp_max(v);
@@ -138,6 +181,18 @@ __device__ float partials_sum(const float* part, int n, float* sh) {
     float s = 0.f;
     for (int j = threadIdx.x; j < n; j += blockDim.x) s += part[j];
     return block_sum(s, sh);
+}
+
+// Two sums of n partials each at once (partials_sum's order).
+__device__ void partials_sum2(const float* pa, const float* pb, int n,
+                              float* sh, float& a, float& b) {
+    a = 0.f;
+    b = 0.f;
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        a += pa[j];
+        b += pb[j];
+    }
+    block_sum2(a, b, sh);
 }
 
 __device__ float partials_max(const float* part, int n, float* sh) {
@@ -237,9 +292,78 @@ sum_partials(const float* __restrict__ part, int n, float* __restrict__ out) {
 // ---------------------------------------------------------------------------
 // Fused Newton iteration: one cooperative launch
 // ---------------------------------------------------------------------------
+//
+// Work split. The vertex lattice is cut into tiles (a balanced partition
+// along each axis, chosen on the host for the lattice and the card, see
+// lat_newton_plan). A block owns a tile's vertices. Eight lanes share a
+// cell, one quadrature point each (lattice_chain.cuh), and leave the cell's
+// 8 corner contributions in shared memory; after a __syncthreads the
+// block's threads sum, for each vertex, the incident cells in fixed corner
+// order. The sums have a fixed order, so two runs give identical bits.
+// Which cells a block computes is the tiling's mode:
+//
+// * halo (small lattices, where grid barriers are most of the time): every
+//   cell that touches one of the tile's vertices, so neighbouring blocks
+//   compute the cells between them twice, every vertex sum is complete
+//   inside its block, and a cell pass and its vertex pass need no grid
+//   barrier between them: 2 barriers per PCG iteration.
+// * exchange (large lattices, where the chains are most of the time): each
+//   cell once, by the tile that owns its lowest corner. A block writes, for
+//   its own vertices and for those one plane above it, the partial sums of
+//   its own cells to device memory (slot = which of the three upper faces
+//   the vertex lies on); after one grid barrier each owner adds the up to 8
+//   partials of a vertex in slot order: 3 barriers per PCG iteration.
+//
+// The direction p = z + beta p is never formed in a pass of its own: it is
+// formed where it is consumed (at the cell corners and at the owner's
+// vertex pass) from z and the previous p, which lives in the other half of
+// a two-buffer p.
+
+// How the vertex lattice is cut among blocks.
+struct Tiling {
+    int ntx, nty, ntz;  // tiles along each axis
+    int stride;         // shared scratch: floats per (corner, channel) row,
+                        // >= the cell count of the largest tile
+    int box;            // shared vertex box: >= the vertex count of the box
+                        // around the largest tile's cells
+    int halo;           // 1: halo mode, 0: exchange mode
+};
+
+// One tile: its vertices [x0, x0 + nx) x ... and the cells it computes
+// [cx0, cx0 + ex) x ... (halo mode: every cell incident to one of its
+// vertices; exchange mode: the cells whose lowest corner it owns).
+struct Tile {
+    int x0, y0, z0, nx, ny, nz;
+    int cx0, cy0, cz0, ex, ey, ez;
+    int ix, iy, iz;
+};
+
+__device__ __forceinline__ void tile_axis(int n, int nt, int it, int halo,
+                                          int& v0, int& nv, int& c0, int& nc) {
+    v0 = it * n / nt;
+    const int v1 = (it + 1) * n / nt;
+    nv = v1 - v0;
+    c0 = halo && v0 > 0 ? v0 - 1 : v0;
+    const int c1 = v1 - 1 < n - 2 ? v1 - 1 : n - 2;  // last cell, inclusive
+    nc = c1 - c0 + 1;                                // may be 0 (exchange)
+}
+
+__device__ __forceinline__ Tile tile_of(const Lattice& L, const Tiling& T,
+                                        int t) {
+    Tile R;
+    R.iz = t % T.ntz;
+    const int r = t / T.ntz;
+    R.iy = r % T.nty;
+    R.ix = r / T.nty;
+    tile_axis(L.X, T.ntx, R.ix, T.halo, R.x0, R.nx, R.cx0, R.ex);
+    tile_axis(L.Y, T.nty, R.iy, T.halo, R.y0, R.ny, R.cy0, R.ey);
+    tile_axis(L.Z, T.ntz, R.iz, T.halo, R.z0, R.nz, R.cz0, R.ez);
+    return R;
+}
 
 struct NewtonArgs {
     ChainArgs A;
+    Tiling T;
     const float* u;     // (3, N) displacement
     const float* s;     // (3, N) affine residual part (includes -rc*x0);
                         // with kPcg the right-hand side of the solve
@@ -251,30 +375,258 @@ struct NewtonArgs {
     float* f;           // (3, N) out: residual at u (not kPcg)
     float* fn;          // (1,) out: ||f(u + dx vm)||_inf (not kPcg)
     int* k;             // (1,) out: PCG count (matvecs = k - 1)
-    float* r;           // (3, N) scratch
-    float* p;           // (3, N) scratch
+    float* r;           // (3, N) scratch: residual of the solve
+    float* z;           // (3, N) scratch: preconditioned residual
+    float* p;           // (2, 3, N) scratch: this and the previous direction
     float* ap;          // (3, N) scratch
+    float* xacc;        // (3, N) scratch: the normalized solution
     float* d6;          // (6, N) scratch: ctrl-shifted diagonal blocks
-    float* cf;          // (24, C) scratch: force / hvp corner contributions
-    float* cd;          // (48, C) scratch: diag corner contributions
     float* part;        // (7, gridDim.x) scratch: per-block partials
+    float* pbuf;        // (8, 9, N) scratch, exchange mode: partial vertex
+                        // sums by slot; rows 0-2 force / hvp, 3-8 diagonal
     float tol;          // PCG tolerance, relative on ||r||^2
     int iterations;     // PCG budget
 };
+
+enum CellOp { kForce, kTrial, kHvp, kDiag };
+
+// What a cell pass reads besides u: the step scale of the trial pass, or
+// the previous direction and beta of the HVP pass.
+struct CellIn {
+    float sb;
+    const float* pprev;
+    float beta;
+    bool have_prev;
+};
+
+// The cell pass of one tile: every cell's corner contributions, summed over
+// the quadrature points, scaled by +-det * cell mask, to the shared scratch
+// sc[(corner * NCH + channel) * stride + local cell].
+//   kForce: the force chain at u.          kTrial: at u + (xacc sb) vm.
+//   kHvp: the HVP chain at u along p = z (+ beta p_prev when have_prev).
+//   kDiag: the 6-channel vertex-diagonal chain at u.
+// The fields are first staged, once per vertex, into the shared box around
+// the tile's cells (su, and sp for the direction: one float4 a vertex), so
+// a lane reads a corner with one shared load instead of 3 to 9 loads from
+// device memory, and p = z + beta p_prev is formed once per vertex.
+// Every thread of the block must call it (barriers and full-warp shuffles
+// inside).
+template <int OP>
+__device__ __forceinline__ void tile_cells(const NewtonArgs& P, const Tile& T,
+                                           const QuadLane& ql, float* sc,
+                                           const CellIn& in) {
+    constexpr int NCH = OP == kDiag ? 6 : 3;
+    const Lattice& L = P.A.L;
+    const int N = L.N, stride = P.T.stride;
+    const int lane = threadIdx.x & 31;
+    const int n_ext = T.ex * T.ey * T.ez;
+    const float mu = P.A.mu, la = P.A.la;
+    float4* su = reinterpret_cast<float4*>(sc + kScratchRows * stride);
+    float4* sp = su + P.T.box;
+    const int byn = T.ey + 1, bzn = T.ez + 1;
+    if (n_ext > 0) {
+        for (int bl = threadIdx.x; bl < (T.ex + 1) * byn * bzn;
+             bl += blockDim.x) {
+            const int lz = bl % bzn, t = bl / bzn;
+            const int v = ((T.cx0 + t / byn) * L.Y + T.cy0 + t % byn) * L.Z
+                        + T.cz0 + lz;
+            float a[3];
+#pragma unroll
+            for (int r = 0; r < 3; ++r) a[r] = P.u[r * N + v];
+            if constexpr (OP == kTrial) {
+                const float vm = P.vm[v];
+#pragma unroll
+                for (int r = 0; r < 3; ++r)
+                    a[r] += (P.xacc[r * N + v] * in.sb) * vm;
+            }
+            su[bl] = make_float4(a[0], a[1], a[2], 0.f);
+            if constexpr (OP == kHvp) {
+#pragma unroll
+                for (int r = 0; r < 3; ++r) {
+                    a[r] = P.z[r * N + v];
+                    if (in.have_prev) a[r] += in.beta * in.pprev[r * N + v];
+                }
+                sp[bl] = make_float4(a[0], a[1], a[2], 0.f);
+            }
+        }
+    }
+    __syncthreads();
+    for (int base = (threadIdx.x >> 5) * 4; base < n_ext;
+         base += (blockDim.x >> 5) * 4) {
+        const int cl_raw = base + (lane >> 3);
+        const bool valid = cl_raw < n_ext;
+        const int cl = valid ? cl_raw : n_ext - 1;  // idle lanes redo the last
+        const int lz = cl % T.ez, t = cl / T.ez;
+        const int lx = t / T.ey, ly = t % T.ey;
+        const int b0 = (lx * byn + ly) * bzn + lz;  // corner 0 in the box
+        float F[3][3], dF[3][3];
+        zero3x3(F);
+        zero3x3(dF);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int bi = b0 + (((i >> 2) & 1) * byn + ((i >> 1) & 1)) * bzn
+                         + (i & 1);
+            const float4 a = su[bi];
+            const float us[3] = {a.x, a.y, a.z};
+            grad_add(us, ql.gq[i], F);
+            if constexpr (OP == kHvp) {
+                const float4 d = sp[bi];
+                const float ps[3] = {d.x, d.y, d.z};
+                grad_add(ps, ql.gq[i], dF);
+            }
+        }
+        float M[3][3], out[NCH];
+        deformation_stress(F, mu, la, M);
+        if constexpr (OP == kDiag) {
+            float Gm[6];
+#pragma unroll
+            for (int ch = 0; ch < 6; ++ch) {
+                const int r = diag_r(ch), c = diag_s(ch);
+                Gm[ch] = F[r][0] * F[c][0] + F[r][1] * F[c][1]
+                       + F[r][2] * F[c][2];
+            }
+            sum_points_to_corners<6>(
+                [&](int i, float* o) {
+                    diag_corner(F, M, Gm, ql.gq[i], mu, la, o);
+                },
+                lane, out);
+        } else {
+            float S[3][3];
+            if constexpr (OP == kHvp) {
+                hvp_stress(F, M, dF, mu, la, S);
+            } else {
+                force_stress(F, M, S);
+            }
+            sum_points_to_corners<3>(
+                [&](int i, float* o) { emit_corner(S, ql.gq[i], o); }, lane,
+                out);
+        }
+        if (valid) {
+            const int c = ((T.cx0 + lx) * (L.Y - 1) + T.cy0 + ly) * (L.Z - 1)
+                        + T.cz0 + lz;
+            const float w = (OP == kForce || OP == kTrial ? -P.A.det : P.A.det)
+                          * P.cm[c];
+            const int i = lane & 7;
+#pragma unroll
+            for (int ch = 0; ch < NCH; ++ch)
+                sc[(i * NCH + ch) * stride + cl] = out[ch] * w;
+        }
+    }
+}
+
+// The sum of channel ch over the tile's cells incident to vertex (x, y, z),
+// from the shared scratch, in fixed corner order. In halo mode the tile
+// holds every cell incident to its own vertices, so the sum is complete.
+template <int NCH>
+__device__ __forceinline__ float tile_gather(const Tile& T, const float* sc,
+                                             int stride, int ch, int x, int y,
+                                             int z) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int lx = x - ((i >> 2) & 1) - T.cx0, ly = y - ((i >> 1) & 1) - T.cy0,
+                  lz = z - (i & 1) - T.cz0;
+        if (lx >= 0 && lx < T.ex && ly >= 0 && ly < T.ey && lz >= 0
+            && lz < T.ez)
+            s += sc[(i * NCH + ch) * stride + (lx * T.ey + ly) * T.ez + lz];
+    }
+    return s;
+}
+
+// One cell pass and its vertex pass over this block's tiles: finish(v, tot)
+// is called once for every vertex the block owns with its NCH complete sums.
+// Exchange mode runs one grid barrier inside, so every block must call it.
+// row0: the first of the NCH pbuf rows this pass uses.
+template <int OP, class Finish>
+__device__ __forceinline__ void cell_vertex_pass(const NewtonArgs& P,
+                                                 const QuadLane& ql, float* sc,
+                                                 const CellIn& in, int row0,
+                                                 cg::grid_group& grid,
+                                                 Finish finish) {
+    constexpr int NCH = OP == kDiag ? 6 : 3;
+    const Lattice& L = P.A.L;
+    const int N = L.N, stride = P.T.stride;
+    const int ntiles = P.T.ntx * P.T.nty * P.T.ntz;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const Tile T = tile_of(L, P.T, tile);
+        tile_cells<OP>(P, T, ql, sc, in);
+        __syncthreads();
+        if (P.T.halo) {
+            for (int vl = threadIdx.x; vl < T.nx * T.ny * T.nz;
+                 vl += blockDim.x) {
+                const int z = T.z0 + vl % T.nz, t = vl / T.nz;
+                const int y = T.y0 + t % T.ny, x = T.x0 + t / T.ny;
+                float tot[NCH];
+#pragma unroll
+                for (int ch = 0; ch < NCH; ++ch)
+                    tot[ch] = tile_gather<NCH>(T, sc, stride, ch, x, y, z);
+                finish((x * L.Y + y) * L.Z + z, tot);
+            }
+        } else {
+            // own vertices and the plane above them along each axis
+            const int bx = T.x0 + T.nx < L.X ? T.nx + 1 : T.nx;
+            const int by = T.y0 + T.ny < L.Y ? T.ny + 1 : T.ny;
+            const int bz = T.z0 + T.nz < L.Z ? T.nz + 1 : T.nz;
+            for (int vl = threadIdx.x; vl < bx * by * bz; vl += blockDim.x) {
+                const int lz = vl % bz, t = vl / bz;
+                const int ly = t % by, lx = t / by;
+                const int x = T.x0 + lx, y = T.y0 + ly, z = T.z0 + lz;
+                const int slot = 4 * (lx == T.nx) + 2 * (ly == T.ny)
+                               + (lz == T.nz);
+                const int v = (x * L.Y + y) * L.Z + z;
+#pragma unroll
+                for (int ch = 0; ch < NCH; ++ch)
+                    P.pbuf[(slot * 9 + row0 + ch) * N + v] =
+                        tile_gather<NCH>(T, sc, stride, ch, x, y, z);
+            }
+        }
+        __syncthreads();  // sc is rewritten by the next cell pass
+    }
+    if (P.T.halo) return;
+    grid.sync();
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const Tile T = tile_of(L, P.T, tile);
+        for (int vl = threadIdx.x; vl < T.nx * T.ny * T.nz; vl += blockDim.x) {
+            const int lz = vl % T.nz, t = vl / T.nz;
+            const int ly = t % T.ny, lx = t / T.ny;
+            const int v = ((T.x0 + lx) * L.Y + T.y0 + ly) * L.Z + T.z0 + lz;
+            // a lower neighbour tile along an axis wrote the slots with
+            // that axis' bit set, for the vertices of this tile's low face
+            const bool px = lx == 0 && T.ix > 0, py = ly == 0 && T.iy > 0,
+                       pz = lz == 0 && T.iz > 0;
+            float tot[NCH];
+#pragma unroll
+            for (int ch = 0; ch < NCH; ++ch) tot[ch] = 0.f;
+#pragma unroll
+            for (int slot = 0; slot < 8; ++slot) {
+                if (((slot & 4) && !px) || ((slot & 2) && !py)
+                    || ((slot & 1) && !pz))
+                    continue;
+#pragma unroll
+                for (int ch = 0; ch < NCH; ++ch)
+                    tot[ch] += P.pbuf[(slot * 9 + row0 + ch) * N + v];
+            }
+            finish(v, tot);
+        }
+    }
+}
 
 // kPcg = false: one Newton iteration (_make_newton_kernel).
 // kPcg = true: the PCG solve alone on the right-hand side s
 // (_make_pcg_kernel): no residual phase, no trial phase.
 template <bool kPcg>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kFusedThreads, 1)
 fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
     cg::grid_group grid = cg::this_grid();
-    __shared__ float sh[33];
-    const Lattice& L = P.A.L;
-    const int N = L.N;
+    extern __shared__ float4 smem[];  // scratch rows, then the vertex boxes
+    float* sc = reinterpret_cast<float*>(smem);
+    __shared__ float sh[66];
+    const int N = P.A.L.N;
     const int t0 = blockIdx.x * blockDim.x + threadIdx.x;
-    const int stride = gridDim.x * blockDim.x;
+    const int gstride = gridDim.x * blockDim.x;
     const int nb = gridDim.x;
+    const QuadLane ql = quad_lane(P.A.G, threadIdx.x & 7);
+    const CellIn at_u = {0.f, nullptr, 0.f, false};
     float* part_rrb = P.part;
     float* part_rz0 = P.part + nb;
     float* part_rr0 = P.part + 2 * nb;
@@ -283,41 +635,38 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
     float* part_rr = P.part + 5 * nb;
     float* part_fn = P.part + 6 * nb;
 
-    // -- force (not kPcg) and diagonal cell passes at u --
-    for (int c = t0; c < L.C; c += stride) {
-        if (!kPcg) cell_force(P.A, P.u, P.cm, P.cf, c);
-        cell_diag(P.A, P.u, P.cm, P.cd, c);
-    }
-    grid.sync();
-
     // -- right-hand side b: the residual f = (f_el(u) + s - rc u) vm, or s
     //    itself with kPcg; d6 = diag + ctrl I; ||b||^2 --
     const float* b = kPcg ? P.s : P.f;
     float acc = 0.f;
-    for (int v = t0; v < N; v += stride) {
-        int x, y, z;
-        vertex_coords(L, v, x, y, z);
-        const float ct = P.ctrl[v];
-        const float vm = kPcg ? 0.f : P.vm[v], rc = kPcg ? 0.f : P.rc[v];
+    if (!kPcg) {
+        cell_vertex_pass<kForce>(
+            P, ql, sc, at_u, 0, grid, [&](int v, const float* tot) {
+                const float vm = P.vm[v], rc = P.rc[v];
 #pragma unroll
-        for (int rr = 0; rr < 3; ++rr) {
-            float fr;
-            if (kPcg) {
-                fr = P.s[rr * N + v];
-            } else {
-                fr = (gather_vertex<3>(L, P.cf, rr, x, y, z) + P.s[rr * N + v]
-                      - rc * P.u[rr * N + v]) * vm;
-                P.f[rr * N + v] = fr;
-            }
-            acc += fr * fr;
-        }
-#pragma unroll
-        for (int ch = 0; ch < 6; ++ch) {
-            float d = gather_vertex<6>(L, P.cd, ch, x, y, z);
-            if (ch == 0 || ch == 3 || ch == 5) d += ct;
-            P.d6[ch * N + v] = d;
-        }
+                for (int c = 0; c < 3; ++c) {
+                    const float fr = (tot[c] + P.s[c * N + v]
+                                      - rc * P.u[c * N + v]) * vm;
+                    P.f[c * N + v] = fr;
+                    acc += fr * fr;
+                }
+            });
     }
+    cell_vertex_pass<kDiag>(
+        P, ql, sc, at_u, 3, grid, [&](int v, const float* tot) {
+            const float ct = P.ctrl[v];
+#pragma unroll
+            for (int ch = 0; ch < 6; ++ch)
+                P.d6[ch * N + v] =
+                    ch == 0 || ch == 3 || ch == 5 ? tot[ch] + ct : tot[ch];
+            if (kPcg) {
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    const float fr = P.s[c * N + v];
+                    acc += fr * fr;
+                }
+            }
+        });
     {
         const float t = block_sum(acc, sh);
         if (threadIdx.x == 0) part_rrb[blockIdx.x] = t;
@@ -330,59 +679,59 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
     const float inv_scale = sqrtf(ok_b ? rr_b : 1.f);
     const float scale_back = ok_b ? inv_scale : 0.f;
     float a_rz = 0.f, a_rr = 0.f;
-    for (int v = t0; v < N; v += stride) {
+    for (int v = t0; v < N; v += gstride) {
         const float vm = P.vm[v];
         float r[3], z[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
             r[c] = b[c * N + v] / inv_scale;
             P.r[c * N + v] = r[c];
-            P.dx[c * N + v] = 0.f;
+            P.xacc[c * N + v] = 0.f;
         }
         sym_solve(P.d6, N, v, r, vm, z);
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-            P.p[c * N + v] = z[c];
+            P.z[c * N + v] = z[c];
             a_rz += r[c] * z[c];
             a_rr += r[c] * r[c];
         }
     }
-    {
-        const float t1 = block_sum(a_rz, sh);
-        const float t2 = block_sum(a_rr, sh);
-        if (threadIdx.x == 0) {
-            part_rz0[blockIdx.x] = t1;
-            part_rr0[blockIdx.x] = t2;
-        }
+    block_sum2(a_rz, a_rr, sh);
+    if (threadIdx.x == 0) {
+        part_rz0[blockIdx.x] = a_rz;
+        part_rr0[blockIdx.x] = a_rr;
     }
     grid.sync();
-    float rz = partials_sum(part_rz0, nb, sh);
-    const float rr0 = partials_sum(part_rr0, nb, sh);
-    float rr = rr0;
+    float rz, rr;
+    partials_sum2(part_rz0, part_rr0, nb, sh, rz, rr);
+    const float rr0 = rr;
+    float beta = 0.f;
     int k = 1;
     bool alive = ok_b;
 
     // -- block-Jacobi PCG on (H(u) + diag(ctrl)) dx = f (pcg_operator) --
     while (alive && k <= P.iterations && rr > P.tol * rr0 && rr0 > kEpsilon
            && isfinite(rr)) {
-        for (int c = t0; c < L.C; c += stride)
-            cell_hvp(P.A, P.u, P.p, P.cm, P.cf, c);
-        grid.sync();
-
+        // p = z + beta p_prev (p = z in the first iteration), formed at the
+        // cell corners and, for the record, at each owner's vertex
+        const bool have_prev = k > 1;
+        float* pcur = P.p + (k & 1) * 3 * N;
+        const float* pprev = P.p + ((k & 1) ^ 1) * 3 * N;
+        const CellIn along_p = {0.f, pprev, beta, have_prev};
         float a_pap = 0.f;
-        for (int v = t0; v < N; v += stride) {
-            int x, y, z;
-            vertex_coords(L, v, x, y, z);
-            const float vm = P.vm[v], ct = P.ctrl[v];
+        cell_vertex_pass<kHvp>(
+            P, ql, sc, along_p, 0, grid, [&](int v, const float* tot) {
+                const float vm = P.vm[v], ct = P.ctrl[v];
 #pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                const float pv = P.p[c * N + v];
-                const float apv =
-                    (gather_vertex<3>(L, P.cf, c, x, y, z) + ct * pv) * vm;
-                P.ap[c * N + v] = apv;
-                a_pap += pv * apv;
-            }
-        }
+                for (int c = 0; c < 3; ++c) {
+                    float pv = P.z[c * N + v];
+                    if (have_prev) pv += beta * pprev[c * N + v];
+                    pcur[c * N + v] = pv;
+                    const float apv = (tot[c] + ct * pv) * vm;
+                    P.ap[c * N + v] = apv;
+                    a_pap += pv * apv;
+                }
+            });
         {
             const float t = block_sum(a_pap, sh);
             if (threadIdx.x == 0) part_pap[blockIdx.x] = t;
@@ -394,82 +743,64 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
         const float alpha = ok ? rz / pap : 0.f;
         a_rz = 0.f;
         a_rr = 0.f;
-        for (int v = t0; v < N; v += stride) {
+        for (int v = t0; v < N; v += gstride) {
             const float vm = P.vm[v];
             float r[3], z[3];
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
-                P.dx[c * N + v] += alpha * P.p[c * N + v];
+                P.xacc[c * N + v] += alpha * pcur[c * N + v];
                 r[c] = P.r[c * N + v] - alpha * P.ap[c * N + v];
                 P.r[c * N + v] = r[c];
             }
             sym_solve(P.d6, N, v, r, vm, z);
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
-                P.ap[c * N + v] = z[c];  // ap is free until the next matvec
+                P.z[c * N + v] = z[c];
                 a_rz += r[c] * z[c];
                 a_rr += r[c] * r[c];
             }
         }
-        {
-            const float t1 = block_sum(a_rz, sh);
-            const float t2 = block_sum(a_rr, sh);
-            if (threadIdx.x == 0) {
-                part_rz[blockIdx.x] = t1;
-                part_rr[blockIdx.x] = t2;
-            }
+        block_sum2(a_rz, a_rr, sh);
+        if (threadIdx.x == 0) {
+            part_rz[blockIdx.x] = a_rz;
+            part_rr[blockIdx.x] = a_rr;
         }
         grid.sync();
 
-        const float rz_new = partials_sum(part_rz, nb, sh);
-        const float rr_new = partials_sum(part_rr, nb, sh);
-        const float beta = rz_new / rz;  // unguarded, as in pcg_operator
-        for (int v = t0; v < N; v += stride) {
-#pragma unroll
-            for (int c = 0; c < 3; ++c)
-                P.p[c * N + v] = P.ap[c * N + v] + beta * P.p[c * N + v];
-        }
+        float rz_new, rr_new;
+        partials_sum2(part_rz, part_rr, nb, sh, rz_new, rr_new);
+        beta = rz_new / rz;  // unguarded, as in pcg_operator
         rz = rz_new;
         rr = rr_new;
         k += 1;
         alive = alive && ok;
-        grid.sync();
     }
 
     if (kPcg) {
-        for (int v = t0; v < N; v += stride) {
+        for (int v = t0; v < N; v += gstride) {
 #pragma unroll
-            for (int c = 0; c < 3; ++c) P.dx[c * N + v] *= scale_back;
+            for (int c = 0; c < 3; ++c)
+                P.dx[c * N + v] = P.xacc[c * N + v] * scale_back;
         }
         if (blockIdx.x == 0 && threadIdx.x == 0) P.k[0] = k;
         return;
     }
 
-    // -- trial full step: ||f(u + dx vm)||_inf (ap holds u + dx vm) --
-    for (int v = t0; v < N; v += stride) {
-        const float vm = P.vm[v];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-            const float d = P.dx[c * N + v] * scale_back;
-            P.dx[c * N + v] = d;
-            P.ap[c * N + v] = P.u[c * N + v] + d * vm;
-        }
-    }
-    grid.sync();
-    for (int c = t0; c < L.C; c += stride) cell_force(P.A, P.ap, P.cm, P.cf, c);
-    grid.sync();
+    // -- trial full step: dx = xacc scale_back, ||f(u + dx vm)||_inf --
     float m = 0.f;
-    for (int v = t0; v < N; v += stride) {
-        int x, y, z;
-        vertex_coords(L, v, x, y, z);
-        const float vm = P.vm[v], rc = P.rc[v];
+    const CellIn trial = {scale_back, nullptr, 0.f, false};
+    cell_vertex_pass<kTrial>(
+        P, ql, sc, trial, 0, grid, [&](int v, const float* tot) {
+            const float vm = P.vm[v], rc = P.rc[v];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-            const float fr = (gather_vertex<3>(L, P.cf, c, x, y, z)
-                              + P.s[c * N + v] - rc * P.ap[c * N + v]) * vm;
-            m = nan_max(m, fabsf(fr));
-        }
-    }
+            for (int c = 0; c < 3; ++c) {
+                const float d = P.xacc[c * N + v] * scale_back;
+                P.dx[c * N + v] = d;
+                const float ut = P.u[c * N + v] + d * vm;
+                const float fr = (tot[c] + P.s[c * N + v] - rc * ut) * vm;
+                m = nan_max(m, fabsf(fr));
+            }
+        });
     {
         const float t = block_max(m, sh);
         if (threadIdx.x == 0) part_fn[blockIdx.x] = t;
@@ -482,6 +813,23 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
             P.k[0] = k;
         }
     }
+}
+
+// A tile's width in vertices along x and y, at most (lat_newton_plan).
+constexpr int kTileWidth = 5;
+// Cells a block takes per round of its cell pass: 4 a warp.
+constexpr int kCellsPerRound = kFusedThreads / 8;
+
+template <bool kPcg>
+cudaError_t launch_fused(NewtonArgs& P, int grid, cudaStream_t st) {
+    void* args[] = {&P};
+    const size_t smem =
+        sizeof(float) * (kScratchRows * P.T.stride + 8 * P.T.box);
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(fused_newton_kernel<kPcg>), dim3(grid),
+        dim3(kFusedThreads), args, smem, st);
+    const cudaError_t last = cudaGetLastError();
+    return e != cudaSuccess ? e : last;
 }
 
 }  // namespace
@@ -546,12 +894,26 @@ int lat_energy(const float* u, const float* cm, float* out, float* part,
     return static_cast<int>(cudaGetLastError());
 }
 
-// Cooperative grid of the fused Newton kernel (pcg = 0) or the fused PCG
-// kernel (pcg = 1) for this lattice: at most what can be co-resident (SMs x
-// occupancy), at most one thread per cell or vertex. Returns a CUDA error
-// code; *grid is set on success.
-int lat_newton_grid(int X, int Y, int Z, int pcg, int* grid) {
+// The launch plan of the fused Newton kernel (pcg = 0) or the fused PCG
+// kernel (pcg = 1) for this lattice on the current device:
+// plan = {grid, ntx, nty, ntz, stride, box, halo}. Tiles are at most 5
+// vertices wide in x and y and as long in z (the contiguous axis) as the
+// plan's cost model likes, in halo or in exchange mode (mode 0; 1 forces
+// halo, 2 exchange). The model, in microseconds as measured on an H100:
+// a kernel runs 5 cell passes of ceil(cells / 64) rounds per tile (0.9 us a
+// round of a block's 16 warps, times the tiles a block walks) and 7 (halo)
+// or 12 (exchange) grid barriers of 2 us + 0.016 us a block. Few long tiles
+// make cheap barriers, many short ones short passes; a tile too large for
+// the shared scratch is not a candidate, which is what sends large lattices
+// to exchange mode. Returns a CUDA error code.
+int lat_newton_plan(int X, int Y, int Z, int pcg, int mode, int* plan) {
+    if (X < 2 || Y < 2 || Z < 2 || mode < 0 || mode > 2)
+        return static_cast<int>(cudaErrorInvalidValue);
     int dev = 0, sms = 0, per_sm = 0, coop = 0;
+    const void* fn = pcg ? reinterpret_cast<const void*>(
+                               fused_newton_kernel<true>)
+                         : reinterpret_cast<const void*>(
+                               fused_newton_kernel<false>);
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -559,29 +921,71 @@ int lat_newton_grid(int X, int Y, int Z, int pcg, int* grid) {
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
+    if (e == cudaSuccess)
         e = pcg ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &per_sm, fused_newton_kernel<true>, kThreads, 0)
+                      &per_sm, fused_newton_kernel<true>, kFusedThreads,
+                      kSmemCap)
                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &per_sm, fused_newton_kernel<false>, kThreads, 0);
+                      &per_sm, fused_newton_kernel<false>, kFusedThreads,
+                      kSmemCap);
     if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int N = X * Y * Z, C = (X - 1) * (Y - 1) * (Z - 1);
-    const int want = blocks_for(N > C ? N : C);
     const int cap = sms * per_sm;
-    *grid = want < cap ? want : cap;
-    return 0;
+    const long long max_floats = kSmemCap / (int)sizeof(float);
+    const int ntx = (X + kTileWidth - 1) / kTileWidth,
+              nty = (Y + kTileWidth - 1) / kTileWidth;
+    double best = 0.0;
+    bool have = false;
+    for (int halo = 1; halo >= 0; --halo) {
+        if ((mode == 1 && !halo) || (mode == 2 && halo)) continue;
+        const int mx = (X + ntx - 1) / ntx + halo, ex = mx < X - 1 ? mx : X - 1;
+        const int my = (Y + nty - 1) / nty + halo, ey = my < Y - 1 ? my : Y - 1;
+        for (int ntz = 1; ntz <= Z; ++ntz) {
+            const int mz = (Z + ntz - 1) / ntz + halo,
+                      ez = mz < Z - 1 ? mz : Z - 1;
+            const long long ext = 1LL * ex * ey * ez;
+            const long long box = 1LL * (ex + 1) * (ey + 1) * (ez + 1);
+            if (kScratchRows * (ext | 1) + 8 * box > max_floats) continue;
+            const long long ntiles = 1LL * ntx * nty * ntz;
+            const long long blocks = ntiles < cap ? ntiles : cap;
+            const double waves = double((ntiles + cap - 1) / cap);
+            const double cost =
+                5.0 * double((ext + kCellsPerRound - 1) / kCellsPerRound)
+                    * 0.9 * waves
+                + (halo ? 7.0 : 12.0) * (2.0 + 0.016 * double(blocks));
+            if (have && cost >= best) continue;
+            have = true;
+            best = cost;
+            plan[0] = static_cast<int>(blocks);
+            plan[1] = ntx;
+            plan[2] = nty;
+            plan[3] = ntz;
+            plan[4] = static_cast<int>(ext) | 1;
+            plan[5] = static_cast<int>(box);
+            plan[6] = halo;
+        }
+    }
+    return have ? 0 : static_cast<int>(cudaErrorLaunchOutOfResources);
 }
 
-// part: 7*grid floats; grid from lat_newton_grid.
+// One Newton iteration in one cooperative launch. p: 6*N floats, d6: 6*N,
+// r, z, ap, xacc: 3*N each, part: 7*grid, pbuf: 72*N (read and written in
+// exchange mode only); grid, ntx, nty, ntz, stride, box, halo from
+// lat_newton_plan(..., pcg = 0, ...). Calls that share the scratch must be
+// ordered on one stream.
 int lat_fused_newton(float tol, const float* u, const float* s,
                      const float* cm, const float* ctrl, const float* rc,
                      const float* vm, float* dx, float* f, float* fn, int* k,
-                     float* r, float* p, float* ap, float* d6, float* cf,
-                     float* cd, float* part, int grid, int X, int Y, int Z,
-                     const float* g, float det, float mu, float la,
-                     int iterations, void* stream) {
+                     float* r, float* z, float* p, float* ap, float* xacc,
+                     float* d6, float* part, float* pbuf, int grid, int ntx,
+                     int nty, int ntz, int stride, int box, int halo, int X,
+                     int Y, int Z, const float* g, float det, float mu,
+                     float la, int iterations, void* stream) {
     NewtonArgs P;
     P.A = make_chain_args(X, Y, Z, g, det, mu, la);
+    P.T = Tiling{ntx, nty, ntz, stride, box, halo};
     P.u = u;
     P.s = s;
     P.cm = cm;
@@ -593,32 +997,31 @@ int lat_fused_newton(float tol, const float* u, const float* s,
     P.fn = fn;
     P.k = k;
     P.r = r;
+    P.z = z;
     P.p = p;
     P.ap = ap;
+    P.xacc = xacc;
     P.d6 = d6;
-    P.cf = cf;
-    P.cd = cd;
     P.part = part;
+    P.pbuf = pbuf;
     P.tol = tol;
     P.iterations = iterations;
-    void* args[] = {&P};
-    const cudaError_t e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(fused_newton_kernel<false>), dim3(grid),
-        dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
-    const cudaError_t last = cudaGetLastError();
-    return static_cast<int>(e != cudaSuccess ? e : last);
+    return static_cast<int>(
+        launch_fused<false>(P, grid, static_cast<cudaStream_t>(stream)));
 }
 
-// One-launch PCG solve of (H(u) + diag(ctrl)) dx = f. part: 7*grid floats;
-// grid from lat_newton_grid(..., pcg = 1, ...).
+// One-launch PCG solve of (H(u) + diag(ctrl)) dx = f; scratch as
+// lat_fused_newton, plan from lat_newton_plan(..., pcg = 1, ...).
 int lat_fused_pcg(float tol, const float* u, const float* f, const float* cm,
                   const float* ctrl, const float* vm, float* dx, int* k,
-                  float* r, float* p, float* ap, float* d6, float* cf,
-                  float* cd, float* part, int grid, int X, int Y, int Z,
-                  const float* g, float det, float mu, float la,
+                  float* r, float* z, float* p, float* ap, float* xacc,
+                  float* d6, float* part, float* pbuf, int grid, int ntx,
+                  int nty, int ntz, int stride, int box, int halo, int X,
+                  int Y, int Z, const float* g, float det, float mu, float la,
                   int iterations, void* stream) {
     NewtonArgs P = {};
     P.A = make_chain_args(X, Y, Z, g, det, mu, la);
+    P.T = Tiling{ntx, nty, ntz, stride, box, halo};
     P.u = u;
     P.s = f;
     P.cm = cm;
@@ -627,20 +1030,17 @@ int lat_fused_pcg(float tol, const float* u, const float* f, const float* cm,
     P.dx = dx;
     P.k = k;
     P.r = r;
+    P.z = z;
     P.p = p;
     P.ap = ap;
+    P.xacc = xacc;
     P.d6 = d6;
-    P.cf = cf;
-    P.cd = cd;
     P.part = part;
+    P.pbuf = pbuf;
     P.tol = tol;
     P.iterations = iterations;
-    void* args[] = {&P};
-    const cudaError_t e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(fused_newton_kernel<true>), dim3(grid),
-        dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
-    const cudaError_t last = cudaGetLastError();
-    return static_cast<int>(e != cudaSuccess ? e : last);
+    return static_cast<int>(
+        launch_fused<true>(P, grid, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/) with nvcc and ctypes.
 
 One shared library holds every kernel: lattice_kernels.cu (with
-lattice_chain.cuh) and ell_kernels.cu. It is built at first use, from the
-package's own sources, into `fem_simulation_tpu_torch/build/` under a name
+lattice_chain.cuh) and ell_kernels.cu (the SpMV and the fused smoothers). It
+is built at first use, from the package's own sources, into `fem_simulation_tpu_torch/build/` under a name
 keyed by a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is reused. Each translation unit gets its own nvcc,
 all started together, and one more nvcc links them. A missing nvcc, a
@@ -98,17 +98,20 @@ def _declare(lib) -> None:
     lib.lat_diag.argtypes = [P, P, P, P] + chain
     lib.lat_energy.argtypes = [P, P, P, P] + chain
     lib.lat_energy_partials.argtypes = [I, I, I]
-    lib.lat_newton_grid.argtypes = [I, I, I, I, ctypes.POINTER(I)]
+    lib.lat_newton_plan.argtypes = [I, I, I, I, I, ctypes.POINTER(I)]
     lib.lat_fused_newton.argtypes = (
-        [F] + [P] * 17 + [I, I, I, I, P, F, F, F, I, P])
+        [F] + [P] * 18 + [I] * 10 + [P, F, F, F, I, P])
     lib.lat_fused_pcg.argtypes = (
-        [F] + [P] * 14 + [I, I, I, I, P, F, F, F, I, P])
+        [F] + [P] * 15 + [I] * 10 + [P, F, F, F, I, P])
     lib.ell_spmv.argtypes = [P, P, P, P, P, I, I, I, P]
+    lib.ell_gs.argtypes = [P, P, P, P, ctypes.POINTER(I), I, P, P, I, I, I, P]
+    lib.ell_jacobi.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
     lib.lat_error_string.argtypes = [I]
     lib.lat_error_string.restype = ctypes.c_char_p
     for name in ("lat_force", "lat_hvp", "lat_diag", "lat_energy",
-                 "lat_energy_partials", "lat_newton_grid",
-                 "lat_fused_newton", "lat_fused_pcg", "ell_spmv"):
+                 "lat_energy_partials", "lat_newton_plan",
+                 "lat_fused_newton", "lat_fused_pcg", "ell_spmv", "ell_gs",
+                 "ell_jacobi"):
         getattr(lib, name).restype = I
 
 

@@ -13,10 +13,12 @@ import torch
 
 from . import ell_kernels
 
-# spmv + spmv_rows calls made on CUDA tensors, counted apart from the
-# kernel's own launch count (ell_kernels.launches) so that a run can check
-# that every such call launched the kernel
-cuda_calls = {"spmv": 0}
+# kernel launches that the calls made on CUDA tensors ask for (spmv +
+# spmv_rows here, one each; in solvers/smoothers.py gauss_seidel one and
+# jacobi one per iteration), counted apart from the kernels' own launch
+# counts (ell_kernels.launches) so that a run can check that every such call
+# launched its kernel
+cuda_calls = {"spmv": 0, "gs": 0, "jacobi": 0}
 
 
 def spmv(values, nbr, mask, x):

@@ -2,8 +2,8 @@
 
 Port of the entry points of `fem_simulation_tpu/ops/pallas_lattice.py`
 (`force_cf`, `hvp_cf`, `hess_diag_lattice`, `elastic_energy_lattice`,
-`fused_newton`, `fused_pcg`) with the same signatures and layouts. The Pallas kernels
-become the CUDA kernels of `csrc/lattice_kernels.cu`.
+`fused_newton`, `fused_pcg`) with the same signatures and layouts. The
+Pallas kernels become the CUDA kernels of `csrc/lattice_kernels.cu`.
 
 Dispatch: a wrapper runs its plain version (`*_plain`) only when its tensors
 lie on the CPU. For CUDA tensors it launches the kernel or raises; it never
@@ -28,7 +28,8 @@ DIAG_FLOPS_PER_CELL = 930 * 8
 launches = {"force": 0, "hvp": 0, "diag": 0, "energy": 0, "fused_newton": 0,
             "fused_pcg": 0}
 
-_newton_grids: dict = {}
+_newton_plans: dict = {}
+_workspaces: dict = {}
 _tables_cache: dict = {}
 
 
@@ -236,15 +237,49 @@ def elastic_energy_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
     return out
 
 
-def _newton_grid(lib, X, Y, Z, device, pcg: bool = False) -> int:
+def ask_newton_plan(lib, X, Y, Z, device, pcg: bool = False, mode: int = 0):
+    """(grid, ntx, nty, ntz, stride, box, halo): the cooperative grid and
+    the vertex tiling `lat_newton_plan` gives the fused kernel for this
+    lattice and device. mode 0: picked by its cost model; 1: halo tiles (a
+    block computes every cell touching its vertices); 2: exchange tiles
+    (each cell once, partial vertex sums through device memory)."""
+    plan = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        _cuda.check(lib.lat_newton_plan(X, Y, Z, int(pcg), int(mode), plan),
+                    "lat_newton_plan")
+    return tuple(plan)
+
+
+def _newton_plan(lib, X, Y, Z, device, pcg: bool = False):
+    """The cost model's plan, asked once per (device, X, Y, Z, pcg). A test
+    or a measurement puts another tiling under that key to run it."""
     key = (str(device), X, Y, Z, pcg)
-    if key not in _newton_grids:
-        grid = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            _cuda.check(lib.lat_newton_grid(X, Y, Z, int(pcg), grid),
-                        "lat_newton_grid")
-        _newton_grids[key] = grid.value
-    return _newton_grids[key]
+    if key not in _newton_plans:
+        _newton_plans[key] = ask_newton_plan(lib, X, Y, Z, device, pcg)
+    return _newton_plans[key]
+
+
+def _workspace(lib, X, Y, Z, device, stream: int):
+    """The fused kernels' scratch pointers (r, z, p, ap, xacc, d6, part,
+    pbuf): one tensor per lattice, device, stream and pair of plans,
+    allocated at first use and kept. fused_newton and fused_pcg share it, so
+    calls that share it are ordered on its stream."""
+    plans = tuple(_newton_plan(lib, X, Y, Z, device, pcg)
+                  for pcg in (False, True))
+    key = (str(device), stream, X, Y, Z, plans)
+    if key not in _workspaces:
+        n = X * Y * Z
+        grid = max(plan[0] for plan in plans)
+        exchange = any(not plan[6] for plan in plans)
+        floats = (3 * n, 3 * n, 6 * n, 3 * n, 3 * n, 6 * n, 7 * grid,
+                  72 * n if exchange else 0)
+        buf = torch.empty((sum(floats),), dtype=torch.float32, device=device)
+        ptrs, at = [], buf.data_ptr()
+        for count in floats:
+            ptrs.append(at)
+            at += 4 * count
+        _workspaces[key] = (buf, tuple(ptrs))
+    return _workspaces[key][1]
 
 
 def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
@@ -267,26 +302,19 @@ def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
         _cuda.require(t, (X, Y, Z), name)
     lib = _cuda.load()
     dev = u_cf.device
-    grid = _newton_grid(lib, X, Y, Z, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dxc = torch.empty_like(u_cf)
-    fc = torch.empty_like(u_cf)
-    fn = torch.empty((), **f32)
-    k = torch.empty((), dtype=torch.int32, device=dev)
-    r = torch.empty_like(u_cf)
-    p = torch.empty_like(u_cf)
-    ap = torch.empty_like(u_cf)
-    d6 = torch.empty((6, X, Y, Z), **f32)
-    ncell = cell_mask.numel()
-    cf = torch.empty((24 * ncell,), **f32)
-    cd = torch.empty((48 * ncell,), **f32)
-    part = torch.empty((7 * grid,), **f32)
+    plan = _newton_plan(lib, X, Y, Z, dev)
     tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
+    scratch = _workspace(lib, X, Y, Z, dev, tail[-1])
+    out = torch.empty((2,) + tuple(u_cf.shape), dtype=torch.float32,
+                      device=dev)
+    dxc, fc = out[0], out[1]
+    fn = torch.empty((), dtype=torch.float32, device=dev)
+    k = torch.empty((), dtype=torch.int32, device=dev)
     ptrs = [t.data_ptr() for t in (u_cf, s_cf, cell_mask, ctrl, rc, vert_mask,
-                              dxc, fc, fn, k, r, p, ap, d6, cf, cd, part)]
+                                   dxc, fc, fn, k)]
     with torch.cuda.device(dev):
-        err = lib.lat_fused_newton(float(tol), *ptrs, grid, *tail[:-1],
-                                   int(iterations), tail[-1])
+        err = lib.lat_fused_newton(float(tol), *ptrs, *scratch, *plan,
+                                   *tail[:-1], int(iterations), tail[-1])
     launches["fused_newton"] += 1
     _cuda.check(err, "lat_fused_newton")
     return dxc, fc, fn, k
@@ -309,24 +337,16 @@ def fused_pcg(u_cf, f_cf, cell_mask, ctrl, vert_mask, dx: float, mu: float,
         _cuda.require(t, (X, Y, Z), name)
     lib = _cuda.load()
     dev = u_cf.device
-    grid = _newton_grid(lib, X, Y, Z, dev, pcg=True)
-    f32 = dict(dtype=torch.float32, device=dev)
+    plan = _newton_plan(lib, X, Y, Z, dev, pcg=True)
+    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
+    scratch = _workspace(lib, X, Y, Z, dev, tail[-1])
     dxc = torch.empty_like(u_cf)
     k = torch.empty((), dtype=torch.int32, device=dev)
-    r = torch.empty_like(u_cf)
-    p = torch.empty_like(u_cf)
-    ap = torch.empty_like(u_cf)
-    d6 = torch.empty((6, X, Y, Z), **f32)
-    ncell = cell_mask.numel()
-    cf = torch.empty((24 * ncell,), **f32)
-    cd = torch.empty((48 * ncell,), **f32)
-    part = torch.empty((7 * grid,), **f32)
-    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
     ptrs = [t.data_ptr() for t in (u_cf, f_cf, cell_mask, ctrl, vert_mask,
-                                   dxc, k, r, p, ap, d6, cf, cd, part)]
+                                   dxc, k)]
     with torch.cuda.device(dev):
-        err = lib.lat_fused_pcg(float(tol), *ptrs, grid, *tail[:-1],
-                                int(iterations), tail[-1])
+        err = lib.lat_fused_pcg(float(tol), *ptrs, *scratch, *plan,
+                                *tail[:-1], int(iterations), tail[-1])
     launches["fused_pcg"] += 1
     _cuda.check(err, "lat_fused_pcg")
     return dxc, k

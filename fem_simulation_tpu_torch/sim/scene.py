@@ -120,16 +120,24 @@ class Scene:
                 t["fix_diag"] = fd * np.float32(material.control_mag)
             params["transfers"].append(t)
         self.params = params_from_numpy(params, self.device)
+        self._ops: dict = {}
 
     # -- static helpers -----------------------------------------------------
     def level(self, li: int) -> hl.LevelTopology:
         return self.hier.levels[li]
 
     def make_op(self, li: int, params=None) -> EllOperator:
-        """The ELL operator view of level li."""
+        """The ELL operator view of level li (of the scene's own params:
+        built, and its coloring checked, once)."""
+        own = params is None or params is self.params
+        if own and li in self._ops:
+            return self._ops[li]
         p = (params or self.params)["levels"][li]
-        return EllOperator(p["nbr"], p["mask"], p["diag_slot"],
-                           self.hier.levels[li].color_offsets)
+        op = EllOperator(p["nbr"], p["mask"], p["diag_slot"],
+                         self.hier.levels[li].color_offsets)
+        if own:
+            self._ops[li] = op
+        return op
 
     # -- I/O order conversion ----------------------------------------------
     def to_mesh_order(self, x):

@@ -8,12 +8,17 @@ others with the default SolverConfig) it traces, with torch.profiler after
 one warm-up of each:
   * 3 Newton-MG steps and 3 FAS v3 cycles of QuasiStaticSim;
   * 8 DynamicSim.frame_to_tol frames (8x8x24 beam only);
-  * 50 back-to-back block-ELL SpMV calls on the fine-level Hessian;
+  * 50 back-to-back block-ELL SpMV calls and 20 fused Gauss-Seidel calls
+    (3 iterations) on the fine-level Hessian;
 and, on the dense lattice of the same beam, 10 fused_pcg calls (tol 1e-2).
 It prints per window the wall time, the device busy time (union of the
 kernel and memory-op intervals), the idle share, the device-op count, the
-SpMV (or fused PCG) kernel's traced launches and mean device time, and the
-kernels that take the most device time, one JSON object per line.
+SpMV (or fused PCG) kernel's traced launches and mean device time, the
+smoother kernels' launches and device time, the share of the device ops
+and of the device time that `spd_project`'s elementwise kernels take
+(counted in a second, separately traced run of spd_project alone on the
+same levels), and the kernels that take the most device time, one JSON
+object per line.
 """
 import argparse
 import json
@@ -32,7 +37,7 @@ sys.path.insert(0, ROOT)
 from fem_simulation_tpu_torch import mesh as meshlib  # noqa: E402
 from fem_simulation_tpu_torch import require_cuda  # noqa: E402
 from fem_simulation_tpu_torch.config import SolverConfig  # noqa: E402
-from fem_simulation_tpu_torch.ops import _cuda  # noqa: E402
+from fem_simulation_tpu_torch.ops import _cuda, ell  # noqa: E402
 from fem_simulation_tpu_torch.ops import ell_kernels as ek  # noqa: E402
 from fem_simulation_tpu_torch.ops import lattice_kernels as lk  # noqa: E402
 from fem_simulation_tpu_torch.sim import lattice as tlat  # noqa: E402
@@ -76,6 +81,10 @@ def summarize(prof, wall_ms, n, kernel="ell_spmv_kernel"):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     hits = [(t, c) for name, (t, c) in by_name.items() if kernel in name]
     k_us, k_n = (sum(t for t, _ in hits), sum(c for _, c in hits))
+    smooth = [(t, c) for name, (t, c) in by_name.items()
+              if "ell_gs_coop_kernel" in name
+              or "ell_relax_rows_kernel" in name]
+    s_us, s_n = (sum(t for t, _ in smooth), sum(c for _, c in smooth))
     return {
         "wall_ms_per_unit": wall_ms / n,
         "device_busy_ms_per_unit": busy / 1e3 / n,
@@ -84,6 +93,8 @@ def summarize(prof, wall_ms, n, kernel="ell_spmv_kernel"):
         "kernel": kernel,
         "kernel_events": k_n,
         "kernel_device_us_per_launch": k_us / k_n if k_n else None,
+        "smoother_kernel_events_per_unit": s_n / n,
+        "smoother_device_us_per_unit": s_us / n,
         "top": [(name[:60], round(t / 1e3 / n, 4), round(c / n, 2))
                 for name, (t, c) in top],
     }
@@ -120,6 +131,12 @@ def main() -> int:
             sim = qs.QuasiStaticSim(sc)
             getattr(sim, method)(1)                      # warm-up
             res[name] = traced(lambda: getattr(sim, method)(1), 3)
+        # spd_project as a Newton-MG step runs it: once per coarse level
+        vals0 = qs.assemble_fine(sc, sc.params, sc.x0)
+        coarse = qs.galerkin_chain(sc, sc.params, vals0, spd=False)[1:]
+        eps = sc.material.spd_eps
+        res["spd_project_per_step"] = traced(
+            lambda: [ell.spd_project(v, eps) for v in coarse], 3)
         if label == "2k":
             dsim = DynamicSim(sc)
             dsim.frame_to_tol()
@@ -134,6 +151,9 @@ def main() -> int:
         ek.spmv(full, op.nbr, op.mask, v)
         res["spmv_alone"] = traced(
             lambda: ek.spmv(full, op.nbr, op.mask, v), 50)
+        gs_args = (full, op.nbr, op.mask, op.diag_slot, op.color_offsets, v)
+        ek.gs(*gs_args, None, 3)
+        res["gs3_alone"] = traced(lambda: ek.gs(*gs_args, None, 3), 20)
         ls = tlat.LatticeScene(m, device=dev)
         u = 0.01 * torch.randn(tuple(ls.x0.shape), device=dev) \
             * ls.vert_mask[..., None]

@@ -12,13 +12,14 @@ import torch
 
 from fem_simulation_tpu_torch import mesh as meshlib
 from fem_simulation_tpu_torch.config import SolverConfig
-from fem_simulation_tpu_torch.ops import ell
+from fem_simulation_tpu_torch.ops import _cuda, ell
 from fem_simulation_tpu_torch.ops import ell_kernels as ek
 from fem_simulation_tpu_torch.ops import lattice_kernels as lk
 from fem_simulation_tpu_torch.sim import dynamic as tdyn
 from fem_simulation_tpu_torch.sim import lattice as tlat
 from fem_simulation_tpu_torch.sim import quasistatic as tqs
 from fem_simulation_tpu_torch.sim import scene as tscene
+from fem_simulation_tpu_torch.solvers import smoothers as tsm
 
 MU, LA, DX = 250.0, 37.0, 0.1
 
@@ -155,19 +156,148 @@ def test_fused_pcg_kernel_matches_plain(scene):
 
 @pytest.mark.cuda
 def test_newton_multigrid_step_launches_spmv(uscene):
-    """One Newton-MG step on the card launches the SpMV kernel once for every
-    ell.spmv / spmv_rows call, and lands where the CPU run does."""
+    """One Newton-MG step on the card (2 levels) launches the SpMV kernel
+    twice (the V-cycle's residuals) and the fused Gauss-Seidel kernel three
+    times, once for every call made on CUDA tensors, and lands where the CPU
+    run does."""
     ek.reset_launches()
-    ell.cuda_calls["spmv"] = 0
+    for name in ell.cuda_calls:
+        ell.cuda_calls[name] = 0
     sim = tqs.QuasiStaticSim(uscene)
     _, fn = sim.newton_multigrid(1)
     torch.cuda.synchronize()
-    assert ek.launches["spmv"] == ell.cuda_calls["spmv"] > 0
+    assert ek.launches == ell.cuda_calls
+    assert ek.launches == {"spmv": 2, "gs": 3, "jacobi": 0}
     cpu = tscene.Scene(uscene.mesh, solver=uscene.solver, device="cpu")
     sim_cpu = tqs.QuasiStaticSim(cpu)
     _, fn_cpu = sim_cpu.newton_multigrid(1)
     assert float(fn[0]) == pytest.approx(float(fn_cpu[0]), rel=1e-3)
     assert float((sim.x.cpu() - sim_cpu.x).abs().max()) <= 1e-4
+
+
+def _level_systems(uscene):
+    """(op, values, b, x0) on every level of the scene's Galerkin chain."""
+    rng = np.random.default_rng(13)
+    x = uscene.x0 + torch.from_numpy(0.01 * rng.standard_normal(
+        tuple(uscene.x0.shape)).astype(np.float32)).cuda()
+    chain = tqs.galerkin_chain(uscene, uscene.params,
+                               tqs.assemble_fine(uscene, uscene.params, x))
+    for li, vals in enumerate(chain):
+        n = vals.shape[0]
+        b = torch.from_numpy(rng.standard_normal((n, 3)).astype(
+            np.float32)).cuda()
+        x0 = torch.from_numpy(0.1 * rng.standard_normal((n, 3)).astype(
+            np.float32)).cuda()
+        yield uscene.make_op(li), vals, b, x0
+
+
+@pytest.mark.cuda
+def test_gs_kernel_matches_plain(uscene):
+    """The fused Gauss-Seidel kernel on every level, 1 and 3 iterations,
+    from zero and from x0: max|d| <= 1e-5 max|x| against its one-pass plain
+    version and against the two-stage smoother (a fixed butterfly sums a
+    row's products, torch its own order); two runs bit-identical; x0 is not
+    modified; one launch count per call."""
+    for op, vals, b, x0 in _level_systems(uscene):
+        args = (vals, op.nbr, op.mask, op.diag_slot, op.color_offsets, b)
+        for iters in (1, 3):
+            for start in (None, x0):
+                keep = None if start is None else start.clone()
+                before = ek.launches["gs"]
+                got = ek.gs(*args, start, iters)
+                again = ek.gs(*args, start, iters)
+                torch.cuda.synchronize()
+                assert ek.launches["gs"] == before + 2
+                assert torch.equal(got, again)
+                if start is not None:
+                    assert torch.equal(start, keep)
+                for ref in (ek.gs_plain(*args, start, iters),
+                            tsm.gauss_seidel_plain(op, vals, b, iters,
+                                                   x0=start)):
+                    assert float((got - ref).abs().max()) \
+                        <= 1e-5 * float(ref.abs().max())
+        # the smoother entry point goes through the kernel
+        calls, before = ell.cuda_calls["gs"], ek.launches["gs"]
+        got = tsm.gauss_seidel(op, vals, b, 2)
+        assert ell.cuda_calls["gs"] == calls + 1
+        assert ek.launches["gs"] == before + 1
+        assert torch.equal(got, ek.gs(*args, None, 2))
+
+
+@pytest.mark.cuda
+def test_jacobi_kernel_matches_plain(uscene):
+    """The fused Jacobi kernel on every level, 1 to 3 iterations (odd and
+    even: the result lies in either buffer), from zero and from x0:
+    max|d| <= 1e-5 max|x| against the plain smoother; one launch per
+    iteration, counted as such."""
+    for op, vals, b, x0 in _level_systems(uscene):
+        for iters in (1, 2, 3):
+            for start in (None, x0):
+                before = ek.launches["jacobi"]
+                calls = ell.cuda_calls["jacobi"]
+                got = tsm.jacobi(op, vals, b, iters, x0=start)
+                torch.cuda.synchronize()
+                assert ek.launches["jacobi"] == before + iters
+                assert ell.cuda_calls["jacobi"] == calls + iters
+                ref = tsm.jacobi_plain(op, vals, b, iters, x0=start)
+                assert float((got - ref).abs().max()) \
+                    <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_mode", [0, 1, 2])
+def test_fused_newton_kernel_matches_plain(scene, plan_mode, monkeypatch):
+    """fused_newton on the card == its plain version with equal k, in the
+    tiling the plan picks and in each of its two modes (halo: a block
+    computes every cell touching its vertices; exchange: each cell once):
+    f within 1e-4 of max|f|, dx within 1e-3 of max|dx|, fn within 1e-3 of
+    max|f|; two runs bit-identical."""
+    X, Y, Z = scene.shape
+    for pcg in (False, True):
+        monkeypatch.setitem(
+            lk._newton_plans, (str(scene.x0.device), X, Y, Z, pcg),
+            lk.ask_newton_plan(_cuda.load(), X, Y, Z, scene.x0.device, pcg,
+                               plan_mode))
+    rng = np.random.default_rng(17)
+    inv_dt = 1.0 / 0.033
+    mat = scene.material
+    vm3 = scene.vert_mask[..., None]
+
+    def noise(scale):
+        return scale * torch.from_numpy(rng.standard_normal(
+            tuple(scene.x0.shape)).astype(np.float32)).cuda()
+
+    x = scene.x0 + noise(0.01) * vm3
+    x_tilde = scene.x0 + noise(0.005) * vm3
+    ctrl = (mat.control_mag * scene.pin_mask + scene.mass * inv_dt * inv_dt
+            + (1.0 - scene.vert_mask))
+    rc = mat.control_mag * scene.pin_mask + scene.mass * inv_dt * inv_dt
+    s_aff = (mat.control_mag * scene.pin_mask[..., None] * scene.pin_pos
+             + (scene.mass * inv_dt * inv_dt)[..., None] * x_tilde)
+    s_aff[..., 1] += scene.mass * mat.gravity
+    s_cf = (s_aff - rc[..., None] * scene.x0).permute(3, 0, 1, 2).contiguous()
+    u_cf = (x - scene.x0).permute(3, 0, 1, 2).contiguous()
+    args = (u_cf, s_cf, scene.cell_mask, ctrl, rc, scene.vert_mask, DX,
+            mat.lame_mu, mat.lame_la, 30, 1e-4)
+    before = lk.launches["fused_newton"]
+    dxk, fk, fnk, kk = lk.fused_newton(*args)
+    dx2, f2, fn2, k2 = lk.fused_newton(*args)
+    dxp, fp, fnp, kp = lk.fused_newton_plain(*args)
+    torch.cuda.synchronize()
+    assert lk.launches["fused_newton"] == before + 2
+    assert torch.equal(dxk, dx2) and torch.equal(fk, f2)
+    assert float(fnk) == float(fn2) and int(kk) == int(k2)
+    assert int(kk) == int(kp) > 2
+    fscale = float(fp.abs().max())
+    assert float((fk - fp).abs().max()) <= 1e-4 * fscale
+    assert float((dxk - dxp).abs().max()) <= 1e-3 * float(dxp.abs().max())
+    assert abs(float(fnk) - float(fnp)) <= 1e-3 * fscale
+    pargs = (u_cf, fp, scene.cell_mask, ctrl, scene.vert_mask, DX,
+             mat.lame_mu, mat.lame_la, 30, 1e-4)
+    dk, k1 = lk.fused_pcg(*pargs)
+    dp, k0 = lk.fused_pcg_plain(*pargs)
+    assert int(k1) == int(k0) > 2
+    assert float((dk - dp).abs().max()) <= 1e-3 * float(dp.abs().max())
 
 
 _ENTRY_POINTS = {

@@ -457,3 +457,161 @@ def test_failed_ell_kernel_build_raises(tmp_path, monkeypatch):
         _cuda.load()
     assert not (tmp_path / "build").exists() or not any(
         p.suffix == ".so" for p in (tmp_path / "build").iterdir())
+
+
+# -- the fused smoother kernels' plain versions ---------------------------------
+
+@pytest.fixture(scope="module")
+def level_systems(scenes, system):
+    """{level: (op, values, b)}: the SPD fine system and its Galerkin coarse
+    operator (the port's own product) with a seeded right-hand side."""
+    _, ts = scenes
+    _, (top, tv, tb) = system
+    tr = ts.params["transfers"][0]
+    lv1 = ts.level(1)
+    vc = ttr.galerkin(tv, tr["galerkin_plan"], lv1.n_verts, lv1.K)
+    bc = t(np.random.default_rng(8).normal(size=(lv1.n_verts, 3))
+           .astype(np.float32))
+    return {0: (top, tv, tb), 1: (ts.make_op(1), vc, bc)}
+
+
+def _with_empty_color(op):
+    """The same operator with an empty color class put after the first."""
+    offs = op.color_offsets
+    return tsm.EllOperator(op.nbr, op.mask, op.diag_slot,
+                           offs[:2] + offs[1:])
+
+
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("case", ["zero_start", "x0", "three_iterations",
+                                  "empty_color", "nan_at_padded_slot"])
+def test_one_pass_gs_equals_two_stage(level_systems, level, case):
+    """ell_kernels.gs_plain (the kernel's arithmetic: one in-place pass per
+    color, every slot but the diagonal's in one sum) == the two-stage
+    gauss_seidel_plain to 1e-6 of max|x| on every level: only the order of
+    each row's sum differs. A NaN at a padded slot reaches the same rows."""
+    op, vals, b = level_systems[level]
+    x0, iters = None, 1
+    if case == "x0":
+        x0 = 0.1 * t(np.random.default_rng(9).normal(size=tuple(b.shape))
+                     .astype(np.float32))
+    elif case == "three_iterations":
+        iters = 3
+    elif case == "empty_color":
+        op = _with_empty_color(op)
+        assert op.n_colors == 9
+    elif case == "nan_at_padded_slot":
+        row, slot = np.argwhere(op.mask.numpy() == 0)[0]
+        vals = vals.clone()
+        vals[row, slot] = float("nan")
+    x0_before = None if x0 is None else x0.clone()
+    ref = tsm.gauss_seidel_plain(op, vals, b, iters, x0=x0).numpy()
+    got = tek.gs_plain(vals, op.nbr, op.mask, op.diag_slot, op.color_offsets,
+                       b, x0, iters).numpy()
+    if x0 is not None:
+        np.testing.assert_array_equal(x0.numpy(), x0_before.numpy())
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    if case == "nan_at_padded_slot":
+        assert nan[row].all() and not nan.all()
+    scale = float(np.abs(ref[~nan]).max())
+    assert float(np.abs(got[~nan] - ref[~nan]).max()) <= 1e-6 * scale
+    # the wrappers (CPU tensors: plain) agree with the smoother entry point
+    np.testing.assert_array_equal(
+        tsm.gauss_seidel(op, vals, b, iters, x0=x0).numpy(), ref)
+    np.testing.assert_array_equal(
+        tek.gs(vals, op.nbr, op.mask, op.diag_slot, op.color_offsets, b, x0,
+               iters).numpy(), got)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("case", ["zero_start", "x0", "nan_at_padded_slot"])
+def test_relax_all_rows_equals_jacobi(level_systems, level, case):
+    """ell_kernels.jacobi_plain (the kernel's row pass over all rows, two
+    buffers) == smoothers.jacobi_plain to 1e-6 of max|x|."""
+    op, vals, b = level_systems[level]
+    x0 = None
+    if case == "x0":
+        x0 = 0.1 * t(np.random.default_rng(10).normal(size=tuple(b.shape))
+                     .astype(np.float32))
+    elif case == "nan_at_padded_slot":
+        row, slot = np.argwhere(op.mask.numpy() == 0)[0]
+        vals = vals.clone()
+        vals[row, slot] = float("nan")
+    ref = tsm.jacobi_plain(op, vals, b, 2, x0=x0).numpy()
+    got = tek.jacobi(vals, op.nbr, op.mask, op.diag_slot, b, x0, 2).numpy()
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    scale = float(np.abs(ref[~nan]).max())
+    assert float(np.abs(got[~nan] - ref[~nan]).max()) <= 1e-6 * scale
+    np.testing.assert_array_equal(tsm.jacobi(op, vals, b, 2, x0=x0).numpy(),
+                                  ref)
+
+
+@pytest.mark.parametrize("smoother", ["gauss_seidel", "jacobi"])
+def test_smoothers_take_plain_only_on_cpu(level_systems, smoother,
+                                          monkeypatch):
+    """On CPU tensors a smoother runs its plain version and launches no
+    kernel; tensors on any other device never reach the plain version (a
+    meta tensor is refused, a CUDA tensor goes to the kernel wrapper)."""
+    op, vals, b = level_systems[0]
+    called = []
+    plain = getattr(tsm, smoother + "_plain")
+    monkeypatch.setattr(tsm, smoother + "_plain",
+                        lambda *a, **k: called.append(1) or plain(*a, **k))
+    before = dict(tek.launches), dict(tell.cuda_calls)
+    getattr(tsm, smoother)(op, vals, b, 1)
+    assert called == [1]
+    assert (dict(tek.launches), dict(tell.cuda_calls)) == before
+    with pytest.raises(ValueError):
+        getattr(tsm, smoother)(op, vals.to("meta"), b.to("meta"), 1)
+    assert called == [1]
+
+
+@pytest.mark.parametrize("what", ["dtype", "shape", "offsets", "iterations"])
+def test_smoother_wrappers_check_arguments(level_systems, what):
+    op, vals, b = level_systems[0]
+    args = [vals, op.nbr, op.mask, op.diag_slot, op.color_offsets, b]
+    kw = {}
+    if what == "dtype":
+        args[3] = op.diag_slot.long()
+        err = TypeError
+    elif what == "shape":
+        args[5] = b[:-1]
+        err = ValueError
+    elif what == "offsets":
+        args[4] = op.color_offsets[:-1] + (op.color_offsets[-1] - 1,)
+        err = ValueError
+    else:
+        kw["iterations"] = -1
+        err = ValueError
+    with pytest.raises(err):
+        tek.gs(*args, **kw)
+    if what != "offsets":
+        with pytest.raises(err):
+            tek.jacobi(*(args[:4] + args[5:]), **kw)
+
+
+def test_ell_operator_refuses_same_color_coupling(scenes):
+    """EllOperator checks, once and on the host, that no unmasked
+    off-diagonal slot couples two rows of one color class."""
+    _, ts = scenes
+    for li in range(ts.n_levels):
+        p = ts.params["levels"][li]
+        offs = ts.level(li).color_offsets
+        assert tsm.same_color_couplings(p["nbr"], p["mask"], offs) == 0
+        assert ts.make_op(li) is ts.make_op(li)
+    p = ts.params["levels"][0]
+    offs = ts.level(0).color_offsets
+    nbr = p["nbr"].clone()
+    row = int(offs[2])                      # first row of color 2
+    slot = int(np.argwhere((p["mask"][row].numpy() > 0)
+                           & (nbr[row].numpy() != row))[0][0])
+    nbr[row, slot] = row + 1                # a row of the same color
+    assert offs[3] - offs[2] > 1
+    with pytest.raises(ValueError, match="independent"):
+        tsm.EllOperator(nbr, p["mask"], p["diag_slot"], offs)
+    # the same entry masked out is no coupling
+    mask = p["mask"].clone()
+    mask[row, slot] = 0.0
+    tsm.EllOperator(nbr, mask, p["diag_slot"], offs)
