@@ -8,7 +8,10 @@ Phase 0  requires CUDA, prints the card (nvidia-smi name and power limit)
          csrc/ (one nvcc per source, started together, then one link).
 Phase 1  runs every lattice kernel against its plain torch version on the
          same CUDA tensors (2k, 19k and 74k-vertex beams, seeded random
-         displacement, mu=250, la=37) with stated tolerances, and times both.
+         displacement, mu=250, la=37) with stated tolerances, and times both;
+         force and energy must launch one device op a call (torch.profiler)
+         and repeat their bits; prints the force tiling of each beam and
+         the device us of force, energy and fused_newton.
 Phase 2  the lattice main path: LatticeScene(mesh.beam(...), device="cuda")
          stepped 48 frames to ||f||_inf <= 1e-4 under the excited protocol
          (gravity scaled by cos(2 pi t / 16), dt 0.033, max_newton 20, cg
@@ -108,25 +111,36 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ops(fn, reps: int):
+    """{name: (launches per call, mean device us)} of every device op in a
+    torch.profiler trace of reps calls of fn()."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(e.name, []).append(e.time_range.end
+                                                - e.time_range.start)
+    return {name: (len(v) / reps, float(np.mean(v)))
+            for name, v in spans.items()}
+
+
 def device_us(fn, reps: int, kernel: str, per_call: int = 1):
     """Device time in us of one call of fn(): the mean span of the launches
     of `kernel` (a substring of its name) in a torch.profiler trace of reps
     calls, times the launches a call makes (a short trace can lose its last
     events, so the spans are averaged, not summed). None when two traces
     in a row hold no such launch."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     for _ in range(2):              # a trace can come back empty: once more
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and kernel in e.name]
-        if spans:
-            return round(float(np.mean(spans)) * per_call, 1)
+        means = [us for name, (_, us) in device_ops(fn, reps).items()
+                 if kernel in name]
+        if means:
+            return round(float(np.mean(means)) * per_call, 1)
     return None
 
 
@@ -235,8 +249,10 @@ def phase1(scenes, reps):
                        lambda: lk.elastic_energy_lattice_plain(u, cm, DX, MU,
                                                                LA)),
         }
+        device = {}
         for name, (kern, plain) in cases.items():
             got, ref = kern(), plain()
+            again = kern()
             torch.cuda.synchronize()
             err = max_err(got, ref)
             scale = float(ref.abs().max())
@@ -248,6 +264,25 @@ def phase1(scenes, reps):
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
             log(f"phase1 {name:12s} {label:4s} max|d| {err:.3e} "
                 f"(max|ref| {scale:.3e})")
+            if name in ("force", "energy"):
+                # deterministic; one launch a call (force: two where its
+                # plan takes the two passes)
+                check(bool(torch.equal(got, again)),
+                      f"{name} {label}: two runs differ")
+                ops = device_ops(kern, 20)
+                want = 2 if (name == "force" and lk._force_plan(
+                    *sc.shape, sc.device) == lk.FORCE_TWO_PASS) else 1
+                check(round(sum(n for n, _ in ops.values())) == want,
+                      f"{name} {label}: device ops per call {ops}")
+                device[name] = round(sum(n * t for n, t in ops.values()), 2)
+        plan = lk._force_plan(*sc.shape, sc.device)
+        grid, lanes = lk.energy_plan(*sc.shape, lk._sms(0))
+        log(f"phase1 force        {label:4s} "
+            + ("two passes" if plan == lk.FORCE_TWO_PASS else
+               f"one launch, halo tiles {plan[1]}x{plan[2]}x{plan[3]}")
+            + f"; energy {grid} blocks, {'8 lanes' if lanes else 'a thread'}"
+            f" a cell; same bits twice; device us force {device['force']} "
+            f"energy {device['energy']}")
         # fused Newton iteration with drag over the pins
         args = newton_inputs(sc, rng)
         inputs[label] = args
@@ -284,6 +319,7 @@ def phase1(scenes, reps):
         plan = lk._newton_plan(_cuda.load(), *sc.shape, sc.device)
         us = device_us(lambda: lk.fused_newton(*args), 10,
                        "fused_newton_kernel<false>")
+        device["fused_newton"] = us
         log(f"phase1 fused_newton {label:4s} grid {plan[0]} tiles "
             f"{plan[1]}x{plan[2]}x{plan[3]} "
             f"{'halo' if plan[6] else 'exchange'}  device us {us}")
@@ -294,7 +330,7 @@ def phase1(scenes, reps):
             b_ms, b_by = bounds[name]
             rows[name]["by_beam"][label] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, device_us=device.get(name))
             log(f"phase1 time {name:12s} {label:4s} kernel {ms:.4f} ms  "
                 f"plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})")
     return rows, inputs

@@ -1,7 +1,8 @@
 // Per-cell StVK chains of the structured-lattice kernels (lattice_kernels.cu).
 //
-// Layout: channel-first vertex fields (C, X, Y, Z) in float32, Z minor; the
-// cell mask is (X-1, Y-1, Z-1). Vertex index v = (x*Y + y)*Z + z, cell index
+// Layout: channel-first vertex fields (C, X, Y, Z) in float32, Z minor (the
+// energy kernel reads the channel-last (X, Y, Z, 3) field); the cell mask
+// is (X-1, Y-1, Z-1). Vertex index v = (x*Y + y)*Z + z, cell index
 // c = (cx*(Y-1) + cy)*(Z-1) + cz. Local corner i = 4*di + 2*dj + dk.
 //
 // All chains take DISPLACEMENTS u = x - x0: F = I + sum_i u_i g_iq^T with the
@@ -261,28 +262,6 @@ __device__ __forceinline__ void diag_chain(const float us[8][3],
     }
 }
 
-// Per-cell StVK energy density sum over quad points:
-// sum_q mu |E|^2 + la/2 tr(E)^2. The caller scales by det * cell mask.
-__device__ __forceinline__ float energy_chain(const float us[8][3],
-                                              const GTab& G, float mu,
-                                              float la) {
-    float acc = 0.f;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-        float F[3][3], E[3][3];
-        deformation(us, G, q, F);
-        const float trE = green_strain(F, E);
-        float ee = 0.f;
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-#pragma unroll
-            for (int b = 0; b < 3; ++b) ee += E[a][b] * E[a][b];
-        }
-        acc += mu * ee + 0.5f * la * trE * trE;
-    }
-    return acc;
-}
-
 // Cell passes: write one cell's corner contributions, summed over q, to the
 // scratch cf[(i*NCH + ch)*C + c] (coalesced across neighbouring cells).
 __device__ __forceinline__ void cell_force(const ChainArgs& A, const float* u,
@@ -361,7 +340,8 @@ __device__ __forceinline__ void vertex_coords(const Lattice& L, int v, int& x,
 }
 
 // ---------------------------------------------------------------------------
-// One quadrature point per lane (the fused Newton / PCG kernel)
+// One quadrature point per lane (the fused Newton / PCG kernel, the
+// standalone force and energy kernels)
 // ---------------------------------------------------------------------------
 //
 // Eight neighbouring lanes share a cell, lane q of the eight takes
@@ -415,6 +395,24 @@ __device__ __forceinline__ void deformation_stress(float F[3][3], float mu,
     F[2][2] += 1.f;
     const float trE = green_strain(F, E);
     stvk_stress(E, trE, mu, la, M);
+}
+
+// StVK energy density mu |E|^2 + la/2 tr(E)^2 at one point, from the
+// displacement gradient Du accumulated by grad_add (F = I + Du).
+__device__ __forceinline__ float point_energy(float F[3][3], float mu,
+                                             float la) {
+    float E[3][3];
+    F[0][0] += 1.f;
+    F[1][1] += 1.f;
+    F[2][2] += 1.f;
+    const float trE = green_strain(F, E);
+    float ee = 0.f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b) ee += E[a][b] * E[a][b];
+    }
+    return mu * ee + 0.5f * la * trE * trE;
 }
 
 // P = F M (first Piola-Kirchhoff stress)

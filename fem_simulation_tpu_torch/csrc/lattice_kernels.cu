@@ -8,26 +8,39 @@
 // Kernels and the TPU kernels they replace (fem_simulation_tpu/ops/
 // pallas_lattice.py):
 //
-// * lat_force / lat_hvp replace _run (pallas_call at :306), reached through
-//   force_cf and hvp_cf; _chain/_chain_into at :61-126.
-//   Bound on this card: the per-cell chain is arithmetic (449 and 763 FLOP
-//   per cell and quad point); the bytes are 24 floats of corner data in
-//   (neighbouring cells share them through L1/L2) and 24 floats of corner
-//   contributions out. The Pallas kernel accumulated into a VMEM-resident
-//   output by shifted read-modify-writes over the whole grid; blocks here
-//   run in no order, so the design is two passes: a cell pass writes each
-//   cell's 8 corner contributions to a scratch (coalesced, channel-major)
-//   and a vertex pass gathers its up-to-8 incident cells in fixed corner
-//   order. No float atomics, so the result is deterministic.
+// * lat_force replaces _run (pallas_call at :306), reached through force_cf;
+//   _chain/_chain_into at :61-126. Bound on this card: the chain is
+//   arithmetic (449 FLOP per cell and quad point); the bytes are one read of
+//   u and one write of the force. The Pallas kernel accumulated into a
+//   VMEM-resident output by shifted read-modify-writes over the grid in
+//   order; blocks here run in no order. Design: one launch, a block per
+//   halo tile of vertices (plan: ops/lattice_kernels.force_plan), the
+//   tile's vertex box staged in shared memory, a thread a cell with the
+//   quadrature points in sequence, corner sums through shared memory in
+//   fixed corner order: no cell scratch in device memory, no atomics, two
+//   runs give identical bits. Halo tiles compute the cells between two
+//   tiles twice; where that costs more than a second launch (the 74k beam)
+//   the plan takes the two passes instead: a thread a cell writes its 8
+//   corner contributions to a kept scratch, a vertex pass gathers them.
+//   Eight lanes a cell, as the fused kernel runs, and exchange tiles (each
+//   cell once, shared vertices' partial sums handed over through device
+//   memory and tickets) were built and timed, and lost (PERF.md).
+// * lat_hvp replaces the same _run through hvp_cf (763 FLOP per cell and
+//   quad point), lat_force's two passes: a thread per cell writes its 8
+//   corner contributions to a scratch (coalesced, channel-major) and a
+//   vertex pass gathers the up-to-8 incident cells in fixed corner order.
 // * lat_diag replaces _run_diag (pallas_call at :251), entry
-//   hess_diag_lattice; _diag_into at :129-164. Same two passes with 6
+//   hess_diag_lattice; _diag_into at :129-164. lat_hvp's two passes with 6
 //   symmetric channels (930 FLOP per cell and quad point, 48 floats of
 //   scratch per cell).
 // * lat_energy replaces _run_energy (pallas_call at :200), entry
-//   elastic_energy_lattice; _make_energy_kernel at :166-189. Per-cell psi,
-//   per-block partial sums, then one block sums the partials in a fixed
-//   order; the scalar stays on the device. Bound: launch latency at these
-//   sizes (one float out per cell).
+//   elastic_energy_lattice; _make_energy_kernel at :166-189. One launch:
+//   psi per cell (eight lanes a cell, one quadrature point each, on small
+//   lattices; a thread a cell on large ones), per-block partial sums, and
+//   the last block to finish (an atomic ticket, reset for the next call)
+//   adds the partials in index order; the scalar stays on the device.
+//   Bound: latency (225 FLOP per cell and quad point are under 2 us of the
+//   card's rate at 74k).
 // * lat_fused_newton replaces _run_newton (pallas_call at :638), entry
 //   fused_newton; _make_newton_kernel at :557-593, _pcg_in_kernel :480-535,
 //   _sym_solve :462-477. One Newton iteration in one cooperative launch
@@ -222,16 +235,8 @@ __device__ __forceinline__ void sym_solve(const float* d6, int N, int v,
 }
 
 // ---------------------------------------------------------------------------
-// Standalone kernels: force, hvp, diag, energy
+// Two-pass kernels: hvp, diag
 // ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-force_cells(const __grid_constant__ ChainArgs A, const float* __restrict__ u,
-            const float* __restrict__ cm, float* __restrict__ cf) {
-    for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < A.L.C;
-         c += gridDim.x * blockDim.x)
-        cell_force(A, u, cm, cf, c);
-}
 
 __global__ void __launch_bounds__(kThreads)
 hvp_cells(const __grid_constant__ ChainArgs A, const float* __restrict__ u,
@@ -263,30 +268,6 @@ gather_vertices(Lattice L, const float* __restrict__ cf,
         for (int ch = 0; ch < NCH; ++ch)
             out[ch * L.N + v] = gather_vertex<NCH>(L, cf, ch, x, y, z);
     }
-}
-
-__global__ void __launch_bounds__(kThreads)
-energy_cells(const __grid_constant__ ChainArgs A, const float* __restrict__ u,
-             const float* __restrict__ cm, float* __restrict__ part) {
-    __shared__ float sh[33];
-    float s = 0.f;
-    for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < A.L.C;
-         c += gridDim.x * blockDim.x) {
-        int cx, cy, cz;
-        cell_coords(A.L, c, cx, cy, cz);
-        float us[8][3];
-        load_corners(u, A.L, cx, cy, cz, us);
-        s += (A.det * energy_chain(us, A.G, A.mu, A.la)) * cm[c];
-    }
-    const float t = block_sum(s, sh);
-    if (threadIdx.x == 0) part[blockIdx.x] = t;
-}
-
-__global__ void __launch_bounds__(kThreads)
-sum_partials(const float* __restrict__ part, int n, float* __restrict__ out) {
-    __shared__ float sh[33];
-    const float t = partials_sum(part, n, sh);
-    if (threadIdx.x == 0) out[0] = t;
 }
 
 // ---------------------------------------------------------------------------
@@ -399,6 +380,42 @@ struct CellIn {
     bool have_prev;
 };
 
+// Stage the fields at the vertex box around T's cells into shared memory,
+// one float4 a vertex: su holds u (kTrial: u + (xacc sb) vm) and, for kHvp,
+// sp the direction p = z (+ beta p_prev when have_prev). Args: NewtonArgs,
+// or ForceArgs for kForce.
+template <int OP, class Args>
+__device__ __forceinline__ void stage_box(const Args& P, const Tile& T,
+                                          float4* su, float4* sp,
+                                          const CellIn& in) {
+    const Lattice& L = P.A.L;
+    const int N = L.N;
+    const int byn = T.ey + 1, bzn = T.ez + 1;
+    if (T.ex * T.ey * T.ez == 0) return;
+    for (int bl = threadIdx.x; bl < (T.ex + 1) * byn * bzn; bl += blockDim.x) {
+        const int lz = bl % bzn, t = bl / bzn;
+        const int v = ((T.cx0 + t / byn) * L.Y + T.cy0 + t % byn) * L.Z
+                    + T.cz0 + lz;
+        float a[3];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) a[r] = P.u[r * N + v];
+        if constexpr (OP == kTrial) {
+            const float vm = P.vm[v];
+#pragma unroll
+            for (int r = 0; r < 3; ++r) a[r] += (P.xacc[r * N + v] * in.sb) * vm;
+        }
+        su[bl] = make_float4(a[0], a[1], a[2], 0.f);
+        if constexpr (OP == kHvp) {
+#pragma unroll
+            for (int r = 0; r < 3; ++r) {
+                a[r] = P.z[r * N + v];
+                if (in.have_prev) a[r] += in.beta * in.pprev[r * N + v];
+            }
+            sp[bl] = make_float4(a[0], a[1], a[2], 0.f);
+        }
+    }
+}
+
 // The cell pass of one tile: every cell's corner contributions, summed over
 // the quadrature points, scaled by +-det * cell mask, to the shared scratch
 // sc[(corner * NCH + channel) * stride + local cell].
@@ -417,39 +434,14 @@ __device__ __forceinline__ void tile_cells(const NewtonArgs& P, const Tile& T,
                                            const CellIn& in) {
     constexpr int NCH = OP == kDiag ? 6 : 3;
     const Lattice& L = P.A.L;
-    const int N = L.N, stride = P.T.stride;
+    const int stride = P.T.stride;
     const int lane = threadIdx.x & 31;
     const int n_ext = T.ex * T.ey * T.ez;
     const float mu = P.A.mu, la = P.A.la;
     float4* su = reinterpret_cast<float4*>(sc + kScratchRows * stride);
     float4* sp = su + P.T.box;
     const int byn = T.ey + 1, bzn = T.ez + 1;
-    if (n_ext > 0) {
-        for (int bl = threadIdx.x; bl < (T.ex + 1) * byn * bzn;
-             bl += blockDim.x) {
-            const int lz = bl % bzn, t = bl / bzn;
-            const int v = ((T.cx0 + t / byn) * L.Y + T.cy0 + t % byn) * L.Z
-                        + T.cz0 + lz;
-            float a[3];
-#pragma unroll
-            for (int r = 0; r < 3; ++r) a[r] = P.u[r * N + v];
-            if constexpr (OP == kTrial) {
-                const float vm = P.vm[v];
-#pragma unroll
-                for (int r = 0; r < 3; ++r)
-                    a[r] += (P.xacc[r * N + v] * in.sb) * vm;
-            }
-            su[bl] = make_float4(a[0], a[1], a[2], 0.f);
-            if constexpr (OP == kHvp) {
-#pragma unroll
-                for (int r = 0; r < 3; ++r) {
-                    a[r] = P.z[r * N + v];
-                    if (in.have_prev) a[r] += in.beta * in.pprev[r * N + v];
-                }
-                sp[bl] = make_float4(a[0], a[1], a[2], 0.f);
-            }
-        }
-    }
+    stage_box<OP>(P, T, su, sp, in);
     __syncthreads();
     for (int base = (threadIdx.x >> 5) * 4; base < n_ext;
          base += (blockDim.x >> 5) * 4) {
@@ -533,6 +525,23 @@ __device__ __forceinline__ float tile_gather(const Tile& T, const float* sc,
     return s;
 }
 
+// The vertex pass of a halo tile: finish(v, tot) for every vertex of T with
+// its NCH complete sums from the shared scratch.
+template <int NCH, class Finish>
+__device__ __forceinline__ void halo_vertices(const Lattice& L, const Tile& T,
+                                              const float* sc, int stride,
+                                              Finish finish) {
+    for (int vl = threadIdx.x; vl < T.nx * T.ny * T.nz; vl += blockDim.x) {
+        const int z = T.z0 + vl % T.nz, t = vl / T.nz;
+        const int y = T.y0 + t % T.ny, x = T.x0 + t / T.ny;
+        float tot[NCH];
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch)
+            tot[ch] = tile_gather<NCH>(T, sc, stride, ch, x, y, z);
+        finish((x * L.Y + y) * L.Z + z, tot);
+    }
+}
+
 // One cell pass and its vertex pass over this block's tiles: finish(v, tot)
 // is called once for every vertex the block owns with its NCH complete sums.
 // Exchange mode runs one grid barrier inside, so every block must call it.
@@ -552,16 +561,7 @@ __device__ __forceinline__ void cell_vertex_pass(const NewtonArgs& P,
         tile_cells<OP>(P, T, ql, sc, in);
         __syncthreads();
         if (P.T.halo) {
-            for (int vl = threadIdx.x; vl < T.nx * T.ny * T.nz;
-                 vl += blockDim.x) {
-                const int z = T.z0 + vl % T.nz, t = vl / T.nz;
-                const int y = T.y0 + t % T.ny, x = T.x0 + t / T.ny;
-                float tot[NCH];
-#pragma unroll
-                for (int ch = 0; ch < NCH; ++ch)
-                    tot[ch] = tile_gather<NCH>(T, sc, stride, ch, x, y, z);
-                finish((x * L.Y + y) * L.Z + z, tot);
-            }
+            halo_vertices<NCH>(L, T, sc, stride, finish);
         } else {
             // own vertices and the plane above them along each axis
             const int bx = T.x0 + T.nx < L.X ? T.nx + 1 : T.nx;
@@ -832,6 +832,228 @@ cudaError_t launch_fused(NewtonArgs& P, int grid, cudaStream_t st) {
     return e != cudaSuccess ? e : last;
 }
 
+// ---------------------------------------------------------------------------
+// Standalone force and energy
+// ---------------------------------------------------------------------------
+//
+// lat_force, one launch: one block per halo tile of a vertex tiling (the
+// plan is ops/lattice_kernels.force_plan, a function of the lattice and
+// the SM count). The block stages its vertex box in shared memory, computes
+// every cell incident to its vertices with a thread a cell, the quadrature
+// points in sequence (the per-point arithmetic of the fused kernel's lanes,
+// g at the warp-uniform point from the parameters), into the shared
+// scratch, and sums each vertex's corners in fixed order (the fused
+// kernel's halo vertex pass). Where the plan's model says the cells computed
+// twice cost more than a second launch (the 74k beam), lat_force runs the
+// two passes instead: force_cells, a thread a cell with the fully unrolled
+// chain, into a kept scratch, then gather_vertices.
+
+constexpr int kForceThreads = 256;
+constexpr int kForceRows = 24;              // 8 corners x 3 channels
+// Dynamic shared memory of a force tile, under the 48 KB a launch may take
+// without opting in (the kernel has no static shared memory).
+constexpr int kForceSmem = 48 * 1024;
+constexpr int kEnergyThreads = 256;
+
+struct ForceArgs {
+    ChainArgs A;
+    Tiling T;
+    const float* u;    // (3, N) displacement
+    const float* cm;   // (C,) cell mask
+    float* out;        // (3, N) force
+};
+
+// The cell pass of a force tile with a thread a cell: the points in
+// sequence, each with the lanes' arithmetic for one point, the corner sums
+// in point order, scaled by -det * cell mask, to the shared scratch
+// sc[(corner * 3 + channel) * stride + local cell].
+__device__ __forceinline__ void tile_cells_serial(const ForceArgs& P,
+                                                  const Tile& T, float* sc) {
+    const Lattice& L = P.A.L;
+    const int stride = P.T.stride;
+    const int n_ext = T.ex * T.ey * T.ez;
+    float4* su = reinterpret_cast<float4*>(sc + kForceRows * stride);
+    const CellIn at_u = {0.f, nullptr, 0.f, false};
+    stage_box<kForce>(P, T, su, nullptr, at_u);
+    __syncthreads();
+    const int byn = T.ey + 1, bzn = T.ez + 1;
+    for (int cl = threadIdx.x; cl < n_ext; cl += blockDim.x) {
+        const int lz = cl % T.ez, t = cl / T.ez;
+        const int lx = t / T.ey, ly = t % T.ey;
+        const int b0 = (lx * byn + ly) * bzn + lz;
+        float us[8][3], acc[8][3];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const float4 a = su[b0 + (((i >> 2) & 1) * byn + ((i >> 1) & 1))
+                                         * bzn + (i & 1)];
+            us[i][0] = a.x;
+            us[i][1] = a.y;
+            us[i][2] = a.z;
+            acc[i][0] = acc[i][1] = acc[i][2] = 0.f;
+        }
+#pragma unroll 1
+        for (int q = 0; q < 8; ++q) {
+            const QuadLane g = quad_lane(P.A.G, q);
+            float F[3][3], M[3][3], S[3][3];
+            zero3x3(F);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) grad_add(us[i], g.gq[i], F);
+            deformation_stress(F, P.A.mu, P.A.la, M);
+            force_stress(F, M, S);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                float o[3];
+                emit_corner(S, g.gq[i], o);
+#pragma unroll
+                for (int r = 0; r < 3; ++r) acc[i][r] += o[r];
+            }
+        }
+        const int c = ((T.cx0 + lx) * (L.Y - 1) + T.cy0 + ly) * (L.Z - 1)
+                    + T.cz0 + lz;
+        const float w = -P.A.det * P.cm[c];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+            for (int r = 0; r < 3; ++r)
+                sc[(i * 3 + r) * stride + cl] = acc[i][r] * w;
+        }
+    }
+}
+
+__global__ void __launch_bounds__(kForceThreads, 2)
+force_tiles_kernel(const __grid_constant__ ForceArgs P) {
+    extern __shared__ float4 smem[];  // scratch rows, then the vertex box
+    float* sc = reinterpret_cast<float*>(smem);
+    const Lattice& L = P.A.L;
+    const int N = L.N;
+    const Tile T = tile_of(L, P.T, blockIdx.x);
+    tile_cells_serial(P, T, sc);
+    __syncthreads();
+    halo_vertices<3>(L, T, sc, P.T.stride, [&](int v, const float* tot) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) P.out[c * N + v] = tot[c];
+    });
+}
+
+// The two-pass form's cell pass: a thread a cell, the 8 points unrolled
+// (g as immediate operands), the cell's corner contributions to the scratch
+// cf[(corner * 3 + channel) * C + c].
+__global__ void __launch_bounds__(kThreads)
+force_cells(const __grid_constant__ ChainArgs A, const float* __restrict__ u,
+            const float* __restrict__ cm, float* __restrict__ cf) {
+    for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < A.L.C;
+         c += gridDim.x * blockDim.x)
+        cell_force(A, u, cm, cf, c);
+}
+
+// The g table in shared memory. A lane's quad_lane reads the column of its
+// own point: 8 different addresses a warp, which shared memory serves at
+// once and the kernel's parameter space would serve one by one.
+__device__ __forceinline__ const GTab& shared_gtab(const GTab& G, GTab* s) {
+    const float* src = &G.g[0][0][0];
+    float* dst = &s->g[0][0][0];
+    for (int j = threadIdx.x; j < 8 * 8 * 3; j += blockDim.x) dst[j] = src[j];
+    __syncthreads();
+    return *s;
+}
+
+// The energy of the cells the calling thread walks (a fixed grid-stride
+// walk), scaled by det * cell mask. kLanes: eight lanes a cell, lane q
+// takes point q, lane i loads corner i and the cell's lanes pass the
+// corners round, the 8 points summed by a fixed xor exchange and added by
+// the cell's lane 0. Otherwise a thread a cell, the points in sequence.
+template <bool kLanes>
+__device__ __forceinline__ float walk_energy(const ChainArgs& A,
+                                             const float* __restrict__ u,
+                                             const float* __restrict__ cm,
+                                             GTab* gs) {
+    const Lattice& L = A.L;
+    const int lane = threadIdx.x & 31;
+    const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+    const int nthreads = gridDim.x * blockDim.x;
+    float s = 0.f;
+    if constexpr (kLanes) {
+        const int first = lane & 24;                  // the cell's lane 0
+        const unsigned group = 0xffu << first;        // the cell's 8 lanes
+        const QuadLane ql = quad_lane(shared_gtab(A.G, gs), lane & 7);
+        for (int c = tid >> 3; c < L.C; c += nthreads >> 3) {
+            int cx, cy, cz;
+            cell_coords(L, c, cx, cy, cz);
+            const float* ui = u + 3 * corner_vertex(L, cx, cy, cz, lane & 7);
+            const float mine[3] = {__ldg(ui), __ldg(ui + 1), __ldg(ui + 2)};
+            float F[3][3];
+            zero3x3(F);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                float us[3];
+#pragma unroll
+                for (int r = 0; r < 3; ++r)
+                    us[r] = __shfl_sync(group, mine[r], first + i);
+                grad_add(us, ql.gq[i], F);
+            }
+            float e = point_energy(F, A.mu, A.la);
+            e += __shfl_xor_sync(group, e, 4);
+            e += __shfl_xor_sync(group, e, 2);
+            e += __shfl_xor_sync(group, e, 1);
+            if (lane == first) s += (A.det * e) * cm[c];
+        }
+    } else {
+        for (int c = tid; c < L.C; c += nthreads) {
+            int cx, cy, cz;
+            cell_coords(L, c, cx, cy, cz);
+            float us[8][3];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const float* ui = u + 3 * corner_vertex(L, cx, cy, cz, i);
+#pragma unroll
+                for (int r = 0; r < 3; ++r) us[i][r] = __ldg(ui + r);
+            }
+            float e = 0.f;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+                const QuadLane g = quad_lane(A.G, q);
+                float F[3][3];
+                zero3x3(F);
+#pragma unroll
+                for (int i = 0; i < 8; ++i) grad_add(us[i], g.gq[i], F);
+                e += point_energy(F, A.mu, A.la);
+            }
+            s += (A.det * e) * cm[c];
+        }
+    }
+    return s;
+}
+
+// lat_energy: each thread's walk, per-block partials, and the block that
+// takes the last ticket adds the partials in index order (block_sum's
+// order, whichever block it is) and resets the ticket for the next call.
+template <bool kLanes>
+__global__ void __launch_bounds__(kEnergyThreads)
+energy_kernel(const __grid_constant__ ChainArgs A, const float* __restrict__ u,
+              const float* __restrict__ cm, float* __restrict__ part,
+              unsigned* __restrict__ ticket, float* __restrict__ out) {
+    __shared__ GTab gs;
+    __shared__ float sh[33];
+    __shared__ bool is_last;
+    const float t = block_sum(walk_energy<kLanes>(A, u, cm, &gs), sh);
+    if (threadIdx.x == 0) {
+        part[blockIdx.x] = t;
+        __threadfence();
+        is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+        __threadfence();
+    }
+    __syncthreads();
+    if (!is_last) return;
+    float a = 0.f;
+    for (int j = threadIdx.x; j < (int)gridDim.x; j += blockDim.x)
+        a += __ldcg(part + j);
+    a = block_sum(a, sh);
+    if (threadIdx.x == 0) {
+        out[0] = a;
+        ticket[0] = 0u;
+    }
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -844,14 +1066,33 @@ const char* lat_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// cf: scratch of 24*C floats
-int lat_force(const float* u, const float* cm, float* out, float* cf, int X,
-              int Y, int Z, const float* g, float det, float mu, float la,
+// Tiling (ntx, nty, ntz, stride, box) from ops/lattice_kernels.force_plan:
+// one launch, a block per halo tile, kForceRows * stride + 4 * box floats
+// of shared memory, at most 48 KB. ntx = 0: the two passes, with cf a
+// scratch of 24*C floats (calls that share it must be ordered on one
+// stream).
+int lat_force(const float* u, const float* cm, float* out, float* cf,
+              int ntx, int nty, int ntz, int stride, int box, int X, int Y,
+              int Z, const float* g, float det, float mu, float la,
               void* stream) {
-    const ChainArgs A = make_chain_args(X, Y, Z, g, det, mu, la);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    force_cells<<<blocks_for(A.L.C), kThreads, 0, st>>>(A, u, cm, cf);
-    gather_vertices<3><<<blocks_for(A.L.N), kThreads, 0, st>>>(A.L, cf, out);
+    const ChainArgs A = make_chain_args(X, Y, Z, g, det, mu, la);
+    if (ntx == 0) {
+        force_cells<<<blocks_for(A.L.C), kThreads, 0, st>>>(A, u, cm, cf);
+        gather_vertices<3><<<blocks_for(A.L.N), kThreads, 0, st>>>(A.L, cf,
+                                                                   out);
+        return static_cast<int>(cudaGetLastError());
+    }
+    const size_t smem = sizeof(float) * (kForceRows * stride + 4 * box);
+    if (smem > kForceSmem || nty < 1 || ntz < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    ForceArgs P;
+    P.A = A;
+    P.T = Tiling{ntx, nty, ntz, stride, box, 1};
+    P.u = u;
+    P.cm = cm;
+    P.out = out;
+    force_tiles_kernel<<<ntx * nty * ntz, kForceThreads, smem, st>>>(P);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -876,21 +1117,23 @@ int lat_diag(const float* u, const float* cm, float* out, float* cd, int X,
     return static_cast<int>(cudaGetLastError());
 }
 
-// Number of per-block partials lat_energy needs for this grid.
-int lat_energy_partials(int X, int Y, int Z) {
-    const int n = blocks_for((X - 1) * (Y - 1) * (Z - 1));
-    return n < 1024 ? n : 1024;
-}
-
-// out: 1 float; part: lat_energy_partials(X, Y, Z) floats
+// One launch of `grid` blocks, eight lanes a cell (lanes = 1) or a thread
+// a cell (ops/lattice_kernels.energy_plan). u: the channel-last
+// (X, Y, Z, 3) field; out: 1 float; part: grid floats; ticket: 1 zero that
+// the kernel leaves zero. Calls that share part and ticket must be ordered
+// on one stream.
 int lat_energy(const float* u, const float* cm, float* out, float* part,
-               int X, int Y, int Z, const float* g, float det, float mu,
-               float la, void* stream) {
+               unsigned* ticket, int grid, int lanes, int X, int Y, int Z,
+               const float* g, float det, float mu, float la, void* stream) {
+    if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
     const ChainArgs A = make_chain_args(X, Y, Z, g, det, mu, la);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int nb = lat_energy_partials(X, Y, Z);
-    energy_cells<<<nb, kThreads, 0, st>>>(A, u, cm, part);
-    sum_partials<<<1, kThreads, 0, st>>>(part, nb, out);
+    if (lanes)
+        energy_kernel<true><<<grid, kEnergyThreads, 0, st>>>(A, u, cm, part,
+                                                             ticket, out);
+    else
+        energy_kernel<false><<<grid, kEnergyThreads, 0, st>>>(A, u, cm, part,
+                                                              ticket, out);
     return static_cast<int>(cudaGetLastError());
 }
 

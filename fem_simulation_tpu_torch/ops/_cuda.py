@@ -93,11 +93,10 @@ def _build(so_path: str) -> None:
 def _declare(lib) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     chain = [I, I, I, P, F, F, F, P]          # X, Y, Z, g, det, mu, la, stream
-    lib.lat_force.argtypes = [P, P, P, P] + chain
+    lib.lat_force.argtypes = [P, P, P, P] + [I] * 5 + chain
     lib.lat_hvp.argtypes = [P, P, P, P, P] + chain
     lib.lat_diag.argtypes = [P, P, P, P] + chain
-    lib.lat_energy.argtypes = [P, P, P, P] + chain
-    lib.lat_energy_partials.argtypes = [I, I, I]
+    lib.lat_energy.argtypes = [P, P, P, P, P, I, I] + chain
     lib.lat_newton_plan.argtypes = [I, I, I, I, I, ctypes.POINTER(I)]
     lib.lat_fused_newton.argtypes = (
         [F] + [P] * 18 + [I] * 10 + [P, F, F, F, I, P])
@@ -109,7 +108,7 @@ def _declare(lib) -> None:
     lib.lat_error_string.argtypes = [I]
     lib.lat_error_string.restype = ctypes.c_char_p
     for name in ("lat_force", "lat_hvp", "lat_diag", "lat_energy",
-                 "lat_energy_partials", "lat_newton_plan",
+                 "lat_newton_plan",
                  "lat_fused_newton", "lat_fused_pcg", "ell_spmv", "ell_gs",
                  "ell_jacobi"):
         getattr(lib, name).restype = I

@@ -13,6 +13,8 @@ kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 
 import torch
 
@@ -28,7 +30,33 @@ DIAG_FLOPS_PER_CELL = 930 * 8
 launches = {"force": 0, "hvp": 0, "diag": 0, "energy": 0, "fused_newton": 0,
             "fused_pcg": 0}
 
+# Launch shapes of csrc/lattice_kernels.cu (kForceThreads, kForceRows,
+# kForceSmem, kEnergyThreads).
+FORCE_THREADS = 256
+FORCE_ROWS = 24
+FORCE_SMEM_FLOATS = 48 * 1024 // 4
+ENERGY_THREADS = 256
+# lat_force's plan: `FORCE_TWO_PASS` selects the two launches (a thread a
+# cell into a scratch, then a vertex gather) instead of one launch on halo
+# tiles. The model of both in device microseconds, fitted to the times
+# scripts/force_tilings.py measured on an H100 (15 tilings, within 0.8 us;
+# see force_cost):
+FORCE_TWO_PASS = (0, 0, 0, 0, 0, 0)
+FORCE_RESIDENT = 2           # force tiles an SM holds (__launch_bounds__)
+FORCE_TILE_US = 4.3          # one launch: one wave of one round, no cells
+FORCE_WAVE_US = 5.4          # each further wave of tiles on an SM
+FORCE_ROUND_US = 1.2         # each further round of a tile's threads
+FORCE_CELL_US = 0.0074       # a cell on the busiest SM
+FORCE_PASS_US = 5.5          # two launches: fixed
+FORCE_PASS_CELL_US = 7.6e-5  # two launches: a cell of the lattice
+# lat_energy takes eight lanes a cell while the lanes of every cell fit in
+# a block an SM, a thread a cell beyond, with at most 2 blocks an SM
+# (scripts/force_tilings.py on an H100: lanes win at 2k, a thread a cell at
+# 19k and 74k).
+ENERGY_BLOCKS_PER_SM = 2
+
 _newton_plans: dict = {}
+_force_plans: dict = {}
 _workspaces: dict = {}
 _tables_cache: dict = {}
 
@@ -38,14 +66,17 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _vertex_grid(x_cf: torch.Tensor, cell_mask: torch.Tensor):
-    """(X, Y, Z) after checking the channel-first field and the cell mask."""
-    if x_cf.dim() != 4 or x_cf.shape[0] != 3:
-        raise ValueError(f"expected a (3, X, Y, Z) field, got {tuple(x_cf.shape)}")
-    X, Y, Z = (int(s) for s in x_cf.shape[1:])
+def _vertex_grid(x: torch.Tensor, cell_mask: torch.Tensor,
+                 channel_last: bool = False):
+    """(X, Y, Z) after checking the field, (3, X, Y, Z) or with channel_last
+    (X, Y, Z, 3), and the cell mask."""
+    if x.dim() != 4 or x.shape[3 if channel_last else 0] != 3:
+        want = "(X, Y, Z, 3)" if channel_last else "(3, X, Y, Z)"
+        raise ValueError(f"expected a {want} field, got {tuple(x.shape)}")
+    X, Y, Z = (int(s) for s in (x.shape[:3] if channel_last else x.shape[1:]))
     if min(X, Y, Z) < 2:
         raise ValueError(f"lattice {X, Y, Z} has no cells")
-    _cuda.require(x_cf, (3, X, Y, Z), "field")
+    _cuda.require(x, (X, Y, Z, 3) if channel_last else (3, X, Y, Z), "field")
     _cuda.require(cell_mask, (X - 1, Y - 1, Z - 1), "cell_mask")
     return X, Y, Z
 
@@ -59,12 +90,139 @@ def _tables(dx: float, device):
     return _tables_cache[key]
 
 
+def _stream(device) -> int:
+    """The handle of the current stream on a CUDA device, asked anew on
+    every call (torch's raw getter: no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _chain_tail(X, Y, Z, dx, mu, la, device):
     """The trailing C arguments shared by every kernel: X, Y, Z, the host
     g table (cached, so it outlives the call), det, mu, la, stream."""
     g, det = _tables(dx, "cpu")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    return (X, Y, Z, g.data_ptr(), float(det), float(mu), float(la), stream)
+    return (X, Y, Z, g.data_ptr(), float(det), float(mu), float(la),
+            _stream(device))
+
+
+# -- launch plans of the standalone force and energy kernels ----------------
+
+
+def tile_axis(n: int, nt: int, it: int):
+    """(v0, nv, c0, nc): halo tile `it` of `nt` along an axis of n vertices
+    owns vertices [v0, v0 + nv) and computes cells [c0, c0 + nc), every
+    cell incident to its vertices. Mirror of tile_axis(..., halo = 1) in
+    csrc/lattice_kernels.cu."""
+    v0 = it * n // nt
+    v1 = (it + 1) * n // nt
+    c0 = v0 - 1 if v0 > 0 else v0
+    c1 = min(v1 - 1, n - 2)
+    return v0, v1 - v0, c0, c1 - c0 + 1
+
+
+def _tile_counts(n: int):
+    """Tile counts along an axis of n vertices worth trying: every count
+    up to 32, and above that one per distinct tile width."""
+    return sorted(set(range(1, min(n, 32) + 1))
+                  | {-(-n // w) for w in range(1, n + 1)})
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_extent(n: int, nt: int) -> int:
+    """The most cells a halo tile of `nt` along n vertices computes."""
+    return max(tile_axis(n, nt, it)[3] for it in range(nt))
+
+
+def force_tiling(shape, tiles):
+    """(ntiles, ntx, nty, ntz, stride, box) of lat_force's one launch on
+    halo tiles: `stride` holds the cells of the largest tile, `box` the
+    vertex box around them. None when that tile does not fit the kernel's
+    shared memory."""
+    ext = [_cell_extent(n, nt) for n, nt in zip(shape, tiles)]
+    stride = (ext[0] * ext[1] * ext[2]) | 1
+    box = (ext[0] + 1) * (ext[1] + 1) * (ext[2] + 1)
+    if FORCE_ROWS * stride + 4 * box > FORCE_SMEM_FLOATS:
+        return None
+    ntx, nty, ntz = tiles
+    return (ntx * nty * ntz, ntx, nty, ntz, stride, box)
+
+
+def force_cost(plan, shape, sms: int) -> float:
+    """Modelled device microseconds of lat_force under a plan. One launch:
+    the busiest SM runs ceil(tiles / sms) tiles, FORCE_RESIDENT at a time
+    (waves), each of ceil(cells / FORCE_THREADS) rounds, and computes their
+    cells (halo cells count). Two launches: a fixed part and every cell
+    once."""
+    if plan == FORCE_TWO_PASS:
+        cells = (shape[0] - 1) * (shape[1] - 1) * (shape[2] - 1)
+        return FORCE_PASS_US + FORCE_PASS_CELL_US * cells
+    per_sm = -(-plan[0] // sms)
+    waves = -(-per_sm // FORCE_RESIDENT)
+    rounds = -(-plan[4] // FORCE_THREADS)
+    return (FORCE_TILE_US + FORCE_WAVE_US * (waves - 1)
+            + FORCE_ROUND_US * (rounds - 1) + FORCE_CELL_US * per_sm * plan[4])
+
+
+def best_force_tiling(X: int, Y: int, Z: int, sms: int):
+    """The halo tiling of least force_cost that fits (ties: fewer tiles)."""
+    best = None
+    for tiles in itertools.product(_tile_counts(X), _tile_counts(Y),
+                                   _tile_counts(Z)):
+        plan = force_tiling((X, Y, Z), tiles)
+        if plan is not None:
+            key = (force_cost(plan, (X, Y, Z), sms), plan[0])
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return best[1]
+
+
+def force_plan(X: int, Y: int, Z: int, sms: int):
+    """What lat_force runs on an X x Y x Z vertex lattice on a card of `sms`
+    SMs: the best halo tiling, one launch, or FORCE_TWO_PASS where the
+    model says the cells computed twice by halo tiles cost more than a
+    second launch (the 74k beam)."""
+    tiling = best_force_tiling(X, Y, Z, sms)
+    if (force_cost(FORCE_TWO_PASS, (X, Y, Z), sms)
+            < force_cost(tiling, (X, Y, Z), sms)):
+        return FORCE_TWO_PASS
+    return tiling
+
+
+def energy_plan(X: int, Y: int, Z: int, sms: int):
+    """(blocks, lanes) of lat_energy: eight lanes a cell (lanes = 1) while
+    they fit in a block an SM, else a thread a cell; at most
+    ENERGY_BLOCKS_PER_SM blocks an SM (the threads walk the cells beyond
+    that)."""
+    cells = (X - 1) * (Y - 1) * (Z - 1)
+    lanes = int(8 * cells <= sms * ENERGY_THREADS)
+    threads = 8 * cells if lanes else cells
+    return (max(1, min(-(-threads // ENERGY_THREADS),
+                       ENERGY_BLOCKS_PER_SM * sms)), lanes)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    """SM count of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _force_plan(X, Y, Z, device):
+    """force_plan for this lattice and device, computed once. A test or a
+    measurement puts another plan under that key to run it."""
+    key = (str(device), X, Y, Z)
+    if key not in _force_plans:
+        _force_plans[key] = force_plan(X, Y, Z, _sms(device.index))
+    return _force_plans[key]
+
+
+def _kept_scratch(key, floats: int, tickets: int):
+    """(pointer to `floats` floats, pointer to `tickets` zeroed uint32),
+    allocated at the first call with this key and kept."""
+    if key not in _workspaces:
+        buf = torch.zeros((floats + tickets,), dtype=torch.float32,
+                          device=key[0])
+        _workspaces[key] = (buf, (buf.data_ptr(),
+                                  buf.data_ptr() + 4 * floats))
+    return _workspaces[key][1]
 
 
 # -- plain torch versions (channel-first wrappers over ops.stencil) ---------
@@ -157,18 +315,24 @@ def fused_newton_plain(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
 # -- public wrappers ---------------------------------------------------------
 
 def force_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
-    """Elastic force of a displacement field; (3, X, Y, Z) -> (3, X, Y, Z)."""
+    """Elastic force of a displacement field; (3, X, Y, Z) -> (3, X, Y, Z).
+    Allocates only its output: one launch on halo tiles, or the two passes
+    with their cell scratch kept per device, stream and lattice."""
     if _cuda.on_cpu(x_cf, cell_mask):
         return force_cf_plain(x_cf, cell_mask, dx, mu, la)
     X, Y, Z = _vertex_grid(x_cf, cell_mask)
     lib = _cuda.load()
+    dev = x_cf.device
+    plan = _force_plan(X, Y, Z, dev)
+    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
+    cf = None
+    if plan == FORCE_TWO_PASS:
+        cf = _kept_scratch((str(dev), tail[-1], "force", X, Y, Z),
+                           24 * cell_mask.numel(), 0)[0]
     out = torch.empty_like(x_cf)
-    cf = torch.empty((24 * cell_mask.numel(),), dtype=torch.float32,
-                     device=x_cf.device)
-    tail = _chain_tail(X, Y, Z, dx, mu, la, x_cf.device)
-    with torch.cuda.device(x_cf.device):
+    with torch.cuda.device(dev):
         err = lib.lat_force(x_cf.data_ptr(), cell_mask.data_ptr(),
-                            out.data_ptr(), cf.data_ptr(), *tail)
+                            out.data_ptr(), cf, *plan[1:], *tail)
     launches["force"] += 1
     _cuda.check(err, "lat_force")
     return out
@@ -218,20 +382,23 @@ def hess_diag_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
 
 
 def elastic_energy_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
-    """Total StVK elastic energy of a displacement field, a 0-d tensor on
-    the field's device."""
+    """Total StVK elastic energy of a displacement field (X, Y, Z, 3), a 0-d
+    tensor on the field's device. One launch on the field as it is;
+    allocates only its output (the partials and the ticket are kept per
+    device, stream and lattice)."""
     if _cuda.on_cpu(x_lat, cell_mask):
         return elastic_energy_lattice_plain(x_lat, cell_mask, dx, mu, la)
-    x_cf = x_lat.permute(3, 0, 1, 2).contiguous()
-    X, Y, Z = _vertex_grid(x_cf, cell_mask)
+    X, Y, Z = _vertex_grid(x_lat, cell_mask, channel_last=True)
     lib = _cuda.load()
-    out = torch.empty((), dtype=torch.float32, device=x_cf.device)
-    part = torch.empty((lib.lat_energy_partials(X, Y, Z),),
-                       dtype=torch.float32, device=x_cf.device)
-    tail = _chain_tail(X, Y, Z, dx, mu, la, x_cf.device)
-    with torch.cuda.device(x_cf.device):
-        err = lib.lat_energy(x_cf.data_ptr(), cell_mask.data_ptr(), out.data_ptr(),
-                             part.data_ptr(), *tail)
+    dev = x_lat.device
+    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
+    grid, lanes = energy_plan(X, Y, Z, _sms(dev.index))
+    part, ticket = _kept_scratch((str(dev), tail[-1], "energy", X, Y, Z,
+                                  grid), grid, 1)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lat_energy(x_lat.data_ptr(), cell_mask.data_ptr(),
+                             out.data_ptr(), part, ticket, grid, lanes, *tail)
     launches["energy"] += 1
     _cuda.check(err, "lat_energy")
     return out

@@ -11,7 +11,11 @@ frames, and prints ms/frame (CUDA events) of every run and their median,
 then one JSON line. With `--profile`, one more run of the 48 frames per
 beam is traced with torch.profiler: host ms/frame, device busy ms/frame
 (union of the kernel and memory-op intervals), the idle share and the
-fused Newton kernel's launches and mean device time. `--root` names the checkout whose
+fused Newton kernel's launches and mean device time. With `--kernels`, the
+force and energy wrappers are timed alone on each beam (chip_smoke.py
+phase 1's seeded displacement): device us per call (every device op of a
+call, by torch.profiler), device ops per call, and events ms per call.
+`--root` names the checkout whose
 `fem_simulation_tpu_torch` is timed (default: this one), so that one call
 on the card can alternate two checkouts, each in its own process. The beam
 meshes come from this checkout's `mesh.py`, loaded by file path.
@@ -73,13 +77,43 @@ def traced(run):
                 fused_newton_us=float(np.mean(newton)) if newton else None)
 
 
+def kernel_times(fn, reps=50):
+    """(device us per call, device ops per call, events ms per call) of
+    fn(): each device op's mean span times its launches per call (a trace
+    can lose its last events), summed; then CUDA events over reps calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(e.name, []).append(e.time_range.end
+                                                - e.time_range.start)
+    per_call = {name: max(1, round(len(v) / reps)) for name, v in spans.items()}
+    us = sum(float(np.mean(v)) * per_call[n] for n, v in spans.items())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return us, sum(per_call.values()), start.elapsed_time(end) / reps
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
+    from fem_simulation_tpu_torch.ops import lattice_kernels as lk
     from fem_simulation_tpu_torch.sim import lattice as tlat
     if not torch.cuda.is_available():
         print("lattice_frame_times: CUDA is not available", file=sys.stderr)
@@ -103,6 +137,23 @@ def main() -> int:
     out = {"root": os.path.abspath(args.root), "card": card}
     for label, shape in BEAMS.items():
         sc = tlat.LatticeScene(beam_mesh(shape), device="cuda")
+        if args.kernels:
+            rng = np.random.default_rng(1)
+            u = torch.from_numpy(0.03 * rng.standard_normal(
+                tuple(sc.x0.shape)).astype(np.float32)).cuda() \
+                * sc.vert_mask[..., None]
+            u_cf = u.permute(3, 0, 1, 2).contiguous()
+            mat = (0.05, 250.0, 37.0)
+            for name, fn in (
+                    ("force", lambda: lk.force_cf(u_cf, sc.cell_mask, *mat)),
+                    ("energy", lambda: lk.elastic_energy_lattice(
+                        u, sc.cell_mask, *mat))):
+                us, ops, ms = kernel_times(fn)
+                out.setdefault(label, {})[name] = dict(
+                    device_us=us, device_ops=ops, events_ms=ms)
+                print(f"{label:4s} {name:6s} device {us:.2f} us in {ops} "
+                      f"ops per call, events {ms:.4f} ms per call", flush=True)
+            continue
         frames(sc, 2)
         runs = []
         for _ in range(args.repeats):

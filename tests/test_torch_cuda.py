@@ -51,30 +51,135 @@ def uscene():
                         solver=SolverConfig(n_levels=2), device="cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("op", ["force", "hvp", "diag", "energy"])
-def test_kernel_matches_plain(scene, fields, op):
-    """max|d| <= 1e-4 max|ref| (energy: relative 1e-4); the kernels sum
-    per cell over q, then over the incident cells, in another order."""
-    u, p = fields
-    cm = scene.cell_mask
+_LATTICES = {
+    "beam": lambda: meshlib.beam(4, 4, 8, dx=DX),
+    # odd vertex counts: tiles of unequal widths, ragged edges
+    "odd": lambda: meshlib.beam(3, 5, 7, dx=DX),
+    # a hollow box: masked cells inside the lattice
+    "shell": lambda: meshlib.shell(8, 8, 9, thickness=2, dx=DX),
+}
+
+
+@pytest.fixture(scope="module")
+def lattices(scene):
+    out = {"beam": scene}
+    for name in ("odd", "shell"):
+        out[name] = tlat.LatticeScene(_LATTICES[name](), device="cuda")
+    return out
+
+
+def _random_fields(sc, seed):
+    rng = np.random.default_rng(seed)
+    shape = tuple(sc.x0.shape)
+    u = torch.from_numpy(0.03 * rng.standard_normal(shape).astype(np.float32))
+    p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return u.cuda() * sc.vert_mask[..., None], p.cuda()
+
+
+def _calls(sc, u, p):
+    cm = sc.cell_mask
     u_cf = u.permute(3, 0, 1, 2).contiguous()
     p_cf = p.permute(3, 0, 1, 2).contiguous()
-    calls = {
+    return {
         "force": (lk.force_cf, lk.force_cf_plain, (u_cf, cm)),
         "hvp": (lk.hvp_cf, lk.hvp_cf_plain, (u_cf, p_cf, cm)),
         "diag": (lk.hess_diag_lattice, lk.hess_diag_lattice_plain, (u, cm)),
         "energy": (lk.elastic_energy_lattice, lk.elastic_energy_lattice_plain,
                    (u, cm)),
     }
-    kern, plain, args = calls[op]
+
+
+def _kernels_per_call(fn, calls=5):
+    """Device kernels a call of fn() launches, by torch.profiler over
+    `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(names) / calls, sorted(set(names))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lattice", sorted(_LATTICES))
+@pytest.mark.parametrize("op", ["force", "hvp", "diag", "energy"])
+def test_kernel_matches_plain(lattices, op, lattice):
+    """max|d| <= 1e-4 max|ref| (energy: relative 1e-4); the kernels sum
+    per cell over q, then over the incident cells, in another order. On the
+    4x4x8 beam, an odd lattice and a hollow box (masked cells). Force and
+    energy: two calls give identical bits, and a call is one kernel (the
+    force's plan is one launch on these lattices; the two passes are
+    tested in test_force_kernel_every_tiling)."""
+    sc = lattices[lattice]
+    kern, plain, args = _calls(sc, *_random_fields(sc, 3))[op]
     before = lk.launches[op]
     got = kern(*args, DX, MU, LA)
+    again = kern(*args, DX, MU, LA)
     ref = plain(*args, DX, MU, LA)
     torch.cuda.synchronize()
-    assert lk.launches[op] == before + 1
+    assert lk.launches[op] == before + 2
     assert got.shape == ref.shape and got.is_cuda
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    if op in ("force", "energy"):
+        assert torch.equal(got, again)
+        per_call, names = _kernels_per_call(lambda: kern(*args, DX, MU, LA))
+        assert per_call == 1, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lattice", ["beam", "odd"])
+def test_force_kernel_every_tiling(lattices, lattice, monkeypatch):
+    """lat_force under plans other than its own: halo tilings from one tile
+    to tiles of one vertex, and the two passes. Each matches the plain
+    version and repeats its bits."""
+    sc = lattices[lattice]
+    u, _ = _random_fields(sc, 5)
+    u_cf = u.permute(3, 0, 1, 2).contiguous()
+    ref = lk.force_cf_plain(u_cf, sc.cell_mask, DX, MU, LA)
+    scale = float(ref.abs().max())
+    key = (str(u.device),) + tuple(sc.shape)
+    plans = [lk.force_tiling(sc.shape, tiles)
+             for tiles in ((1, 1, 1), (2, 2, 2), (1, 3, 4), tuple(sc.shape),
+                           (2, 1, sc.shape[2]))]
+    plans = [p for p in plans if p is not None] + [lk.FORCE_TWO_PASS]
+    assert len(plans) >= 5
+    for plan in plans:
+        monkeypatch.setitem(lk._force_plans, key, plan)
+        got = lk.force_cf(u_cf, sc.cell_mask, DX, MU, LA)
+        again = lk.force_cf(u_cf, sc.cell_mask, DX, MU, LA)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= 1e-4 * scale, plan
+        assert torch.equal(got, again), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 0])
+def test_energy_ticket_resets_and_streams(lattices, lanes, monkeypatch):
+    """Eight lanes a cell and a thread a cell, each on 7 blocks: 100 energy
+    calls back to back give one value (the last block resets its ticket for
+    the next call), and so do calls on two other streams, each with its own
+    partials and ticket; the value matches the plain version."""
+    sc = lattices["shell"]
+    monkeypatch.setattr(lk, "energy_plan", lambda *shape: (7, lanes))
+    u, _ = _random_fields(sc, 9)
+    args = (u, sc.cell_mask, DX, MU, LA)
+    first = lk.elastic_energy_lattice(*args)
+    runs = [lk.elastic_energy_lattice(*args) for _ in range(100)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, e) for e in runs)
+    outs = []
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs.append([lk.elastic_energy_lattice(*args) for _ in range(20)])
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, e) for es in outs for e in es)
+    ref = lk.elastic_energy_lattice_plain(*args)
+    assert float((first - ref).abs()) <= 1e-4 * float(ref.abs())
 
 
 @pytest.mark.cuda
