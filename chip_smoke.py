@@ -34,6 +34,20 @@ Phase 5  the unstructured main path: QuasiStaticSim Newton-MG and FAS v3 on
          every kernel launch counted, per Newton-MG step too.
 Phase 6  reruns the first 5 Newton-MG steps of the 16x16x64 beam on the CPU
          with the plain versions and compares the ||f||_inf series and x.
+Phase 7  lattice quasi-static solvers and multigrid: lat_hvp and lat_diag
+         against their plain versions on every level of the 3-level
+         hierarchies of the three beams (dx doubling per level, two runs
+         bit-identical), timed; then the path, counters zeroed before it:
+         the verify recipe on the 8x8x24 beam (quasistatic_to_tol with 2
+         load steps; LatticeMG(n_levels=2, dt=None, coarse_cg=8) with
+         quasistatic_to_tol_mg), full-size quasi-static solves from rest
+         (top slab pinned, max_newton 100: quasistatic_to_tol at 19k and,
+         with 2 load steps, 74k; quasistatic_to_tol_mg with 3 levels at 19k
+         and 74k), each timed after a warm-up solve; step_to_tol_mg for 16
+         excited frames on the 2k and 19k beams; frame_adaptive and
+         frame_adaptive_mg on the violent kick of the 3x3x12 beam; FMG with
+         the "jacobi" corrector on the 4x4x32 cantilever. Then the first 3
+         Newton iterations of quasistatic_to_tol_mg at 19k again on the CPU.
 
 Launch counters are zeroed just before each main path and read just after.
 Every failure raises and exits non-zero. The last two lines are the kernel
@@ -54,6 +68,7 @@ from fem_simulation_tpu_torch.ops import _cuda, ell
 from fem_simulation_tpu_torch.ops import ell_kernels as ek
 from fem_simulation_tpu_torch.ops import lattice_kernels as lk
 from fem_simulation_tpu_torch.sim import lattice as tlat
+from fem_simulation_tpu_torch.sim import lattice_mg as tmg
 from fem_simulation_tpu_torch.sim import quasistatic as qs
 from fem_simulation_tpu_torch.sim.dynamic import DynamicSim
 from fem_simulation_tpu_torch.sim.scene import Scene
@@ -128,6 +143,17 @@ def device_ops(fn, reps: int):
                                                 - e.time_range.start)
     return {name: (len(v) / reps, float(np.mean(v)))
             for name, v in spans.items()}
+
+
+def whole_trace(fn, reps: int, launches: int):
+    """device_ops(fn, reps), traced again (up to twice) while it holds fewer
+    than `launches` device ops a call: a short trace can lose its last
+    events (PERF.md), and a call launches at least that many."""
+    for _ in range(3):
+        ops = device_ops(fn, reps)
+        if sum(n for n, _ in ops.values()) >= launches:
+            break
+    return ops
 
 
 def device_us(fn, reps: int, kernel: str, per_call: int = 1):
@@ -269,9 +295,9 @@ def phase1(scenes, reps):
                 # plan takes the two passes)
                 check(bool(torch.equal(got, again)),
                       f"{name} {label}: two runs differ")
-                ops = device_ops(kern, 20)
                 want = 2 if (name == "force" and lk._force_plan(
                     *sc.shape, sc.device) == lk.FORCE_TWO_PASS) else 1
+                ops = whole_trace(kern, 20, want)
                 check(round(sum(n for n, _ in ops.values())) == want,
                       f"{name} {label}: device ops per call {ops}")
                 device[name] = round(sum(n * t for n, t in ops.values()), 2)
@@ -820,6 +846,263 @@ def phase6(uscene_gpu, steps=5):
     return float(rel.max()), err
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+def level_bounds(lvl):
+    """(bound_ms, bound_by) of lat_hvp and lat_diag on one level: u, p (hvp)
+    and the cell mask in, the product or the 9 block floats out; the chain
+    FLOPs of the level's real cells."""
+    n = lvl.vert_mask.numel()
+    c = lvl.cell_mask.numel()
+    active = float(lvl.cell_mask.sum())
+    field = 3 * n * 4
+    return {"hvp": bound(3 * field + 4 * c, active * lk.HVP_FLOPS_PER_CELL),
+            "diag": bound(field + 9 * n * 4 + 4 * c,
+                          active * lk.DIAG_FLOPS_PER_CELL)}
+
+
+def phase7_kernels(scenes, rows, reps):
+    """lat_hvp and lat_diag against their plain versions at every level
+    shape of each beam's 3-level hierarchy, with the level's dx; returns
+    {label: [per-level dict]}."""
+    out = {}
+    for label, sc in scenes.items():
+        mg = tmg.LatticeMG(sc, n_levels=3, dt=None)
+        rng = np.random.default_rng(7)
+        out[label] = []
+        for li, lvl in enumerate(mg.levels):
+            shape = (3,) + tuple(lvl.vert_mask.shape)
+            u = torch.from_numpy(0.03 * rng.standard_normal(shape).astype(
+                np.float32)).to(sc.device) * lvl.vert_mask
+            p = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(sc.device)
+            args = (lvl.cell_mask, lvl.dx, MU, LA)
+            u_last = u.permute(1, 2, 3, 0)
+            cases = {
+                "hvp": (lambda: lk.hvp_cf(u, p, *args),
+                        lambda: lk.hvp_cf_plain(u, p, *args)),
+                "diag": (lambda: lk.hess_diag_cf(u, *args),
+                         lambda: lk.hess_diag_lattice_plain(u_last, *args)),
+            }
+            bounds = level_bounds(lvl)
+            entry = {"level": li, "shape": shape[1:], "dx": lvl.dx}
+            for name, (kern, plain) in cases.items():
+                got, again, ref = kern(), kern(), plain()
+                torch.cuda.synchronize()
+                err, scale = max_err(got, ref), float(ref.abs().max())
+                check(bool(torch.equal(got, again)),
+                      f"{name} {label} level {li}: two runs differ")
+                check(err <= 1e-4 * scale, f"{name} {label} level {li}: "
+                      f"max|d| {err:.3e} > 1e-4 * {scale:.3e}")
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                                err)
+                ms = cuda_ms(kern, reps)
+                # hvp: cell pass and vertex gather; diag: the same and the
+                # gather of the six channels into 3x3 blocks; each op's
+                # mean span times its launches a call; None when the traces
+                # lost an op altogether
+                n_ops = 2 if name == "hvp" else 3
+                ops = whole_trace(kern, 10, n_ops)
+                us = (round(sum(max(1, round(n)) * t
+                                for n, t in ops.values()), 2)
+                      if len(ops) >= n_ops else None)
+                plain_ms = cuda_ms(plain, 3, warmup=1)
+                b_ms, b_by = bounds[name]
+                entry[name] = dict(max_abs_err=err, ms=ms, device_us=us,
+                                   plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by)
+                log(f"phase7 {name:4s} {label:4s} level {li} {shape[1:]} dx "
+                    f"{lvl.dx:g} max|d| {err:.3e} (max|ref| {scale:.3e}) "
+                    f"same bits twice  kernel {ms:.4f} ms (device "
+                    f"{'not captured' if us is None else f'{us} us'}, "
+                    f"{sum(n for n, _ in ops.values()):g} ops)  plain "
+                    f"{plain_ms:.3f} ms  bound {b_ms:.5f} ms ({b_by})")
+            out[label].append(entry)
+    return out
+
+
+def timed_solve(label, name, solve, cg_counted=True):
+    """A warm-up solve, then one timed: CUDA events and the host clock, the
+    Newton count, the PCG total and the lattice kernel launches of the
+    timed solve. Fails unless it reaches ||f||_inf <= TOL."""
+    solve()
+    torch.cuda.synchronize()
+    before = dict(lk.launches)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = solve()
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ms = start.elapsed_time(end)
+    x, k, fn = out[:3]
+    cg = out[3] if cg_counted else None
+    launches = {n: lk.launches[n] - before[n]
+                for n in ("hvp", "diag", "force", "energy", "fused_newton")}
+    check(bool(torch.isfinite(x).all()) and fn <= TOL,
+          f"phase7 {label} {name}: ||f|| {fn:.3e} > {TOL}")
+    log(f"phase7 {label:4s} {name:28s} ms/solve {ms:.2f} (host clock "
+        f"{wall:.2f})  newton {k}  pcg {cg if cg_counted else 'n/a'}  "
+        f"||f|| {fn:.3e}  launches " + " ".join(
+            f"{n} {v}" for n, v in launches.items()))
+    return dict(ms=ms, wall_ms=wall, newton=k, pcg=cg, fn=fn,
+                launches=launches)
+
+
+def run_frames_mg(sc, mg, n):
+    ks, fns = [], []
+    st = sc.init_state()
+    for i in range(n):
+        st, k, fn = tmg.step_to_tol_mg(sc, mg, st, tol=TOL,
+                                       gravity_scale=gravity_scale(i))
+        ks.append(k)
+        fns.append(fn)
+    return ks, fns
+
+
+def phase7_path(scenes):
+    """The quasi-static, multigrid and substepping path on the card, lattice
+    counters zeroed just before it and read just after."""
+    results = {}
+    sc2, sc19, sc74 = scenes["2k"], scenes["19k"], scenes["74k"]
+    mg2 = tmg.LatticeMG(sc2, n_levels=2, dt=None, coarse_cg=8)
+    mgs = {label: tmg.LatticeMG(scenes[label], n_levels=3, dt=None)
+           for label in ("19k", "74k")}
+    dyn_mgs = {label: tmg.LatticeMG(scenes[label], n_levels=3)
+               for label in ("2k", "19k")}
+    kick_mesh = meshlib.beam(3, 3, 12, dx=DX)
+    kick_sc = tlat.LatticeScene(kick_mesh, device=sc2.device)
+    kick_mg = tmg.LatticeMG(kick_sc, n_levels=2, dt=None)
+    cant = meshlib.beam(4, 4, 32, dx=DX)
+    pins = np.nonzero(cant.ijk[:, 2] == cant.ijk[:, 2].min())[0]
+    cant_sc = tlat.LatticeScene(cant, pins=pins, device=sc2.device)
+    cant_mg = tmg.LatticeMG(cant_sc, n_levels=3, dt=None, coarse_cg=16)
+    torch.cuda.synchronize()
+    lk.reset_launches()
+    # the verify recipe on the 2k beam
+    _, k, fn = tlat.quasistatic_to_tol(sc2, sc2.x0, tol=TOL, load_steps=2)
+    log(f"phase7 2k   verify quasistatic_to_tol(load_steps=2) newton {k} "
+        f"||f|| {fn:.3e}")
+    check(fn <= TOL, f"verify quasistatic_to_tol: {fn:.3e}")
+    _, k, fn = tmg.quasistatic_to_tol_mg(sc2, mg2, sc2.x0, tol=TOL)
+    log(f"phase7 2k   verify quasistatic_to_tol_mg(2 levels, coarse_cg 8) "
+        f"newton {k} ||f|| {fn:.3e}")
+    check(fn <= TOL, f"verify quasistatic_to_tol_mg: {fn:.3e}")
+    results["verify"] = dict(newton=k, fn=fn)
+    # full-size quasi-static solves, as bench.py --quasistatic runs them
+    solves = {}
+    solves["19k quasistatic_to_tol"] = timed_solve(
+        "19k", "quasistatic_to_tol", lambda: tlat.quasistatic_to_tol(
+            sc19, sc19.x0, tol=TOL, max_newton=100, return_cg=True))
+    solves["74k quasistatic_to_tol(load_steps=2)"] = timed_solve(
+        "74k", "quasistatic_to_tol(load_steps=2)",
+        lambda: tlat.quasistatic_to_tol(sc74, sc74.x0, tol=TOL,
+                                        max_newton=100, load_steps=2),
+        cg_counted=False)
+    for label, mg in mgs.items():
+        sc = scenes[label]
+        solves[f"{label} quasistatic_to_tol_mg"] = timed_solve(
+            label, "quasistatic_to_tol_mg(3 levels)",
+            lambda sc=sc, mg=mg: tmg.quasistatic_to_tol_mg(
+                sc, mg, sc.x0, tol=TOL, max_newton=100, return_cg=True))
+    results["solves"] = solves
+    # dynamic multigrid under the excited protocol
+    for label, mg in dyn_mgs.items():
+        sc = scenes[label]
+        run_frames_mg(sc, mg, 1)                     # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        ks, fns = run_frames_mg(sc, mg, 16)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 16
+        wall = (time.perf_counter() - t0) * 1e3 / 16
+        log(f"phase7 {label:4s} step_to_tol_mg 16 frames ms/frame {ms:.2f} "
+            f"(host clock {wall:.2f})  newton_mean {np.mean(ks):.3f} "
+            f"newton {ks}  fn_max {max(fns):.3e}")
+        check(max(fns) <= TOL * 1.01, f"{label} step_to_tol_mg: fn_max "
+              f"{max(fns):.3e}")
+        results[f"{label} step_to_tol_mg"] = dict(
+            ms_per_frame=ms, wall_ms_per_frame=wall,
+            newton_mean=float(np.mean(ks)), fn_max=float(max(fns)))
+    # adaptive substepping on the violent kick
+    for name, frame in (
+            ("frame_adaptive", lambda s: tlat.frame_adaptive(
+                kick_sc, s, tol=TOL, max_newton=25, max_halvings=4)),
+            ("frame_adaptive_mg", lambda s: tmg.frame_adaptive_mg(
+                kick_sc, kick_mg, s, tol=TOL, max_newton=6,
+                max_halvings=4))):
+        st = kicked(kick_sc, kick_sc.init_state())
+        subs, ks, fns = [], [], []
+        t0 = time.perf_counter()
+        for _ in range(3):
+            st, k, fn, n_sub = frame(st)
+            subs.append(n_sub)
+            ks.append(k)
+            fns.append(fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"phase7 kick {name:18s} n_sub {subs} newton {ks} fn_max "
+            f"{max(fns):.3e}  ({wall:.2f} s)")
+        check(max(fns) <= TOL, f"{name}: a frame missed tol: {fns}")
+        check(max(subs) > 1, f"{name}: the kick took no substeps")
+        results[f"kick {name}"] = dict(n_sub=subs, newton=ks)
+    # full multigrid on the deep-bend cantilever
+    t0 = time.perf_counter()
+    x, k, fn, ks = tmg.quasistatic_fmg(
+        cant_sc, cant_mg, tol=TOL, max_newton=100, coarse_max_newton=100,
+        load_steps="auto", fine_solver="jacobi", return_stats=True)
+    torch.cuda.synchronize()
+    tip = float(x[..., 1].min())
+    log(f"phase7 4x4x32 cantilever quasistatic_fmg(jacobi, auto) newton per "
+        f"level {ks} ||f|| {fn:.3e} tip y {tip:.4f} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    check(fn <= TOL and tip < -1.3, f"fmg: ||f|| {fn:.3e}, tip {tip:.4f}")
+    results["fmg"] = dict(newton=list(ks), fn=fn, tip=tip)
+    torch.cuda.synchronize()
+    counts = dict(lk.launches)
+    log(f"phase7 launches {counts}")
+    for name in ("hvp", "diag", "force", "energy", "fused_newton"):
+        check(counts[name] > 0, f"phase7: {name} never launched")
+    return results, counts
+
+
+def phase7_cpu(sc_gpu, newton=3):
+    """The first Newton iterations of quasistatic_to_tol_mg (3 levels) at 19k
+    on the card and on the CPU with the plain versions: ||f||_inf after 1,
+    2, ... iterations (a solve capped at that count each)."""
+    cpu = tlat.LatticeScene(sc_gpu.mesh, device="cpu")
+    series = {}
+    t0 = time.perf_counter()
+    for sc in (sc_gpu, cpu):
+        mg = tmg.LatticeMG(sc, n_levels=3, dt=None)
+        series[sc.device.type] = [tmg.quasistatic_to_tol_mg(
+            sc, mg, sc.x0, tol=TOL, max_newton=m)[1:] for m in
+            range(1, newton + 1)]
+    secs = time.perf_counter() - t0
+    ks = {d: [k for k, _ in v] for d, v in series.items()}
+    fg = np.array([fn for _, fn in series["cuda"]])
+    fc = np.array([fn for _, fn in series["cpu"]])
+    d = np.abs(fg - fc)
+    rel = d / np.abs(fc)
+    log(f"phase7 19k quasistatic_to_tol_mg first {newton} Newton: gpu "
+        f"newton {ks['cuda']} ||f|| {fg.tolist()}")
+    log(f"phase7 19k quasistatic_to_tol_mg first {newton} Newton: cpu "
+        f"newton {ks['cpu']} ||f|| {fc.tolist()}  max rel |d ||f||| "
+        f"{rel.max():.3e}  max |d ||f||| {d.max():.3e}  ({secs:.1f} s)")
+    check(ks["cuda"] == ks["cpu"], "Newton counts differ between CPU and GPU")
+    # the float32 policy of the CPU parity tests: near tolerance the norm's
+    # f32 noise (a few 1e-6) is most of it
+    check(bool(np.all(d <= 1e-3 * np.abs(fc) + 5e-6)),
+          f"||f|| series differ: {fg.tolist()} vs {fc.tolist()}")
+    return float(rel.max())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -868,34 +1151,43 @@ def main() -> int:
     uresults, ell_counts = phase5(uscenes)
     counts.update(ell_counts)
     rel6, err6 = phase6(uscenes["19k"])
+    levels7 = phase7_kernels(scenes, rows, reps=20)
+    results7, counts7 = phase7_path(scenes)
+    counts["hvp"], counts["diag"] = counts7["hvp"], counts7["diag"]
+    rel7 = phase7_cpu(scenes["19k"])
 
     summary = {label: {k: v for k, v in r.items() if k != "state8"}
                for label, r in results.items()}
     log("phase2 summary " + json.dumps(summary))
     log("phase5 summary " + json.dumps(uresults))
+    log("phase7 summary " + json.dumps(results7))
     log(f"phase3 max|dx| {err3:.3e}  phase6 max rel |d f| {rel6:.3e} "
-        f"max|d x| {err6:.3e}")
+        f"max|d x| {err6:.3e}  phase7 max rel |d f| {rel7:.3e}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     def row(name, launches):
         r = rows[name]
         at = r["by_beam"]["19k"]     # the line's numbers: the 19k beam
-        return {"name": name, "route": "cuda",
-                "source": (ELL_SOURCE if name in ("spmv", "gs", "jacobi")
-                           else LATTICE_SOURCE),
-                "replaces": TPU_KERNELS[name], "launches": launches,
-                "max_abs_err": r["max_abs_err"], "ms": at["ms"],
-                "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
-                "bound_by": at["bound_by"], "library_ms": at["library_ms"],
-                "by_beam": r["by_beam"]}
+        out = {"name": name, "route": "cuda",
+               "source": (ELL_SOURCE if name in ("spmv", "gs", "jacobi")
+                          else LATTICE_SOURCE),
+               "replaces": TPU_KERNELS[name], "launches": launches,
+               "max_abs_err": r["max_abs_err"], "ms": at["ms"],
+               "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+               "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+               "by_beam": r["by_beam"]}
+        if name in ("hvp", "diag"):  # phase 7: at the multigrid level shapes
+            out["by_level"] = {label: [{"level": e["level"],
+                                        "shape": e["shape"], **e[name]}
+                                       for e in entries]
+                               for label, entries in levels7.items()}
+        return out
     log(card)
     print(json.dumps({
         "kernels": [row(n, counts[n]) for n in ("fused_newton", "force",
                                                 "energy", "fused_pcg",
-                                                "spmv", "gs", "jacobi")],
-        # built and checked above; the main path runs their chains inside
-        # fused_newton and does not launch these two entry points
-        "not_on_main_path": [row(n, counts[n]) for n in ("hvp", "diag")],
+                                                "spmv", "gs", "jacobi",
+                                                "hvp", "diag")],
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -339,46 +339,69 @@ def force_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
 
 
 def hvp_cf(x_cf, p_cf, cell_mask, dx: float, mu: float, la: float):
-    """Elastic Hessian-vector product (positive-definite convention)."""
+    """Elastic Hessian-vector product (positive-definite convention) of a
+    displacement field: (3, X, Y, Z) x2 -> (3, X, Y, Z). Allocates only its
+    output: the two passes' cell scratch is kept per device, stream and
+    lattice."""
     if _cuda.on_cpu(x_cf, p_cf, cell_mask):
         return hvp_cf_plain(x_cf, p_cf, cell_mask, dx, mu, la)
     X, Y, Z = _vertex_grid(x_cf, cell_mask)
     _cuda.require(p_cf, x_cf.shape, "p_cf")
     lib = _cuda.load()
+    dev = x_cf.device
+    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
+    cf = _kept_scratch((str(dev), tail[-1], "hvp", X, Y, Z),
+                       24 * cell_mask.numel(), 0)[0]
     out = torch.empty_like(x_cf)
-    cf = torch.empty((24 * cell_mask.numel(),), dtype=torch.float32,
-                     device=x_cf.device)
-    tail = _chain_tail(X, Y, Z, dx, mu, la, x_cf.device)
-    with torch.cuda.device(x_cf.device):
+    with torch.cuda.device(dev):
         err = lib.lat_hvp(x_cf.data_ptr(), p_cf.data_ptr(),
-                          cell_mask.data_ptr(), out.data_ptr(), cf.data_ptr(),
-                          *tail)
+                          cell_mask.data_ptr(), out.data_ptr(), cf, *tail)
     launches["hvp"] += 1
     _cuda.check(err, "lat_hvp")
     return out
 
 
-def hess_diag_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
-    """Vertex-diagonal Hessian blocks: (X, Y, Z, 3) -> (X, Y, Z, 3, 3)."""
-    if _cuda.on_cpu(x_lat, cell_mask):
-        return hess_diag_lattice_plain(x_lat, cell_mask, dx, mu, la)
-    x_cf = x_lat.permute(3, 0, 1, 2).contiguous()
+# the 3x3 block's entries as indices into the 6 symmetric channels
+# (xx, xy, xz, yy, yz, zz) that lat_diag writes
+_SYM_BLOCK = (0, 1, 2, 1, 3, 4, 2, 4, 5)
+_sym_index: dict = {}
+
+
+def hess_diag_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
+    """Vertex-diagonal Hessian blocks of a channel-first displacement field:
+    (3, X, Y, Z) -> (X, Y, Z, 3, 3). Allocates only its output: the cell
+    scratch and the six-channel vertex sums are kept per device, stream and
+    lattice, and one gather makes the blocks."""
+    if _cuda.on_cpu(x_cf, cell_mask):
+        return hess_diag_lattice_plain(x_cf.permute(1, 2, 3, 0), cell_mask,
+                                       dx, mu, la)
     X, Y, Z = _vertex_grid(x_cf, cell_mask)
     lib = _cuda.load()
-    d6 = torch.empty((6, X, Y, Z), dtype=torch.float32, device=x_cf.device)
-    cd = torch.empty((48 * cell_mask.numel(),), dtype=torch.float32,
-                     device=x_cf.device)
-    tail = _chain_tail(X, Y, Z, dx, mu, la, x_cf.device)
-    with torch.cuda.device(x_cf.device):
+    dev = x_cf.device
+    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
+    cells, n = 48 * cell_mask.numel(), X * Y * Z
+    key = (str(dev), tail[-1], "diag", X, Y, Z)
+    cd = _kept_scratch(key, cells + 6 * n, 0)[0]
+    d6 = _workspaces[key][0][cells:cells + 6 * n].view(6, X, Y, Z)
+    with torch.cuda.device(dev):
         err = lib.lat_diag(x_cf.data_ptr(), cell_mask.data_ptr(),
-                           d6.data_ptr(), cd.data_ptr(), *tail)
+                           d6.data_ptr(), cd, *tail)
     launches["diag"] += 1
     _cuda.check(err, "lat_diag")
-    d6 = d6.permute(1, 2, 3, 0)                 # (X, Y, Z, 6)
-    rows = [torch.stack([d6[..., 0], d6[..., 1], d6[..., 2]], dim=-1),
-            torch.stack([d6[..., 1], d6[..., 3], d6[..., 4]], dim=-1),
-            torch.stack([d6[..., 2], d6[..., 4], d6[..., 5]], dim=-1)]
-    return torch.stack(rows, dim=-2)            # (X, Y, Z, 3, 3)
+    if str(dev) not in _sym_index:
+        _sym_index[str(dev)] = torch.tensor(_SYM_BLOCK, device=dev)
+    blocks = torch.index_select(d6.permute(1, 2, 3, 0), 3,
+                                _sym_index[str(dev)])
+    return blocks.view(X, Y, Z, 3, 3)
+
+
+def hess_diag_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
+    """Vertex-diagonal Hessian blocks: (X, Y, Z, 3) -> (X, Y, Z, 3, 3)
+    (hess_diag_cf after one channel-first copy of the field)."""
+    if _cuda.on_cpu(x_lat, cell_mask):
+        return hess_diag_lattice_plain(x_lat, cell_mask, dx, mu, la)
+    return hess_diag_cf(x_lat.permute(3, 0, 1, 2).contiguous(), cell_mask,
+                        dx, mu, la)
 
 
 def elastic_energy_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):

@@ -1,8 +1,10 @@
 """Structured-lattice StVK operators in plain torch.
 
-Port of `fem_simulation_tpu/ops/stencil.py:32-48, 68-74, 101-196`. These are
-the plain versions the CUDA kernels (`ops/lattice_kernels.py`) are held
-against, and what the kernel wrappers run on CPU tensors.
+Port of `fem_simulation_tpu/ops/stencil.py:32-48, 68-74, 101-247`. The
+elastic operators are the plain versions the CUDA kernels
+(`ops/lattice_kernels.py`) are held against, and what the kernel wrappers
+run on CPU tensors; the multigrid transfers (`prolong_lat`, `restrict_lat`)
+are plain torch on every device.
 
 Layout: vertex fields (X, Y, Z, 3) on the bounding lattice; cell mask
 (X-1, Y-1, Z-1), 1.0 on real cells. All operators take DISPLACEMENTS
@@ -156,3 +158,49 @@ def elastic_hessian_diag_lattice(u_lat, cell_mask, g, det, mu, la):
                     + mu * torch.einsum("q,xyzqji->xyzji", gg_q, C))
         out[di:di + X - 1, dj:dj + Y - 1, dk:dk + Z - 1] += Hd * cm
     return out
+
+
+# -- structured multigrid transfers: separable trilinear stencils ----------
+# Trilinear prolongation is zero-interleaving followed by a separable
+# [1/2, 1, 1/2] convolution per axis; restriction ("hat") is its exact
+# adjoint: convolve, then keep every other sample. Shifted slices only, no
+# gather or scatter.
+
+def _conv_half(x, axis: int):
+    """y = x + 0.5 * (x shifted left + x shifted right) along `axis` (zero
+    beyond the ends), summed in the reference's order."""
+    n = x.shape[axis]
+    y = x.clone()
+    y.narrow(axis, 0, n - 1).add_(0.5 * x.narrow(axis, 1, n - 1))
+    y.narrow(axis, 1, n - 1).add_(0.5 * x.narrow(axis, 0, n - 1))
+    return y
+
+
+def prolong_lat(xc, shape=None):
+    """Trilinear prolongation (Xc, Yc, Zc, C) -> (2Xc-1, 2Yc-1, 2Zc-1, C).
+
+    shape (3-tuple) sets the fine spatial dims per axis: each is 2n-1 (odd
+    grids) or 2n (even grids: the last fine plane interpolates only its one
+    coarse neighbour, exact where that plane is padding). restrict_lat is
+    the adjoint for either parity."""
+    Xc, Yc, Zc, C = xc.shape
+    if shape is None:
+        shape = (2 * Xc - 1, 2 * Yc - 1, 2 * Zc - 1)
+    for n, s in zip((Xc, Yc, Zc), shape):
+        if s not in (2 * n - 1, 2 * n):
+            raise ValueError(f"fine shape {tuple(shape)} does not fit "
+                             f"coarse {tuple(xc.shape)}")
+    z = torch.zeros(tuple(shape) + (C,), dtype=xc.dtype, device=xc.device)
+    z[::2, ::2, ::2] = xc
+    for ax in range(3):
+        z = _conv_half(z, ax)
+    return z
+
+
+def restrict_lat(xf):
+    """Adjoint of prolong_lat ("hat" restriction): convolve, then subsample;
+    (X, Y, Z, C) -> (ceil(X/2), ceil(Y/2), ceil(Z/2), C)."""
+    y = xf
+    for ax in range(3):
+        y = _conv_half(y, ax)
+    return y[::2, ::2, ::2].contiguous()

@@ -1,0 +1,580 @@
+"""Geometric-multigrid-preconditioned Newton-Krylov on the structured lattice.
+
+Port of `fem_simulation_tpu/sim/lattice_mg.py`. Block-Jacobi PCG needs
+O(mesh diameter) iterations without the m/dt^2 shift; a V-cycle
+preconditioner keeps the count about flat. Everything is structured:
+
+  transfers       separable trilinear stencils (ops.stencil.prolong_lat /
+                  restrict_lat, an exact adjoint pair, shifted slices)
+  coarse operator the elastic operator re-discretized on each coarse
+                  lattice (dx doubling per level) at the restricted
+                  displacement, applied by the `lat_hvp` kernel, with the
+                  `lat_diag` kernel's vertex blocks (their plain versions
+                  on CPU tensors)
+  smoother        Chebyshev on the block-Jacobi-preconditioned operator
+  outer loop      inexact Newton + (flexible) preconditioned CG
+
+Coarse control and mass diagonals are restricted conservatively. The
+hierarchy is built once on the host and moved to the scene's device.
+
+Every level, the fine one included, runs the kernels on its own padded
+lattice: the reference's routing of the fine level through the scene and
+its axis permutation exist for the TPU's box cover and tile padding, which
+the port does not have (the padding ring has no cells and no vertices).
+
+The Newton, PCG and smoother loops run on the host. Host-side scalar tests
+and the Chebyshev coefficients are computed in float32, as the reference
+computes them on device scalars.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import DynamicsConfig
+from ..ops import ell, stencil
+from ..ops import lattice_kernels as lk
+from ..solvers import cg as cgmod
+from .lattice import (LatState, LatticeScene, adaptive_frame, armijo_step,
+                      host_inf_norm, newton_update, quasistatic_to_tol,
+                      run_load_schedule)
+
+
+class MGLevel(NamedTuple):
+    cell_mask: torch.Tensor  # (Cx, Cy, Cz)
+    vert_mask: torch.Tensor  # (X, Y, Z)
+    ctrl: torch.Tensor       # (X, Y, Z) control (+ baked mass/dt^2) diagonal
+    dx: float
+    # (X, Y, Z) lumped vertex mass, conservatively restricted from the fine
+    # level (the total is kept exactly), not re-lumped from the coarse cell
+    # mask: the binary coarse mask inflates jagged boundaries, and a coarse
+    # gravity load from that mass pulls the coarse equilibrium past the fine
+    # one. Used by the FMG level solves and the solve-time inertia term.
+    mass: torch.Tensor
+
+
+def _pad_to(a: torch.Tensor, shape) -> torch.Tensor:
+    """a zero-padded at the high end of its first three axes to `shape`."""
+    out = a.new_zeros(tuple(shape) + tuple(a.shape[3:]))
+    out[:a.shape[0], :a.shape[1], :a.shape[2]] = a
+    return out
+
+
+def _odd(n: int) -> int:
+    return n if n % 2 else n + 1
+
+
+class LatticeMG:
+    """The structured hierarchy of a LatticeScene, on the scene's device,
+    and a V-cycle preconditioner for its Newton solves.
+
+    dt: the inertia term mass/dt^2 baked into every level's ctrl; None
+    builds a quasi-static (pin-only) hierarchy, which can still serve a
+    dynamic solve: linearize(inv_dt=...) adds the restricted mass times
+    inv_dt^2 per level (the restriction is linear, so this is exact).
+    coarse_cg > 0 solves the coarsest level with that many block-Jacobi
+    PCG iterations instead of coarse_sweeps Chebyshev sweeps (the outer
+    PCG is then flexible). spd_smoother projects the smoother's diagonal
+    blocks onto SPD (the operator itself is left as it is)."""
+
+    def __init__(self, scene: LatticeScene, n_levels: int = 3, nu: int = 2,
+                 coarse_sweeps: int = 12,
+                 dt: float | None = DynamicsConfig().dt,
+                 coarse_cg: int = 0, spd_smoother: bool = True):
+        self.scene = scene
+        self.nu = nu
+        self.coarse_sweeps = coarse_sweeps
+        self.coarse_cg = coarse_cg
+        self.spd_smoother = spd_smoother
+        self.build_dt = dt
+        mat = scene.material
+        dev = scene.device
+
+        # built on the host in float32, then moved: every level's vertex
+        # grid padded to odd extents (the 2n-1 transfers)
+        vm = scene.vert_mask.cpu()
+        mass = scene.mass.cpu()
+        ctrl = mat.control_mag * scene.pin_mask.cpu()
+        if dt is not None:
+            ctrl = ctrl + mass * (1.0 / dt) ** 2
+        tgt = tuple(_odd(n) for n in vm.shape)
+        vm, ctrl, mass = (_pad_to(a, tgt) for a in (vm, ctrl, mass))
+        cm = _pad_to(scene.cell_mask.cpu(), tuple(n - 1 for n in tgt))
+        levels = []
+        dx = scene.mesh.dx
+        for li in range(n_levels):
+            levels.append((cm, vm, ctrl, dx, mass))
+            if li == n_levels - 1:
+                break
+            # a coarse cell is real when any of its 8 fine cells is
+            cpad = _pad_to(cm, tuple(n + n % 2 for n in cm.shape))
+            c2 = cpad.reshape(cpad.shape[0] // 2, 2, cpad.shape[1] // 2, 2,
+                              cpad.shape[2] // 2, 2)
+            cm_c = (c2.amax(dim=(1, 3, 5)) > 0).to(torch.float32)
+            cx, cy, cz = cm_c.shape
+            vm_c = torch.zeros((cx + 1, cy + 1, cz + 1))
+            for (di, dj, dk) in stencil._CORNERS:
+                sl = vm_c[di:di + cx, dj:dj + cy, dk:dk + cz]
+                sl.copy_(torch.maximum(sl, cm_c))
+            # conservative restriction of the control and mass diagonals
+            ctrl_c = _pad_to(stencil.restrict_lat(ctrl[..., None])[..., 0],
+                             vm_c.shape) * vm_c
+            mass_c = _pad_to(stencil.restrict_lat(mass[..., None])[..., 0],
+                             vm_c.shape) * vm_c
+            tgt = tuple(_odd(n) for n in vm_c.shape)
+            vm, ctrl, mass = (_pad_to(a, tgt)
+                              for a in (vm_c, ctrl_c, mass_c))
+            cm = _pad_to(cm_c, tuple(n - 1 for n in tgt))
+            dx = dx * 2.0
+
+        self.levels = [MGLevel(cell_mask=cm.to(dev), vert_mask=vm.to(dev),
+                               ctrl=ctrl.to(dev), dx=dx, mass=mass.to(dev))
+                       for cm, vm, ctrl, dx, mass in levels]
+        self.n_levels = len(self.levels)
+        self.pad_shape = tuple(self.levels[0].vert_mask.shape)
+
+        # Per-level rest grids: coarse node (I, J, K) is fine node
+        # (2I, 2J, 2K), so every level's rest geometry is the analytic
+        # lattice base + (2^l dx) (i, j, k). linearize restricts
+        # DISPLACEMENTS and anchors each level at x0_l + R(u): restricting
+        # positions puts boundary coarse nodes far from the coarse rest
+        # lattice, a pre-strained, strongly indefinite coarse Hessian.
+        lat0 = scene.lat[0].cpu().numpy()
+        base = (scene.x0[tuple(int(i) for i in lat0)].cpu().numpy()
+                - lat0.astype(np.float32) * scene.mesh.dx)
+        self.x0_levels = []
+        for lvl in self.levels:
+            sx, sy, sz = lvl.vert_mask.shape
+            gi, gj, gk = np.meshgrid(np.arange(sx), np.arange(sy),
+                                     np.arange(sz), indexing="ij")
+            grid = np.stack([gi, gj, gk], axis=-1).astype(np.float32)
+            self.x0_levels.append(
+                torch.from_numpy(base + lvl.dx * grid).to(dev))
+        # normalization of the displacement restriction (rigid modes map to
+        # rigid modes): the restricted vertex mask, clamped
+        self._restrict_w = [
+            torch.clamp(self._restrict(li, lvl.vert_mask[..., None]),
+                        min=1e-6)
+            for li, lvl in enumerate(self.levels[:-1])]
+
+    # -- the fine lattice inside the padded level-0 grid ---------------------
+    def pad(self, a: torch.Tensor) -> torch.Tensor:
+        """A scene-lattice field zero-padded to the level-0 grid."""
+        if tuple(a.shape[:3]) == self.pad_shape:
+            return a
+        return _pad_to(a, self.pad_shape)
+
+    def unpad(self, a: torch.Tensor) -> torch.Tensor:
+        sx, sy, sz = self.scene.vert_mask.shape
+        return a[:sx, :sy, :sz]
+
+    # -- per-level operators -------------------------------------------------
+    def _level_matvec_diag(self, li: int, x_l):
+        """(matvec with the level's ctrl term, raw elastic diagonal blocks)
+        at level-li positions x_l: lat_hvp and lat_diag at the level's dx,
+        on the displacement from the level's rest grid, whose channel-first
+        copy is taken once here."""
+        lvl = self.levels[li]
+        mat = self.scene.material
+        u_cf = (x_l - self.x0_levels[li]).permute(3, 0, 1, 2).contiguous()
+        vm3 = lvl.vert_mask[..., None]
+        ctrl3 = lvl.ctrl[..., None]
+
+        def matvec(p):
+            hp = lk.hvp_cf(u_cf, p.permute(3, 0, 1, 2).contiguous(),
+                           lvl.cell_mask, lvl.dx, mat.lame_mu, mat.lame_la)
+            return (hp.permute(1, 2, 3, 0) + ctrl3 * p) * vm3
+
+        diag = lk.hess_diag_cf(u_cf, lvl.cell_mask, lvl.dx, mat.lame_mu,
+                               mat.lame_la)
+        return matvec, diag
+
+    # -- per-Newton linearization ------------------------------------------
+    def linearize(self, x_pad, inv_dt=None, lmax_cache=None):
+        """Per-level (matvec, diag, vmask, lmax) at the fine positions x_pad
+        (X, Y, Z, 3) on the padded level-0 grid. lmax, the Chebyshev upper
+        bound for D^-1 A, is a host float32: lmax_cache[li] when given, else
+        estimated here by power iteration (one device sync per level).
+        inv_dt adds the implicit-Euler inertia inv_dt^2 * mass to every
+        level's ctrl (a hierarchy built with dt=None)."""
+        ops = []
+        x_l = x_pad
+        eye = torch.eye(3, dtype=x_pad.dtype, device=x_pad.device)
+        for li, lvl in enumerate(self.levels):
+            vmask = lvl.vert_mask[..., None]
+            matvec, diag = self._level_matvec_diag(li, x_l)
+            ctrl = lvl.ctrl
+            if inv_dt is not None:
+                # restricted mass * inv_dt^2 == the restriction of the fine
+                # mass / dt^2 term (restrict_lat is linear)
+                extra = lvl.mass * (inv_dt * inv_dt)
+                ctrl = ctrl + extra
+
+                def matvec(p, mv0=matvec, extra=extra[..., None],
+                           vmask=vmask):
+                    return mv0(p) + extra * p * vmask
+            diag = diag + (ctrl + (1.0 - lvl.vert_mask))[..., None, None] \
+                * eye
+            # SPD-project the smoother blocks: at large deformation StVK
+            # diagonal blocks go indefinite and a near-singular block makes
+            # the block solve emit huge steps; only the preconditioner is
+            # regularized
+            if self.spd_smoother:
+                diag = ell.spd_project(diag, eps=1e-6, rel_floor=1e-3)
+            if lmax_cache is not None:
+                lmax = np.float32(lmax_cache[li])
+            else:
+                lmax = np.float32(self._est_lmax(matvec, diag, vmask).item())
+            ops.append((matvec, diag, vmask, lmax))
+            if li < self.n_levels - 1:
+                # restrict the displacement (weight-normalized) and anchor
+                # it at the next level's rest grid
+                nxt = self.levels[li + 1]
+                u_l = (x_l - self.x0_levels[li]) * vmask
+                ur = self._restrict(li, u_l) / self._restrict_w[li]
+                x_l = self.x0_levels[li + 1] + ur * nxt.vert_mask[..., None]
+        return ops
+
+    @staticmethod
+    def lmax_cache(ops, margin: float = 1.2):
+        """The Chebyshev bounds of `ops` times a drift margin, as a float32
+        numpy array (n_levels,), for reuse by every later linearization of
+        a solve: the power iteration costs 6 matvecs per level, and
+        lmax(D^-1 A) varies slowly along a Newton path."""
+        return np.array([op[3] for op in ops], np.float32) * np.float32(margin)
+
+    def newton_ops(self, x_pad, inv_dt=None, lmaxes=None):
+        """(ops, lmaxes) of one Newton linearization of a solve. The first
+        (lmaxes None) estimates the bounds on its own operators and takes
+        them times 1.2 as the solve's cache: the reference builds that
+        cache by a separate linearization at the same point, so the
+        numbers are the same with one linearization fewer."""
+        if lmaxes is None:
+            ops = self.linearize(x_pad, inv_dt)
+            lmaxes = self.lmax_cache(ops)
+            return [op[:3] + (lm,) for op, lm in zip(ops, lmaxes)], lmaxes
+        return self.linearize(x_pad, inv_dt, lmax_cache=lmaxes), lmaxes
+
+    # -- inter-level transfers -----------------------------------------------
+    def _pad_coarse(self, li: int, rc):
+        """A raw restrict_lat output padded up to level li+1's grid."""
+        tgt = tuple(self.levels[li + 1].vert_mask.shape)
+        return rc if tuple(rc.shape[:3]) == tgt else _pad_to(rc, tgt)
+
+    def _restrict(self, li: int, r):
+        """Level-li vertex field -> level li+1 grid (padded, unmasked)."""
+        return self._pad_coarse(li, stencil.restrict_lat(r))
+
+    def _prolong(self, li: int, xc):
+        """Level li+1 vertex field -> level li grid."""
+        src = tuple(self.levels[li].vert_mask.shape)
+        return stencil.prolong_lat(xc[:(src[0] + 1) // 2, :(src[1] + 1) // 2,
+                                      :(src[2] + 1) // 2], shape=src)
+
+    # -- V-cycle preconditioner ---------------------------------------------
+    @staticmethod
+    def _est_lmax(matvec, diag, vmask, iters: int = 6):
+        """Power iteration on D^-1 A for the Chebyshev upper bound (a 0-d
+        tensor, times 1.1)."""
+        shape = tuple(vmask.shape[:3])
+        n = shape[0] * shape[1] * shape[2]
+        start = torch.sin(torch.arange(n, dtype=torch.float32,
+                                       device=vmask.device))
+        v = vmask * start.reshape(shape + (1,)).expand(shape + (3,))
+        lam = None
+        for _ in range(iters):
+            w = ell.solve3x3(diag, matvec(v)) * vmask
+            ww = ell.vdot(w, w)
+            lam = torch.sqrt(ww / torch.clamp(ell.vdot(v, v), min=1e-30))
+            v = w / torch.clamp(torch.sqrt(ww), min=1e-30)
+        return lam * 1.1
+
+    @staticmethod
+    def _smooth(matvec, diag, vmask, b, x, degree: int, lmax):
+        """Chebyshev smoother on D^-1 A targeting [lmax/4, lmax] from x
+        (None: from zero, where the first residual is b itself). The
+        coefficients are host float32 scalars."""
+        f32 = np.float32
+        lmin = lmax / f32(4.0)
+        theta = f32(0.5) * (lmax + lmin)
+        delta = f32(0.5) * (lmax - lmin)
+        sigma = theta / delta
+        rho = f32(1.0) / sigma
+        z = ell.solve3x3(diag, b if x is None else b - matvec(x)) * vmask
+        d = z / float(theta)
+        x = d if x is None else x + d
+        for _ in range(degree - 1):
+            rho_new = f32(1.0) / (f32(2.0) * sigma - rho)
+            z = ell.solve3x3(diag, b - matvec(x)) * vmask
+            d = float(rho_new * rho) * d + float(f32(2.0) * rho_new / delta) * z
+            x = x + d
+            rho = rho_new
+        return x
+
+    def vcycle(self, ops, b, level: int = 0):
+        matvec, diag, vmask, lmax = ops[level]
+        if level == self.n_levels - 1:
+            if self.coarse_cg > 0:
+                return cgmod.pcg_operator(
+                    matvec, lambda r: ell.solve3x3(diag, r) * vmask, b,
+                    iterations=self.coarse_cg, tol=1e-4)
+            return self._smooth(matvec, diag, vmask, b, None,
+                                self.coarse_sweeps, lmax)
+        x = self._smooth(matvec, diag, vmask, b, None, self.nu, lmax)
+        r = b - matvec(x)
+        nxt = self.levels[level + 1]
+        rc = self._restrict(level, r) * nxt.vert_mask[..., None]
+        xc = self.vcycle(ops, rc, level + 1)
+        x = x + self._prolong(level, xc) * vmask
+        return self._smooth(matvec, diag, vmask, b, x, self.nu, lmax)
+
+
+def step_to_tol_mg(scene: LatticeScene, mg: LatticeMG, st: LatState,
+                   dyn: DynamicsConfig = DynamicsConfig(),
+                   tol: float = 1e-4, max_newton: int = 20,
+                   cg_iterations: int = 30, cg_tol: float = 1e-2,
+                   gravity_scale=1.0, dt=None, damping=None,
+                   return_cg: bool = False):
+    """Dynamic frame with GMG-preconditioned inexact Newton-CG, and the
+    blowup rescue of step_to_tol (Armijo on the incremental potential when
+    a full step explodes). `dt`/`damping` override the config's and need a
+    hierarchy built with dt=None (its levels take inv_dt^2 * mass at solve
+    time). Returns (state, k, fn), plus the PCG matvec total with
+    return_cg=True."""
+    if dt is not None and mg.build_dt is not None:
+        raise ValueError("dt override needs LatticeMG(..., dt=None): the "
+                         "hierarchy's baked ctrl already holds a mass/dt^2 "
+                         "term at its build dt")
+    dt = dyn.dt if dt is None else dt
+    damping = dyn.damping if damping is None else damping
+    inv_dt = 1.0 / dt
+    lin_inv_dt = inv_dt if mg.build_dt is None else None
+    x_old = st.x
+    v = st.v * damping
+    x = st.x + v * dt
+    x_tilde = x
+    vmask3 = scene.vert_mask[..., None]
+
+    def resid(xx):
+        return scene.dyn_force(xx, x_tilde, inv_dt,
+                               gravity_scale=gravity_scale)
+
+    def ie_energy(xe):
+        e = scene.total_energy(xe, gravity_scale=gravity_scale)
+        di = (xe - x_tilde) * vmask3
+        return e + 0.5 * inv_dt * inv_dt * torch.sum(
+            scene.mass[..., None] * di * di)
+
+    tol32 = np.float32(tol)
+    cond = cgmod.newton_cond(tol, max_newton)
+    fn = host_inf_norm(resid(x))
+    fmin, k, cg_tot, lmaxes = fn, 0, 0, None
+    while cond((x, k, fn, fmin)):
+        f = resid(x)
+        ops, lmaxes = mg.newton_ops(mg.pad(x), lin_inv_dt, lmaxes)
+        dx, cg_k = cgmod.pcg_operator(
+            ops[0][0], lambda r: mg.vcycle(ops, r), mg.pad(f),
+            iterations=cg_iterations, tol=cg_tol,
+            flexible=mg.coarse_cg > 0, return_iters=True)
+        cg_tot += cg_k - 1
+        dx = mg.unpad(dx)
+        x_full = x + dx * vmask3
+        fn_full = host_inf_norm(resid(x_full))
+        with np.errstate(over="ignore"):
+            bad = (not np.isfinite(fn_full)
+                   or fn_full > np.float32(30.0) * max(fn, tol32))
+        if bad:
+            x = armijo_step(ie_energy, x, f, dx, vmask3)
+            fn = host_inf_norm(resid(x))
+        else:
+            x, fn = x_full, fn_full
+        k += 1
+        fmin = np.minimum(fmin, fn)
+    v = (x - x_old) * inv_dt
+    out = st._replace(x=x, v=v), k, cgmod.newton_exit_norm(fn, fmin)
+    return out + (cg_tot,) if return_cg else out
+
+
+def frame_adaptive_mg(scene: LatticeScene, mg: LatticeMG, st: LatState,
+                      dyn: DynamicsConfig = DynamicsConfig(),
+                      tol: float = 1e-4, max_newton: int = 20,
+                      cg_iterations: int = 30, cg_tol: float = 1e-2,
+                      max_halvings: int = 3, gravity_scale=1.0):
+    """step_to_tol_mg with adaptive time substepping (the protocol of
+    lattice.frame_adaptive); needs a hierarchy built with dt=None. Returns
+    (state, max Newton, worst substep exit norm, n_substeps)."""
+    if mg.build_dt is not None:
+        raise ValueError("frame_adaptive_mg needs LatticeMG(..., dt=None)")
+
+    def step(s, dt, damp):
+        return step_to_tol_mg(scene, mg, s, dyn, tol, max_newton,
+                              cg_iterations, cg_tol,
+                              gravity_scale=gravity_scale, dt=dt,
+                              damping=damp)
+    return adaptive_frame(step, st, dyn, tol, max_halvings)
+
+
+def _solve_level_quasistatic(mg: LatticeMG, li: int, x0, tol, max_newton,
+                             cg_iterations, cg_tol, line_search, load_steps):
+    """Guarded Newton-PCG quasi-static solve on MG level li: the level's
+    re-discretized elastic operator (force, energy, hvp and diag kernels at
+    its dx and cell mask), its restricted pin penalty anchored at its rest
+    grid, and its restricted gravity load; block-Jacobi PCG."""
+    mat = mg.scene.material
+    lvl = mg.levels[li]
+    vm3 = lvl.vert_mask[..., None]
+    x0_l = mg.x0_levels[li]
+    eye = torch.eye(3, dtype=x0.dtype, device=x0.device)
+    args = (lvl.cell_mask, lvl.dx, mat.lame_mu, mat.lame_la)
+
+    def resid(xx, gs):
+        f = lk.force_cf((xx - x0_l).permute(3, 0, 1, 2).contiguous(),
+                        *args).permute(1, 2, 3, 0)
+        f[..., 1] += lvl.mass * mat.gravity * gs
+        f = f + lvl.ctrl[..., None] * (x0_l - xx)
+        return f * vm3
+
+    def energy(xx, gs):
+        e = lk.elastic_energy_lattice(xx - x0_l, *args)
+        e = e - torch.sum(lvl.mass * mat.gravity * gs * xx[..., 1])
+        d = (xx - x0_l) * vm3
+        return e + 0.5 * torch.sum(lvl.ctrl[..., None] * d * d)
+
+    def solve_at(xc, gs):
+        cond = cgmod.newton_cond(tol, max_newton)
+        xx, k = xc, 0
+        fn = host_inf_norm(resid(xc, gs))
+        fmin = fn
+        while cond((xx, k, fn, fmin)):
+            f = resid(xx, gs)
+            matvec, diag = mg._level_matvec_diag(li, xx)
+            diag = diag + (lvl.ctrl + (1.0 - lvl.vert_mask))[..., None,
+                                                             None] * eye
+            if mg.spd_smoother:
+                diag = ell.spd_project(diag, eps=1e-6, rel_floor=1e-3)
+            dx = cgmod.pcg_operator(
+                matvec, lambda r, diag=diag: ell.solve3x3(diag, r) * vm3, f,
+                iterations=cg_iterations, tol=cg_tol)
+            xx, fn = newton_update(
+                xx, f, dx, vm3, fn, lambda xe: energy(xe, gs),
+                lambda xe: host_inf_norm(resid(xe, gs)), line_search)
+            k += 1
+            fmin = np.minimum(fmin, fn)
+        return xx, k, cgmod.newton_exit_norm(fn, fmin)
+
+    return run_load_schedule(solve_at, x0, tol, max_newton, load_steps)
+
+
+def quasistatic_fmg(scene: LatticeScene, mg: LatticeMG, tol: float = 1e-4,
+                    max_newton: int = 50, cg_iterations: int = 30,
+                    cg_tol: float = 1e-2, line_search: bool = True,
+                    load_steps: int | str = 1, coarse_max_newton: int = 50,
+                    mid_max_newton: int = 15, coarse_cg_iterations: int = 60,
+                    fine_solver: str = "mg", return_stats: bool = False):
+    """Full-multigrid (nested iteration) quasi-static solve: the equilibrium
+    on the coarsest level first (load_steps, int or "auto", applies there
+    only), its displacement prolonged as the next level's start, down to
+    the fine level, whose corrector is "mg" (quasistatic_to_tol_mg) or
+    "jacobi" (quasistatic_to_tol with a diameter-scaled PCG cap: right for
+    deep bends, where the coarse operator at the bent state makes a poor
+    V-cycle). Middle levels get mid_max_newton: their output is only a
+    start. Returns (x, k_total, fn), k_total summing every level's Newton
+    iterations; return_stats=True appends the per-level counts, coarsest
+    first."""
+    if fine_solver not in ("mg", "jacobi"):
+        raise ValueError(f"fine_solver {fine_solver!r}: 'mg' or 'jacobi'")
+    ks = []
+    x_l = mg.x0_levels[mg.n_levels - 1]
+    for li in range(mg.n_levels - 1, 0, -1):
+        lvl = mg.levels[li]
+        x_in = x_l
+        coarsest = li == mg.n_levels - 1
+        x_l, k_l, fn_l = _solve_level_quasistatic(
+            mg, li, x_l, tol * (2.0 ** li),
+            coarse_max_newton if coarsest else mid_max_newton,
+            coarse_cg_iterations, cg_tol, line_search,
+            load_steps if coarsest else 1)
+        # a diverged level (fn = +inf) must not poison the finer ones: its
+        # input is still a valid, less converged start
+        if not np.isfinite(fn_l):
+            x_l = x_in
+        ks.append(k_l)
+        nxt = mg.levels[li - 1]
+        u_c = (x_l - mg.x0_levels[li]) * lvl.vert_mask[..., None]
+        x_l = (mg.x0_levels[li - 1]
+               + mg._prolong(li - 1, u_c) * nxt.vert_mask[..., None])
+    x_fine0 = mg.unpad(x_l)
+    if fine_solver == "jacobi":
+        # block-Jacobi PCG needs O(diameter) iterations: the cap scales with
+        # the lattice (truncation is also regularization on small ones)
+        cap = max(cg_iterations, 60, max(scene.vert_mask.shape))
+        x, k, fn = quasistatic_to_tol(scene, x_fine0, tol=tol,
+                                      max_newton=max_newton,
+                                      cg_iterations=cap, cg_tol=cg_tol,
+                                      line_search=line_search)
+    else:
+        x, k, fn = quasistatic_to_tol_mg(scene, mg, x_fine0, tol=tol,
+                                         max_newton=max_newton,
+                                         cg_iterations=cg_iterations,
+                                         cg_tol=cg_tol,
+                                         line_search=line_search)
+    ks.append(k)
+    out = x, sum(ks), fn
+    return out + (tuple(ks),) if return_stats else out
+
+
+def quasistatic_to_tol_mg(scene: LatticeScene, mg: LatticeMG, x,
+                          tol: float = 1e-4, max_newton: int = 50,
+                          cg_iterations: int = 30, cg_tol: float = 1e-2,
+                          line_search: bool = True,
+                          load_steps: int | str = 1,
+                          return_trace: bool = False,
+                          cg_forcing: str | None = None,
+                          return_cg: bool = False):
+    """Quasi-static Newton with GMG-preconditioned CG on the lattice (build
+    the LatticeMG with dt=None). Without the inertia term the Hessian's
+    conditioning degrades with the mesh diameter, and the V-cycle keeps the
+    PCG counts about flat. The Chebyshev bounds are estimated once per
+    stage (at its first linearization) and reused by its later Newton
+    iterations. load_steps, cg_forcing, return_trace and return_cg as in
+    lattice.quasistatic_to_tol. Returns (x, newton_iters, f_inf)."""
+    vmask3 = scene.vert_mask[..., None]
+
+    def resid(xx, gs):
+        return scene.dyn_force(xx, xx, 0.0, gravity_scale=gs)
+
+    def solve_at(x0, gs):
+        def resid_inf(xe):
+            return host_inf_norm(resid(xe, gs))
+        cond = cgmod.newton_cond(tol, max_newton)
+        xx, k, fn = x0, 0, resid_inf(x0)
+        fmin, eta, cg_tot, lmaxes = fn, np.float32(0.5), 0, None
+        while cond((xx, k, fn, fmin)):
+            f = resid(xx, gs)
+            ops, lmaxes = mg.newton_ops(mg.pad(xx), None, lmaxes)
+            tol_rr = eta * eta if cg_forcing == "ew" else cg_tol
+            dx, cg_k = cgmod.pcg_operator(
+                ops[0][0], lambda r: mg.vcycle(ops, r), mg.pad(f),
+                iterations=cg_iterations, tol=tol_rr,
+                flexible=mg.coarse_cg > 0, return_iters=True)
+            cg_tot += cg_k - 1
+            fn_prev = fn
+            xx, fn = newton_update(
+                xx, f, mg.unpad(dx), vmask3, fn_prev,
+                lambda xe: scene.total_energy(xe, gravity_scale=gs),
+                resid_inf, line_search)
+            if cg_forcing == "ew":
+                eta = cgmod.ew_eta(fn, fn_prev)
+            k += 1
+            fmin = np.minimum(fmin, fn)
+        out = xx, k, cgmod.newton_exit_norm(fn, fmin)
+        return out + (cg_tot,) if return_cg else out
+
+    if return_cg:
+        if load_steps != 1 or return_trace:
+            raise ValueError("return_cg counts a single-shot solve only")
+        return solve_at(x, 1.0)
+    return run_load_schedule(solve_at, x, tol, max_newton, load_steps,
+                             return_trace=return_trace)

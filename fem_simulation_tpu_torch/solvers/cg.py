@@ -1,7 +1,8 @@
 """Newton guards and the conjugate-gradient solvers.
 
 Port of `fem_simulation_tpu/solvers/cg.py` (`newton_cond`,
-`newton_exit_norm`, `_normalize_rhs`, `cg_operator`, `pcg_operator`, `cg`).
+`newton_exit_norm`, `ew_eta`, `_normalize_rhs`, `cg_operator`,
+`pcg_operator` with its flexible variant, `cg`).
 The loops run on the host: each CG iteration reads its loop condition
 back (one device sync per iteration on a GPU; the fused lattice kernels
 run the same loop on the device). Host-side scalar tests are made in
@@ -45,6 +46,21 @@ def newton_exit_norm(fn, fmin=None, blowup: float = NEWTON_BLOWUP) -> float:
         with np.errstate(over="ignore"):
             bad = bad or bool(fn32 > np.float32(blowup) * np.float32(fmin))
     return float("inf") if bad else float(fn32)
+
+
+def ew_eta(fn_new, fn_old, gamma: float = 0.9, alpha: float = 2.0,
+           floor: float = 0.1, cap: float = 0.8) -> np.float32:
+    """Next Eisenstat-Walker forcing term (choice 2) from two host residual
+    norms: gamma * (fn_new / fn_old)^alpha clamped to [floor, cap], in
+    float32. Callers pass eta^2 as pcg_operator's tol (relative on
+    ||r||^2); the floor matches the fixed default cg_tol = 1e-2."""
+    f32 = np.float32
+    fn_new, fn_old = f32(fn_new), f32(fn_old)
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        r = (fn_new / max(fn_old, f32(1e-30)) if fn_old > f32(0.0)
+             else f32(1.0))
+        return f32(np.clip(f32(gamma) * r ** f32(alpha), f32(floor),
+                           f32(cap)))
 
 
 def _normalize_rhs(b):
@@ -118,13 +134,17 @@ def cg(op, values, b, iterations: int = 10, tol: float = 1e-5, x0=None):
 
 
 def pcg_operator(matvec, minv, b, iterations: int = 50, tol: float = 1e-5,
-                 return_iters: bool = False):
+                 return_iters: bool = False, flexible: bool = False):
     """Preconditioned CG on an abstract operator, on the normalized RHS.
 
     Tolerance is relative on ||r||^2. The iteration count starts at 1, so
     matvecs executed = k - 1; the loop stops on k > iterations,
     ||r||^2 <= tol ||r0||^2, ||r0||^2 <= EPSILON, a non-finite ||r||^2, or
-    after an iteration with p.Ap < 1e-12 (which takes no step)."""
+    after an iteration with p.Ap < 1e-12 (which takes no step).
+
+    flexible=True takes the Polak-Ribiere beta z_new.(r_new - r_old) / rz,
+    which a non-stationary minv needs (a V-cycle whose coarsest level is
+    itself a CG solve, LatticeMG coarse_cg > 0)."""
     b, scale_back, _ = _normalize_rhs(b)
     x = torch.zeros_like(b)
     r = b
@@ -144,7 +164,11 @@ def pcg_operator(matvec, minv, b, iterations: int = 50, tol: float = 1e-5,
         r = r - alpha * ap
         z = minv(r)
         rz_new = ell.vdot(r, z)
-        beta = rz_new / rz
+        if flexible:
+            # r_new - r_old = -alpha Ap
+            beta = -alpha * ell.vdot(z, ap) / rz
+        else:
+            beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
         rr = ell.vdot(r, r)

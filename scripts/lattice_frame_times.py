@@ -12,9 +12,10 @@ then one JSON line. With `--profile`, one more run of the 48 frames per
 beam is traced with torch.profiler: host ms/frame, device busy ms/frame
 (union of the kernel and memory-op intervals), the idle share and the
 fused Newton kernel's launches and mean device time. With `--kernels`, the
-force and energy wrappers are timed alone on each beam (chip_smoke.py
-phase 1's seeded displacement): device us per call (every device op of a
-call, by torch.profiler), device ops per call, and events ms per call.
+force, energy, hvp and diagonal wrappers are timed alone on each beam
+(chip_smoke.py phase 1's seeded displacement and direction): device us per
+call (every device op of a call, by torch.profiler), device ops per call,
+and events ms per call.
 `--root` names the checkout whose
 `fem_simulation_tpu_torch` is timed (default: this one), so that one call
 on the card can alternate two checkouts, each in its own process. The beam
@@ -142,11 +143,17 @@ def main() -> int:
             u = torch.from_numpy(0.03 * rng.standard_normal(
                 tuple(sc.x0.shape)).astype(np.float32)).cuda() \
                 * sc.vert_mask[..., None]
+            p_cf = torch.from_numpy(rng.standard_normal(
+                (3,) + tuple(sc.shape)).astype(np.float32)).cuda()
             u_cf = u.permute(3, 0, 1, 2).contiguous()
             mat = (0.05, 250.0, 37.0)
             for name, fn in (
                     ("force", lambda: lk.force_cf(u_cf, sc.cell_mask, *mat)),
                     ("energy", lambda: lk.elastic_energy_lattice(
+                        u, sc.cell_mask, *mat)),
+                    ("hvp", lambda: lk.hvp_cf(u_cf, p_cf, sc.cell_mask,
+                                              *mat)),
+                    ("diag", lambda: lk.hess_diag_lattice(
                         u, sc.cell_mask, *mat))):
                 us, ops, ms = kernel_times(fn)
                 out.setdefault(label, {})[name] = dict(

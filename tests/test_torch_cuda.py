@@ -17,6 +17,7 @@ from fem_simulation_tpu_torch.ops import ell_kernels as ek
 from fem_simulation_tpu_torch.ops import lattice_kernels as lk
 from fem_simulation_tpu_torch.sim import dynamic as tdyn
 from fem_simulation_tpu_torch.sim import lattice as tlat
+from fem_simulation_tpu_torch.sim import lattice_mg as tmg
 from fem_simulation_tpu_torch.sim import quasistatic as tqs
 from fem_simulation_tpu_torch.sim import scene as tscene
 from fem_simulation_tpu_torch.solvers import smoothers as tsm
@@ -405,12 +406,113 @@ def test_fused_newton_kernel_matches_plain(scene, plan_mode, monkeypatch):
     assert float((dk - dp).abs().max()) <= 1e-3 * float(dp.abs().max())
 
 
+@pytest.mark.cuda
+def test_hvp_diag_kernels_at_mg_levels(scene):
+    """lat_hvp and lat_diag on every level of a 3-level hierarchy (5x5x9,
+    3x3x5 and 3x3x3 vertices, dx doubling from level to level) against
+    their plain versions: max|d| <= 1e-4 max|ref| (another summation
+    order), two runs bit-identical, one count a call; the channel-last
+    diagonal entry gives the channel-first one's bits."""
+    mg = tmg.LatticeMG(scene, n_levels=3, dt=None)
+    mat = scene.material
+    rng = np.random.default_rng(17)
+    for li, lvl in enumerate(mg.levels):
+        shape = (3,) + tuple(lvl.vert_mask.shape)
+        u = torch.from_numpy(0.03 * rng.standard_normal(shape).astype(
+            np.float32)).cuda() * lvl.vert_mask
+        p = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+        args = (lvl.cell_mask, lvl.dx, mat.lame_mu, mat.lame_la)
+        before = dict(lk.launches)
+        h = [lk.hvp_cf(u, p, *args) for _ in range(2)]
+        d = [lk.hess_diag_cf(u, *args) for _ in range(2)]
+        d_last = lk.hess_diag_lattice(u.permute(1, 2, 3, 0).contiguous(),
+                                      *args)
+        h_ref = lk.hvp_cf_plain(u, p, *args)
+        d_ref = lk.hess_diag_lattice_plain(u.permute(1, 2, 3, 0), *args)
+        torch.cuda.synchronize()
+        assert lk.launches["hvp"] == before["hvp"] + 2, li
+        assert lk.launches["diag"] == before["diag"] + 3, li
+        assert torch.equal(h[0], h[1]) and torch.equal(d[0], d[1]), li
+        assert torch.equal(d[0], d_last), li
+        assert tuple(d[0].shape) == shape[1:] + (3, 3)
+        for got, ref in ((h[0], h_ref), (d[0], d_ref)):
+            assert float((got - ref).abs().max()) <= 1e-4 * float(
+                ref.abs().max()), li
+
+
+@pytest.mark.cuda
+def test_hvp_diag_kept_scratch_same_bits(scene):
+    """The wrappers' kept scratch and one-gather 3x3 assembly give the bits
+    of a launch on freshly allocated buffers with the blocks stacked from
+    the six channels, call after call."""
+    u, p = _random_fields(scene, 21)
+    u_cf = u.permute(3, 0, 1, 2).contiguous()
+    p_cf = p.permute(3, 0, 1, 2).contiguous()
+    X, Y, Z = scene.shape
+    cm = scene.cell_mask
+    lib = _cuda.load()
+    tail = lk._chain_tail(X, Y, Z, DX, MU, LA, u.device)
+    out = torch.empty_like(u_cf)
+    cf = torch.empty(24 * cm.numel(), device="cuda")
+    assert lib.lat_hvp(u_cf.data_ptr(), p_cf.data_ptr(), cm.data_ptr(),
+                       out.data_ptr(), cf.data_ptr(), *tail) == 0
+    d6 = torch.empty((6, X, Y, Z), device="cuda")
+    cd = torch.empty(48 * cm.numel(), device="cuda")
+    assert lib.lat_diag(u_cf.data_ptr(), cm.data_ptr(), d6.data_ptr(),
+                        cd.data_ptr(), *tail) == 0
+    c = d6.permute(1, 2, 3, 0)
+    blocks = torch.stack([torch.stack([c[..., 0], c[..., 1], c[..., 2]], -1),
+                          torch.stack([c[..., 1], c[..., 3], c[..., 4]], -1),
+                          torch.stack([c[..., 2], c[..., 4], c[..., 5]], -1)],
+                         -2)
+    for _ in range(3):
+        assert torch.equal(lk.hvp_cf(u_cf, p_cf, cm, DX, MU, LA), out)
+        assert torch.equal(lk.hess_diag_cf(u_cf, cm, DX, MU, LA), blocks)
+        assert torch.equal(lk.hess_diag_lattice(u, cm, DX, MU, LA), blocks)
+
+
+_PLAIN = ("force_cf_plain", "hvp_cf_plain", "hess_diag_lattice_plain",
+          "elastic_energy_lattice_plain", "fused_newton_plain")
+
+
+@pytest.mark.cuda
+def test_quasistatic_mg_on_card_matches_cpu(scene, monkeypatch):
+    """Three Newton iterations of quasistatic_to_tol_mg (2 levels,
+    coarse_cg 8) on the card against the CPU run of the plain versions:
+    equal Newton counts, ||f||_inf within 1e-3 relative + 5e-6, x within
+    1e-4. The card's run launches lat_hvp and lat_diag and calls no plain
+    version."""
+    cpu = tlat.LatticeScene(scene.mesh, device="cpu")
+    mg_cpu = tmg.LatticeMG(cpu, n_levels=2, dt=None, coarse_cg=8)
+    x_cpu, k_cpu, fn_cpu = tmg.quasistatic_to_tol_mg(
+        cpu, mg_cpu, cpu.x0, tol=1e-12, max_newton=3)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+    for name in _PLAIN:
+        monkeypatch.setattr(lk, name, refuse)
+    lk.reset_launches()
+    mg = tmg.LatticeMG(scene, n_levels=2, dt=None, coarse_cg=8)
+    x, k, fn = tmg.quasistatic_to_tol_mg(scene, mg, scene.x0, tol=1e-12,
+                                         max_newton=3)
+    torch.cuda.synchronize()
+    assert k == k_cpu == 3
+    assert abs(fn - fn_cpu) <= 1e-3 * fn_cpu + 5e-6
+    assert float((x.cpu() - x_cpu).abs().max()) <= 1e-4
+    assert lk.launches["hvp"] > 0 and lk.launches["diag"] > 0
+    assert lk.launches["fused_newton"] == 0
+
+
 _ENTRY_POINTS = {
     "Scene": lambda m, **kw: tscene.Scene(
         m, solver=SolverConfig(n_levels=2), **kw).x0,
     "LatticeScene": lambda m, **kw: tlat.LatticeScene(m, **kw).x0,
     "LatticeDynamicSim": lambda m, **kw: tlat.LatticeDynamicSim(
         m, **kw).state.x,
+    # the hierarchy takes its scene's device
+    "LatticeMG": lambda m, **kw: tmg.LatticeMG(
+        tlat.LatticeScene(m, **kw), n_levels=2).x0_levels[0],
     "lattice.state_from_numpy": lambda m, **kw: tlat.state_from_numpy(
         *tlat.state_to_numpy(tlat.LatticeScene(m, device="cpu")
                              .init_state()), **kw).x,

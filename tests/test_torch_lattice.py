@@ -130,6 +130,7 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
         "                                               pkg.__name__ + '.')]\n"
         "assert {'fem_simulation_tpu_torch.sim.dynamic',\n"
+        "        'fem_simulation_tpu_torch.sim.lattice_mg',\n"
         "        'fem_simulation_tpu_torch.ops.ell_kernels'} <= set(names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
