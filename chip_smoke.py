@@ -34,10 +34,16 @@ Phase 5  the unstructured main path: QuasiStaticSim Newton-MG and FAS v3 on
          every kernel launch counted, per Newton-MG step too.
 Phase 6  reruns the first 5 Newton-MG steps of the 16x16x64 beam on the CPU
          with the plain versions and compares the ||f||_inf series and x.
-Phase 7  lattice quasi-static solvers and multigrid: lat_hvp and lat_diag
-         against their plain versions on every level of the 3-level
-         hierarchies of the three beams (dx doubling per level, two runs
-         bit-identical), timed; then the path, counters zeroed before it:
+Phase 7  lattice quasi-static solvers and multigrid: on every level of the
+         3-level hierarchies of the three beams (dx doubling per level)
+         lat_hvp, the two-pass lat_diag, the multigrid's fused diagonal
+         lat_diag_shift and its Chebyshev smoother lat_cheby (pre-smooth
+         with residual, post-smooth, coarse sweeps) against their plain
+         versions (the projected diagonal outside the blocks where a
+         Jacobi rotation of either chain meets an exact tie, which are
+         counted and logged; at rest, against ell.spd_project of the
+         kernel's own shifted blocks; two runs bit-identical), timed;
+         then the path, counters zeroed before it:
          the verify recipe on the 8x8x24 beam (quasistatic_to_tol with 2
          load steps; LatticeMG(n_levels=2, dt=None, coarse_cg=8) with
          quasistatic_to_tol_mg), full-size quasi-static solves from rest
@@ -86,6 +92,10 @@ TPU_KERNELS = {   # the pallas_call each kernel replaces
     "force": "fem_simulation_tpu/ops/pallas_lattice.py:306",
     "hvp": "fem_simulation_tpu/ops/pallas_lattice.py:306",
     "diag": "fem_simulation_tpu/ops/pallas_lattice.py:251",
+    # the same diagonal with the multigrid's shift and SPD projection fused
+    "diag_shift": "fem_simulation_tpu/ops/pallas_lattice.py:251",
+    # the HVP as the multigrid's Chebyshev smoother applies it
+    "cheby": "fem_simulation_tpu/ops/pallas_lattice.py:306",
     "energy": "fem_simulation_tpu/ops/pallas_lattice.py:200",
     "fused_pcg": "fem_simulation_tpu/ops/pallas_lattice.py:608",
     "spmv": "fem_simulation_tpu/ops/pallas_kernels.py:68",
@@ -849,75 +859,232 @@ def phase6(uscene_gpu, steps=5):
 # -- phase 7 -----------------------------------------------------------------
 
 def level_bounds(lvl):
-    """(bound_ms, bound_by) of lat_hvp and lat_diag on one level: u, p (hvp)
-    and the cell mask in, the product or the 9 block floats out; the chain
-    FLOPs of the level's real cells."""
+    """(bound_ms, bound_by) on one level of lat_hvp (u, p and the cell mask
+    in, the product out), of the two-pass lat_diag entry (u and the cell
+    mask in, 9 block floats out) and of lat_diag_shift (u, ctrl, vm and the
+    cell mask in, 6 channels out): the chain FLOPs of the level's real cells,
+    and the projection's of its real vertices."""
     n = lvl.vert_mask.numel()
     c = lvl.cell_mask.numel()
     active = float(lvl.cell_mask.sum())
+    verts = float(lvl.vert_mask.sum())
     field = 3 * n * 4
     return {"hvp": bound(3 * field + 4 * c, active * lk.HVP_FLOPS_PER_CELL),
             "diag": bound(field + 9 * n * 4 + 4 * c,
-                          active * lk.DIAG_FLOPS_PER_CELL)}
+                          active * lk.DIAG_FLOPS_PER_CELL),
+            "diag_shift": bound(field + 4 * c + 2 * n * 4 + 6 * n * 4,
+                                active * lk.DIAG_FLOPS_PER_CELL
+                                + verts * lk.SPD_PROJECT_FLOPS),
+            "diag_shift_unprojected": bound(
+                field + 4 * c + 2 * n * 4 + 6 * n * 4,
+                active * lk.DIAG_FLOPS_PER_CELL)}
+
+
+def cheby_bound(lvl, sweeps, warm, residual):
+    """(bound_ms, bound_by) of one lat_cheby call: u, b, d6, ctrl, vm, the
+    cell mask and (warm) the start read once, x and (residual) b - A x
+    written once; the HVPs it runs on the real cells (none in a first sweep
+    from zero, one more for the residual) and every sweep's vertex work on
+    the real vertices."""
+    n = lvl.vert_mask.numel()
+    c = lvl.cell_mask.numel()
+    active = float(lvl.cell_mask.sum())
+    verts = float(lvl.vert_mask.sum())
+    floats = (3 + 3 + 6 + 1 + 1 + 3 * warm + 3 + 3 * residual) * n + c
+    hvps = sweeps - (not warm) + residual
+    return bound(4 * floats, hvps * active * lk.HVP_FLOPS_PER_CELL
+                 + sweeps * verts * lk.CHEBY_VERTEX_FLOPS)
+
+
+def _plan_text(plan):
+    grid, ntx, nty, ntz, _, _, halo = plan
+    mode = ("one tile, one block" if ntx * nty * ntz == 1
+            else "halo" if halo else "exchange")
+    return f"grid {grid} tiles {ntx}x{nty}x{ntz} {mode}"
+
+
+def diag_shift_err(where, u, dargs, got, ref, tol=1e-4):
+    """lat_diag_shift's projected blocks against the plain chain's
+    (hess_diag_shift_cf_plain): (max|d|, max|ref|, record), max|d| over the
+    blocks where no rotation of either chain's projection meets an exact
+    tie (ell.jacobi_ties: app == aqq, apq != 0; sign(0) = 0 skips the
+    rotation, so an ulp of input moves such a block by up to |apq|). Logs
+    how many blocks tie and, for the first block off by more than tol of
+    max|ref|, its raw shifted blocks and projections in both chains."""
+    raw_k = lk.sym_blocks(lk.hess_diag_shift_cf(u, *dargs, False))
+    raw_p = lk.shifted_diag_blocks_plain(u, *dargs)
+    tie = ell.jacobi_ties(raw_k) | ell.jacobi_ties(raw_p)
+    d = (got - ref).abs().amax(0)
+    scale = float(ref.abs().max())
+    off = d > tol * scale
+    n_tie, n_off = int(tie.sum()), int(off.sum())
+    err = float(d[~tie].max()) if n_tie < tie.numel() else 0.0
+    tie_err = float(d[tie].max()) if n_tie else 0.0
+    log(f"phase7 diag_shift {where}: {n_tie} blocks tie in a rotation of "
+        f"either chain, max|d| there {tie_err:.3e}; {n_off} blocks off by "
+        f"more than {tol} * max|ref| ({int((off & tie).sum())} of them "
+        f"tied)")
+    if n_off:
+        i = tuple(int(v) for v in torch.nonzero(off)[0])
+        k = [float(v) for v in raw_k[i].flatten()]
+        p = [float(v) for v in raw_p[i].flatten()]
+        log(f"phase7 diag_shift {where} block {i} tied {bool(tie[i])}: raw "
+            f"kernel {k}; raw plain {p}; projected kernel "
+            f"{got[(slice(None),) + i].tolist()}; plain "
+            f"{ref[(slice(None),) + i].tolist()}")
+    return err, scale, dict(tie_blocks=n_tie, tie_max_abs_err=tie_err,
+                            off_blocks=n_off)
 
 
 def phase7_kernels(scenes, rows, reps):
-    """lat_hvp and lat_diag against their plain versions at every level
-    shape of each beam's 3-level hierarchy, with the level's dx; returns
-    {label: [per-level dict]}."""
+    """The multigrid's level operators at every level shape of each beam's
+    3-level hierarchy, with the level's dx and ctrl, on a seeded perturbed
+    displacement: lat_hvp and the two-pass lat_diag entry (hess_diag_cf);
+    lat_diag_shift, the multigrid's diagonal (shift and SPD projection
+    fused), projected and not; lat_cheby as the V-cycle calls it (nu = 2:
+    pre-smooth from zero with its residual and post-smooth from a start on
+    every level but the coarsest; 12 sweeps on the coarsest), with the
+    level's Chebyshev bound by power iteration times 1.2. Every result
+    against its plain version (the projected diagonal outside the blocks
+    where a projection meets an exact tie, diag_shift_err), two runs
+    bit-identical, one device op a call for the new kernels, timed. At
+    rest, the projection against ell.spd_project of the kernel's own
+    shifted blocks where they tie (xx == yy, xy != 0: the sign(0) case).
+    Returns {label: [per-level dict]}."""
     out = {}
+    rows["cheby"] = {"max_abs_err": 0.0, "by_beam": {}}
+    rows["diag_shift"] = {"max_abs_err": 0.0, "by_beam": {}}
+    lib = _cuda.load()
     for label, sc in scenes.items():
         mg = tmg.LatticeMG(sc, n_levels=3, dt=None)
         rng = np.random.default_rng(7)
         out[label] = []
         for li, lvl in enumerate(mg.levels):
             shape = (3,) + tuple(lvl.vert_mask.shape)
-            u = torch.from_numpy(0.03 * rng.standard_normal(shape).astype(
-                np.float32)).to(sc.device) * lvl.vert_mask
-            p = torch.from_numpy(rng.standard_normal(shape).astype(
-                np.float32)).to(sc.device)
+            vm = lvl.vert_mask
+
+            def field(scale):
+                return torch.from_numpy((scale * rng.standard_normal(
+                    shape)).astype(np.float32)).to(sc.device)
+            u, p, b, x0 = field(0.03) * vm, field(1.0), field(1.0) * vm, \
+                field(0.1) * vm
             args = (lvl.cell_mask, lvl.dx, MU, LA)
+            dargs = (lvl.cell_mask, lvl.ctrl, vm, lvl.dx, MU, LA)
             u_last = u.permute(1, 2, 3, 0)
+            d6 = lk.hess_diag_shift_cf(u, *dargs)
+
+            def matvec(q):
+                return (lk.hvp_cf(u, q, *args) + lvl.ctrl * q) * vm
+            lmax = np.float32(tmg.LatticeMG._est_lmax(matvec, d6, vm).item()
+                              ) * np.float32(1.2)
+            bounds = level_bounds(lvl)
             cases = {
                 "hvp": (lambda: lk.hvp_cf(u, p, *args),
                         lambda: lk.hvp_cf_plain(u, p, *args)),
                 "diag": (lambda: lk.hess_diag_cf(u, *args),
                          lambda: lk.hess_diag_lattice_plain(u_last, *args)),
+                "diag_shift_unprojected": (
+                    lambda: lk.hess_diag_shift_cf(u, *dargs, False),
+                    lambda: lk.hess_diag_shift_cf_plain(u, *dargs, False)),
+                "diag_shift": (
+                    lambda: lk.hess_diag_shift_cf(u, *dargs),
+                    lambda: lk.hess_diag_shift_cf_plain(u, *dargs)),
             }
-            bounds = level_bounds(lvl)
-            entry = {"level": li, "shape": shape[1:], "dx": lvl.dx}
+            smooths = ({"cheby_coarse": (None, 12, False)}
+                       if li == mg.n_levels - 1 else
+                       {"cheby_pre": (None, 2, True),
+                        "cheby_post": (x0, 2, False)})
+            for name, (x, sweeps, res) in smooths.items():
+                call = (u, b, x, d6, lvl.ctrl, vm, lvl.cell_mask, lvl.dx, MU,
+                        LA, lk.cheby_coeffs(lmax, sweeps), res)
+                cases[name] = (lambda call=call: lk.cheby_smooth_cf(*call),
+                               lambda call=call: lk.cheby_smooth_cf_plain(
+                                   *call))
+                bounds[name] = cheby_bound(lvl, sweeps, x is not None, res)
+            plans = {k: lk._level_plan(lib, *shape[1:], sc.device, k)
+                     for k in (lk.CHEBY, lk.DIAG_SHIFT)}
+            entry = {"level": li, "shape": shape[1:], "dx": lvl.dx,
+                     "lmax": float(lmax),
+                     "cheby_plan": list(plans[lk.CHEBY]),
+                     "diag_shift_plan": list(plans[lk.DIAG_SHIFT])}
+            log(f"phase7 plan {label:4s} level {li} {shape[1:]} lat_cheby "
+                f"{_plan_text(plans[lk.CHEBY])}; lat_diag_shift "
+                f"{_plan_text(plans[lk.DIAG_SHIFT])}; lmax {float(lmax):.4f}")
             for name, (kern, plain) in cases.items():
-                got, again, ref = kern(), kern(), plain()
+                got, again = kern(), kern()
+                ref = plain()
                 torch.cuda.synchronize()
-                err, scale = max_err(got, ref), float(ref.abs().max())
-                check(bool(torch.equal(got, again)),
-                      f"{name} {label} level {li}: two runs differ")
-                check(err <= 1e-4 * scale, f"{name} {label} level {li}: "
-                      f"max|d| {err:.3e} > 1e-4 * {scale:.3e}")
-                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
-                                                err)
+                pairs = (list(zip(got, again, ref)) if isinstance(got, tuple)
+                         else [(got, again, ref)])
+                err = scale = 0.0
+                # another summation order (corner sums, the smoother's
+                # recurrences): 1e-4 of the output's scale
+                for g_, a_, r_ in pairs:
+                    check(bool(torch.equal(g_, a_)),
+                          f"{name} {label} level {li}: two runs differ")
+                    if name == "diag_shift":
+                        e_, s_, entry["diag_shift_ties"] = diag_shift_err(
+                            f"{label} level {li}", u, dargs, g_, r_)
+                    else:
+                        e_, s_ = max_err(g_, r_), float(r_.abs().max())
+                    check(e_ <= 1e-4 * s_, f"{name} {label} level {li}: "
+                          f"max|d| {e_:.3e} > 1e-4 * {s_:.3e}")
+                    err, scale = max(err, e_), max(scale, s_)
+                kernel = ("cheby" if name.startswith("cheby")
+                          else "diag_shift" if name.startswith("diag_shift")
+                          else name)
+                rows[kernel]["max_abs_err"] = max(
+                    rows[kernel]["max_abs_err"], err)
                 ms = cuda_ms(kern, reps)
-                # hvp: cell pass and vertex gather; diag: the same and the
-                # gather of the six channels into 3x3 blocks; each op's
-                # mean span times its launches a call; None when the traces
-                # lost an op altogether
-                n_ops = 2 if name == "hvp" else 3
-                ops = whole_trace(kern, 10, n_ops)
+                # each op's mean span times its launches a call; None when
+                # the traces lost an op altogether. hvp: cell pass and
+                # gather; the two-pass diag: those and the block gather; the
+                # new kernels: one launch a call
+                n_ops = {"hvp": 2, "diag": 3}.get(name, 1)
+                ops = whole_trace(kern, 20, n_ops)
+                n_got = sum(n for n, _ in ops.values())
                 us = (round(sum(max(1, round(n)) * t
                                 for n, t in ops.values()), 2)
                       if len(ops) >= n_ops else None)
+                if n_ops == 1:
+                    # at most one device op a call (a trace can lose its
+                    # last events, never add any)
+                    check(len(ops) <= 1 and n_got <= 1.0, f"{name} {label} "
+                          f"level {li}: device ops per call {ops}")
                 plain_ms = cuda_ms(plain, 3, warmup=1)
                 b_ms, b_by = bounds[name]
                 entry[name] = dict(max_abs_err=err, ms=ms, device_us=us,
                                    plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=b_by)
-                log(f"phase7 {name:4s} {label:4s} level {li} {shape[1:]} dx "
+                log(f"phase7 {name:22s} {label:4s} level {li} {shape[1:]} dx "
                     f"{lvl.dx:g} max|d| {err:.3e} (max|ref| {scale:.3e}) "
                     f"same bits twice  kernel {ms:.4f} ms (device "
                     f"{'not captured' if us is None else f'{us} us'}, "
-                    f"{sum(n for n, _ in ops.values()):g} ops)  plain "
-                    f"{plain_ms:.3f} ms  bound {b_ms:.5f} ms ({b_by})")
+                    f"{n_got:g} ops)  plain {plain_ms:.3f} ms  bound "
+                    f"{b_ms:.5f} ms ({b_by})")
+            # the projection where the kernel's own sums tie (at rest)
+            u0 = torch.zeros_like(u)
+            raw = lk.sym_blocks(lk.hess_diag_shift_cf(u0, *dargs, False))
+            a = raw.reshape(-1, 3, 3)
+            ties = int(((a[:, 0, 0] == a[:, 1, 1])
+                        & (a[:, 0, 1].abs() > 1e-3)).sum())
+            ref = lk.sym_channels(ell.spd_project(raw, eps=1e-6,
+                                                  rel_floor=1e-3))
+            got = lk.hess_diag_shift_cf(u0, *dargs)
+            torch.cuda.synchronize()
+            err, scale = max_err(got, ref), float(ref.abs().max())
+            log(f"phase7 projection {label:4s} level {li} at rest: {ties} "
+                f"tied blocks (xx == yy, |xy| > 1e-3); vs ell.spd_project "
+                f"of the kernel's shifted blocks max|d| {err:.3e} (max|ref| "
+                f"{scale:.3e}){'  bit-equal' if torch.equal(got, ref) else ''}")
+            check(err <= 1e-6 * scale, f"projection {label} level {li}: "
+                  f"max|d| {err:.3e} > 1e-6 * {scale:.3e}")
+            entry["projection_at_rest"] = dict(ties=ties, max_abs_err=err,
+                                               bit_equal=bool(torch.equal(
+                                                   got, ref)))
             out[label].append(entry)
+        rows["cheby"]["by_beam"][label] = out[label][0]["cheby_pre"]
+        rows["diag_shift"]["by_beam"][label] = out[label][0]["diag_shift"]
     return out
 
 
@@ -940,7 +1107,8 @@ def timed_solve(label, name, solve, cg_counted=True):
     x, k, fn = out[:3]
     cg = out[3] if cg_counted else None
     launches = {n: lk.launches[n] - before[n]
-                for n in ("hvp", "diag", "force", "energy", "fused_newton")}
+                for n in ("cheby", "diag_shift", "hvp", "diag", "force",
+                          "energy", "fused_newton")}
     check(bool(torch.isfinite(x).all()) and fn <= TOL,
           f"phase7 {label} {name}: ||f|| {fn:.3e} > {TOL}")
     log(f"phase7 {label:4s} {name:28s} ms/solve {ms:.2f} (host clock "
@@ -1067,7 +1235,8 @@ def phase7_path(scenes):
     torch.cuda.synchronize()
     counts = dict(lk.launches)
     log(f"phase7 launches {counts}")
-    for name in ("hvp", "diag", "force", "energy", "fused_newton"):
+    for name in ("cheby", "diag_shift", "hvp", "force", "energy",
+                 "fused_newton"):
         check(counts[name] > 0, f"phase7: {name} never launched")
     return results, counts
 
@@ -1153,7 +1322,8 @@ def main() -> int:
     rel6, err6 = phase6(uscenes["19k"])
     levels7 = phase7_kernels(scenes, rows, reps=20)
     results7, counts7 = phase7_path(scenes)
-    counts["hvp"], counts["diag"] = counts7["hvp"], counts7["diag"]
+    for name in ("cheby", "diag_shift", "hvp", "diag"):
+        counts[name] = counts7[name]
     rel7 = phase7_cpu(scenes["19k"])
 
     summary = {label: {k: v for k, v in r.items() if k != "state8"}
@@ -1165,29 +1335,42 @@ def main() -> int:
         f"max|d x| {err6:.3e}  phase7 max rel |d f| {rel7:.3e}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
+    # the kernels the multigrid path launches: the line's numbers from its
+    # 19k fine level (lat_cheby: a pre-smooth with its residual;
+    # lat_diag_shift: projected), the others' from the 19k beam
+    fine19 = levels7["19k"][0]
+    at_level = {"cheby": fine19["cheby_pre"],
+                "diag_shift": fine19["diag_shift"]}
+    per_level = {"cheby": ("cheby_pre", "cheby_post", "cheby_coarse"),
+                 "diag_shift": ("diag_shift", "diag_shift_unprojected",
+                                "diag_shift_ties", "diag_shift_plan"),
+                 "diag": ("diag",), "hvp": ("hvp",)}
+
     def row(name, launches):
         r = rows[name]
-        at = r["by_beam"]["19k"]     # the line's numbers: the 19k beam
+        at = at_level.get(name, r["by_beam"].get("19k"))
         out = {"name": name, "route": "cuda",
                "source": (ELL_SOURCE if name in ("spmv", "gs", "jacobi")
                           else LATTICE_SOURCE),
                "replaces": TPU_KERNELS[name], "launches": launches,
                "max_abs_err": r["max_abs_err"], "ms": at["ms"],
                "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
-               "bound_by": at["bound_by"], "library_ms": at["library_ms"],
-               "by_beam": r["by_beam"]}
-        if name in ("hvp", "diag"):  # phase 7: at the multigrid level shapes
-            out["by_level"] = {label: [{"level": e["level"],
-                                        "shape": e["shape"], **e[name]}
-                                       for e in entries]
-                               for label, entries in levels7.items()}
+               "bound_by": at["bound_by"],
+               "library_ms": at.get("library_ms"), "by_beam": r["by_beam"]}
+        if name in per_level:        # phase 7: at the multigrid level shapes
+            out["by_level"] = {
+                label: [{"level": e["level"], "shape": e["shape"],
+                         **{case: e[case] for case in per_level[name]
+                            if case in e}} for e in entries]
+                for label, entries in levels7.items()}
         return out
     log(card)
     print(json.dumps({
         "kernels": [row(n, counts[n]) for n in ("fused_newton", "force",
                                                 "energy", "fused_pcg",
                                                 "spmv", "gs", "jacobi",
-                                                "hvp", "diag")],
+                                                "hvp", "diag", "cheby",
+                                                "diag_shift")],
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

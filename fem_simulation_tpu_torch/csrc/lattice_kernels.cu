@@ -380,10 +380,23 @@ struct CellIn {
     bool have_prev;
 };
 
+// The first term of the HVP pass's direction: z for the PCG of the fused
+// kernels (p = z + beta p_prev); other callers (the Chebyshev smoother) pass
+// the whole direction in CellIn::pprev with have_prev false.
+__device__ __forceinline__ const float* hvp_dir(const NewtonArgs& P,
+                                                const CellIn&) {
+    return P.z;
+}
+template <class Args>
+__device__ __forceinline__ const float* hvp_dir(const Args&,
+                                                const CellIn& in) {
+    return in.pprev;
+}
+
 // Stage the fields at the vertex box around T's cells into shared memory,
 // one float4 a vertex: su holds u (kTrial: u + (xacc sb) vm) and, for kHvp,
-// sp the direction p = z (+ beta p_prev when have_prev). Args: NewtonArgs,
-// or ForceArgs for kForce.
+// sp the direction p = z (+ beta p_prev when have_prev; hvp_dir). Args:
+// NewtonArgs, ForceArgs for kForce, ChebyArgs for kHvp, DiagArgs for kDiag.
 template <int OP, class Args>
 __device__ __forceinline__ void stage_box(const Args& P, const Tile& T,
                                           float4* su, float4* sp,
@@ -406,9 +419,10 @@ __device__ __forceinline__ void stage_box(const Args& P, const Tile& T,
         }
         su[bl] = make_float4(a[0], a[1], a[2], 0.f);
         if constexpr (OP == kHvp) {
+            const float* dir = hvp_dir(P, in);
 #pragma unroll
             for (int r = 0; r < 3; ++r) {
-                a[r] = P.z[r * N + v];
+                a[r] = dir[r * N + v];
                 if (in.have_prev) a[r] += in.beta * in.pprev[r * N + v];
             }
             sp[bl] = make_float4(a[0], a[1], a[2], 0.f);
@@ -428,8 +442,8 @@ __device__ __forceinline__ void stage_box(const Args& P, const Tile& T,
 // device memory, and p = z + beta p_prev is formed once per vertex.
 // Every thread of the block must call it (barriers and full-warp shuffles
 // inside).
-template <int OP>
-__device__ __forceinline__ void tile_cells(const NewtonArgs& P, const Tile& T,
+template <int OP, class Args>
+__device__ __forceinline__ void tile_cells(const Args& P, const Tile& T,
                                            const QuadLane& ql, float* sc,
                                            const CellIn& in) {
     constexpr int NCH = OP == kDiag ? 6 : 3;
@@ -546,8 +560,8 @@ __device__ __forceinline__ void halo_vertices(const Lattice& L, const Tile& T,
 // is called once for every vertex the block owns with its NCH complete sums.
 // Exchange mode runs one grid barrier inside, so every block must call it.
 // row0: the first of the NCH pbuf rows this pass uses.
-template <int OP, class Finish>
-__device__ __forceinline__ void cell_vertex_pass(const NewtonArgs& P,
+template <int OP, class Args, class Finish>
+__device__ __forceinline__ void cell_vertex_pass(const Args& P,
                                                  const QuadLane& ql, float* sc,
                                                  const CellIn& in, int row0,
                                                  cg::grid_group& grid,
@@ -833,6 +847,242 @@ cudaError_t launch_fused(NewtonArgs& P, int grid, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
+// Lattice multigrid level operators: the Chebyshev smoother and the shifted,
+// SPD-projected vertex diagonal
+// ---------------------------------------------------------------------------
+//
+// The lattice multigrid (sim/lattice_mg.py) runs, on every level, a
+// Chebyshev smoother around the HVP and a linearization that takes the
+// vertex-diagonal blocks, shifts them and projects them onto SPD. As chains
+// of torch ops around the two-pass lat_hvp / lat_diag, a V-cycle was ~1,400
+// ops and a linearization ~2,800 (PERF.md), the card idle ~92% of a solve.
+// Here each of the two is one launch.
+//
+// lat_cheby replaces, on that path, the HVP (_run(hvp=True), pallas_call at
+// :306) as the JAX LatticeMG._smooth_cheby applies it (sim/lattice_mg.py:
+// 481-502): all the sweeps of one smoothing call. A sweep is
+//   A x = (HVP(u; x) + ctrl x) vm,  r = b - A x,  z = D^-1 r vm (sym_solve),
+//   d = z / theta (first sweep) or a d + b z,  x = x + d;
+// the first sweep from zero skips the HVP (r = b). With a residual asked
+// for, one more HVP gives r = b - A x, what the V-cycle restricts. Bound:
+// at the level shapes the HVP chain is microseconds of the card's float32
+// rate and the fields stay in L2; what a sweep costs is its grid barrier
+// and its rounds of cells. Design: the fused Newton kernel's tiles, eight
+// lanes a cell and vertex passes, one grid barrier a sweep (x complete
+// before the next HVP: in halo mode a block computes every cell around its
+// own vertices, so no other barrier is needed; exchange mode, where the
+// plan picks it, adds its own). x alternates between two buffers, a sweep
+// reading one and writing the other, so that no block overwrites a vertex
+// another block is still staging; the last sweep writes the output. A
+// sweep has no dot product: no reductions, no partials, no data-dependent
+// branch around a barrier. A lattice that is one tile runs one block with
+// __syncthreads() as its barrier and no cooperative launch. The Chebyshev
+// coefficients (host float32, the recurrence of the plain version) travel
+// in the argument struct: no host-to-device copy.
+//
+// lat_diag_shift replaces, on the same path, hess_diag_lattice (_run_diag,
+// pallas_call at :251) together with what the JAX LatticeMG.linearize does
+// to its blocks (:393-406): + (ctrl + 1 - vm) I, then
+// ell.spd_project(eps 1e-6, rel_floor 1e-3). One launch, a block per halo
+// tile (the fused kernel's kDiag cell pass, 128 registers), and in the
+// vertex pass, in registers: the shift, 6 cyclic-Jacobi sweeps of rotations
+// (0,1), (0,2), (1,2), the eigenvalue floor and the rebuild V diag(w) V^T,
+// whose upper triangle is stored as the 6 channels. No cell scratch in
+// device memory, no separate gather. The projection repeats
+// ell.spd_project's float32 operations one by one, each rounded as torch
+// rounds it (no contraction into fma), with sign(0) = 0 as torch.sign has
+// it: a block with app == aqq gets no rotation.
+
+constexpr int kMaxSweeps = 32;
+
+struct ChebyArgs {
+    ChainArgs A;
+    Tiling T;
+    const float* u;     // (3, N) the level's displacement
+    const float* b;     // (3, N) right-hand side
+    const float* x0;    // (3, N) start, or null: from zero
+    const float* cm;    // (C,) cell mask
+    const float* ctrl;  // (N,) the level's diagonal shift
+    const float* vm;    // (N,) vertex mask
+    const float* d6;    // (6, N) the smoother's blocks (xx xy xz yy yz zz)
+    float* x;           // (3, N) out: the smoothed iterate
+    float* r;           // (3, N) out: b - A x, or null
+    float* xs;          // (3, N) scratch: the other iterate buffer
+    float* d;           // (3, N) scratch: the Chebyshev direction
+    float* pbuf;        // (8, 9, N) scratch, exchange mode (rows 0-2)
+    int sweeps;
+    int coop;           // 1: cooperative launch; 0: one block, one tile
+    float coef[2 * kMaxSweeps - 1];  // theta, then (a, b) of sweeps 1, 2, ...
+};
+
+struct DiagArgs {
+    ChainArgs A;
+    Tiling T;
+    const float* u;     // (3, N) displacement
+    const float* cm;    // (C,) cell mask
+    const float* ctrl;  // (N,) diagonal shift
+    const float* vm;    // (N,) vertex mask
+    float* out;         // (6, N) the shifted (projected) blocks
+    int project;        // 1: SPD-project the shifted blocks
+};
+
+__global__ void __launch_bounds__(kFusedThreads, 1)
+cheby_kernel(const __grid_constant__ ChebyArgs P) {
+    cg::grid_group grid = cg::this_grid();
+    extern __shared__ float4 smem[];  // scratch rows, then the vertex boxes
+    float* sc = reinterpret_cast<float*>(smem);
+    const int N = P.A.L.N;
+    const QuadLane ql = quad_lane(P.A.G, threadIdx.x & 7);
+    const float* xr = P.x0;
+    for (int s = 0; s < P.sweeps; ++s) {
+        float* xw = (P.sweeps - 1 - s) % 2 == 0 ? P.x : P.xs;
+        // r = b - A x at vertex v (ax null: x = 0, r = b), z = D^-1 r vm,
+        // and the Chebyshev update of d and x there
+        auto update = [&](int v, const float* ax) {
+            float r[3], z[3];
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+                r[c] = ax ? P.b[c * N + v] - ax[c] : P.b[c * N + v];
+            sym_solve(P.d6, N, v, r, P.vm[v], z);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                const float dn = s == 0 ? z[c] / P.coef[0]
+                                        : P.coef[2 * s - 1] * P.d[c * N + v]
+                                              + P.coef[2 * s] * z[c];
+                P.d[c * N + v] = dn;
+                xw[c * N + v] = xr ? xr[c * N + v] + dn : dn;
+            }
+        };
+        if (xr == nullptr) {
+            for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < N;
+                 v += gridDim.x * blockDim.x)
+                update(v, nullptr);
+        } else {
+            const CellIn along_x = {0.f, xr, 0.f, false};
+            cell_vertex_pass<kHvp>(
+                P, ql, sc, along_x, 0, grid, [&](int v, const float* tot) {
+                    const float vm = P.vm[v], ct = P.ctrl[v];
+                    float ax[3];
+#pragma unroll
+                    for (int c = 0; c < 3; ++c)
+                        ax[c] = (tot[c] + ct * xr[c * N + v]) * vm;
+                    update(v, ax);
+                });
+        }
+        if (s + 1 < P.sweeps || P.r != nullptr) {
+            if (P.coop)
+                grid.sync();
+            else
+                __syncthreads();
+        }
+        xr = xw;
+    }
+    if (P.r == nullptr) return;
+    const CellIn along_x = {0.f, xr, 0.f, false};
+    cell_vertex_pass<kHvp>(
+        P, ql, sc, along_x, 0, grid, [&](int v, const float* tot) {
+            const float vm = P.vm[v], ct = P.ctrl[v];
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+                P.r[c * N + v] =
+                    P.b[c * N + v] - (tot[c] + ct * xr[c * N + v]) * vm;
+        });
+}
+
+// One cyclic-Jacobi rotation zeroing A[p][q] of a symmetric block, with
+// the rotations accumulated in V: ops/ell.py _jacobi_rotation, operation by
+// operation (__f*_rn: each rounded alone, never fused).
+template <int p, int q>
+__device__ __forceinline__ void jacobi_rotation(float A[3][3], float V[3][3]) {
+    constexpr int r = 3 - p - q;  // the untouched index
+    const float apq = A[p][q], app = A[p][p], aqq = A[q][q];
+    const bool tiny = fabsf(apq) < 1e-30f;
+    const float tau = __fdiv_rn(__fsub_rn(aqq, app),
+                                __fmul_rn(2.f, tiny ? 1e-30f : apq));
+    // torch.sign: 0 for 0 (and for NaN), so app == aqq gets no rotation
+    const float sg = float((tau > 0.f) - (tau < 0.f));
+    float t = __fdiv_rn(sg, __fadd_rn(fabsf(tau),
+                                      __fsqrt_rn(__fadd_rn(
+                                          1.f, __fmul_rn(tau, tau)))));
+    if (tiny) t = 0.f;
+    const float c = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(1.f, __fmul_rn(t, t))));
+    const float s = __fmul_rn(t, c);
+    const float arp = A[r][p], arq = A[r][q];
+    A[p][p] = __fsub_rn(app, __fmul_rn(t, apq));
+    A[q][q] = __fadd_rn(aqq, __fmul_rn(t, apq));
+    A[p][q] = A[q][p] = 0.f;
+    const float arp_n = __fsub_rn(__fmul_rn(c, arp), __fmul_rn(s, arq));
+    const float arq_n = __fadd_rn(__fmul_rn(s, arp), __fmul_rn(c, arq));
+    A[r][p] = A[p][r] = arp_n;
+    A[r][q] = A[q][r] = arq_n;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        const float vp = V[i][p], vq = V[i][q];
+        V[i][p] = __fsub_rn(__fmul_rn(c, vp), __fmul_rn(s, vq));
+        V[i][q] = __fadd_rn(__fmul_rn(s, vp), __fmul_rn(c, vq));
+    }
+}
+
+// torch.maximum: NaN when either is NaN
+__device__ __forceinline__ float nan_maximum(float a, float b) {
+    return isnan(a) ? a : (isnan(b) ? b : (a > b ? a : b));
+}
+
+// ell.spd_project(eps = 1e-6, rel_floor = 1e-3) of the symmetric block held
+// as 6 channels (xx xy xz yy yz zz), in place: every eigenvalue floored at
+// 1e-3 max|w| + 1e-6, rebuilt as sum_j (w_j V_rj) V_cj in j order, the upper
+// triangle (r <= c) kept. Its symmetrization 0.5 (A + A^T) is the block
+// itself, bit for bit, for a block built symmetric.
+__device__ __forceinline__ void spd_project(float a[6]) {
+    float A[3][3] = {{a[0], a[1], a[2]}, {a[1], a[3], a[4]},
+                     {a[2], a[4], a[5]}};
+    float V[3][3] = {{1.f, 0.f, 0.f}, {0.f, 1.f, 0.f}, {0.f, 0.f, 1.f}};
+#pragma unroll
+    for (int sweep = 0; sweep < 6; ++sweep) {
+        jacobi_rotation<0, 1>(A, V);
+        jacobi_rotation<0, 2>(A, V);
+        jacobi_rotation<1, 2>(A, V);
+    }
+    float w[3] = {A[0][0], A[1][1], A[2][2]};
+    const float wmax = nan_max(nan_max(fabsf(w[0]), fabsf(w[1])), fabsf(w[2]));
+    const float floor_w = __fadd_rn(__fmul_rn(1e-3f, wmax), 1e-6f);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) w[j] = nan_maximum(w[j], floor_w);
+#pragma unroll
+    for (int ch = 0; ch < 6; ++ch) {
+        const int r = diag_r(ch), c = diag_s(ch);
+        float o = __fmul_rn(__fmul_rn(w[0], V[r][0]), V[c][0]);
+#pragma unroll
+        for (int j = 1; j < 3; ++j)
+            o = __fadd_rn(o, __fmul_rn(__fmul_rn(w[j], V[r][j]), V[c][j]));
+        a[ch] = o;
+    }
+}
+
+__global__ void __launch_bounds__(kFusedThreads, 1)
+diag_tiles_kernel(const __grid_constant__ DiagArgs P) {
+    extern __shared__ float4 smem[];  // scratch rows, then the vertex box
+    float* sc = reinterpret_cast<float*>(smem);
+    const Lattice& L = P.A.L;
+    const int N = L.N;
+    const QuadLane ql = quad_lane(P.A.G, threadIdx.x & 7);
+    const Tile T = tile_of(L, P.T, blockIdx.x);
+    const CellIn at_u = {0.f, nullptr, 0.f, false};
+    tile_cells<kDiag>(P, T, ql, sc, at_u);
+    __syncthreads();
+    halo_vertices<6>(L, T, sc, P.T.stride, [&](int v, const float* tot) {
+        const float shift = P.ctrl[v] + (1.f - P.vm[v]);
+        float a[6];
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch)
+            a[ch] = ch == 0 || ch == 3 || ch == 5 ? tot[ch] + shift : tot[ch];
+        if (P.project) spd_project(a);
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch) P.out[ch * N + v] = a[ch];
+    });
+}
+
+// ---------------------------------------------------------------------------
 // Standalone force and energy
 // ---------------------------------------------------------------------------
 //
@@ -1054,6 +1304,79 @@ energy_kernel(const __grid_constant__ ChainArgs A, const float* __restrict__ u,
     }
 }
 
+// Blocks of kFusedThreads threads with kSmemCap bytes of dynamic shared
+// memory that the current card holds at once running the kernel fn, after
+// allowing fn that much shared memory (needed before any launch above 48 KB)
+// and checking that the card takes cooperative launches.
+cudaError_t fused_capacity(const void* fn, int* cap) {
+    int dev = 0, sms = 0, per_sm = 0, coop = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fn, kFusedThreads, kSmemCap);
+    if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
+    *cap = sms * per_sm;
+    return e;
+}
+
+// The least-cost tiling of an X x Y x Z vertex lattice for the tiled
+// kernels: tiles at most kTileWidth vertices wide in x and y, ntz of them
+// along z (the contiguous axis), in halo or exchange mode, that fit the
+// shared scratch (kScratchRows rows of the tile's cells and box_floats
+// floats per vertex of the box around them). cost(ntiles, blocks, waves,
+// rounds, halo) in microseconds, rounds: ceil(cells of a tile /
+// kCellsPerRound). Candidates in a fixed order, the first of least cost
+// kept. mode 0: every candidate; 1: halo only; 2: exchange only.
+// plan = {grid = min(tiles, cap), ntx, nty, ntz, stride, box, halo}; false
+// when nothing fits.
+template <class Cost>
+bool best_tiling(int X, int Y, int Z, int mode, int cap, int box_floats,
+                 Cost cost, int* plan) {
+    const long long max_floats = kSmemCap / (int)sizeof(float);
+    const int ntx = (X + kTileWidth - 1) / kTileWidth,
+              nty = (Y + kTileWidth - 1) / kTileWidth;
+    double best = 0.0;
+    bool have = false;
+    for (int halo = 1; halo >= 0; --halo) {
+        if ((mode == 1 && !halo) || (mode == 2 && halo)) continue;
+        const int mx = (X + ntx - 1) / ntx + halo, ex = mx < X - 1 ? mx : X - 1;
+        const int my = (Y + nty - 1) / nty + halo, ey = my < Y - 1 ? my : Y - 1;
+        for (int ntz = 1; ntz <= Z; ++ntz) {
+            const int mz = (Z + ntz - 1) / ntz + halo,
+                      ez = mz < Z - 1 ? mz : Z - 1;
+            const long long ext = 1LL * ex * ey * ez;
+            const long long box = 1LL * (ex + 1) * (ey + 1) * (ez + 1);
+            if (kScratchRows * (ext | 1) + box_floats * box > max_floats)
+                continue;
+            const long long ntiles = 1LL * ntx * nty * ntz;
+            const long long blocks = ntiles < cap ? ntiles : cap;
+            const double waves = double((ntiles + cap - 1) / cap);
+            const double rounds =
+                double((ext + kCellsPerRound - 1) / kCellsPerRound);
+            const double c = cost(ntiles, blocks, waves, rounds, halo);
+            if (have && c >= best) continue;
+            have = true;
+            best = c;
+            plan[0] = static_cast<int>(blocks);
+            plan[1] = ntx;
+            plan[2] = nty;
+            plan[3] = ntz;
+            plan[4] = static_cast<int>(ext) | 1;
+            plan[5] = static_cast<int>(box);
+            plan[6] = halo;
+        }
+    }
+    return have;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1152,65 +1475,141 @@ int lat_energy(const float* u, const float* cm, float* out, float* part,
 int lat_newton_plan(int X, int Y, int Z, int pcg, int mode, int* plan) {
     if (X < 2 || Y < 2 || Z < 2 || mode < 0 || mode > 2)
         return static_cast<int>(cudaErrorInvalidValue);
-    int dev = 0, sms = 0, per_sm = 0, coop = 0;
     const void* fn = pcg ? reinterpret_cast<const void*>(
                                fused_newton_kernel<true>)
                          : reinterpret_cast<const void*>(
                                fused_newton_kernel<false>);
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(
-            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
-    if (e == cudaSuccess)
-        e = pcg ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &per_sm, fused_newton_kernel<true>, kFusedThreads,
-                      kSmemCap)
-                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &per_sm, fused_newton_kernel<false>, kFusedThreads,
-                      kSmemCap);
-    if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
+    int cap = 0;
+    const cudaError_t e = fused_capacity(fn, &cap);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int cap = sms * per_sm;
-    const long long max_floats = kSmemCap / (int)sizeof(float);
-    const int ntx = (X + kTileWidth - 1) / kTileWidth,
-              nty = (Y + kTileWidth - 1) / kTileWidth;
-    double best = 0.0;
-    bool have = false;
-    for (int halo = 1; halo >= 0; --halo) {
-        if ((mode == 1 && !halo) || (mode == 2 && halo)) continue;
-        const int mx = (X + ntx - 1) / ntx + halo, ex = mx < X - 1 ? mx : X - 1;
-        const int my = (Y + nty - 1) / nty + halo, ey = my < Y - 1 ? my : Y - 1;
-        for (int ntz = 1; ntz <= Z; ++ntz) {
-            const int mz = (Z + ntz - 1) / ntz + halo,
-                      ez = mz < Z - 1 ? mz : Z - 1;
-            const long long ext = 1LL * ex * ey * ez;
-            const long long box = 1LL * (ex + 1) * (ey + 1) * (ez + 1);
-            if (kScratchRows * (ext | 1) + 8 * box > max_floats) continue;
-            const long long ntiles = 1LL * ntx * nty * ntz;
-            const long long blocks = ntiles < cap ? ntiles : cap;
-            const double waves = double((ntiles + cap - 1) / cap);
-            const double cost =
-                5.0 * double((ext + kCellsPerRound - 1) / kCellsPerRound)
-                    * 0.9 * waves
-                + (halo ? 7.0 : 12.0) * (2.0 + 0.016 * double(blocks));
-            if (have && cost >= best) continue;
-            have = true;
-            best = cost;
-            plan[0] = static_cast<int>(blocks);
-            plan[1] = ntx;
-            plan[2] = nty;
-            plan[3] = ntz;
-            plan[4] = static_cast<int>(ext) | 1;
-            plan[5] = static_cast<int>(box);
-            plan[6] = halo;
-        }
+    const bool have = best_tiling(
+        X, Y, Z, mode, cap, 8,
+        [](long long, long long blocks, double waves, double rounds,
+           int halo) {
+            return 5.0 * rounds * 0.9 * waves
+                   + (halo ? 7.0 : 12.0) * (2.0 + 0.016 * double(blocks));
+        },
+        plan);
+    return have ? 0 : static_cast<int>(cudaErrorLaunchOutOfResources);
+}
+
+// The launch plan of the multigrid's level kernels on the current device,
+// plan = {grid, ntx, nty, ntz, stride, box, halo} as lat_newton_plan's.
+// kernel 0, lat_cheby: the model of one sweep, its cell pass (0.9 us a
+// round of a block's 16 warps, times the tiles a block walks) and 1 (halo)
+// or 2 (exchange) grid barriers of 2 us + 0.016 us a block, none for a
+// single tile (one block, no cooperative launch). kernel 1,
+// lat_diag_shift: halo tiles, a block a tile (grid = tiles), the rounds of
+// the busiest SM and ~7 us a wave for the projection's serial chain (61.3
+// us projected against 39.2 unprojected in 3 waves, on an H100). Returns a
+// CUDA error code.
+int lat_level_plan(int X, int Y, int Z, int kernel, int* plan) {
+    if (X < 2 || Y < 2 || Z < 2 || kernel < 0 || kernel > 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const void* fn = kernel == 0 ? reinterpret_cast<const void*>(cheby_kernel)
+                                 : reinterpret_cast<const void*>(
+                                       diag_tiles_kernel);
+    int cap = 0;
+    const cudaError_t e = fused_capacity(fn, &cap);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    bool have;
+    if (kernel == 0) {
+        have = best_tiling(
+            X, Y, Z, 0, cap, 8,
+            [](long long ntiles, long long blocks, double waves,
+               double rounds, int halo) {
+                const double barriers =
+                    ntiles == 1 ? 0.0 : (halo ? 1.0 : 2.0);
+                return rounds * 0.9 * waves
+                       + barriers * (2.0 + 0.016 * double(blocks));
+            },
+            plan);
+    } else {
+        have = best_tiling(
+            X, Y, Z, 1, cap, 4,
+            [](long long, long long, double waves, double rounds, int) {
+                return (rounds * 0.9 + 7.0) * waves;
+            },
+            plan);
+        plan[0] = plan[1] * plan[2] * plan[3];
     }
     return have ? 0 : static_cast<int>(cudaErrorLaunchOutOfResources);
+}
+
+// All the sweeps of one Chebyshev smoothing call on a multigrid level (see
+// cheby_kernel): x0 null starts from zero, r null skips the residual; xs,
+// d: 3*N floats of scratch each, pbuf: 72*N (exchange mode only); coef:
+// 2 * sweeps - 1 floats (theta, then a and b of every later sweep), at most
+// kMaxSweeps sweeps. The plan from lat_level_plan(..., 0, ...): a single
+// tile runs one block without a cooperative launch. Calls that share the
+// scratch must be ordered on one stream.
+int lat_cheby(const float* u, const float* b, const float* x0,
+              const float* cm, const float* ctrl, const float* vm,
+              const float* d6, float* x, float* r, float* xs, float* d,
+              float* pbuf, const float* coef, int sweeps, int grid, int ntx,
+              int nty, int ntz, int stride, int box, int halo, int X, int Y,
+              int Z, const float* g, float det, float mu, float la,
+              void* stream) {
+    const bool one = ntx * nty * ntz == 1;
+    if (sweeps < 1 || sweeps > kMaxSweeps || grid < 1 || (one && !halo)
+        || (one && grid != 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    ChebyArgs P = {};
+    P.A = make_chain_args(X, Y, Z, g, det, mu, la);
+    P.T = Tiling{ntx, nty, ntz, stride, box, halo};
+    P.u = u;
+    P.b = b;
+    P.x0 = x0;
+    P.cm = cm;
+    P.ctrl = ctrl;
+    P.vm = vm;
+    P.d6 = d6;
+    P.x = x;
+    P.r = r;
+    P.xs = xs;
+    P.d = d;
+    P.pbuf = pbuf;
+    P.sweeps = sweeps;
+    P.coop = one ? 0 : 1;
+    for (int j = 0; j < 2 * sweeps - 1; ++j) P.coef[j] = coef[j];
+    const size_t smem = sizeof(float) * (kScratchRows * stride + 8 * box);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (one) {
+        cheby_kernel<<<1, kFusedThreads, smem, st>>>(P);
+        return static_cast<int>(cudaGetLastError());
+    }
+    void* args[] = {&P};
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(cheby_kernel), dim3(grid),
+        dim3(kFusedThreads), args, smem, st);
+    const cudaError_t last = cudaGetLastError();
+    return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// The vertex-diagonal blocks shifted by ctrl + 1 - vm and, with project,
+// SPD-projected (see diag_tiles_kernel): out (6, N) in the channel order
+// xx xy xz yy yz zz. One launch, a block per halo tile of the plan from
+// lat_level_plan(..., 1, ...).
+int lat_diag_shift(const float* u, const float* cm, const float* ctrl,
+                   const float* vm, float* out, int project, int ntx,
+                   int nty, int ntz, int stride, int box, int X, int Y,
+                   int Z, const float* g, float det, float mu, float la,
+                   void* stream) {
+    const size_t smem = sizeof(float) * (kScratchRows * stride + 4 * box);
+    if (smem > kSmemCap || ntx < 1 || nty < 1 || ntz < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    DiagArgs P = {};
+    P.A = make_chain_args(X, Y, Z, g, det, mu, la);
+    P.T = Tiling{ntx, nty, ntz, stride, box, 1};
+    P.u = u;
+    P.cm = cm;
+    P.ctrl = ctrl;
+    P.vm = vm;
+    P.out = out;
+    P.project = project;
+    diag_tiles_kernel<<<ntx * nty * ntz, kFusedThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(P);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // One Newton iteration in one cooperative launch. p: 6*N floats, d6: 6*N,

@@ -102,15 +102,18 @@ def _declare(lib) -> None:
         [F] + [P] * 18 + [I] * 10 + [P, F, F, F, I, P])
     lib.lat_fused_pcg.argtypes = (
         [F] + [P] * 15 + [I] * 10 + [P, F, F, F, I, P])
+    lib.lat_level_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
+    lib.lat_cheby.argtypes = [P] * 13 + [I] * 8 + chain
+    lib.lat_diag_shift.argtypes = [P] * 5 + [I] * 6 + chain
     lib.ell_spmv.argtypes = [P, P, P, P, P, I, I, I, P]
     lib.ell_gs.argtypes = [P, P, P, P, ctypes.POINTER(I), I, P, P, I, I, I, P]
     lib.ell_jacobi.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
     lib.lat_error_string.argtypes = [I]
     lib.lat_error_string.restype = ctypes.c_char_p
     for name in ("lat_force", "lat_hvp", "lat_diag", "lat_energy",
-                 "lat_newton_plan",
-                 "lat_fused_newton", "lat_fused_pcg", "ell_spmv", "ell_gs",
-                 "ell_jacobi"):
+                 "lat_newton_plan", "lat_level_plan", "lat_cheby",
+                 "lat_diag_shift", "lat_fused_newton", "lat_fused_pcg",
+                 "ell_spmv", "ell_gs", "ell_jacobi"):
         getattr(lib, name).restype = I
 
 

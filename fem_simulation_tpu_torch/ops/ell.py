@@ -136,6 +136,23 @@ def spd_project(values, eps: float, rel_floor: float = 0.0):
     return out.reshape(shape)
 
 
+def jacobi_ties(values, sweeps: int = 6):
+    """A bool per 3x3 block: True where one of spd_project's rotations meets
+    an exact tie app == aqq with apq != 0. sign(0) = 0 skips that rotation,
+    so the projection jumps there: an ulp of input can move such a block by
+    up to |apq|."""
+    A = values.reshape(-1, 3, 3)
+    A = 0.5 * (A + A.transpose(-1, -2))
+    V = torch.eye(3, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    tie = torch.zeros(A.shape[0], dtype=torch.bool, device=A.device)
+    for _ in range(sweeps):
+        for (p, q) in ((0, 1), (0, 2), (1, 2)):
+            tie |= ((A[:, p, p] == A[:, q, q])
+                    & (torch.abs(A[:, p, q]) >= 1e-30))
+            A, V = _jacobi_rotation(A, V, p, q)
+    return tie.reshape(values.shape[:-2])
+
+
 def eigvals3x3_sym(A):
     """Closed-form eigenvalues of symmetric 3x3 blocks (trigonometric
     method): (..., 3, 3) -> (lmin, lmax)."""

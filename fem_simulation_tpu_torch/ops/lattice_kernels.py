@@ -3,7 +3,11 @@
 Port of the entry points of `fem_simulation_tpu/ops/pallas_lattice.py`
 (`force_cf`, `hvp_cf`, `hess_diag_lattice`, `elastic_energy_lattice`,
 `fused_newton`, `fused_pcg`) with the same signatures and layouts. The
-Pallas kernels become the CUDA kernels of `csrc/lattice_kernels.cu`.
+Pallas kernels become the CUDA kernels of `csrc/lattice_kernels.cu`. The
+lattice multigrid's level operators have kernels of their own around the
+HVP and diagonal chains: `cheby_smooth_cf` (every sweep of one Chebyshev
+smoothing call) and `hess_diag_shift_cf` (the shifted, SPD-projected
+diagonal blocks as 6 channels).
 
 Dispatch: a wrapper runs its plain version (`*_plain`) only when its tensors
 lie on the CPU. For CUDA tensors it launches the kernel or raises; it never
@@ -16,6 +20,7 @@ import ctypes
 import functools
 import itertools
 
+import numpy as np
 import torch
 
 from . import _cuda, ell, stencil
@@ -26,9 +31,16 @@ from ..solvers import cg as cgmod
 FORCE_FLOPS_PER_CELL = 449 * 8
 HVP_FLOPS_PER_CELL = 763 * 8
 DIAG_FLOPS_PER_CELL = 930 * 8
+# f32 FLOPs per vertex: a smoother sweep (A x 9, residual 3, the adjugate
+# solve sym_solve 47, the update of d and x 12); the shift (5) and
+# spd_project (18 rotations of 41, the floor 10, the rebuild 6 x 8).
+CHEBY_VERTEX_FLOPS = 9 + 3 + 47 + 12
+SPD_PROJECT_FLOPS = 5 + 18 * 41 + 10 + 6 * 8
+# sweeps one lat_cheby launch takes (the coefficients in its argument struct)
+CHEBY_MAX_SWEEPS = 32
 
 launches = {"force": 0, "hvp": 0, "diag": 0, "energy": 0, "fused_newton": 0,
-            "fused_pcg": 0}
+            "fused_pcg": 0, "cheby": 0, "diag_shift": 0}
 
 # Launch shapes of csrc/lattice_kernels.cu (kForceThreads, kForceRows,
 # kForceSmem, kEnergyThreads).
@@ -56,6 +68,7 @@ FORCE_PASS_CELL_US = 7.6e-5  # two launches: a cell of the lattice
 ENERGY_BLOCKS_PER_SM = 2
 
 _newton_plans: dict = {}
+_level_plans: dict = {}
 _force_plans: dict = {}
 _workspaces: dict = {}
 _tables_cache: dict = {}
@@ -312,6 +325,114 @@ def fused_newton_plain(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
             torch.tensor(k, dtype=torch.int32, device=u.device))
 
 
+# the 3x3 block's entries as indices into the 6 symmetric channels
+# (xx, xy, xz, yy, yz, zz) of lat_diag and lat_diag_shift; the channels are
+# the upper triangle
+_SYM_BLOCK = (0, 1, 2, 1, 3, 4, 2, 4, 5)
+_UPPER = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+def sym_blocks(d6):
+    """(6, X, Y, Z) symmetric channels -> (X, Y, Z, 3, 3) blocks."""
+    X, Y, Z = d6.shape[1:]
+    return d6.permute(1, 2, 3, 0)[..., list(_SYM_BLOCK)].reshape(X, Y, Z, 3, 3)
+
+
+def sym_channels(blocks):
+    """(X, Y, Z, 3, 3) blocks -> their upper triangle, (6, X, Y, Z)."""
+    return torch.stack([blocks[..., r, c] for r, c in _UPPER])
+
+
+def sym_solve_cf(d6, r_cf):
+    """Adjugate solve of the 6-channel blocks on a channel-first field:
+    ell.solve3x3(sym_blocks(d6), r) bit for bit (the same products in the
+    same order: on a symmetric block c10 = c01, c20 = c02, c21 = c12),
+    without expanding the blocks or permuting the field."""
+    a, b, c, d, e, f = d6
+    c00 = d * f - e * e
+    c01 = e * c - b * f
+    c02 = b * e - d * c
+    det = a * c00 + b * c01 + c * c02
+    c11 = a * f - c * c
+    c12 = b * c - a * e
+    c22 = a * d - b * b
+    inv_det = det / (det * det + 1e-12)
+    r0, r1, r2 = r_cf
+    return torch.stack([(c00 * r0 + c01 * r1 + c02 * r2) * inv_det,
+                        (c01 * r0 + c11 * r1 + c12 * r2) * inv_det,
+                        (c02 * r0 + c12 * r1 + c22 * r2) * inv_det])
+
+
+@functools.lru_cache(maxsize=64)
+def cheby_coeffs(lmax, degree: int):
+    """The Chebyshev smoother's coefficients on D^-1 A targeting
+    [lmax/4, lmax], in float32 as the host computes them: (theta, a_1,
+    b_1, ..., a_{degree-1}, b_{degree-1}); sweep k > 0 updates
+    d = a_k d + b_k z."""
+    f32 = np.float32
+    lmax = f32(lmax)
+    lmin = lmax / f32(4.0)
+    theta = f32(0.5) * (lmax + lmin)
+    delta = f32(0.5) * (lmax - lmin)
+    sigma = theta / delta
+    rho = f32(1.0) / sigma
+    out = [float(theta)]
+    for _ in range(degree - 1):
+        rho_new = f32(1.0) / (f32(2.0) * sigma - rho)
+        out += [float(rho_new * rho), float(f32(2.0) * rho_new / delta)]
+        rho = rho_new
+    return tuple(out)
+
+
+def cheby_smooth_cf_plain(u_cf, b_cf, x_cf, d6, ctrl, vert_mask, cell_mask,
+                          dx: float, mu: float, la: float, coeffs,
+                          want_residual: bool = False):
+    """The Chebyshev smoother as a composition of the plain operators: the
+    HVP at u plus ctrl, the block solve (ell.solve3x3 on the blocks expanded
+    from d6), x from x_cf (None: from zero, where the first residual is b
+    itself). Returns x_cf, or (x_cf, b - A x) with want_residual."""
+    blocks = sym_blocks(d6)
+
+    def matvec(p):
+        return (hvp_cf_plain(u_cf, p, cell_mask, dx, mu, la)
+                + ctrl * p) * vert_mask
+
+    def solve(r):
+        z = ell.solve3x3(blocks, r.permute(1, 2, 3, 0))
+        return z.permute(3, 0, 1, 2) * vert_mask
+
+    z = solve(b_cf if x_cf is None else b_cf - matvec(x_cf))
+    d = z / coeffs[0]
+    x = d if x_cf is None else x_cf + d
+    for a, b in zip(coeffs[1::2], coeffs[2::2]):
+        z = solve(b_cf - matvec(x))
+        d = a * d + b * z
+        x = x + d
+    return (x, b_cf - matvec(x)) if want_residual else x
+
+
+def shifted_diag_blocks_plain(u_cf, cell_mask, ctrl, vert_mask, dx: float,
+                              mu: float, la: float):
+    """The vertex-diagonal blocks plus (ctrl + 1 - vm) I, (X, Y, Z, 3, 3):
+    what hess_diag_shift_cf_plain projects."""
+    blocks = hess_diag_lattice_plain(u_cf.permute(1, 2, 3, 0), cell_mask, dx,
+                                     mu, la)
+    eye = torch.eye(3, dtype=blocks.dtype, device=blocks.device)
+    return blocks + (ctrl + (1.0 - vert_mask))[..., None, None] * eye
+
+
+def hess_diag_shift_cf_plain(u_cf, cell_mask, ctrl, vert_mask, dx: float,
+                             mu: float, la: float, project: bool = True):
+    """The vertex-diagonal blocks plus (ctrl + 1 - vm) I, SPD-projected with
+    ell.spd_project(eps=1e-6, rel_floor=1e-3) when project; (6, X, Y, Z),
+    the upper triangle of each block."""
+    blocks = shifted_diag_blocks_plain(u_cf, cell_mask, ctrl, vert_mask, dx,
+                                       mu, la)
+    if project:
+        blocks = ell.spd_project(blocks, eps=1e-6, rel_floor=1e-3)
+    return sym_channels(blocks)
+
+
 # -- public wrappers ---------------------------------------------------------
 
 def force_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
@@ -361,9 +482,6 @@ def hvp_cf(x_cf, p_cf, cell_mask, dx: float, mu: float, la: float):
     return out
 
 
-# the 3x3 block's entries as indices into the 6 symmetric channels
-# (xx, xy, xz, yy, yz, zz) that lat_diag writes
-_SYM_BLOCK = (0, 1, 2, 1, 3, 4, 2, 4, 5)
 _sym_index: dict = {}
 
 
@@ -540,3 +658,101 @@ def fused_pcg(u_cf, f_cf, cell_mask, ctrl, vert_mask, dx: float, mu: float,
     launches["fused_pcg"] += 1
     _cuda.check(err, "lat_fused_pcg")
     return dxc, k
+
+
+# lat_level_plan's kernels
+CHEBY, DIAG_SHIFT = 0, 1
+
+
+def _level_plan(lib, X, Y, Z, device, kernel: int):
+    """(grid, ntx, nty, ntz, stride, box, halo) that `lat_level_plan`'s cost
+    model gives lat_cheby (kernel CHEBY) or lat_diag_shift (DIAG_SHIFT) on
+    this lattice and device, asked once per (device, X, Y, Z, kernel)."""
+    key = (str(device), X, Y, Z, kernel)
+    if key not in _level_plans:
+        plan = (ctypes.c_int * 7)()
+        with torch.cuda.device(device):
+            _cuda.check(lib.lat_level_plan(X, Y, Z, int(kernel), plan),
+                        "lat_level_plan")
+        _level_plans[key] = tuple(plan)
+    return _level_plans[key]
+
+
+def cheby_smooth_cf(u_cf, b_cf, x_cf, d6, ctrl, vert_mask, cell_mask,
+                    dx: float, mu: float, la: float, coeffs,
+                    want_residual: bool = False):
+    """Chebyshev smoothing on a lattice multigrid level, every sweep in one
+    launch: on A = (H(u) + diag(ctrl)) vm with the block-Jacobi
+    preconditioner D (d6, the 6-channel blocks of hess_diag_shift_cf), from
+    x_cf (None: from zero), with coeffs = cheby_coeffs(lmax, degree).
+    u_cf, b_cf, x_cf: (3, X, Y, Z); d6: (6, X, Y, Z); ctrl, vert_mask:
+    (X, Y, Z). Returns x_cf, or (x_cf, b - A x) with want_residual.
+    Allocates its outputs only: the second iterate buffer, the direction and
+    (exchange tiles) the partial sums are kept per device, stream and
+    lattice."""
+    if _cuda.on_cpu(u_cf, b_cf, d6, ctrl, vert_mask, cell_mask,
+                    *(() if x_cf is None else (x_cf,))):
+        return cheby_smooth_cf_plain(u_cf, b_cf, x_cf, d6, ctrl, vert_mask,
+                                     cell_mask, dx, mu, la, coeffs,
+                                     want_residual)
+    X, Y, Z = _vertex_grid(u_cf, cell_mask)
+    for name, t in (("b_cf", b_cf), ("x_cf", x_cf)):
+        if t is not None:
+            _cuda.require(t, u_cf.shape, name)
+    _cuda.require(d6, (6, X, Y, Z), "d6")
+    for name, t in (("ctrl", ctrl), ("vert_mask", vert_mask)):
+        _cuda.require(t, (X, Y, Z), name)
+    sweeps = (len(coeffs) + 1) // 2
+    if len(coeffs) != 2 * sweeps - 1 or not 1 <= sweeps <= CHEBY_MAX_SWEEPS:
+        raise ValueError(f"{len(coeffs)} coefficients: lat_cheby takes 1 to "
+                         f"{CHEBY_MAX_SWEEPS} sweeps (2 * sweeps - 1 "
+                         f"coefficients)")
+    lib = _cuda.load()
+    dev = u_cf.device
+    plan = _level_plan(lib, X, Y, Z, dev, CHEBY)
+    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
+    n = X * Y * Z
+    xs = _kept_scratch((str(dev), tail[-1], "cheby", X, Y, Z, plan),
+                       (6 if plan[6] else 78) * n, 0)[0]
+    x_out = torch.empty_like(u_cf)
+    r_out = torch.empty_like(u_cf) if want_residual else None
+    coef = (ctypes.c_float * len(coeffs))(*coeffs)
+    with torch.cuda.device(dev):
+        err = lib.lat_cheby(
+            u_cf.data_ptr(), b_cf.data_ptr(),
+            None if x_cf is None else x_cf.data_ptr(), cell_mask.data_ptr(),
+            ctrl.data_ptr(), vert_mask.data_ptr(), d6.data_ptr(),
+            x_out.data_ptr(), None if r_out is None else r_out.data_ptr(),
+            xs, xs + 12 * n, None if plan[6] else xs + 24 * n, coef, sweeps,
+            *plan, *tail)
+    launches["cheby"] += 1
+    _cuda.check(err, "lat_cheby")
+    return (x_out, r_out) if want_residual else x_out
+
+
+def hess_diag_shift_cf(u_cf, cell_mask, ctrl, vert_mask, dx: float,
+                       mu: float, la: float, project: bool = True):
+    """The multigrid smoother's diagonal blocks in one launch: the
+    vertex-diagonal Hessian blocks of u_cf (3, X, Y, Z) plus
+    (ctrl + 1 - vert_mask) I, SPD-projected (ell.spd_project, eps 1e-6,
+    rel_floor 1e-3) when project; returns (6, X, Y, Z), the channels
+    (xx, xy, xz, yy, yz, zz). Allocates only its output."""
+    if _cuda.on_cpu(u_cf, cell_mask, ctrl, vert_mask):
+        return hess_diag_shift_cf_plain(u_cf, cell_mask, ctrl, vert_mask, dx,
+                                        mu, la, project)
+    X, Y, Z = _vertex_grid(u_cf, cell_mask)
+    for name, t in (("ctrl", ctrl), ("vert_mask", vert_mask)):
+        _cuda.require(t, (X, Y, Z), name)
+    lib = _cuda.load()
+    dev = u_cf.device
+    plan = _level_plan(lib, X, Y, Z, dev, DIAG_SHIFT)
+    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
+    out = torch.empty((6, X, Y, Z), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lat_diag_shift(u_cf.data_ptr(), cell_mask.data_ptr(),
+                                 ctrl.data_ptr(), vert_mask.data_ptr(),
+                                 out.data_ptr(), int(project), *plan[1:6],
+                                 *tail)
+    launches["diag_shift"] += 1
+    _cuda.check(err, "lat_diag_shift")
+    return out

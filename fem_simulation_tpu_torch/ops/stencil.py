@@ -176,6 +176,36 @@ def _conv_half(x, axis: int):
     return y
 
 
+def _prolong(xc, shape, ax0: int):
+    """prolong_lat on the spatial axes ax0, ax0 + 1, ax0 + 2 of xc."""
+    coarse = tuple(xc.shape[ax0:ax0 + 3])
+    if shape is None:
+        shape = tuple(2 * n - 1 for n in coarse)
+    for n, s in zip(coarse, shape):
+        if s not in (2 * n - 1, 2 * n):
+            raise ValueError(f"fine shape {tuple(shape)} does not fit "
+                             f"coarse {tuple(xc.shape)}")
+    full = list(xc.shape)
+    full[ax0:ax0 + 3] = shape
+    z = torch.zeros(full, dtype=xc.dtype, device=xc.device)
+    every_other = [slice(None)] * xc.dim()
+    every_other[ax0:ax0 + 3] = [slice(None, None, 2)] * 3
+    z[tuple(every_other)] = xc
+    for ax in range(ax0, ax0 + 3):
+        z = _conv_half(z, ax)
+    return z
+
+
+def _restrict(xf, ax0: int):
+    """restrict_lat on the spatial axes ax0, ax0 + 1, ax0 + 2 of xf."""
+    y = xf
+    for ax in range(ax0, ax0 + 3):
+        y = _conv_half(y, ax)
+    every_other = [slice(None)] * xf.dim()
+    every_other[ax0:ax0 + 3] = [slice(None, None, 2)] * 3
+    return y[tuple(every_other)].contiguous()
+
+
 def prolong_lat(xc, shape=None):
     """Trilinear prolongation (Xc, Yc, Zc, C) -> (2Xc-1, 2Yc-1, 2Zc-1, C).
 
@@ -183,24 +213,22 @@ def prolong_lat(xc, shape=None):
     grids) or 2n (even grids: the last fine plane interpolates only its one
     coarse neighbour, exact where that plane is padding). restrict_lat is
     the adjoint for either parity."""
-    Xc, Yc, Zc, C = xc.shape
-    if shape is None:
-        shape = (2 * Xc - 1, 2 * Yc - 1, 2 * Zc - 1)
-    for n, s in zip((Xc, Yc, Zc), shape):
-        if s not in (2 * n - 1, 2 * n):
-            raise ValueError(f"fine shape {tuple(shape)} does not fit "
-                             f"coarse {tuple(xc.shape)}")
-    z = torch.zeros(tuple(shape) + (C,), dtype=xc.dtype, device=xc.device)
-    z[::2, ::2, ::2] = xc
-    for ax in range(3):
-        z = _conv_half(z, ax)
-    return z
+    return _prolong(xc, shape, 0)
 
 
 def restrict_lat(xf):
     """Adjoint of prolong_lat ("hat" restriction): convolve, then subsample;
     (X, Y, Z, C) -> (ceil(X/2), ceil(Y/2), ceil(Z/2), C)."""
-    y = xf
-    for ax in range(3):
-        y = _conv_half(y, ax)
-    return y[::2, ::2, ::2].contiguous()
+    return _restrict(xf, 0)
+
+
+def prolong_lat_cf(xc, shape=None):
+    """prolong_lat of a channel-first field (C, Xc, Yc, Zc) -> (C,) + fine
+    shape: the same slice sums in the same order, so the values are
+    prolong_lat's bit for bit."""
+    return _prolong(xc, shape, 1)
+
+
+def restrict_lat_cf(xf):
+    """restrict_lat of a channel-first field (C, X, Y, Z), bit for bit."""
+    return _restrict(xf, 1)

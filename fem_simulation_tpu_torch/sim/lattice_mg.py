@@ -8,14 +8,23 @@ preconditioner keeps the count about flat. Everything is structured:
                   restrict_lat, an exact adjoint pair, shifted slices)
   coarse operator the elastic operator re-discretized on each coarse
                   lattice (dx doubling per level) at the restricted
-                  displacement, applied by the `lat_hvp` kernel, with the
-                  `lat_diag` kernel's vertex blocks (their plain versions
-                  on CPU tensors)
-  smoother        Chebyshev on the block-Jacobi-preconditioned operator
-  outer loop      inexact Newton + (flexible) preconditioned CG
+                  displacement; its ctrl-shifted, SPD-projected vertex
+                  blocks in one `lat_diag_shift` launch a level
+                  (lattice_kernels.hess_diag_shift_cf)
+  smoother        Chebyshev on the block-Jacobi-preconditioned operator,
+                  every sweep of a smoothing call in one `lat_cheby` launch
+                  (lattice_kernels.cheby_smooth_cf)
+  outer loop      inexact Newton + (flexible) preconditioned CG, whose
+                  matvec is `lat_hvp` plus the ctrl term
 
-Coarse control and mass diagonals are restricted conservatively. The
-hierarchy is built once on the host and moved to the scene's device.
+The kernels' plain versions run on CPU tensors. Coarse control and mass
+diagonals are restricted conservatively. The hierarchy is built once on
+the host and moved to the scene's device.
+
+Layout: the operators, the V-cycle and the outer PCG of the solvers run on
+channel-first fields (3, X, Y, Z) of the padded level grids, as the kernels
+take them; a solver's Newton loop stays channel-last on the scene lattice
+and crosses over once per Newton step (pad_cf / unpad_cf).
 
 Every level, the fine one included, runs the kernels on its own padded
 lattice: the reference's routing of the fine level through the scene and
@@ -28,7 +37,7 @@ computes them on device scalars.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -55,10 +64,30 @@ class MGLevel(NamedTuple):
     mass: torch.Tensor
 
 
+class LevelOps(NamedTuple):
+    """One level of a linearization, channel-first."""
+    matvec: Callable         # p -> (H(u) p + ctrl p) vm, (3, X, Y, Z)
+    d6: torch.Tensor         # (6, X, Y, Z) the smoother's blocks (xx xy xz
+                             # yy yz zz): diagonal + (ctrl + 1 - vm) I,
+                             # SPD-projected with spd_smoother
+    vmask: torch.Tensor      # (X, Y, Z)
+    lmax: np.float32         # the Chebyshev upper bound of D^-1 A
+    u_cf: torch.Tensor       # (3, X, Y, Z) displacement from the rest grid
+    ctrl: torch.Tensor       # (X, Y, Z) the whole diagonal shift
+
+
 def _pad_to(a: torch.Tensor, shape) -> torch.Tensor:
     """a zero-padded at the high end of its first three axes to `shape`."""
     out = a.new_zeros(tuple(shape) + tuple(a.shape[3:]))
     out[:a.shape[0], :a.shape[1], :a.shape[2]] = a
+    return out
+
+
+def _pad_cf(a: torch.Tensor, shape) -> torch.Tensor:
+    """A channel-first field zero-padded at the high end of its last three
+    axes to `shape`."""
+    out = a.new_zeros(tuple(a.shape[:-3]) + tuple(shape))
+    out[..., :a.shape[-3], :a.shape[-2], :a.shape[-1]] = a
     return out
 
 
@@ -152,11 +181,12 @@ class LatticeMG:
             grid = np.stack([gi, gj, gk], axis=-1).astype(np.float32)
             self.x0_levels.append(
                 torch.from_numpy(base + lvl.dx * grid).to(dev))
+        self._x0_cf = [x.permute(3, 0, 1, 2).contiguous()
+                       for x in self.x0_levels]
         # normalization of the displacement restriction (rigid modes map to
-        # rigid modes): the restricted vertex mask, clamped
-        self._restrict_w = [
-            torch.clamp(self._restrict(li, lvl.vert_mask[..., None]),
-                        min=1e-6)
+        # rigid modes): the restricted vertex mask, clamped; (X, Y, Z)
+        self._restrict_w_cf = [
+            torch.clamp(self._restrict(li, lvl.vert_mask[None]), min=1e-6)[0]
             for li, lvl in enumerate(self.levels[:-1])]
 
     # -- the fine lattice inside the padded level-0 grid ---------------------
@@ -170,71 +200,73 @@ class LatticeMG:
         sx, sy, sz = self.scene.vert_mask.shape
         return a[:sx, :sy, :sz]
 
+    def pad_cf(self, a: torch.Tensor) -> torch.Tensor:
+        """A scene-lattice field (X, Y, Z, 3) as a channel-first field of
+        the level-0 grid, zero-padded: one copy."""
+        out = a.new_zeros((a.shape[3],) + self.pad_shape)
+        sx, sy, sz = a.shape[:3]
+        out[:, :sx, :sy, :sz] = a.permute(3, 0, 1, 2)
+        return out
+
+    def unpad_cf(self, a: torch.Tensor) -> torch.Tensor:
+        """A channel-first level-0 field as a scene-lattice field
+        (X, Y, Z, 3), contiguous: one copy."""
+        sx, sy, sz = self.scene.vert_mask.shape
+        return a[:, :sx, :sy, :sz].permute(1, 2, 3, 0).contiguous()
+
     # -- per-level operators -------------------------------------------------
-    def _level_matvec_diag(self, li: int, x_l):
-        """(matvec with the level's ctrl term, raw elastic diagonal blocks)
-        at level-li positions x_l: lat_hvp and lat_diag at the level's dx,
-        on the displacement from the level's rest grid, whose channel-first
-        copy is taken once here."""
+    def _level_ops(self, li: int, u_cf, ctrl):
+        """(matvec, d6) of level li at the channel-first displacement u_cf
+        from its rest grid, with the diagonal shift ctrl (X, Y, Z): matvec
+        p -> (H(u) p + ctrl p) vm through lat_hvp, and the smoother's
+        blocks, diagonal + (ctrl + 1 - vm) I, SPD-projected with
+        spd_smoother, in one lat_diag_shift launch. The projection: at large
+        deformation StVK diagonal blocks go indefinite and a near-singular
+        block makes the block solve emit huge steps; only the
+        preconditioner is regularized."""
         lvl = self.levels[li]
         mat = self.scene.material
-        u_cf = (x_l - self.x0_levels[li]).permute(3, 0, 1, 2).contiguous()
-        vm3 = lvl.vert_mask[..., None]
-        ctrl3 = lvl.ctrl[..., None]
+        args = (lvl.cell_mask, lvl.dx, mat.lame_mu, mat.lame_la)
+        vm = lvl.vert_mask
 
         def matvec(p):
-            hp = lk.hvp_cf(u_cf, p.permute(3, 0, 1, 2).contiguous(),
-                           lvl.cell_mask, lvl.dx, mat.lame_mu, mat.lame_la)
-            return (hp.permute(1, 2, 3, 0) + ctrl3 * p) * vm3
+            return (lk.hvp_cf(u_cf, p, *args) + ctrl * p) * vm
 
-        diag = lk.hess_diag_cf(u_cf, lvl.cell_mask, lvl.dx, mat.lame_mu,
-                               mat.lame_la)
-        return matvec, diag
+        d6 = lk.hess_diag_shift_cf(u_cf, lvl.cell_mask, ctrl, vm, lvl.dx,
+                                   mat.lame_mu, mat.lame_la,
+                                   self.spd_smoother)
+        return matvec, d6
 
     # -- per-Newton linearization ------------------------------------------
     def linearize(self, x_pad, inv_dt=None, lmax_cache=None):
-        """Per-level (matvec, diag, vmask, lmax) at the fine positions x_pad
-        (X, Y, Z, 3) on the padded level-0 grid. lmax, the Chebyshev upper
-        bound for D^-1 A, is a host float32: lmax_cache[li] when given, else
-        estimated here by power iteration (one device sync per level).
-        inv_dt adds the implicit-Euler inertia inv_dt^2 * mass to every
-        level's ctrl (a hierarchy built with dt=None)."""
+        """Per-level LevelOps at the fine positions x_pad (X, Y, Z, 3) on
+        the padded level-0 grid, taken channel-first once here. lmax, the
+        Chebyshev upper bound for D^-1 A, is a host float32: lmax_cache[li]
+        when given, else estimated here by power iteration (one device sync
+        per level). inv_dt adds the implicit-Euler inertia inv_dt^2 * mass
+        to every level's ctrl (a hierarchy built with dt=None)."""
         ops = []
-        x_l = x_pad
-        eye = torch.eye(3, dtype=x_pad.dtype, device=x_pad.device)
+        x_l = x_pad.permute(3, 0, 1, 2).contiguous()
         for li, lvl in enumerate(self.levels):
-            vmask = lvl.vert_mask[..., None]
-            matvec, diag = self._level_matvec_diag(li, x_l)
+            vm = lvl.vert_mask
+            u_cf = x_l - self._x0_cf[li]
             ctrl = lvl.ctrl
             if inv_dt is not None:
                 # restricted mass * inv_dt^2 == the restriction of the fine
                 # mass / dt^2 term (restrict_lat is linear)
-                extra = lvl.mass * (inv_dt * inv_dt)
-                ctrl = ctrl + extra
-
-                def matvec(p, mv0=matvec, extra=extra[..., None],
-                           vmask=vmask):
-                    return mv0(p) + extra * p * vmask
-            diag = diag + (ctrl + (1.0 - lvl.vert_mask))[..., None, None] \
-                * eye
-            # SPD-project the smoother blocks: at large deformation StVK
-            # diagonal blocks go indefinite and a near-singular block makes
-            # the block solve emit huge steps; only the preconditioner is
-            # regularized
-            if self.spd_smoother:
-                diag = ell.spd_project(diag, eps=1e-6, rel_floor=1e-3)
+                ctrl = ctrl + lvl.mass * (inv_dt * inv_dt)
+            matvec, d6 = self._level_ops(li, u_cf, ctrl)
             if lmax_cache is not None:
                 lmax = np.float32(lmax_cache[li])
             else:
-                lmax = np.float32(self._est_lmax(matvec, diag, vmask).item())
-            ops.append((matvec, diag, vmask, lmax))
+                lmax = np.float32(self._est_lmax(matvec, d6, vm).item())
+            ops.append(LevelOps(matvec, d6, vm, lmax, u_cf, ctrl))
             if li < self.n_levels - 1:
                 # restrict the displacement (weight-normalized) and anchor
                 # it at the next level's rest grid
                 nxt = self.levels[li + 1]
-                u_l = (x_l - self.x0_levels[li]) * vmask
-                ur = self._restrict(li, u_l) / self._restrict_w[li]
-                x_l = self.x0_levels[li + 1] + ur * nxt.vert_mask[..., None]
+                ur = self._restrict(li, u_cf * vm) / self._restrict_w_cf[li]
+                x_l = self._x0_cf[li + 1] + ur * nxt.vert_mask
         return ops
 
     @staticmethod
@@ -254,81 +286,75 @@ class LatticeMG:
         if lmaxes is None:
             ops = self.linearize(x_pad, inv_dt)
             lmaxes = self.lmax_cache(ops)
-            return [op[:3] + (lm,) for op, lm in zip(ops, lmaxes)], lmaxes
+            return [op._replace(lmax=lm) for op, lm in zip(ops, lmaxes)], \
+                lmaxes
         return self.linearize(x_pad, inv_dt, lmax_cache=lmaxes), lmaxes
 
-    # -- inter-level transfers -----------------------------------------------
+    # -- inter-level transfers (channel-first) -------------------------------
     def _pad_coarse(self, li: int, rc):
-        """A raw restrict_lat output padded up to level li+1's grid."""
+        """A raw restrict_lat_cf output padded up to level li+1's grid."""
         tgt = tuple(self.levels[li + 1].vert_mask.shape)
-        return rc if tuple(rc.shape[:3]) == tgt else _pad_to(rc, tgt)
+        return rc if tuple(rc.shape[1:]) == tgt else _pad_cf(rc, tgt)
 
     def _restrict(self, li: int, r):
-        """Level-li vertex field -> level li+1 grid (padded, unmasked)."""
-        return self._pad_coarse(li, stencil.restrict_lat(r))
+        """Level-li vertex field (C, X, Y, Z) -> level li+1 grid (padded,
+        unmasked)."""
+        return self._pad_coarse(li, stencil.restrict_lat_cf(r))
 
     def _prolong(self, li: int, xc):
-        """Level li+1 vertex field -> level li grid."""
+        """Level li+1 vertex field (C, X, Y, Z) -> level li grid."""
         src = tuple(self.levels[li].vert_mask.shape)
-        return stencil.prolong_lat(xc[:(src[0] + 1) // 2, :(src[1] + 1) // 2,
-                                      :(src[2] + 1) // 2], shape=src)
+        return stencil.prolong_lat_cf(
+            xc[:, :(src[0] + 1) // 2, :(src[1] + 1) // 2,
+               :(src[2] + 1) // 2], shape=src)
 
     # -- V-cycle preconditioner ---------------------------------------------
     @staticmethod
-    def _est_lmax(matvec, diag, vmask, iters: int = 6):
+    def _est_lmax(matvec, d6, vmask, iters: int = 6):
         """Power iteration on D^-1 A for the Chebyshev upper bound (a 0-d
-        tensor, times 1.1)."""
-        shape = tuple(vmask.shape[:3])
+        tensor, times 1.1); channel-first, vmask (X, Y, Z)."""
+        shape = tuple(vmask.shape)
         n = shape[0] * shape[1] * shape[2]
         start = torch.sin(torch.arange(n, dtype=torch.float32,
                                        device=vmask.device))
-        v = vmask * start.reshape(shape + (1,)).expand(shape + (3,))
+        v = (vmask * start.reshape(shape)).expand((3,) + shape).contiguous()
         lam = None
         for _ in range(iters):
-            w = ell.solve3x3(diag, matvec(v)) * vmask
+            w = lk.sym_solve_cf(d6, matvec(v)) * vmask
             ww = ell.vdot(w, w)
             lam = torch.sqrt(ww / torch.clamp(ell.vdot(v, v), min=1e-30))
             v = w / torch.clamp(torch.sqrt(ww), min=1e-30)
         return lam * 1.1
 
-    @staticmethod
-    def _smooth(matvec, diag, vmask, b, x, degree: int, lmax):
+    def _smooth(self, level: int, op: LevelOps, b, x, degree: int,
+                want_residual: bool = False):
         """Chebyshev smoother on D^-1 A targeting [lmax/4, lmax] from x
-        (None: from zero, where the first residual is b itself). The
-        coefficients are host float32 scalars."""
-        f32 = np.float32
-        lmin = lmax / f32(4.0)
-        theta = f32(0.5) * (lmax + lmin)
-        delta = f32(0.5) * (lmax - lmin)
-        sigma = theta / delta
-        rho = f32(1.0) / sigma
-        z = ell.solve3x3(diag, b if x is None else b - matvec(x)) * vmask
-        d = z / float(theta)
-        x = d if x is None else x + d
-        for _ in range(degree - 1):
-            rho_new = f32(1.0) / (f32(2.0) * sigma - rho)
-            z = ell.solve3x3(diag, b - matvec(x)) * vmask
-            d = float(rho_new * rho) * d + float(f32(2.0) * rho_new / delta) * z
-            x = x + d
-            rho = rho_new
-        return x
+        (None: from zero, where the first residual is b itself), in one
+        lat_cheby launch; with want_residual also b - A x."""
+        lvl = self.levels[level]
+        mat = self.scene.material
+        return lk.cheby_smooth_cf(op.u_cf, b, x, op.d6, op.ctrl, op.vmask,
+                                  lvl.cell_mask, lvl.dx, mat.lame_mu,
+                                  mat.lame_la, lk.cheby_coeffs(op.lmax, degree),
+                                  want_residual)
 
     def vcycle(self, ops, b, level: int = 0):
-        matvec, diag, vmask, lmax = ops[level]
+        """One V-cycle from level `level` on the channel-first right-hand
+        side b (3, X, Y, Z) of that level's grid; returns the channel-first
+        correction."""
+        op = ops[level]
         if level == self.n_levels - 1:
             if self.coarse_cg > 0:
                 return cgmod.pcg_operator(
-                    matvec, lambda r: ell.solve3x3(diag, r) * vmask, b,
-                    iterations=self.coarse_cg, tol=1e-4)
-            return self._smooth(matvec, diag, vmask, b, None,
-                                self.coarse_sweeps, lmax)
-        x = self._smooth(matvec, diag, vmask, b, None, self.nu, lmax)
-        r = b - matvec(x)
+                    op.matvec, lambda r: lk.sym_solve_cf(op.d6, r) * op.vmask,
+                    b, iterations=self.coarse_cg, tol=1e-4)
+            return self._smooth(level, op, b, None, self.coarse_sweeps)
+        x, r = self._smooth(level, op, b, None, self.nu, want_residual=True)
         nxt = self.levels[level + 1]
-        rc = self._restrict(level, r) * nxt.vert_mask[..., None]
+        rc = self._restrict(level, r) * nxt.vert_mask
         xc = self.vcycle(ops, rc, level + 1)
-        x = x + self._prolong(level, xc) * vmask
-        return self._smooth(matvec, diag, vmask, b, x, self.nu, lmax)
+        x = x + self._prolong(level, xc) * op.vmask
+        return self._smooth(level, op, b, x, self.nu)
 
 
 def step_to_tol_mg(scene: LatticeScene, mg: LatticeMG, st: LatState,
@@ -375,11 +401,11 @@ def step_to_tol_mg(scene: LatticeScene, mg: LatticeMG, st: LatState,
         f = resid(x)
         ops, lmaxes = mg.newton_ops(mg.pad(x), lin_inv_dt, lmaxes)
         dx, cg_k = cgmod.pcg_operator(
-            ops[0][0], lambda r: mg.vcycle(ops, r), mg.pad(f),
+            ops[0].matvec, lambda r: mg.vcycle(ops, r), mg.pad_cf(f),
             iterations=cg_iterations, tol=cg_tol,
             flexible=mg.coarse_cg > 0, return_iters=True)
         cg_tot += cg_k - 1
-        dx = mg.unpad(dx)
+        dx = mg.unpad_cf(dx)
         x_full = x + dx * vmask3
         fn_full = host_inf_norm(resid(x_full))
         with np.errstate(over="ignore"):
@@ -425,8 +451,8 @@ def _solve_level_quasistatic(mg: LatticeMG, li: int, x0, tol, max_newton,
     mat = mg.scene.material
     lvl = mg.levels[li]
     vm3 = lvl.vert_mask[..., None]
+    ctrl3 = lvl.ctrl[..., None]
     x0_l = mg.x0_levels[li]
-    eye = torch.eye(3, dtype=x0.dtype, device=x0.device)
     args = (lvl.cell_mask, lvl.dx, mat.lame_mu, mat.lame_la)
 
     def resid(xx, gs):
@@ -449,14 +475,22 @@ def _solve_level_quasistatic(mg: LatticeMG, li: int, x0, tol, max_newton,
         fmin = fn
         while cond((xx, k, fn, fmin)):
             f = resid(xx, gs)
-            matvec, diag = mg._level_matvec_diag(li, xx)
-            diag = diag + (lvl.ctrl + (1.0 - lvl.vert_mask))[..., None,
-                                                             None] * eye
-            if mg.spd_smoother:
-                diag = ell.spd_project(diag, eps=1e-6, rel_floor=1e-3)
+            u_cf = (xx - x0_l).permute(3, 0, 1, 2).contiguous()
+            blocks = lk.sym_blocks(lk.hess_diag_shift_cf(
+                u_cf, lvl.cell_mask, lvl.ctrl, lvl.vert_mask, *args[1:],
+                mg.spd_smoother))
+
+            def matvec(p, u_cf=u_cf):
+                hp = lk.hvp_cf(u_cf, p.permute(3, 0, 1, 2).contiguous(),
+                               *args)
+                return (hp.permute(1, 2, 3, 0) + ctrl3 * p) * vm3
+
+            # this PCG stays channel-last: summed channel-first, its dots
+            # move the deep-bend cantilever's FMG result by 1.5e-3 in x
+            # against the reference (f32 drift, PERF.md)
             dx = cgmod.pcg_operator(
-                matvec, lambda r, diag=diag: ell.solve3x3(diag, r) * vm3, f,
-                iterations=cg_iterations, tol=cg_tol)
+                matvec, lambda r, blocks=blocks: ell.solve3x3(blocks, r)
+                * vm3, f, iterations=cg_iterations, tol=cg_tol)
             xx, fn = newton_update(
                 xx, f, dx, vm3, fn, lambda xe: energy(xe, gs),
                 lambda xe: host_inf_norm(resid(xe, gs)), line_search)
@@ -503,8 +537,10 @@ def quasistatic_fmg(scene: LatticeScene, mg: LatticeMG, tol: float = 1e-4,
         ks.append(k_l)
         nxt = mg.levels[li - 1]
         u_c = (x_l - mg.x0_levels[li]) * lvl.vert_mask[..., None]
+        u_f = mg._prolong(li - 1, u_c.permute(3, 0, 1, 2))
         x_l = (mg.x0_levels[li - 1]
-               + mg._prolong(li - 1, u_c) * nxt.vert_mask[..., None])
+               + u_f.permute(1, 2, 3, 0) * nxt.vert_mask[..., None]
+               ).contiguous()
     x_fine0 = mg.unpad(x_l)
     if fine_solver == "jacobi":
         # block-Jacobi PCG needs O(diameter) iterations: the cap scales with
@@ -556,13 +592,13 @@ def quasistatic_to_tol_mg(scene: LatticeScene, mg: LatticeMG, x,
             ops, lmaxes = mg.newton_ops(mg.pad(xx), None, lmaxes)
             tol_rr = eta * eta if cg_forcing == "ew" else cg_tol
             dx, cg_k = cgmod.pcg_operator(
-                ops[0][0], lambda r: mg.vcycle(ops, r), mg.pad(f),
+                ops[0].matvec, lambda r: mg.vcycle(ops, r), mg.pad_cf(f),
                 iterations=cg_iterations, tol=tol_rr,
                 flexible=mg.coarse_cg > 0, return_iters=True)
             cg_tot += cg_k - 1
             fn_prev = fn
             xx, fn = newton_update(
-                xx, f, mg.unpad(dx), vmask3, fn_prev,
+                xx, f, mg.unpad_cf(dx), vmask3, fn_prev,
                 lambda xe: scene.total_energy(xe, gravity_scale=gs),
                 resid_inf, line_search)
             if cg_forcing == "ew":

@@ -473,7 +473,8 @@ def test_hvp_diag_kept_scratch_same_bits(scene):
 
 
 _PLAIN = ("force_cf_plain", "hvp_cf_plain", "hess_diag_lattice_plain",
-          "elastic_energy_lattice_plain", "fused_newton_plain")
+          "elastic_energy_lattice_plain", "fused_newton_plain",
+          "cheby_smooth_cf_plain", "hess_diag_shift_cf_plain")
 
 
 @pytest.mark.cuda
@@ -481,8 +482,8 @@ def test_quasistatic_mg_on_card_matches_cpu(scene, monkeypatch):
     """Three Newton iterations of quasistatic_to_tol_mg (2 levels,
     coarse_cg 8) on the card against the CPU run of the plain versions:
     equal Newton counts, ||f||_inf within 1e-3 relative + 5e-6, x within
-    1e-4. The card's run launches lat_hvp and lat_diag and calls no plain
-    version."""
+    1e-4. The card's run launches lat_hvp and lat_diag_shift and calls no
+    plain version."""
     cpu = tlat.LatticeScene(scene.mesh, device="cpu")
     mg_cpu = tmg.LatticeMG(cpu, n_levels=2, dt=None, coarse_cg=8)
     x_cpu, k_cpu, fn_cpu = tmg.quasistatic_to_tol_mg(
@@ -500,8 +501,150 @@ def test_quasistatic_mg_on_card_matches_cpu(scene, monkeypatch):
     assert k == k_cpu == 3
     assert abs(fn - fn_cpu) <= 1e-3 * fn_cpu + 5e-6
     assert float((x.cpu() - x_cpu).abs().max()) <= 1e-4
-    assert lk.launches["hvp"] > 0 and lk.launches["diag"] > 0
+    assert lk.launches["hvp"] > 0 and lk.launches["diag_shift"] > 0
+    assert lk.launches["cheby"] > 0
     assert lk.launches["fused_newton"] == 0
+
+
+@pytest.fixture(scope="module")
+def mg19():
+    """The 3-level hierarchy of the 19k beam (16x16x64 cells at dx 0.05:
+    17x17x65, 9x9x33 and 5x5x17 vertices) on the card, quasi-static."""
+    _need_cuda()
+    sc = tlat.LatticeScene(meshlib.beam(16, 16, 64, dx=0.05), device="cuda")
+    return tmg.LatticeMG(sc, n_levels=3, dt=None)
+
+
+def _level_inputs(lvl, seed):
+    """A seeded perturbed displacement, a right-hand side and a start, all
+    (3, X, Y, Z) on the card, and the level's ctrl with an inertia term."""
+    rng = np.random.default_rng(seed)
+    shape = (3,) + tuple(lvl.vert_mask.shape)
+
+    def field(scale):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).cuda() * lvl.vert_mask
+    return field(0.03), field(1.0), field(0.1), lvl.ctrl + lvl.mass * 900.0
+
+
+@pytest.mark.cuda
+def test_cheby_and_diag_shift_at_mg_levels(mg19):
+    """lat_cheby (pre-smooth from zero with its residual, post-smooth from
+    a start, 12 coarse sweeps) and lat_diag_shift on every level shape of
+    the 19k hierarchy against their plain versions: max|d| <= 1e-4
+    max|ref| (another summation order, f32 roundoff through the
+    recurrences); two runs bit-identical; one count a call. The projected
+    blocks are held to the plain chain outside the blocks where a Jacobi
+    rotation of either chain meets an exact tie (ell.jacobi_ties: there
+    sign(0) = 0 skips the rotation and an ulp of input moves the block by
+    up to |apq|); their projection is ell.spd_project of the kernel's own
+    shifted blocks everywhere (1e-6)."""
+    mat = mg19.scene.material
+    mu, la = mat.lame_mu, mat.lame_la
+    for li, lvl in enumerate(mg19.levels):
+        u, b, x0, ctrl = _level_inputs(lvl, 40 + li)
+        args = (lvl.cell_mask, ctrl, lvl.vert_mask, lvl.dx, mu, la)
+        before = lk.launches["diag_shift"]
+        raw = [lk.hess_diag_shift_cf(u, *args, False) for _ in range(2)]
+        d = [lk.hess_diag_shift_cf(u, *args, True) for _ in range(2)]
+        ref_raw = lk.hess_diag_shift_cf_plain(u, *args, False)
+        ref = lk.hess_diag_shift_cf_plain(u, *args, True)
+        proj = lk.sym_channels(ell.spd_project(lk.sym_blocks(raw[0]),
+                                               eps=1e-6, rel_floor=1e-3))
+        tie = ell.jacobi_ties(lk.sym_blocks(raw[0])) | ell.jacobi_ties(
+            lk.shifted_diag_blocks_plain(u, *args))
+        torch.cuda.synchronize()
+        assert lk.launches["diag_shift"] == before + 4
+        assert torch.equal(raw[0], raw[1]) and torch.equal(d[0], d[1]), li
+        assert float((raw[0] - ref_raw).abs().max()) <= 1e-4 * float(
+            ref_raw.abs().max()), li
+        off = (d[0] - ref).abs().amax(0)[~tie]
+        assert float(off.max()) <= 1e-4 * float(ref.abs().max()), li
+        assert float((d[0] - proj).abs().max()) <= 1e-6 * float(
+            proj.abs().max()), li
+        d6 = d[0]
+        cases = {"pre": (None, 2, True), "post": (x0, 2, False),
+                 "coarse": (None, 12, False)}
+        for name, (x, sweeps, residual) in cases.items():
+            call = (u, b, x, d6, ctrl, lvl.vert_mask, lvl.cell_mask, lvl.dx,
+                    mu, la, lk.cheby_coeffs(np.float32(2.5), sweeps),
+                    residual)
+            before = lk.launches["cheby"]
+            got = [lk.cheby_smooth_cf(*call) for _ in range(2)]
+            ref = lk.cheby_smooth_cf_plain(*call)
+            torch.cuda.synchronize()
+            assert lk.launches["cheby"] == before + 2
+            pairs = zip(got[0], got[1], ref) if residual else [
+                (got[0], got[1], ref)]
+            for a, again, r in pairs:
+                assert torch.equal(a, again), (li, name)
+                assert float((a - r).abs().max()) <= 1e-4 * float(
+                    r.abs().max()), (li, name)
+
+
+@pytest.mark.cuda
+def test_diag_shift_projection_is_spd_project(mg19):
+    """At rest most blocks of the square beam have xx == yy exactly and
+    xy != 0 (in the kernel's own sums too): the fused projection against
+    ell.spd_project of the kernel's unprojected, shifted blocks on the card,
+    to 1e-6 of max|ref| (the kernel repeats its float32 operations, each
+    rounded alone: a copysign where torch.sign(0) = 0 would differ by
+    ~1e-2 there)."""
+    mat = mg19.scene.material
+    for li, lvl in enumerate(mg19.levels):
+        u = torch.zeros((3,) + tuple(lvl.vert_mask.shape), device="cuda")
+        args = (lvl.cell_mask, lvl.ctrl, lvl.vert_mask, lvl.dx, mat.lame_mu,
+                mat.lame_la)
+        raw = lk.sym_blocks(lk.hess_diag_shift_cf(u, *args, False))
+        a = raw.reshape(-1, 3, 3)
+        assert int(((a[:, 0, 0] == a[:, 1, 1])
+                    & (a[:, 0, 1].abs() > 1e-3)).sum()) > 0, li
+        ref = lk.sym_channels(ell.spd_project(raw, eps=1e-6, rel_floor=1e-3))
+        got = lk.hess_diag_shift_cf(u, *args, True)
+        assert float((got - ref).abs().max()) <= 1e-6 * float(
+            ref.abs().max()), li
+
+
+@pytest.mark.cuda
+def test_mg_solve_launches_level_kernels(mg19, monkeypatch):
+    """quasistatic_to_tol_mg (3 levels, Chebyshev coarse sweeps) on the
+    card with the plain versions refused: every V-cycle launches lat_cheby
+    2 * 2 + 1 times, every linearization lat_diag_shift once a level, and
+    the solve reaches 1e-4."""
+    sc = mg19.scene
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+    for name in _PLAIN:
+        monkeypatch.setattr(lk, name, refuse)
+    vcycles = [0]
+    plain_vcycle = mg19.vcycle
+
+    def counted(ops, b, level=0):
+        vcycles[0] += level == 0
+        return plain_vcycle(ops, b, level)
+    monkeypatch.setattr(mg19, "vcycle", counted)
+    lk.reset_launches()
+    _, k, fn = tmg.quasistatic_to_tol_mg(sc, mg19, sc.x0, tol=1e-4,
+                                         max_newton=20)
+    torch.cuda.synchronize()
+    assert fn <= 1e-4 and k > 0
+    assert lk.launches["cheby"] == 5 * vcycles[0] > 0
+    assert lk.launches["diag_shift"] == 3 * k
+    assert lk.launches["diag"] == 0
+
+
+@pytest.mark.cuda
+def test_cheby_rejects_too_many_sweeps(scene):
+    """lat_cheby carries its coefficients in its argument struct: a degree
+    above lk.CHEBY_MAX_SWEEPS raises, it does not fall back."""
+    u = torch.zeros((3,) + tuple(scene.vert_mask.shape), device="cuda")
+    d6 = torch.zeros((6,) + tuple(scene.vert_mask.shape), device="cuda")
+    d6[[0, 3, 5]] = 1.0
+    coeffs = lk.cheby_coeffs(np.float32(2.0), lk.CHEBY_MAX_SWEEPS + 1)
+    with pytest.raises(ValueError, match="sweeps"):
+        lk.cheby_smooth_cf(u, u, None, d6, scene.vert_mask, scene.vert_mask,
+                           scene.cell_mask, DX, MU, LA, coeffs)
 
 
 _ENTRY_POINTS = {

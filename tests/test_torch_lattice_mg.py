@@ -181,8 +181,8 @@ def test_hierarchy_matches_jax(case, dt):
         assert_rel(tm.x0_levels[li].numpy(), jm.x0_levels[li], 1e-6,
                    f"x0 {li}")
         if li < tm.n_levels - 1:
-            assert_rel(tm._restrict_w[li].numpy(), jm._restrict_w(li), 1e-6,
-                       f"restrict_w {li}")
+            assert_rel(tm._restrict_w_cf[li][..., None].numpy(),
+                       jm._restrict_w(li), 1e-6, f"restrict_w {li}")
 
 
 @pytest.fixture(scope="module")
@@ -210,8 +210,13 @@ def linearized(beam7):
     tm = tmg.LatticeMG(tl.LatticeScene(beam7, device="cpu"), n_levels=2,
                        dt=None)
     ops = tm.linearize(t(x))
-    return ops, tm, t(b), ([np.asarray(d) for d in diags], np.asarray(lmax),
-                           np.asarray(z))
+    # the port's levels are channel-first and hold each block as its upper
+    # triangle (xx, xy, xz, yy, yz, zz): the reference in that layout
+    d6 = [np.stack([np.asarray(d)[..., r, c] for r, c in
+                    ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))])
+          for d in diags]
+    return ops, tm, t(b).permute(3, 0, 1, 2).contiguous(), (
+        d6, np.asarray(lmax), np.moveaxis(np.asarray(z), -1, 0))
 
 
 def test_linearize_matches_jax(linearized):
