@@ -36,10 +36,12 @@ Phase 6  reruns the first 5 Newton-MG steps of the 16x16x64 beam on the CPU
          with the plain versions and compares the ||f||_inf series and x.
 Phase 7  lattice quasi-static solvers and multigrid: on every level of the
          3-level hierarchies of the three beams (dx doubling per level)
-         lat_hvp, the two-pass lat_diag, the multigrid's fused diagonal
-         lat_diag_shift and its Chebyshev smoother lat_cheby (pre-smooth
-         with residual, post-smooth, coarse sweeps) against their plain
-         versions (the projected diagonal outside the blocks where a
+         lat_hvp (under its plan and in PR 1's two passes, and as the level
+         matvec with the shift and mask in its vertex pass), the multigrid's
+         power iteration lat_power, the two-pass lat_diag, the multigrid's
+         fused diagonal lat_diag_shift and its Chebyshev smoother lat_cheby
+         (pre-smooth with residual, post-smooth, coarse sweeps) against their
+         plain versions (the projected diagonal outside the blocks where a
          Jacobi rotation of either chain meets an exact tie, which are
          counted and logged; at rest, against ell.spd_project of the
          kernel's own shifted blocks; two runs bit-identical), timed;
@@ -49,7 +51,8 @@ Phase 7  lattice quasi-static solvers and multigrid: on every level of the
          quasistatic_to_tol_mg), full-size quasi-static solves from rest
          (top slab pinned, max_newton 100: quasistatic_to_tol at 19k and,
          with 2 load steps, 74k; quasistatic_to_tol_mg with 3 levels at 19k
-         and 74k), each timed after a warm-up solve; step_to_tol_mg for 16
+         and 74k, one lat_power a level and one lat_hvp an outer PCG matvec),
+         each timed after a warm-up solve; step_to_tol_mg for 16
          excited frames on the 2k and 19k beams; frame_adaptive and
          frame_adaptive_mg on the violent kick of the 3x3x12 beam; FMG with
          the "jacobi" corrector on the 4x4x32 cantilever. Then the first 3
@@ -96,6 +99,9 @@ TPU_KERNELS = {   # the pallas_call each kernel replaces
     "diag_shift": "fem_simulation_tpu/ops/pallas_lattice.py:251",
     # the HVP as the multigrid's Chebyshev smoother applies it
     "cheby": "fem_simulation_tpu/ops/pallas_lattice.py:306",
+    # the HVP as the JAX LatticeMG._est_lmax applies it
+    # (fem_simulation_tpu/sim/lattice_mg.py:469)
+    "power": "fem_simulation_tpu/ops/pallas_lattice.py:306",
     "energy": "fem_simulation_tpu/ops/pallas_lattice.py:200",
     "fused_pcg": "fem_simulation_tpu/ops/pallas_lattice.py:608",
     "spmv": "fem_simulation_tpu/ops/pallas_kernels.py:68",
@@ -300,13 +306,15 @@ def phase1(scenes, reps):
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
             log(f"phase1 {name:12s} {label:4s} max|d| {err:.3e} "
                 f"(max|ref| {scale:.3e})")
-            if name in ("force", "energy"):
-                # deterministic; one launch a call (force: two where its
-                # plan takes the two passes)
+            if name in ("force", "energy", "hvp"):
+                # deterministic; one launch a call (force, hvp: two where
+                # their plans take the two passes)
                 check(bool(torch.equal(got, again)),
                       f"{name} {label}: two runs differ")
-                want = 2 if (name == "force" and lk._force_plan(
-                    *sc.shape, sc.device) == lk.FORCE_TWO_PASS) else 1
+                two = ((lk._force_plan(*sc.shape, sc.device) if name
+                        == "force" else lk._hvp_plan(*sc.shape, sc.device)
+                        if name == "hvp" else None) == lk.FORCE_TWO_PASS)
+                want = 2 if two else 1
                 ops = whole_trace(kern, 20, want)
                 check(round(sum(n for n, _ in ops.values())) == want,
                       f"{name} {label}: device ops per call {ops}")
@@ -860,16 +868,26 @@ def phase6(uscene_gpu, steps=5):
 
 def level_bounds(lvl):
     """(bound_ms, bound_by) on one level of lat_hvp (u, p and the cell mask
-    in, the product out), of the two-pass lat_diag entry (u and the cell
-    mask in, 9 block floats out) and of lat_diag_shift (u, ctrl, vm and the
-    cell mask in, 6 channels out): the chain FLOPs of the level's real cells,
-    and the projection's of its real vertices."""
+    in, the product out; with ctrl and vm in, the level matvec), of the
+    two-pass lat_diag entry (u and the cell mask in, 9 block floats out), of
+    lat_diag_shift (u, ctrl, vm and the cell mask in, 6 channels out) and of
+    lat_power (u, the cell mask, ctrl, vm, d6 and the start in, one float
+    out; the 6 iterations of LatticeMG.linearize, an HVP and the vertex
+    update each): the chain FLOPs of the level's
+    real cells, and the per-vertex work of its real vertices."""
     n = lvl.vert_mask.numel()
     c = lvl.cell_mask.numel()
     active = float(lvl.cell_mask.sum())
     verts = float(lvl.vert_mask.sum())
     field = 3 * n * 4
-    return {"hvp": bound(3 * field + 4 * c, active * lk.HVP_FLOPS_PER_CELL),
+    hvp = bound(3 * field + 4 * c, active * lk.HVP_FLOPS_PER_CELL)
+    return {"hvp": hvp, "hvp_two_pass": hvp,
+            "level_matvec": bound(3 * field + 2 * n * 4 + 4 * c,
+                                  active * lk.HVP_FLOPS_PER_CELL
+                                  + verts * 3 * 3),
+            "power": bound(field + 4 * c + (1 + 1 + 6 + 1) * n * 4 + 4,
+                           6 * (active * lk.HVP_FLOPS_PER_CELL
+                                + verts * lk.POWER_VERTEX_FLOPS)),
             "diag": bound(field + 9 * n * 4 + 4 * c,
                           active * lk.DIAG_FLOPS_PER_CELL),
             "diag_shift": bound(field + 4 * c + 2 * n * 4 + 6 * n * 4,
@@ -897,10 +915,26 @@ def cheby_bound(lvl, sweeps, warm, residual):
 
 
 def _plan_text(plan):
+    if len(plan) == 6:                  # lat_hvp's (lat_force's form)
+        return ("two passes" if plan == lk.FORCE_TWO_PASS else
+                f"{plan[0]} halo tiles {plan[1]}x{plan[2]}x{plan[3]}, a "
+                f"thread a cell")
     grid, ntx, nty, ntz, _, _, halo = plan
     mode = ("one tile, one block" if ntx * nty * ntz == 1
             else "halo" if halo else "exchange")
     return f"grid {grid} tiles {ntx}x{nty}x{ntz} {mode}"
+
+
+def two_passes(shape, device, fn):
+    """fn() with lat_hvp's plan on this lattice replaced by PR 1's two
+    passes while it runs."""
+    own = lk._hvp_plan(*shape, device)
+    key = (str(device), *shape)
+    lk._hvp_plans[key] = lk.FORCE_TWO_PASS
+    try:
+        return fn()
+    finally:
+        lk._hvp_plans[key] = own
 
 
 def diag_shift_err(where, u, dargs, got, ref, tol=1e-4):
@@ -950,10 +984,13 @@ def phase7_kernels(scenes, rows, reps):
     bit-identical, one device op a call for the new kernels, timed. At
     rest, the projection against ell.spd_project of the kernel's own
     shifted blocks where they tie (xx == yy, xy != 0: the sign(0) case).
-    Returns {label: [per-level dict]}."""
+    Also lat_hvp as its plan runs it and in PR 1's two passes, the level
+    matvec (lat_hvp with the shift and mask) and lat_power against their
+    plain versions. Returns {label: [per-level dict]}."""
     out = {}
     rows["cheby"] = {"max_abs_err": 0.0, "by_beam": {}}
     rows["diag_shift"] = {"max_abs_err": 0.0, "by_beam": {}}
+    rows["power"] = {"max_abs_err": 0.0, "by_beam": {}}
     lib = _cuda.load()
     for label, sc in scenes.items():
         mg = tmg.LatticeMG(sc, n_levels=3, dt=None)
@@ -972,15 +1009,22 @@ def phase7_kernels(scenes, rows, reps):
             dargs = (lvl.cell_mask, lvl.ctrl, vm, lvl.dx, MU, LA)
             u_last = u.permute(1, 2, 3, 0)
             d6 = lk.hess_diag_shift_cf(u, *dargs)
-
-            def matvec(q):
-                return (lk.hvp_cf(u, q, *args) + lvl.ctrl * q) * vm
-            lmax = np.float32(tmg.LatticeMG._est_lmax(matvec, d6, vm).item()
-                              ) * np.float32(1.2)
+            pargs = (u, d6, lvl.ctrl, vm, *args)
+            margs = (u, p, lvl.cell_mask, lvl.ctrl, vm, lvl.dx, MU, LA)
+            lmax = np.float32(lk.power_lmax_cf(*pargs).item()) \
+                * np.float32(1.2)
             bounds = level_bounds(lvl)
             cases = {
                 "hvp": (lambda: lk.hvp_cf(u, p, *args),
                         lambda: lk.hvp_cf_plain(u, p, *args)),
+                "hvp_two_pass": (
+                    lambda: two_passes(shape[1:], u.device,
+                                       lambda: lk.hvp_cf(u, p, *args)),
+                    lambda: lk.hvp_cf_plain(u, p, *args)),
+                "level_matvec": (lambda: lk.level_matvec_cf(*margs),
+                                 lambda: lk.level_matvec_cf_plain(*margs)),
+                "power": (lambda: lk.power_lmax_cf(*pargs),
+                          lambda: lk.power_lmax_cf_plain(*pargs)),
                 "diag": (lambda: lk.hess_diag_cf(u, *args),
                          lambda: lk.hess_diag_lattice_plain(u_last, *args)),
                 "diag_shift_unprojected": (
@@ -1001,15 +1045,20 @@ def phase7_kernels(scenes, rows, reps):
                                lambda call=call: lk.cheby_smooth_cf_plain(
                                    *call))
                 bounds[name] = cheby_bound(lvl, sweeps, x is not None, res)
-            plans = {k: lk._level_plan(lib, *shape[1:], sc.device, k)
-                     for k in (lk.CHEBY, lk.DIAG_SHIFT)}
+            plans = {k: lk._level_plan(lib, *shape[1:], u.device, k)
+                     for k in (lk.CHEBY, lk.DIAG_SHIFT, lk.POWER)}
+            plans["hvp"] = lk._hvp_plan(*shape[1:], u.device)
             entry = {"level": li, "shape": shape[1:], "dx": lvl.dx,
                      "lmax": float(lmax),
                      "cheby_plan": list(plans[lk.CHEBY]),
-                     "diag_shift_plan": list(plans[lk.DIAG_SHIFT])}
+                     "diag_shift_plan": list(plans[lk.DIAG_SHIFT]),
+                     "hvp_plan": list(plans["hvp"]),
+                     "power_plan": list(plans[lk.POWER])}
             log(f"phase7 plan {label:4s} level {li} {shape[1:]} lat_cheby "
                 f"{_plan_text(plans[lk.CHEBY])}; lat_diag_shift "
-                f"{_plan_text(plans[lk.DIAG_SHIFT])}; lmax {float(lmax):.4f}")
+                f"{_plan_text(plans[lk.DIAG_SHIFT])}; lat_hvp "
+                f"{_plan_text(plans['hvp'])}; lat_power "
+                f"{_plan_text(plans[lk.POWER])}; lmax {float(lmax):.4f}")
             for name, (kern, plain) in cases.items():
                 got, again = kern(), kern()
                 ref = plain()
@@ -1032,15 +1081,20 @@ def phase7_kernels(scenes, rows, reps):
                     err, scale = max(err, e_), max(scale, s_)
                 kernel = ("cheby" if name.startswith("cheby")
                           else "diag_shift" if name.startswith("diag_shift")
+                          else "hvp" if name in ("hvp_two_pass",
+                                                 "level_matvec")
                           else name)
                 rows[kernel]["max_abs_err"] = max(
                     rows[kernel]["max_abs_err"], err)
                 ms = cuda_ms(kern, reps)
                 # each op's mean span times its launches a call; None when
-                # the traces lost an op altogether. hvp: cell pass and
+                # the traces lost an op altogether. The two passes of hvp
+                # (where its plan or the case takes them): cell pass and
                 # gather; the two-pass diag: those and the block gather; the
-                # new kernels: one launch a call
-                n_ops = {"hvp": 2, "diag": 3}.get(name, 1)
+                # others: one launch a call
+                two = plans["hvp"] == lk.FORCE_TWO_PASS
+                n_ops = {"hvp": 1 + two, "level_matvec": 1 + two,
+                         "hvp_two_pass": 2, "diag": 3}.get(name, 1)
                 ops = whole_trace(kern, 20, n_ops)
                 n_got = sum(n for n, _ in ops.values())
                 us = (round(sum(max(1, round(n)) * t
@@ -1085,6 +1139,7 @@ def phase7_kernels(scenes, rows, reps):
             out[label].append(entry)
         rows["cheby"]["by_beam"][label] = out[label][0]["cheby_pre"]
         rows["diag_shift"]["by_beam"][label] = out[label][0]["diag_shift"]
+        rows["power"]["by_beam"][label] = out[label][0]["power"]
     return out
 
 
@@ -1107,8 +1162,8 @@ def timed_solve(label, name, solve, cg_counted=True):
     x, k, fn = out[:3]
     cg = out[3] if cg_counted else None
     launches = {n: lk.launches[n] - before[n]
-                for n in ("cheby", "diag_shift", "hvp", "diag", "force",
-                          "energy", "fused_newton")}
+                for n in ("cheby", "diag_shift", "power", "hvp", "diag",
+                          "force", "energy", "fused_newton")}
     check(bool(torch.isfinite(x).all()) and fn <= TOL,
           f"phase7 {label} {name}: ||f|| {fn:.3e} > {TOL}")
     log(f"phase7 {label:4s} {name:28s} ms/solve {ms:.2f} (host clock "
@@ -1171,10 +1226,15 @@ def phase7_path(scenes):
         cg_counted=False)
     for label, mg in mgs.items():
         sc = scenes[label]
-        solves[f"{label} quasistatic_to_tol_mg"] = timed_solve(
+        r = solves[f"{label} quasistatic_to_tol_mg"] = timed_solve(
             label, "quasistatic_to_tol_mg(3 levels)",
             lambda sc=sc, mg=mg: tmg.quasistatic_to_tol_mg(
                 sc, mg, sc.x0, tol=TOL, max_newton=100, return_cg=True))
+        # one lat_power a level at the stage's first linearization, one
+        # lat_hvp an outer PCG matvec
+        n = r["launches"]
+        check(n["power"] == mg.n_levels and n["hvp"] == r["pcg"],
+              f"{label} quasistatic_to_tol_mg launches {n}, pcg {r['pcg']}")
     results["solves"] = solves
     # dynamic multigrid under the excited protocol
     for label, mg in dyn_mgs.items():
@@ -1235,7 +1295,7 @@ def phase7_path(scenes):
     torch.cuda.synchronize()
     counts = dict(lk.launches)
     log(f"phase7 launches {counts}")
-    for name in ("cheby", "diag_shift", "hvp", "force", "energy",
+    for name in ("cheby", "diag_shift", "power", "hvp", "force", "energy",
                  "fused_newton"):
         check(counts[name] > 0, f"phase7: {name} never launched")
     return results, counts
@@ -1322,7 +1382,7 @@ def main() -> int:
     rel6, err6 = phase6(uscenes["19k"])
     levels7 = phase7_kernels(scenes, rows, reps=20)
     results7, counts7 = phase7_path(scenes)
-    for name in ("cheby", "diag_shift", "hvp", "diag"):
+    for name in ("cheby", "diag_shift", "power", "hvp", "diag"):
         counts[name] = counts7[name]
     rel7 = phase7_cpu(scenes["19k"])
 
@@ -1337,14 +1397,16 @@ def main() -> int:
 
     # the kernels the multigrid path launches: the line's numbers from its
     # 19k fine level (lat_cheby: a pre-smooth with its residual;
-    # lat_diag_shift: projected), the others' from the 19k beam
+    # lat_diag_shift: projected; lat_power), the others' from the 19k beam
     fine19 = levels7["19k"][0]
     at_level = {"cheby": fine19["cheby_pre"],
-                "diag_shift": fine19["diag_shift"]}
+                "diag_shift": fine19["diag_shift"], "power": fine19["power"]}
     per_level = {"cheby": ("cheby_pre", "cheby_post", "cheby_coarse"),
                  "diag_shift": ("diag_shift", "diag_shift_unprojected",
                                 "diag_shift_ties", "diag_shift_plan"),
-                 "diag": ("diag",), "hvp": ("hvp",)}
+                 "diag": ("diag",),
+                 "hvp": ("hvp", "hvp_two_pass", "level_matvec", "hvp_plan"),
+                 "power": ("power", "power_plan", "lmax")}
 
     def row(name, launches):
         r = rows[name]
@@ -1370,7 +1432,7 @@ def main() -> int:
                                                 "energy", "fused_pcg",
                                                 "spmv", "gs", "jacobi",
                                                 "hvp", "diag", "cheby",
-                                                "diag_shift")],
+                                                "diag_shift", "power")],
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

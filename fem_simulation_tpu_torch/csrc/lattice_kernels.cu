@@ -26,9 +26,17 @@
 //   cell once, shared vertices' partial sums handed over through device
 //   memory and tickets) were built and timed, and lost (PERF.md).
 // * lat_hvp replaces the same _run through hvp_cf (763 FLOP per cell and
-//   quad point), lat_force's two passes: a thread per cell writes its 8
-//   corner contributions to a scratch (coalesced, channel-major) and a
-//   vertex pass gathers the up-to-8 incident cells in fixed corner order.
+//   quad point), and serves the multigrid's level operator
+//   (H(u) p + ctrl p) vm (JAX sim/lattice_mg.py:382-392) through the same
+//   launch: the shift and mask are its vertex pass's epilogue. One launch,
+//   a block per halo tile (lat_force's tiles, a thread a cell, corner sums
+//   in shared memory in fixed order; plan: ops/lattice_kernels.hvp_plan),
+//   or, where the plan's model says the cells computed twice cost more
+//   than a second launch, PR 1's two passes: a thread a cell writes its 8
+//   corner contributions to a scratch and a vertex pass gathers them.
+// * lat_power replaces the same _run as the JAX LatticeMG._est_lmax applies
+//   it (sim/lattice_mg.py:469-479): every iteration of one level's power
+//   iteration on D^-1 A in one cooperative launch (see power_kernel).
 // * lat_diag replaces _run_diag (pallas_call at :251), entry
 //   hess_diag_lattice; _diag_into at :129-164. lat_hvp's two passes with 6
 //   symmetric channels (930 FLOP per cell and quad point, 48 floats of
@@ -90,6 +98,12 @@ constexpr int kFusedThreads = 512;
 // tile's cells. One block of this size fits an SM's 227 KB.
 constexpr int kSmemCap = 200 * 1024;
 constexpr int kScratchRows = 48;
+// The standalone force and HVP tiles: a thread a cell, two blocks an SM.
+constexpr int kForceThreads = 256;
+constexpr int kForceRows = 24;              // 8 corners x 3 channels
+// Dynamic shared memory of a force or HVP tile, under the 48 KB a launch
+// may take without opting in (the kernels have no static shared memory).
+constexpr int kForceSmem = 48 * 1024;
 
 ChainArgs make_chain_args(int X, int Y, int Z, const float* g_host,
                           float det, float mu, float la) {
@@ -369,10 +383,42 @@ struct NewtonArgs {
     int iterations;     // PCG budget
 };
 
+// The standalone HVP on halo tiles (lat_hvp), with the level operator's
+// epilogue when ctrl is given.
+struct HvpArgs {
+    ChainArgs A;
+    Tiling T;
+    const float* u;     // (3, N) displacement
+    const float* p;     // (3, N) direction
+    const float* cm;    // (C,) cell mask
+    const float* ctrl;  // (N,) diagonal shift, or null: H(u) p alone
+    const float* vm;    // (N,) vertex mask (with ctrl)
+    float* out;         // (3, N) H(u) p, or (H(u) p + ctrl p) vm
+};
+
+// One level's power iteration on D^-1 A (lat_power).
+struct PowerArgs {
+    ChainArgs A;
+    Tiling T;
+    const float* u;      // (3, N) the level's displacement
+    const float* cm;     // (C,) cell mask
+    const float* ctrl;   // (N,) the level's diagonal shift
+    const float* vm;     // (N,) vertex mask
+    const float* d6;     // (6, N) the smoother's blocks (xx xy xz yy yz zz)
+    const float* start;  // (N,) sin(0, 1, ..., N - 1); v0 = vm start
+    float* out;          // (1,) out: 1.1 lambda
+    float* w;            // (2, 3, N) scratch: the iterates, alternating
+    float* part;         // (2, 2, gridDim.x) scratch: partials of w.w, v.v
+    float* pbuf;         // (8, 9, N) scratch, exchange mode (rows 0-2)
+    int iters;
+    int coop;            // 1: cooperative launch; 0: one block, one tile
+};
+
 enum CellOp { kForce, kTrial, kHvp, kDiag };
 
 // What a cell pass reads besides u: the step scale of the trial pass, or
-// the previous direction and beta of the HVP pass.
+// the previous direction and beta of the HVP pass. The power iteration's
+// HVP pass reads its direction as pprev / sb (hvp_dir_at).
 struct CellIn {
     float sb;
     const float* pprev;
@@ -381,8 +427,9 @@ struct CellIn {
 };
 
 // The first term of the HVP pass's direction: z for the PCG of the fused
-// kernels (p = z + beta p_prev); other callers (the Chebyshev smoother) pass
-// the whole direction in CellIn::pprev with have_prev false.
+// kernels (p = z + beta p_prev); other callers (the Chebyshev smoother, the
+// standalone HVP) pass the whole direction in CellIn::pprev with have_prev
+// false.
 __device__ __forceinline__ const float* hvp_dir(const NewtonArgs& P,
                                                 const CellIn&) {
     return P.z;
@@ -393,10 +440,27 @@ __device__ __forceinline__ const float* hvp_dir(const Args&,
     return in.pprev;
 }
 
+// Component r at vertex v of the HVP pass's direction.
+template <class Args>
+__device__ __forceinline__ float hvp_dir_at(const Args& P, const CellIn& in,
+                                            int N, int r, int v) {
+    float a = hvp_dir(P, in)[r * N + v];
+    if (in.have_prev) a += in.beta * in.pprev[r * N + v];
+    return a;
+}
+// The power iteration's: v = w / norm (pprev = w, sb = norm), in its first
+// iteration vm start (the plain version's vmask * sin(arange(N))).
+__device__ __forceinline__ float hvp_dir_at(const PowerArgs& P,
+                                            const CellIn& in, int N, int r,
+                                            int v) {
+    return in.have_prev ? in.pprev[r * N + v] / in.sb : P.vm[v] * P.start[v];
+}
+
 // Stage the fields at the vertex box around T's cells into shared memory,
 // one float4 a vertex: su holds u (kTrial: u + (xacc sb) vm) and, for kHvp,
-// sp the direction p = z (+ beta p_prev when have_prev; hvp_dir). Args:
-// NewtonArgs, ForceArgs for kForce, ChebyArgs for kHvp, DiagArgs for kDiag.
+// sp the direction p = z (+ beta p_prev when have_prev; hvp_dir_at). Args:
+// NewtonArgs, ForceArgs for kForce, ChebyArgs, HvpArgs or PowerArgs for
+// kHvp, DiagArgs for kDiag.
 template <int OP, class Args>
 __device__ __forceinline__ void stage_box(const Args& P, const Tile& T,
                                           float4* su, float4* sp,
@@ -419,12 +483,8 @@ __device__ __forceinline__ void stage_box(const Args& P, const Tile& T,
         }
         su[bl] = make_float4(a[0], a[1], a[2], 0.f);
         if constexpr (OP == kHvp) {
-            const float* dir = hvp_dir(P, in);
 #pragma unroll
-            for (int r = 0; r < 3; ++r) {
-                a[r] = dir[r * N + v];
-                if (in.have_prev) a[r] += in.beta * in.pprev[r * N + v];
-            }
+            for (int r = 0; r < 3; ++r) a[r] = hvp_dir_at(P, in, N, r, v);
             sp[bl] = make_float4(a[0], a[1], a[2], 0.f);
         }
     }
@@ -1083,6 +1143,186 @@ diag_tiles_kernel(const __grid_constant__ DiagArgs P) {
 }
 
 // ---------------------------------------------------------------------------
+// The standalone HVP and the multigrid's power iteration
+// ---------------------------------------------------------------------------
+//
+// lat_hvp, one launch: a block per halo tile of ops/lattice_kernels.
+// hvp_plan (lat_force's tiles: the vertex box of u and p staged once in
+// shared memory, a thread a cell, two blocks an SM) and the halo vertex
+// pass, whose epilogue writes H(u) p, or with ctrl the multigrid's level
+// operator (H(u) p + ctrl p) vm: the level matvec is one launch where it
+// was the HVP and three torch ops. No cell scratch in device memory, no
+// grid barrier (a block computes every cell around its own vertices).
+// Eight lanes a cell on the fused kernels' tiles was built and timed, and
+// lost at every level shape (PERF.md). Where the plan's model says the
+// cells computed twice cost more than a second launch (the 19k and 74k
+// fine levels), the two passes of PR 1 run instead, the epilogue in their
+// gather (gather_level).
+//
+// lat_power: every iteration of one level's power iteration for the
+// Chebyshev bound in one cooperative launch on lat_cheby's tiles. An
+// iteration is one kHvp cell and vertex pass along v, and at each vertex
+//   ax = (H(u) v + ctrl v) vm,  w = D^-1 ax vm (sym_solve),
+// w written, the block's partials of w.w and v.v; one grid barrier; then
+// every block sums the same partials in the same order (partials_sum2),
+// so all hold bit-identical ww, vv, lambda = sqrt(ww / max(vv, 1e-30)) and
+// norm = max(sqrt(ww), 1e-30), and the next iteration stages v = w / norm
+// as it reads. w and the partials alternate between two buffers, so no
+// block overwrites what another is still reading and one barrier an
+// iteration suffices. Block 0 writes 1.1 lambda. A lattice that is one tile
+// runs one block with __syncthreads() as its barrier.
+
+// out at vertex v from the complete sums tot of H(u) p there.
+__device__ __forceinline__ void hvp_out(const HvpArgs& P, int N, int v,
+                                        const float* tot) {
+    if (P.ctrl == nullptr) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) P.out[c * N + v] = tot[c];
+        return;
+    }
+    const float vm = P.vm[v], ct = P.ctrl[v];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+        P.out[c * N + v] = (tot[c] + ct * P.p[c * N + v]) * vm;
+}
+
+// A block per halo tile, as lat_force's tiles run (kForceThreads threads,
+// two blocks an SM, kForceRows rows of scratch), a thread a cell: the
+// points in sequence, each corner of u and p read from the shared box at
+// every point (registers hold the 24 corner sums, not the 48 corner
+// values), then the halo vertex pass.
+__global__ void __launch_bounds__(kForceThreads, 2)
+hvp_tiles_kernel(const __grid_constant__ HvpArgs P) {
+    extern __shared__ float4 smem[];  // scratch rows, then the vertex boxes
+    float* sc = reinterpret_cast<float*>(smem);
+    const Lattice& L = P.A.L;
+    const int stride = P.T.stride;
+    const Tile T = tile_of(L, P.T, blockIdx.x);
+    const int n_ext = T.ex * T.ey * T.ez;
+    float4* su = reinterpret_cast<float4*>(sc + kForceRows * stride);
+    float4* sp = su + P.T.box;
+    const CellIn along_p = {0.f, P.p, 0.f, false};
+    stage_box<kHvp>(P, T, su, sp, along_p);
+    __syncthreads();
+    const int byn = T.ey + 1, bzn = T.ez + 1;
+    for (int cl = threadIdx.x; cl < n_ext; cl += blockDim.x) {
+        const int lz = cl % T.ez, t = cl / T.ez;
+        const int lx = t / T.ey, ly = t % T.ey;
+        const int b0 = (lx * byn + ly) * bzn + lz;
+        float acc[8][3];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = 0.f;
+#pragma unroll 1
+        for (int q = 0; q < 8; ++q) {
+            const QuadLane g = quad_lane(P.A.G, q);
+            float F[3][3], dF[3][3], M[3][3], S[3][3];
+            zero3x3(F);
+            zero3x3(dF);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const int bi = b0 + (((i >> 2) & 1) * byn + ((i >> 1) & 1))
+                                        * bzn + (i & 1);
+                const float4 a = su[bi], d = sp[bi];
+                const float us[3] = {a.x, a.y, a.z}, ps[3] = {d.x, d.y, d.z};
+                grad_add(us, g.gq[i], F);
+                grad_add(ps, g.gq[i], dF);
+            }
+            deformation_stress(F, P.A.mu, P.A.la, M);
+            hvp_stress(F, M, dF, P.A.mu, P.A.la, S);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                float o[3];
+                emit_corner(S, g.gq[i], o);
+#pragma unroll
+                for (int r = 0; r < 3; ++r) acc[i][r] += o[r];
+            }
+        }
+        const int c = ((T.cx0 + lx) * (L.Y - 1) + T.cy0 + ly) * (L.Z - 1)
+                    + T.cz0 + lz;
+        const float w = P.A.det * P.cm[c];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+            for (int r = 0; r < 3; ++r)
+                sc[(i * 3 + r) * stride + cl] = acc[i][r] * w;
+        }
+    }
+    __syncthreads();
+    halo_vertices<3>(L, T, sc, stride, [&](int v, const float* tot) {
+        hvp_out(P, L.N, v, tot);
+    });
+}
+
+// The two-pass form's vertex pass with the level operator's epilogue:
+// (the gathered H(u) p + ctrl p) vm.
+__global__ void __launch_bounds__(kThreads)
+gather_level(Lattice L, const float* __restrict__ cf,
+             const float* __restrict__ p, const float* __restrict__ ctrl,
+             const float* __restrict__ vm, float* __restrict__ out) {
+    for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < L.N;
+         v += gridDim.x * blockDim.x) {
+        int x, y, z;
+        vertex_coords(L, v, x, y, z);
+        const float ct = ctrl[v], m = vm[v];
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+            out[ch * L.N + v] =
+                (gather_vertex<3>(L, cf, ch, x, y, z) + ct * p[ch * L.N + v])
+                * m;
+    }
+}
+
+__global__ void __launch_bounds__(kFusedThreads, 1)
+power_kernel(const __grid_constant__ PowerArgs P) {
+    cg::grid_group grid = cg::this_grid();
+    extern __shared__ float4 smem[];  // scratch rows, then the vertex boxes
+    float* sc = reinterpret_cast<float*>(smem);
+    __shared__ float sh[66];
+    const int N = P.A.L.N;
+    const int nb = gridDim.x;
+    const QuadLane ql = quad_lane(P.A.G, threadIdx.x & 7);
+    float norm = 1.f, lam = 0.f;
+    for (int it = 0; it < P.iters; ++it) {
+        const float* wr = P.w + ((it + 1) & 1) * 3 * N;  // the last iterate
+        float* wo = P.w + (it & 1) * 3 * N;
+        float* part = P.part + (it & 1) * 2 * nb;
+        const CellIn along_v = {norm, wr, 0.f, it > 0};
+        float a_ww = 0.f, a_vv = 0.f;
+        cell_vertex_pass<kHvp>(
+            P, ql, sc, along_v, 0, grid, [&](int v, const float* tot) {
+                const float vm = P.vm[v], ct = P.ctrl[v];
+                float ax[3], z[3];
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    const float vc = hvp_dir_at(P, along_v, N, c, v);
+                    ax[c] = (tot[c] + ct * vc) * vm;
+                    a_vv += vc * vc;
+                }
+                sym_solve(P.d6, N, v, ax, vm, z);
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    wo[c * N + v] = z[c];
+                    a_ww += z[c] * z[c];
+                }
+            });
+        block_sum2(a_ww, a_vv, sh);
+        if (threadIdx.x == 0) {
+            part[blockIdx.x] = a_ww;
+            part[nb + blockIdx.x] = a_vv;
+        }
+        if (P.coop)
+            grid.sync();
+        else
+            __syncthreads();
+        float ww, vv;
+        partials_sum2(part, part + nb, nb, sh, ww, vv);
+        lam = sqrtf(ww / fmaxf(vv, 1e-30f));
+        norm = fmaxf(sqrtf(ww), 1e-30f);
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) P.out[0] = lam * 1.1f;
+}
+
+// ---------------------------------------------------------------------------
 // Standalone force and energy
 // ---------------------------------------------------------------------------
 //
@@ -1098,11 +1338,6 @@ diag_tiles_kernel(const __grid_constant__ DiagArgs P) {
 // two passes instead: force_cells, a thread a cell with the fully unrolled
 // chain, into a kept scratch, then gather_vertices.
 
-constexpr int kForceThreads = 256;
-constexpr int kForceRows = 24;              // 8 corners x 3 channels
-// Dynamic shared memory of a force tile, under the 48 KB a launch may take
-// without opting in (the kernel has no static shared memory).
-constexpr int kForceSmem = 48 * 1024;
 constexpr int kEnergyThreads = 256;
 
 struct ForceArgs {
@@ -1419,13 +1654,43 @@ int lat_force(const float* u, const float* cm, float* out, float* cf,
     return static_cast<int>(cudaGetLastError());
 }
 
-int lat_hvp(const float* u, const float* p, const float* cm, float* out,
-            float* cf, int X, int Y, int Z, const float* g, float det,
-            float mu, float la, void* stream) {
+// H(u) p, or with ctrl (and vm) the level operator (H(u) p + ctrl p) vm;
+// out (3, N). ntx > 0: one launch, a block per halo tile (tiling from
+// ops/lattice_kernels.hvp_plan), kForceRows * stride + 8 * box floats of
+// shared memory, at most 48 KB; ntx = 0: the two passes, with cf a scratch
+// of 24*C floats (calls that share it must be ordered on one stream).
+int lat_hvp(const float* u, const float* p, const float* cm,
+            const float* ctrl, const float* vm, float* out, float* cf,
+            int ntx, int nty, int ntz, int stride, int box, int X, int Y,
+            int Z, const float* g, float det, float mu, float la,
+            void* stream) {
+    if ((ctrl == nullptr) != (vm == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
     const ChainArgs A = make_chain_args(X, Y, Z, g, det, mu, la);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    hvp_cells<<<blocks_for(A.L.C), kThreads, 0, st>>>(A, u, p, cm, cf);
-    gather_vertices<3><<<blocks_for(A.L.N), kThreads, 0, st>>>(A.L, cf, out);
+    if (ntx == 0) {
+        hvp_cells<<<blocks_for(A.L.C), kThreads, 0, st>>>(A, u, p, cm, cf);
+        if (ctrl == nullptr)
+            gather_vertices<3><<<blocks_for(A.L.N), kThreads, 0, st>>>(
+                A.L, cf, out);
+        else
+            gather_level<<<blocks_for(A.L.N), kThreads, 0, st>>>(
+                A.L, cf, p, ctrl, vm, out);
+        return static_cast<int>(cudaGetLastError());
+    }
+    const size_t smem = sizeof(float) * (kForceRows * stride + 8 * box);
+    if (smem > kForceSmem || nty < 1 || ntz < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    HvpArgs P = {};
+    P.A = A;
+    P.T = Tiling{ntx, nty, ntz, stride, box, 1};
+    P.u = u;
+    P.p = p;
+    P.cm = cm;
+    P.ctrl = ctrl;
+    P.vm = vm;
+    P.out = out;
+    hvp_tiles_kernel<<<ntx * nty * ntz, kForceThreads, smem, st>>>(P);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1495,25 +1760,25 @@ int lat_newton_plan(int X, int Y, int Z, int pcg, int mode, int* plan) {
 
 // The launch plan of the multigrid's level kernels on the current device,
 // plan = {grid, ntx, nty, ntz, stride, box, halo} as lat_newton_plan's.
-// kernel 0, lat_cheby: the model of one sweep, its cell pass (0.9 us a
-// round of a block's 16 warps, times the tiles a block walks) and 1 (halo)
-// or 2 (exchange) grid barriers of 2 us + 0.016 us a block, none for a
-// single tile (one block, no cooperative launch). kernel 1,
-// lat_diag_shift: halo tiles, a block a tile (grid = tiles), the rounds of
-// the busiest SM and ~7 us a wave for the projection's serial chain (61.3
-// us projected against 39.2 unprojected in 3 waves, on an H100). Returns a
-// CUDA error code.
+// kernel 0, lat_cheby, and kernel 2, lat_power: the model of one sweep or
+// iteration, its cell pass (0.9 us a round of a block's 16 warps, times the
+// tiles a block walks) and 1 (halo) or 2 (exchange) grid barriers of 2 us +
+// 0.016 us a block, none for a single tile (one block, no cooperative
+// launch). kernel 1, lat_diag_shift: halo tiles, a block a tile (grid =
+// tiles), the rounds of the busiest SM and ~7 us a wave for the
+// projection's serial chain (61.3 us projected against 39.2 unprojected in
+// 3 waves, on an H100). Returns a CUDA error code.
 int lat_level_plan(int X, int Y, int Z, int kernel, int* plan) {
-    if (X < 2 || Y < 2 || Z < 2 || kernel < 0 || kernel > 1)
+    if (X < 2 || Y < 2 || Z < 2 || kernel < 0 || kernel > 2)
         return static_cast<int>(cudaErrorInvalidValue);
-    const void* fn = kernel == 0 ? reinterpret_cast<const void*>(cheby_kernel)
-                                 : reinterpret_cast<const void*>(
-                                       diag_tiles_kernel);
+    const void* fns[] = {reinterpret_cast<const void*>(cheby_kernel),
+                         reinterpret_cast<const void*>(diag_tiles_kernel),
+                         reinterpret_cast<const void*>(power_kernel)};
     int cap = 0;
-    const cudaError_t e = fused_capacity(fn, &cap);
+    const cudaError_t e = fused_capacity(fns[kernel], &cap);
     if (e != cudaSuccess) return static_cast<int>(e);
     bool have;
-    if (kernel == 0) {
+    if (kernel == 0 || kernel == 2) {
         have = best_tiling(
             X, Y, Z, 0, cap, 8,
             [](long long ntiles, long long blocks, double waves,
@@ -1581,6 +1846,49 @@ int lat_cheby(const float* u, const float* b, const float* x0,
     void* args[] = {&P};
     const cudaError_t e = cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(cheby_kernel), dim3(grid),
+        dim3(kFusedThreads), args, smem, st);
+    const cudaError_t last = cudaGetLastError();
+    return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// One level's power iteration (see power_kernel): iters iterations from
+// vm start, 1.1 lambda to out[0]; w: 6*N floats of scratch, part: 4*grid,
+// pbuf: 72*N (exchange mode only). The plan from lat_level_plan(..., 2,
+// ...): a single tile runs one block without a cooperative launch. Calls
+// that share the scratch must be ordered on one stream.
+int lat_power(const float* u, const float* cm, const float* ctrl,
+              const float* vm, const float* d6, const float* start,
+              float* out, float* w, float* part, float* pbuf, int iters,
+              int grid, int ntx, int nty, int ntz, int stride, int box,
+              int halo, int X, int Y, int Z, const float* g, float det,
+              float mu, float la, void* stream) {
+    const bool one = ntx * nty * ntz == 1;
+    if (iters < 1 || grid < 1 || (one && !halo) || (one && grid != 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    PowerArgs P = {};
+    P.A = make_chain_args(X, Y, Z, g, det, mu, la);
+    P.T = Tiling{ntx, nty, ntz, stride, box, halo};
+    P.u = u;
+    P.cm = cm;
+    P.ctrl = ctrl;
+    P.vm = vm;
+    P.d6 = d6;
+    P.start = start;
+    P.out = out;
+    P.w = w;
+    P.part = part;
+    P.pbuf = pbuf;
+    P.iters = iters;
+    P.coop = one ? 0 : 1;
+    const size_t smem = sizeof(float) * (kScratchRows * stride + 8 * box);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (one) {
+        power_kernel<<<1, kFusedThreads, smem, st>>>(P);
+        return static_cast<int>(cudaGetLastError());
+    }
+    void* args[] = {&P};
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(power_kernel), dim3(grid),
         dim3(kFusedThreads), args, smem, st);
     const cudaError_t last = cudaGetLastError();
     return static_cast<int>(e != cudaSuccess ? e : last);

@@ -6,8 +6,10 @@ Port of the entry points of `fem_simulation_tpu/ops/pallas_lattice.py`
 Pallas kernels become the CUDA kernels of `csrc/lattice_kernels.cu`. The
 lattice multigrid's level operators have kernels of their own around the
 HVP and diagonal chains: `cheby_smooth_cf` (every sweep of one Chebyshev
-smoothing call) and `hess_diag_shift_cf` (the shifted, SPD-projected
-diagonal blocks as 6 channels).
+smoothing call), `hess_diag_shift_cf` (the shifted, SPD-projected
+diagonal blocks as 6 channels), `level_matvec_cf` (the level operator
+(H(u) p + ctrl p) vm, `hvp_cf`'s launch with its epilogue) and
+`power_lmax_cf` (a level's power iteration for the Chebyshev bound).
 
 Dispatch: a wrapper runs its plain version (`*_plain`) only when its tensors
 lie on the CPU. For CUDA tensors it launches the kernel or raises; it never
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,12 +38,15 @@ DIAG_FLOPS_PER_CELL = 930 * 8
 # solve sym_solve 47, the update of d and x 12); the shift (5) and
 # spd_project (18 rotations of 41, the floor 10, the rebuild 6 x 8).
 CHEBY_VERTEX_FLOPS = 9 + 3 + 47 + 12
+# a power iteration at a vertex: A v 9, v = w / norm 3, sym_solve 47, the
+# w.w and v.v partials 12
+POWER_VERTEX_FLOPS = 9 + 3 + 47 + 12
 SPD_PROJECT_FLOPS = 5 + 18 * 41 + 10 + 6 * 8
 # sweeps one lat_cheby launch takes (the coefficients in its argument struct)
 CHEBY_MAX_SWEEPS = 32
 
 launches = {"force": 0, "hvp": 0, "diag": 0, "energy": 0, "fused_newton": 0,
-            "fused_pcg": 0, "cheby": 0, "diag_shift": 0}
+            "fused_pcg": 0, "cheby": 0, "diag_shift": 0, "power": 0}
 
 # Launch shapes of csrc/lattice_kernels.cu (kForceThreads, kForceRows,
 # kForceSmem, kEnergyThreads).
@@ -48,19 +54,33 @@ FORCE_THREADS = 256
 FORCE_ROWS = 24
 FORCE_SMEM_FLOATS = 48 * 1024 // 4
 ENERGY_THREADS = 256
-# lat_force's plan: `FORCE_TWO_PASS` selects the two launches (a thread a
-# cell into a scratch, then a vertex gather) instead of one launch on halo
-# tiles. The model of both in device microseconds, fitted to the times
-# scripts/force_tilings.py measured on an H100 (15 tilings, within 0.8 us;
-# see force_cost):
+# lat_force's and lat_hvp's plans: `FORCE_TWO_PASS` selects the two
+# launches (a thread a cell into a scratch, then a vertex gather) instead of
+# one launch on halo tiles (FORCE_RESIDENT tiles an SM, __launch_bounds__).
 FORCE_TWO_PASS = (0, 0, 0, 0, 0, 0)
-FORCE_RESIDENT = 2           # force tiles an SM holds (__launch_bounds__)
-FORCE_TILE_US = 4.3          # one launch: one wave of one round, no cells
-FORCE_WAVE_US = 5.4          # each further wave of tiles on an SM
-FORCE_ROUND_US = 1.2         # each further round of a tile's threads
-FORCE_CELL_US = 0.0074       # a cell on the busiest SM
-FORCE_PASS_US = 5.5          # two launches: fixed
-FORCE_PASS_CELL_US = 7.6e-5  # two launches: a cell of the lattice
+FORCE_RESIDENT = 2
+
+
+class TileModel(NamedTuple):
+    """A halo-tile kernel's shared floats per vertex of a tile's box, and
+    its cost model in device microseconds (force_cost)."""
+    box_floats: int
+    tile_us: float       # one launch: one wave of one round, no cells
+    wave_us: float       # each further wave of tiles on an SM
+    round_us: float      # each further round of a tile's threads
+    cell_us: float       # a cell on the busiest SM
+    pass_us: float       # two launches: fixed
+    pass_cell_us: float  # two launches: a cell of the lattice
+
+
+# lat_force: fitted to the times scripts/force_tilings.py measured on an
+# H100 (15 tilings, within 0.8 us)
+FORCE_MODEL = TileModel(4, 4.3, 5.4, 1.2, 0.0074, 5.5, 7.6e-5)
+# lat_hvp (u and p staged): fitted to the times scripts/level_tilings.py
+# measured on an H100 at the multigrid's level shapes (one-wave tilings
+# within 0.7 us but one; the two passes within 0.7 us); it picks the two
+# passes at the 19k and 74k fine levels, as measured
+HVP_MODEL = TileModel(8, 6.26, 4.3, 2.26, 0.0144, 7.8, 1.0e-4)
 # lat_energy takes eight lanes a cell while the lanes of every cell fit in
 # a block an SM, a thread a cell beyond, with at most 2 blocks an SM
 # (scripts/force_tilings.py on an H100: lanes win at 2k, a thread a cell at
@@ -70,8 +90,10 @@ ENERGY_BLOCKS_PER_SM = 2
 _newton_plans: dict = {}
 _level_plans: dict = {}
 _force_plans: dict = {}
+_hvp_plans: dict = {}
 _workspaces: dict = {}
 _tables_cache: dict = {}
+_starts: dict = {}
 
 
 def reset_launches() -> None:
@@ -145,59 +167,69 @@ def _cell_extent(n: int, nt: int) -> int:
     return max(tile_axis(n, nt, it)[3] for it in range(nt))
 
 
-def force_tiling(shape, tiles):
-    """(ntiles, ntx, nty, ntz, stride, box) of lat_force's one launch on
-    halo tiles: `stride` holds the cells of the largest tile, `box` the
-    vertex box around them. None when that tile does not fit the kernel's
-    shared memory."""
+def force_tiling(shape, tiles, box_floats: int = 4):
+    """(ntiles, ntx, nty, ntz, stride, box) of a one-launch plan on halo
+    tiles (lat_force; lat_hvp with box_floats 8): `stride` holds the cells
+    of the largest tile, `box` the vertex box around them. None when that
+    tile does not fit the kernel's shared memory."""
     ext = [_cell_extent(n, nt) for n, nt in zip(shape, tiles)]
     stride = (ext[0] * ext[1] * ext[2]) | 1
     box = (ext[0] + 1) * (ext[1] + 1) * (ext[2] + 1)
-    if FORCE_ROWS * stride + 4 * box > FORCE_SMEM_FLOATS:
+    if FORCE_ROWS * stride + box_floats * box > FORCE_SMEM_FLOATS:
         return None
     ntx, nty, ntz = tiles
     return (ntx * nty * ntz, ntx, nty, ntz, stride, box)
 
 
-def force_cost(plan, shape, sms: int) -> float:
-    """Modelled device microseconds of lat_force under a plan. One launch:
-    the busiest SM runs ceil(tiles / sms) tiles, FORCE_RESIDENT at a time
-    (waves), each of ceil(cells / FORCE_THREADS) rounds, and computes their
-    cells (halo cells count). Two launches: a fixed part and every cell
-    once."""
+def force_cost(plan, shape, sms: int, model: TileModel = FORCE_MODEL):
+    """Modelled device microseconds of a halo-tile kernel (lat_force; lat_hvp
+    under HVP_MODEL) under a plan. One launch: the busiest SM runs
+    ceil(tiles / sms) tiles, FORCE_RESIDENT at a time (waves), each of
+    ceil(cells / FORCE_THREADS) rounds, and computes their cells (halo cells
+    count). Two launches: a fixed part and every cell once."""
     if plan == FORCE_TWO_PASS:
         cells = (shape[0] - 1) * (shape[1] - 1) * (shape[2] - 1)
-        return FORCE_PASS_US + FORCE_PASS_CELL_US * cells
+        return model.pass_us + model.pass_cell_us * cells
     per_sm = -(-plan[0] // sms)
     waves = -(-per_sm // FORCE_RESIDENT)
     rounds = -(-plan[4] // FORCE_THREADS)
-    return (FORCE_TILE_US + FORCE_WAVE_US * (waves - 1)
-            + FORCE_ROUND_US * (rounds - 1) + FORCE_CELL_US * per_sm * plan[4])
+    return (model.tile_us + model.wave_us * (waves - 1)
+            + model.round_us * (rounds - 1)
+            + model.cell_us * per_sm * plan[4])
 
 
-def best_force_tiling(X: int, Y: int, Z: int, sms: int):
+def best_force_tiling(X: int, Y: int, Z: int, sms: int,
+                      model: TileModel = FORCE_MODEL):
     """The halo tiling of least force_cost that fits (ties: fewer tiles)."""
     best = None
     for tiles in itertools.product(_tile_counts(X), _tile_counts(Y),
                                    _tile_counts(Z)):
-        plan = force_tiling((X, Y, Z), tiles)
+        plan = force_tiling((X, Y, Z), tiles, model.box_floats)
         if plan is not None:
-            key = (force_cost(plan, (X, Y, Z), sms), plan[0])
+            key = (force_cost(plan, (X, Y, Z), sms, model), plan[0])
             if best is None or key < best[0]:
                 best = (key, plan)
     return best[1]
 
 
-def force_plan(X: int, Y: int, Z: int, sms: int):
-    """What lat_force runs on an X x Y x Z vertex lattice on a card of `sms`
-    SMs: the best halo tiling, one launch, or FORCE_TWO_PASS where the
-    model says the cells computed twice by halo tiles cost more than a
-    second launch (the 74k beam)."""
-    tiling = best_force_tiling(X, Y, Z, sms)
-    if (force_cost(FORCE_TWO_PASS, (X, Y, Z), sms)
-            < force_cost(tiling, (X, Y, Z), sms)):
+def force_plan(X: int, Y: int, Z: int, sms: int,
+               model: TileModel = FORCE_MODEL):
+    """What a halo-tile kernel (lat_force; lat_hvp under HVP_MODEL) runs on
+    an X x Y x Z vertex lattice on a card of `sms` SMs: the best halo
+    tiling, one launch, or FORCE_TWO_PASS where the model says the cells
+    computed twice by halo tiles cost more than a second launch (the 74k
+    beam for lat_force)."""
+    tiling = best_force_tiling(X, Y, Z, sms, model)
+    if (force_cost(FORCE_TWO_PASS, (X, Y, Z), sms, model)
+            < force_cost(tiling, (X, Y, Z), sms, model)):
         return FORCE_TWO_PASS
     return tiling
+
+
+def hvp_plan(X: int, Y: int, Z: int, sms: int):
+    """lat_hvp's plan: force_plan under HVP_MODEL (the two passes at the 19k
+    and 74k fine levels)."""
+    return force_plan(X, Y, Z, sms, HVP_MODEL)
 
 
 def energy_plan(X: int, Y: int, Z: int, sms: int):
@@ -227,6 +259,15 @@ def _force_plan(X, Y, Z, device):
     return _force_plans[key]
 
 
+def _hvp_plan(X, Y, Z, device):
+    """hvp_plan for this lattice and device, computed once. A test or a
+    measurement puts another plan under that key to run it."""
+    key = (str(device), X, Y, Z)
+    if key not in _hvp_plans:
+        _hvp_plans[key] = hvp_plan(X, Y, Z, _sms(device.index))
+    return _hvp_plans[key]
+
+
 def _kept_scratch(key, floats: int, tickets: int):
     """(pointer to `floats` floats, pointer to `tickets` zeroed uint32),
     allocated at the first call with this key and kept."""
@@ -254,6 +295,12 @@ def hvp_cf_plain(x_cf, p_cf, cell_mask, dx: float, mu: float, la: float):
                                     p_cf.permute(1, 2, 3, 0), cell_mask,
                                     g, det, mu, la)
     return h.permute(3, 0, 1, 2).contiguous()
+
+
+def level_matvec_cf_plain(u_cf, p_cf, cell_mask, ctrl, vert_mask, dx: float,
+                          mu: float, la: float):
+    return (hvp_cf_plain(u_cf, p_cf, cell_mask, dx, mu, la)
+            + ctrl * p_cf) * vert_mask
 
 
 def hess_diag_lattice_plain(x_lat, cell_mask, dx: float, mu: float, la: float):
@@ -411,6 +458,30 @@ def cheby_smooth_cf_plain(u_cf, b_cf, x_cf, d6, ctrl, vert_mask, cell_mask,
     return (x, b_cf - matvec(x)) if want_residual else x
 
 
+def power_lmax_cf_plain(u_cf, d6, ctrl, vert_mask, cell_mask, dx: float,
+                        mu: float, la: float, iters: int = 6):
+    """Power iteration on D^-1 A for the Chebyshev upper bound (a 0-d
+    tensor, times 1.1); A = level_matvec_cf_plain at u_cf, D the blocks d6;
+    channel-first, vert_mask (X, Y, Z)."""
+    vmask = vert_mask
+
+    def matvec(p):
+        return level_matvec_cf_plain(u_cf, p, cell_mask, ctrl, vmask, dx, mu,
+                                     la)
+    shape = tuple(vmask.shape)
+    n = shape[0] * shape[1] * shape[2]
+    start = torch.sin(torch.arange(n, dtype=torch.float32,
+                                   device=vmask.device))
+    v = (vmask * start.reshape(shape)).expand((3,) + shape).contiguous()
+    lam = None
+    for _ in range(iters):
+        w = sym_solve_cf(d6, matvec(v)) * vmask
+        ww = ell.vdot(w, w)
+        lam = torch.sqrt(ww / torch.clamp(ell.vdot(v, v), min=1e-30))
+        v = w / torch.clamp(torch.sqrt(ww), min=1e-30)
+    return lam * 1.1
+
+
 def shifted_diag_blocks_plain(u_cf, cell_mask, ctrl, vert_mask, dx: float,
                               mu: float, la: float):
     """The vertex-diagonal blocks plus (ctrl + 1 - vm) I, (X, Y, Z, 3, 3):
@@ -461,22 +532,47 @@ def force_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
 
 def hvp_cf(x_cf, p_cf, cell_mask, dx: float, mu: float, la: float):
     """Elastic Hessian-vector product (positive-definite convention) of a
-    displacement field: (3, X, Y, Z) x2 -> (3, X, Y, Z). Allocates only its
-    output: the two passes' cell scratch is kept per device, stream and
-    lattice."""
+    displacement field: (3, X, Y, Z) x2 -> (3, X, Y, Z). One launch on halo
+    tiles, or the two passes where hvp_plan picks them (their cell scratch
+    kept per device, stream and lattice); allocates only its output."""
     if _cuda.on_cpu(x_cf, p_cf, cell_mask):
         return hvp_cf_plain(x_cf, p_cf, cell_mask, dx, mu, la)
-    X, Y, Z = _vertex_grid(x_cf, cell_mask)
-    _cuda.require(p_cf, x_cf.shape, "p_cf")
+    return _lat_hvp(x_cf, p_cf, cell_mask, None, None, dx, mu, la)
+
+
+def level_matvec_cf(u_cf, p_cf, cell_mask, ctrl, vert_mask, dx: float,
+                    mu: float, la: float):
+    """A multigrid level's operator (H(u) p + ctrl p) vm on channel-first
+    fields: u_cf, p_cf (3, X, Y, Z); ctrl, vert_mask (X, Y, Z). hvp_cf's
+    launch with the shift and mask in its vertex pass (counted as "hvp");
+    allocates only its output."""
+    if _cuda.on_cpu(u_cf, p_cf, cell_mask, ctrl, vert_mask):
+        return level_matvec_cf_plain(u_cf, p_cf, cell_mask, ctrl, vert_mask,
+                                     dx, mu, la)
+    return _lat_hvp(u_cf, p_cf, cell_mask, ctrl, vert_mask, dx, mu, la)
+
+
+def _lat_hvp(u_cf, p_cf, cell_mask, ctrl, vert_mask, dx, mu, la):
+    X, Y, Z = _vertex_grid(u_cf, cell_mask)
+    _cuda.require(p_cf, u_cf.shape, "p_cf")
+    if ctrl is not None:
+        for name, t in (("ctrl", ctrl), ("vert_mask", vert_mask)):
+            _cuda.require(t, (X, Y, Z), name)
     lib = _cuda.load()
-    dev = x_cf.device
+    dev = u_cf.device
+    plan = _hvp_plan(X, Y, Z, dev)
     tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
-    cf = _kept_scratch((str(dev), tail[-1], "hvp", X, Y, Z),
-                       24 * cell_mask.numel(), 0)[0]
-    out = torch.empty_like(x_cf)
+    cf = None
+    if plan == FORCE_TWO_PASS:
+        cf = _kept_scratch((str(dev), tail[-1], "hvp", X, Y, Z),
+                           24 * cell_mask.numel(), 0)[0]
+    out = torch.empty_like(u_cf)
     with torch.cuda.device(dev):
-        err = lib.lat_hvp(x_cf.data_ptr(), p_cf.data_ptr(),
-                          cell_mask.data_ptr(), out.data_ptr(), cf, *tail)
+        err = lib.lat_hvp(u_cf.data_ptr(), p_cf.data_ptr(),
+                          cell_mask.data_ptr(),
+                          None if ctrl is None else ctrl.data_ptr(),
+                          None if ctrl is None else vert_mask.data_ptr(),
+                          out.data_ptr(), cf, *plan[1:], *tail)
     launches["hvp"] += 1
     _cuda.check(err, "lat_hvp")
     return out
@@ -661,13 +757,15 @@ def fused_pcg(u_cf, f_cf, cell_mask, ctrl, vert_mask, dx: float, mu: float,
 
 
 # lat_level_plan's kernels
-CHEBY, DIAG_SHIFT = 0, 1
+CHEBY, DIAG_SHIFT, POWER = 0, 1, 2
 
 
 def _level_plan(lib, X, Y, Z, device, kernel: int):
     """(grid, ntx, nty, ntz, stride, box, halo) that `lat_level_plan`'s cost
-    model gives lat_cheby (kernel CHEBY) or lat_diag_shift (DIAG_SHIFT) on
-    this lattice and device, asked once per (device, X, Y, Z, kernel)."""
+    model gives lat_cheby (kernel CHEBY), lat_diag_shift (DIAG_SHIFT) or
+    lat_power (POWER) on this lattice and device, asked once per (device,
+    X, Y, Z, kernel). A test or a measurement puts another plan under that
+    key to run it."""
     key = (str(device), X, Y, Z, kernel)
     if key not in _level_plans:
         plan = (ctypes.c_int * 7)()
@@ -756,3 +854,56 @@ def hess_diag_shift_cf(u_cf, cell_mask, ctrl, vert_mask, dx: float,
     launches["diag_shift"] += 1
     _cuda.check(err, "lat_diag_shift")
     return out
+
+
+def _start(n: int, device):
+    """sin(0, 1, ..., n - 1) in float32, made by torch on the device once per
+    (device, n) and kept: the power iteration's start before its mask."""
+    key = (str(device), n)
+    if key not in _starts:
+        _starts[key] = torch.sin(torch.arange(n, dtype=torch.float32,
+                                              device=device))
+    return _starts[key]
+
+
+def power_lmax_cf(u_cf, d6, ctrl, vert_mask, cell_mask, dx: float, mu: float,
+                  la: float, out=None, slot: int = 0, iters: int = 6):
+    """A multigrid level's Chebyshev upper bound: `iters` power iterations
+    on D^-1 A (A = level_matvec_cf at u_cf, D the 6-channel blocks d6) from
+    vm sin(arange(n)), times 1.1, written to out[slot] (out: a contiguous
+    float32 vector on the fields' device; None: a new one of 1) and
+    returned as that 0-d view. One cooperative launch; its iterates and
+    partials are kept per device, stream, lattice and plan."""
+    if out is None:
+        out = torch.empty((1,), dtype=torch.float32, device=u_cf.device)
+    if not 0 <= slot < out.numel():
+        raise ValueError(f"slot {slot} outside out ({out.numel()} floats)")
+    if _cuda.on_cpu(u_cf, d6, ctrl, vert_mask, cell_mask, out):
+        out[slot] = power_lmax_cf_plain(u_cf, d6, ctrl, vert_mask, cell_mask,
+                                        dx, mu, la, iters)
+        return out[slot]
+    X, Y, Z = _vertex_grid(u_cf, cell_mask)
+    _cuda.require(d6, (6, X, Y, Z), "d6")
+    for name, t in (("ctrl", ctrl), ("vert_mask", vert_mask)):
+        _cuda.require(t, (X, Y, Z), name)
+    _cuda.require(out, (out.numel(),), "out")
+    if iters < 1:
+        raise ValueError(f"iters {iters}: lat_power takes at least one")
+    lib = _cuda.load()
+    dev = u_cf.device
+    plan = _level_plan(lib, X, Y, Z, dev, POWER)
+    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
+    n = X * Y * Z
+    start = _start(n, dev)
+    w = _kept_scratch((str(dev), tail[-1], "power", X, Y, Z, plan),
+                      6 * n + 4 * plan[0] + (0 if plan[6] else 72 * n), 0)[0]
+    with torch.cuda.device(dev):
+        err = lib.lat_power(
+            u_cf.data_ptr(), cell_mask.data_ptr(), ctrl.data_ptr(),
+            vert_mask.data_ptr(), d6.data_ptr(), start.data_ptr(),
+            out.data_ptr() + 4 * slot, w, w + 24 * n,
+            None if plan[6] else w + 24 * n + 16 * plan[0], int(iters),
+            *plan, *tail)
+    launches["power"] += 1
+    _cuda.check(err, "lat_power")
+    return out[slot]

@@ -13,9 +13,12 @@ preconditioner keeps the count about flat. Everything is structured:
                   (lattice_kernels.hess_diag_shift_cf)
   smoother        Chebyshev on the block-Jacobi-preconditioned operator,
                   every sweep of a smoothing call in one `lat_cheby` launch
-                  (lattice_kernels.cheby_smooth_cf)
+                  (lattice_kernels.cheby_smooth_cf); its bound by power
+                  iteration, one `lat_power` launch a level
+                  (lattice_kernels.power_lmax_cf)
   outer loop      inexact Newton + (flexible) preconditioned CG, whose
-                  matvec is `lat_hvp` plus the ctrl term
+                  matvec, the HVP plus the ctrl term, is one `lat_hvp`
+                  launch (lattice_kernels.level_matvec_cf)
 
 The kernels' plain versions run on CPU tensors. Coarse control and mass
 diagonals are restricted conservatively. The hierarchy is built once on
@@ -218,7 +221,7 @@ class LatticeMG:
     def _level_ops(self, li: int, u_cf, ctrl):
         """(matvec, d6) of level li at the channel-first displacement u_cf
         from its rest grid, with the diagonal shift ctrl (X, Y, Z): matvec
-        p -> (H(u) p + ctrl p) vm through lat_hvp, and the smoother's
+        p -> (H(u) p + ctrl p) vm in one lat_hvp launch, and the smoother's
         blocks, diagonal + (ctrl + 1 - vm) I, SPD-projected with
         spd_smoother, in one lat_diag_shift launch. The projection: at large
         deformation StVK diagonal blocks go indefinite and a near-singular
@@ -226,11 +229,11 @@ class LatticeMG:
         preconditioner is regularized."""
         lvl = self.levels[li]
         mat = self.scene.material
-        args = (lvl.cell_mask, lvl.dx, mat.lame_mu, mat.lame_la)
         vm = lvl.vert_mask
 
         def matvec(p):
-            return (lk.hvp_cf(u_cf, p, *args) + ctrl * p) * vm
+            return lk.level_matvec_cf(u_cf, p, lvl.cell_mask, ctrl, vm,
+                                      lvl.dx, mat.lame_mu, mat.lame_la)
 
         d6 = lk.hess_diag_shift_cf(u_cf, lvl.cell_mask, ctrl, vm, lvl.dx,
                                    mat.lame_mu, mat.lame_la,
@@ -242,10 +245,16 @@ class LatticeMG:
         """Per-level LevelOps at the fine positions x_pad (X, Y, Z, 3) on
         the padded level-0 grid, taken channel-first once here. lmax, the
         Chebyshev upper bound for D^-1 A, is a host float32: lmax_cache[li]
-        when given, else estimated here by power iteration (one device sync
-        per level). inv_dt adds the implicit-Euler inertia inv_dt^2 * mass
-        to every level's ctrl (a hierarchy built with dt=None)."""
+        when given, else estimated here by power iteration (one lat_power
+        launch a level, every level's bound read back in one device sync).
+        inv_dt adds the implicit-Euler inertia inv_dt^2 * mass to every
+        level's ctrl (a hierarchy built with dt=None)."""
         ops = []
+        mat = self.scene.material
+        lmaxes = None
+        if lmax_cache is None:
+            lmaxes = torch.empty((self.n_levels,), dtype=torch.float32,
+                                 device=x_pad.device)
         x_l = x_pad.permute(3, 0, 1, 2).contiguous()
         for li, lvl in enumerate(self.levels):
             vm = lvl.vert_mask
@@ -256,18 +265,20 @@ class LatticeMG:
                 # mass / dt^2 term (restrict_lat is linear)
                 ctrl = ctrl + lvl.mass * (inv_dt * inv_dt)
             matvec, d6 = self._level_ops(li, u_cf, ctrl)
-            if lmax_cache is not None:
-                lmax = np.float32(lmax_cache[li])
-            else:
-                lmax = np.float32(self._est_lmax(matvec, d6, vm).item())
-            ops.append(LevelOps(matvec, d6, vm, lmax, u_cf, ctrl))
+            if lmaxes is not None:
+                lk.power_lmax_cf(u_cf, d6, ctrl, vm, lvl.cell_mask, lvl.dx,
+                                 mat.lame_mu, mat.lame_la, out=lmaxes,
+                                 slot=li)
+            ops.append(LevelOps(matvec, d6, vm, None, u_cf, ctrl))
             if li < self.n_levels - 1:
                 # restrict the displacement (weight-normalized) and anchor
                 # it at the next level's rest grid
                 nxt = self.levels[li + 1]
                 ur = self._restrict(li, u_cf * vm) / self._restrict_w_cf[li]
                 x_l = self._x0_cf[li + 1] + ur * nxt.vert_mask
-        return ops
+        host = lmax_cache if lmaxes is None else lmaxes.cpu().numpy()
+        return [op._replace(lmax=np.float32(host[li]))
+                for li, op in enumerate(ops)]
 
     @staticmethod
     def lmax_cache(ops, margin: float = 1.2):
@@ -309,23 +320,6 @@ class LatticeMG:
                :(src[2] + 1) // 2], shape=src)
 
     # -- V-cycle preconditioner ---------------------------------------------
-    @staticmethod
-    def _est_lmax(matvec, d6, vmask, iters: int = 6):
-        """Power iteration on D^-1 A for the Chebyshev upper bound (a 0-d
-        tensor, times 1.1); channel-first, vmask (X, Y, Z)."""
-        shape = tuple(vmask.shape)
-        n = shape[0] * shape[1] * shape[2]
-        start = torch.sin(torch.arange(n, dtype=torch.float32,
-                                       device=vmask.device))
-        v = (vmask * start.reshape(shape)).expand((3,) + shape).contiguous()
-        lam = None
-        for _ in range(iters):
-            w = lk.sym_solve_cf(d6, matvec(v)) * vmask
-            ww = ell.vdot(w, w)
-            lam = torch.sqrt(ww / torch.clamp(ell.vdot(v, v), min=1e-30))
-            v = w / torch.clamp(torch.sqrt(ww), min=1e-30)
-        return lam * 1.1
-
     def _smooth(self, level: int, op: LevelOps, b, x, degree: int,
                 want_residual: bool = False):
         """Chebyshev smoother on D^-1 A targeting [lmax/4, lmax] from x

@@ -453,10 +453,12 @@ def test_hvp_diag_kept_scratch_same_bits(scene):
     cm = scene.cell_mask
     lib = _cuda.load()
     tail = lk._chain_tail(X, Y, Z, DX, MU, LA, u.device)
+    plan = lk._hvp_plan(X, Y, Z, u.device)
     out = torch.empty_like(u_cf)
     cf = torch.empty(24 * cm.numel(), device="cuda")
-    assert lib.lat_hvp(u_cf.data_ptr(), p_cf.data_ptr(), cm.data_ptr(),
-                       out.data_ptr(), cf.data_ptr(), *tail) == 0
+    assert lib.lat_hvp(u_cf.data_ptr(), p_cf.data_ptr(), cm.data_ptr(), None,
+                       None, out.data_ptr(), cf.data_ptr(), *plan[1:],
+                       *tail) == 0
     d6 = torch.empty((6, X, Y, Z), device="cuda")
     cd = torch.empty(48 * cm.numel(), device="cuda")
     assert lib.lat_diag(u_cf.data_ptr(), cm.data_ptr(), d6.data_ptr(),
@@ -474,7 +476,8 @@ def test_hvp_diag_kept_scratch_same_bits(scene):
 
 _PLAIN = ("force_cf_plain", "hvp_cf_plain", "hess_diag_lattice_plain",
           "elastic_energy_lattice_plain", "fused_newton_plain",
-          "cheby_smooth_cf_plain", "hess_diag_shift_cf_plain")
+          "cheby_smooth_cf_plain", "hess_diag_shift_cf_plain",
+          "level_matvec_cf_plain", "power_lmax_cf_plain")
 
 
 @pytest.mark.cuda
@@ -606,11 +609,49 @@ def test_diag_shift_projection_is_spd_project(mg19):
 
 
 @pytest.mark.cuda
+def test_power_and_level_hvp_at_mg_levels(mg19):
+    """On every level shape of the 19k hierarchy, lat_hvp under its plan
+    (one launch on halo tiles, or the two passes) as hvp_cf and as
+    level_matvec_cf (the shift and mask in its vertex pass), and lat_power,
+    against their plain versions: the products within 1e-4 of max|ref|
+    (another summation order), the bound within 1e-4 relative (its dots
+    summed as per-block partials); two runs bit-identical; one count a
+    call."""
+    mat = mg19.scene.material
+    mu, la = mat.lame_mu, mat.lame_la
+    for li, lvl in enumerate(mg19.levels):
+        u, p, _, ctrl = _level_inputs(lvl, 60 + li)
+        vm = lvl.vert_mask
+        args = (lvl.cell_mask, lvl.dx, mu, la)
+        margs = (u, p, lvl.cell_mask, ctrl, vm, lvl.dx, mu, la)
+        d6 = lk.hess_diag_shift_cf(u, lvl.cell_mask, ctrl, vm, lvl.dx, mu, la)
+        pargs = (u, d6, ctrl, vm, *args)
+        before = dict(lk.launches)
+        h = [lk.hvp_cf(u, p, *args) for _ in range(2)]
+        m = [lk.level_matvec_cf(*margs) for _ in range(2)]
+        out = torch.zeros(4, device="cuda")
+        lam = [lk.power_lmax_cf(*pargs, out=out, slot=2).clone()
+               for _ in range(2)]
+        refs = (lk.hvp_cf_plain(u, p, *args),
+                lk.level_matvec_cf_plain(*margs),
+                lk.power_lmax_cf_plain(*pargs))
+        torch.cuda.synchronize()
+        assert lk.launches["hvp"] == before["hvp"] + 4, li
+        assert lk.launches["power"] == before["power"] + 2, li
+        assert float(out[0]) == float(out[1]) == float(out[3]) == 0.0
+        for got, ref in zip((h, m, lam), refs):
+            assert torch.equal(got[0], got[1]), li
+            assert float((got[0] - ref).abs().max()) <= 1e-4 * float(
+                ref.abs().max()), li
+
+
+@pytest.mark.cuda
 def test_mg_solve_launches_level_kernels(mg19, monkeypatch):
     """quasistatic_to_tol_mg (3 levels, Chebyshev coarse sweeps) on the
     card with the plain versions refused: every V-cycle launches lat_cheby
-    2 * 2 + 1 times, every linearization lat_diag_shift once a level, and
-    the solve reaches 1e-4."""
+    2 * 2 + 1 times, every linearization lat_diag_shift once a level, the
+    solve's first linearization lat_power once a level, every outer PCG
+    matvec lat_hvp once, and the solve reaches 1e-4."""
     sc = mg19.scene
 
     def refuse(*args, **kwargs):
@@ -625,12 +666,14 @@ def test_mg_solve_launches_level_kernels(mg19, monkeypatch):
         return plain_vcycle(ops, b, level)
     monkeypatch.setattr(mg19, "vcycle", counted)
     lk.reset_launches()
-    _, k, fn = tmg.quasistatic_to_tol_mg(sc, mg19, sc.x0, tol=1e-4,
-                                         max_newton=20)
+    _, k, fn, cg = tmg.quasistatic_to_tol_mg(sc, mg19, sc.x0, tol=1e-4,
+                                             max_newton=20, return_cg=True)
     torch.cuda.synchronize()
     assert fn <= 1e-4 and k > 0
     assert lk.launches["cheby"] == 5 * vcycles[0] > 0
     assert lk.launches["diag_shift"] == 3 * k
+    assert lk.launches["power"] == 3
+    assert lk.launches["hvp"] == cg > 0
     assert lk.launches["diag"] == 0
 
 

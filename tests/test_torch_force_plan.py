@@ -1,8 +1,9 @@
-"""The launch plans of the standalone force and energy kernels, on the CPU.
+"""The launch plans of the standalone force, hvp and energy kernels, on the CPU.
 
-`force_plan` picks what `lat_force` runs: one launch on halo tiles of the
-vertex lattice (one block a tile; `tile_axis` mirrors the kernel's own
-partition), or the two passes where its model says halo cells cost more.
+`force_plan` picks what `lat_force` runs, and `hvp_plan` what `lat_hvp`
+runs: one launch on halo tiles of the vertex lattice (one block a tile;
+`tile_axis` mirrors the kernel's own partition), or the two passes where
+its model says halo cells cost more.
 These tests check, without a card, that every tiling the plan can pick
 covers the lattice as the kernel's vertex pass needs (every vertex in one
 tile, every cell incident to a tile's vertices among the tile's cells,
@@ -26,10 +27,10 @@ ODD = {"odd": (4, 6, 8), "x2": (2, 9, 5), "y2": (7, 2, 6), "z2": (5, 4, 2),
        "cube2": (2, 2, 2)}
 
 
-def _check_tiling(plan, shape):
+def _check_tiling(plan, shape, box_floats=4):
     ntiles, ntx, nty, ntz, stride, box = plan
     assert ntiles == ntx * nty * ntz
-    assert lk.FORCE_ROWS * stride + 4 * box <= lk.FORCE_SMEM_FLOATS
+    assert lk.FORCE_ROWS * stride + box_floats * box <= lk.FORCE_SMEM_FLOATS
     owner = np.zeros(shape, np.int64)
     for it in itertools.product(range(ntx), range(nty), range(ntz)):
         axes = [lk.tile_axis(n, nt, i)
@@ -93,6 +94,27 @@ def test_plans_on_the_main_path_beams():
     assert lk.energy_plan(*BEAMS["19k"], H100_SMS) == (64, 0)
     assert lk.energy_plan(*BEAMS["74k"], H100_SMS) == (256, 0)
     assert lk.energy_plan(2, 2, 2, H100_SMS) == (1, 1)
+
+
+# the level shapes of the beams' 3-level multigrid hierarchies
+LEVELS = {"2k": ((9, 9, 25), (5, 5, 13), (3, 3, 7)),
+          "19k": ((17, 17, 65), (9, 9, 33), (5, 5, 17)),
+          "74k": ((17, 17, 257), (9, 9, 129), (5, 5, 65))}
+
+
+@pytest.mark.parametrize("label", sorted(LEVELS))
+def test_hvp_plan_on_the_level_shapes(label):
+    """On an H100 the hvp plan takes the two passes at the 19k and 74k fine
+    levels, where they measured faster, and one launch on halo tiles at
+    every other level shape; each tiling covers every vertex once, holds
+    the cells around its vertices and fits the shared memory with u and p
+    staged (8 floats a box vertex)."""
+    for li, shape in enumerate(LEVELS[label]):
+        plan = lk.hvp_plan(*shape, H100_SMS)
+        if li == 0 and label != "2k":
+            assert plan == lk.FORCE_TWO_PASS, shape
+        else:
+            _check_tiling(plan, shape, lk.HVP_MODEL.box_floats)
 
 
 def test_force_and_energy_take_plain_path_on_cpu():
