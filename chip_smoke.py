@@ -57,6 +57,19 @@ Phase 7  lattice quasi-static solvers and multigrid: on every level of the
          frame_adaptive_mg on the violent kick of the 3x3x12 beam; FMG with
          the "jacobi" corrector on the 4x4x32 cantilever. Then the first 3
          Newton iterations of quasistatic_to_tol_mg at 19k again on the CPU.
+Phase 8  the rest of exp1: the SpMV against its plain version on the cloth
+         Hessians (K = 7) of the 64x64 and 128x128 grids (pins [0, res]),
+         bit-repeat, timed beside its bound and BSR @ x; then, counters
+         zeroed: ClothSim.frame (the reference 5-CG frame) for 48 frames at
+         64x64, cloth.step_to_tol (tol 2.5e-4, max_newton 20) for 48 frames
+         at both grids with every frame at tol, two runs of 8 frames
+         bit-identical and the same 8 frames on the CPU (equal Newton, x
+         within 1e-4); a Picker drag on the 64x64 cloth; the harness on the
+         8x8x24 beam (drag_study: the V-cycle beats GS and CG at iterations
+         1-3; compare and compare_fas); dynamic.frame_adaptive on the
+         violent kick of the 3x3x12 beam (matrix-free, max_newton 10, and
+         multigrid, max_newton 20) with n_sub equal to the CPU's; a
+         HeadlessWindow loop of 8 DynamicSim frames.
 
 Launch counters are zeroed just before each main path and read just after.
 Every failure raises and exits non-zero. The last two lines are the kernel
@@ -72,14 +85,19 @@ import torch
 
 from fem_simulation_tpu_torch import mesh as meshlib
 from fem_simulation_tpu_torch import require_cuda
-from fem_simulation_tpu_torch.config import SolverConfig
+from fem_simulation_tpu_torch.config import ClothConfig, SolverConfig
+from fem_simulation_tpu_torch.harness import compare as harness
 from fem_simulation_tpu_torch.ops import _cuda, ell
 from fem_simulation_tpu_torch.ops import ell_kernels as ek
 from fem_simulation_tpu_torch.ops import lattice_kernels as lk
 from fem_simulation_tpu_torch.sim import lattice as tlat
 from fem_simulation_tpu_torch.sim import lattice_mg as tmg
 from fem_simulation_tpu_torch.sim import quasistatic as qs
+from fem_simulation_tpu_torch.render import HeadlessWindow
+from fem_simulation_tpu_torch.sim import cloth, dynamic
+from fem_simulation_tpu_torch.sim.cloth import ClothScene, ClothSim
 from fem_simulation_tpu_torch.sim.dynamic import DynamicSim
+from fem_simulation_tpu_torch.sim.picking import Picker
 from fem_simulation_tpu_torch.sim.scene import Scene
 from fem_simulation_tpu_torch.solvers import smoothers
 
@@ -88,6 +106,8 @@ TOL = 1e-4
 FRAMES = 48
 BEAMS = {"2k": (8, 8, 24), "19k": (16, 16, 64), "74k": (16, 16, 256)}
 DX = 0.05
+CLOTHS = {"64x64": 64, "128x128": 128}
+CLOTH_TOL = 2.5e-4            # bench.py's cloth tolerance
 LATTICE_SOURCE = "fem_simulation_tpu_torch/csrc/lattice_kernels.cu"
 ELL_SOURCE = "fem_simulation_tpu_torch/csrc/ell_kernels.cu"
 TPU_KERNELS = {   # the pallas_call each kernel replaces
@@ -1331,6 +1351,244 @@ def phase7_cpu(sc_gpu, newton=3):
           f"||f|| series differ: {fg.tolist()} vs {fc.tolist()}")
     return float(rel.max())
 
+# -- phase 8 -----------------------------------------------------------------
+
+def cloth_scene(res, device):
+    """The exp1 cloth protocol: a res x res ClothConfig grid, the two
+    corners of the first row pinned."""
+    return ClothScene(ClothConfig(res_x=res, res_y=res), pins=[0, res],
+                      device=device)
+
+
+def cloth_frames(sc, n):
+    """n step_to_tol frames from rest: (state, Newton list, ||f|| list)."""
+    st, ks, fns = cloth.init_state(sc), [], []
+    for _ in range(n):
+        st, k, fn = cloth.step_to_tol(sc, sc.params, st, tol=CLOTH_TOL,
+                                      max_newton=20)
+        ks.append(k)
+        fns.append(fn)
+    return st, ks, fns
+
+
+def phase8_spmv(cloths, row, reps):
+    """(a) ell_spmv against its plain version on the cloth Hessian (K = 7)
+    at a seeded perturbed state: max|d| <= 1e-5 max|ref| as in phase 4, two
+    runs bit-identical, timed beside its bound and BSR @ x."""
+    row["by_cloth"] = {}
+    for label, sc in cloths.items():
+        rng = np.random.default_rng(8)
+        p = sc.params
+        x = p["x0"] + torch.from_numpy(0.01 * rng.standard_normal(
+            tuple(p["x0"].shape)).astype(np.float32)).to(sc.device)
+        st = cloth.init_state(sc)
+        inv_dt = 1.0 / sc.cfg.dt
+        vals = cloth._frame_hessian(sc, p, x,
+                                    cloth._frame_diag(sc, p, st, inv_dt))
+        full = (vals * p["mask"][..., None, None]).contiguous()
+        v = torch.from_numpy(rng.standard_normal(
+            tuple(x.shape)).astype(np.float32)).to(sc.device)
+        nbr, mask = p["nbr"], p["mask"]
+        got = ek.spmv(full, nbr, mask, v)
+        again = ek.spmv(full, nbr, mask, v)
+        ref = ek.spmv_plain(full, nbr, mask, v)
+        torch.cuda.synchronize()
+        err, scale = max_err(got, ref), float(ref.abs().max())
+        check(err <= 1e-5 * scale, f"spmv cloth {label}: max|d| {err:.3e} "
+              f"> 1e-5 * {scale:.3e}")
+        check(torch.equal(got, again), f"spmv cloth {label}: two runs differ")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        ms = cuda_ms(lambda: ek.spmv(full, nbr, mask, v), reps)
+        us = device_us(lambda: ek.spmv(full, nbr, mask, v), 10,
+                       "ell_spmv_kernel")
+        plain_ms = cuda_ms(lambda: ek.spmv_plain(full, nbr, mask, v),
+                           max(reps // 2, 3), warmup=1)
+        A = bsr_of(full, nbr, mask)
+        xv = v.reshape(-1)
+        lib_err = max_err((A @ xv).reshape(-1, 3), ref)
+        lib_ms = cuda_ms(lambda: A @ xv, reps)
+        n, k = full.shape[:2]
+        b_ms, b_by = spmv_bound(full, nbr, 0, n, n)
+        row["by_cloth"][label] = dict(ms=ms, device_us=us, plain_ms=plain_ms,
+                                      bound_ms=b_ms, bound_by=b_by,
+                                      library_ms=lib_ms)
+        log(f"phase8 spmv cloth {label} N {n} K {k} max rel |d| "
+            f"{err / scale:.3e} same bits twice  kernel {ms:.4f} ms (device "
+            f"{us} us)  plain "
+            f"{plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  library "
+            f"(BSR @ x) {lib_ms:.4f} ms, max|d| {lib_err:.3e}")
+
+
+def kick_state(sc):
+    """The violent kick of tests/test_dynamic.py on an unstructured scene."""
+    x = sc.x0.cpu().numpy()
+    r = x - x.mean(0)
+    omega = np.array([18.0, 0.0, 6.0], np.float32)
+    v = np.cross(np.broadcast_to(omega, r.shape), r).astype(np.float32)
+    return dynamic.state_from_numpy(x, v, np.zeros(x.shape[0]), x,
+                                    device=sc.device)
+
+
+def adaptive_frames(sc, kw, n=3):
+    st, subs, ks, fns = kick_state(sc), [], [], []
+    for _ in range(n):
+        st, k, fn, n_sub = dynamic.frame_adaptive(sc, sc.params, st, **kw)
+        subs.append(n_sub)
+        ks.append(k)
+        fns.append(fn)
+    return st, subs, ks, fns
+
+
+def phase8(cloths, uscene2k):
+    """(b)-(g): the cloth, picking, harness, substepping and viewer paths on
+    the card, the block-ELL counters zeroed just before and read just after;
+    (c) and (f) also run on the CPU with the plain versions."""
+    dev = uscene2k.device
+    kick = {name: Scene(meshlib.beam(3, 3, 12, dx=DX),
+                        solver=SolverConfig(n_levels=nl), device=dev)
+            for name, nl in (("matrix_free", 1), ("mg", 2))}
+    sim = ClothSim(ClothConfig(res_x=64, res_y=64), pins=[0, 64], device=dev)
+    sim.frame()
+    cloth_frames(cloths["64x64"], 1)              # warm-up
+    torch.cuda.synchronize()
+    ek.reset_launches()
+    for name in ell.cuda_calls:
+        ell.cuda_calls[name] = 0
+    results = {}
+    # (b) the reference 5-CG frame, then step_to_tol at both grids
+    before = ek.launches["spmv"]
+    (_, ms, wall) = timed_run(lambda n: [sim.frame() for _ in range(n)],
+                              FRAMES)
+    check(bool(torch.isfinite(sim.state.x).all()), "ClothSim.frame: not finite")
+    log(f"phase8 cloth 64x64 ClothSim.frame (5 CG) {FRAMES} frames ms/frame "
+        f"{ms:.3f} (host clock {wall:.3f})  spmv launches "
+        f"{ek.launches['spmv'] - before}")
+    results["64x64 frame"] = dict(ms_per_frame=ms, wall_ms_per_frame=wall)
+    for label, sc in cloths.items():
+        before = ek.launches["spmv"]
+        (st, ks, fns), ms, wall = timed_run(lambda n: cloth_frames(sc, n),
+                                            FRAMES)
+        spmv = ek.launches["spmv"] - before
+        log(f"phase8 cloth {label} step_to_tol {FRAMES} frames ms/frame "
+            f"{ms:.3f} (host clock {wall:.3f})  newton {ks}  max ||f|| "
+            f"{max(fns):.3e}  spmv launches {spmv}")
+        check(max(fns) <= CLOTH_TOL, f"cloth {label}: a frame ended above "
+              f"tol: {max(fns):.3e}")
+        check(max(ks) >= 1, f"cloth {label}: no frame took a Newton step")
+        check(bool(torch.isfinite(st.x).all()), f"cloth {label}: not finite")
+        results[f"{label} step_to_tol"] = dict(
+            ms_per_frame=ms, wall_ms_per_frame=wall,
+            newton_mean=float(np.mean(ks)), fn_max=float(max(fns)),
+            spmv_launches=spmv)
+    # the assembly and the solve repeat their bits
+    runs = [cloth_frames(cloths["64x64"], 8) for _ in range(2)]
+    # where a frame's time goes: device ops and busy time of the ninth frame
+    for label, sc in cloths.items():
+        st8 = runs[0][0] if label == "64x64" else cloth_frames(sc, 8)[0]
+        frame = lambda: cloth.step_to_tol(sc, sc.params, st8, tol=CLOTH_TOL)
+        _, k, _ = frame()
+        (_, ms, _) = timed_run(lambda n: [frame() for _ in range(n)], 3)
+        ops = whole_trace(frame, 3, 1)
+        n_ops = sum(n for n, _ in ops.values())
+        busy = sum(n * us for n, us in ops.values()) * 1e-3
+        top = sorted(ops.items(), key=lambda e: -e[1][0] * e[1][1])[:4]
+        log(f"phase8 cloth {label} frame 9 ({k} Newton) ms {ms:.3f}  device "
+            f"ops {n_ops:.0f}  device busy {busy:.3f} ms  idle share "
+            f"{1 - busy / ms:.3f}  most device time: " + ", ".join(
+                f"{name[:40]} {n:.0f} x {us:.1f} us" for name, (n, us) in top))
+        results[f"{label} frame 9"] = dict(newton=k, ms=ms, device_ops=n_ops,
+                                          busy_ms=busy)
+    check(runs[0][1] == runs[1][1] and torch.equal(runs[0][0].x, runs[1][0].x),
+          "cloth 64x64: two runs of 8 frames differ")
+    # (c) the first 8 frames again on the CPU with the plain versions
+    t0 = time.perf_counter()
+    st_cpu, ks_cpu, _ = cloth_frames(cloth_scene(64, "cpu"), 8)
+    err = max_err(runs[0][0].x.cpu(), st_cpu.x)
+    log(f"phase8 cloth 64x64 8 frames newton gpu {runs[0][1]} cpu {ks_cpu}  "
+        f"max|d x| {err:.3e}  two gpu runs same bits  "
+        f"({time.perf_counter() - t0:.1f} s on CPU)")
+    check(ks_cpu == runs[0][1], "cloth: Newton counts differ between CPU "
+          "and GPU")
+    check(err <= 1e-4, f"cloth: x max|d| {err:.3e} > 1e-4")
+    results["64x64 cpu"] = dict(newton=ks_cpu, max_dx=err)
+    # (d) drag on the card
+    pk = Picker(sim, sim.triangles(), grab_radius2=0.01)
+    origin, down = np.array([0.5, 2.0, 0.5]), np.array([0.0, -1.0, 0.0])
+    check(pk.select(origin, down), "picker: the ray missed the cloth")
+    pk.move_select(origin + np.array([0.1, 0.0, 0.0]), down)
+    grabbed = float(sim.state.drag_mask.sum())
+    for _ in range(10):
+        sim.frame()
+    check(grabbed > 0, "picker: no vertex grabbed")
+    check(bool(torch.isfinite(sim.state.x).all()), "dragged cloth not finite")
+    log(f"phase8 picker vertex {pk.select_vertex} grabbed {grabbed:.0f} "
+        f"vertices, 10 dragged frames finite")
+    pk.clear()
+    # (e) the harness on the card
+    before = dict(ek.launches)
+    factory = lambda: uscene2k
+    drag = harness.drag_study(factory, iterations=6)
+    gs, cg, mg = drag["gs"], drag["cg"], drag["mg"]
+    log(f"phase8 drag_study 2k gs {gs.tolist()}")
+    log(f"phase8 drag_study 2k cg {cg.tolist()}")
+    log(f"phase8 drag_study 2k mg {mg.tolist()}")
+    check(all(mg[i] < gs[i] and mg[i] < cg[i] for i in (1, 2, 3)),
+          "drag_study: the V-cycle did not beat GS and CG at 1-3")
+    studies = {**harness.compare(factory, iterations=10),
+               **harness.compare_fas(factory, iterations=10)}
+    for arm, ser in studies.items():
+        fn = ser["f_inf"]
+        check(bool(np.isfinite(fn).all()) and fn[-1] < fn[0],
+              f"harness {arm}: ||f|| {fn[0]:.3e} -> {fn[-1]:.3e}")
+    used = {k: ek.launches[k] - before[k] for k in ek.launches}
+    log("phase8 harness 2k " + "  ".join(
+        f"{arm} ||f|| {s['f_inf'][0]:.3e} -> {s['f_inf'][-1]:.3e}"
+        for arm, s in studies.items()) + f"  launches {used}")
+    results["drag_study"] = {k: v.tolist() for k, v in drag.items()}
+    # (f) adaptive substepping on the violent kick, card and CPU
+    for name, kw in (("matrix_free", dict(use_multigrid=False,
+                                          matrix_free=True, max_newton=10)),
+                     ("mg", dict(max_newton=20))):
+        kw = dict(kw, tol=TOL, max_halvings=4)
+        sc = kick[name]
+        t0 = time.perf_counter()
+        st, subs, ks, fns = adaptive_frames(sc, kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cpu = Scene(sc.mesh, solver=sc.solver, device="cpu")
+        st_c, subs_c, ks_c, _ = adaptive_frames(cpu, kw)
+        err = max_err(st.x.cpu(), st_c.x)
+        log(f"phase8 kick frame_adaptive {name:11s} n_sub {subs} (cpu "
+            f"{subs_c})  newton {ks} (cpu {ks_c})  fn_max {max(fns):.3e}  "
+            f"max|d x| {err:.3e}  ({wall:.2f} s on the card)")
+        check(subs == subs_c, f"frame_adaptive {name}: n_sub {subs} != cpu "
+              f"{subs_c}")
+        check(max(fns) <= TOL, f"frame_adaptive {name}: missed tol {fns}")
+        results[f"kick {name}"] = dict(n_sub=subs, newton=ks, cpu_newton=ks_c,
+                                       max_dx=err)
+    check(max(results["kick matrix_free"]["n_sub"]) > 1,
+          "the kick took no substeps")
+    # (g) a headless viewer loop over a DynamicSim
+    dsim = DynamicSim(uscene2k)
+    win = HeadlessWindow(320, 240)
+    tris = meshlib.surface_triangles(uscene2k.mesh.hexes)
+    win.set_frame_source(lambda: (uscene2k.to_mesh_order(dsim.state.x), tris))
+    win.loop(lambda pause: pause or dsim.frame(), max_frames=8,
+             capture_every=1)
+    check(len(win.frames) == 8 and bool(np.isfinite(win.frames[-1]).all()),
+          "headless window: frames missing or not finite")
+    log(f"phase8 headless window 8 frames of DynamicSim, last max|x| "
+        f"{np.abs(win.frames[-1]).max():.4f}")
+    torch.cuda.synchronize()
+    launches, calls = dict(ek.launches), dict(ell.cuda_calls)
+    log(f"phase8 kernel launches {launches}, asked for by the calls on CUDA "
+        f"tensors {calls}")
+    check(launches == calls, f"launches {launches} != those the calls on "
+          f"CUDA tensors ask for {calls}")
+    check(all(n > 0 for n in launches.values()),
+          f"a block-ELL kernel of the path was never launched: {launches}")
+    return results, launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1385,12 +1643,18 @@ def main() -> int:
     for name in ("cheby", "diag_shift", "power", "hvp", "diag"):
         counts[name] = counts7[name]
     rel7 = phase7_cpu(scenes["19k"])
+    cloths = {label: cloth_scene(res, dev) for label, res in CLOTHS.items()}
+    phase8_spmv(cloths, rows["spmv"], reps=50)
+    results8, counts8 = phase8(cloths, uscenes["2k"])
+    for name in ("spmv", "gs", "jacobi"):
+        counts[name] += counts8[name]
 
     summary = {label: {k: v for k, v in r.items() if k != "state8"}
                for label, r in results.items()}
     log("phase2 summary " + json.dumps(summary))
     log("phase5 summary " + json.dumps(uresults))
     log("phase7 summary " + json.dumps(results7))
+    log("phase8 summary " + json.dumps(results8))
     log(f"phase3 max|dx| {err3:.3e}  phase6 max rel |d f| {rel6:.3e} "
         f"max|d x| {err6:.3e}  phase7 max rel |d f| {rel7:.3e}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -1419,6 +1683,8 @@ def main() -> int:
                "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
                "bound_by": at["bound_by"],
                "library_ms": at.get("library_ms"), "by_beam": r["by_beam"]}
+        if "by_cloth" in r:          # phase 8: at the cloth Hessians
+            out["by_cloth"] = r["by_cloth"]
         if name in per_level:        # phase 7: at the multigrid level shapes
             out["by_level"] = {
                 label: [{"level": e["level"], "shape": e["shape"],

@@ -3,15 +3,17 @@
 The JAX package `fem_simulation_tpu` is the reference this port is held
 against; the port imports nothing of it (not even its numpy-only modules:
 `mesh.py`, `hierarchy.py` and `config.py` have their own copies here).
-Three slices are ported: the structured lattice (`sim/lattice.py`: the
+Four slices are ported: the structured lattice (`sim/lattice.py`: the
 dynamic step, adaptive substepping, the quasi-static Newton with load
 continuation), the lattice geometric multigrid (`sim/lattice_mg.py`:
 `LatticeMG`, its dynamic, substepping, quasi-static and full-multigrid
-drivers) and the unstructured block-ELL path (`sim/scene.py`,
-`sim/quasistatic.py`, `sim/dynamic.py`). The TPU kernels become
-hand-written CUDA C++ for sm_90a (`csrc/`); on CPU tensors each kernel
-wrapper runs its plain torch version instead (`ops/lattice_kernels.py`,
-`ops/ell_kernels.py`).
+drivers), the unstructured block-ELL path (`sim/scene.py`,
+`sim/quasistatic.py`, `sim/dynamic.py`) and the rest of exp1: the
+mass-spring cloth (`sim/cloth.py`), picking (`sim/picking.py`), the viewers
+(`render/`), the A/B harness (`harness/compare.py`) and `utils/`. The TPU
+kernels become hand-written CUDA C++ for sm_90a (`csrc/`); on CPU tensors
+each kernel wrapper runs its plain torch version instead
+(`ops/lattice_kernels.py`, `ops/ell_kernels.py`).
 
 Entry points that take a `device` run on the GPU unless the caller passes
 another device (`device="cpu"`, as the CPU tests do): with no device given

@@ -2,7 +2,7 @@
 
 Port of `fem_simulation_tpu/sim/dynamic.py` (`DynState`, `init_state`,
 `_dyn_force`, `_dyn_hessian`, `fas_dynamic_cycle`, `step`, `step_to_tol`,
-`DynamicSim`). Per frame:
+`frame_adaptive`, `DynamicSim`). Per frame:
 
   predictor   v *= damping; x += v dt
   assemble    H = pin/drag diag + m/h^2 I + elastic Hessian
@@ -26,6 +26,7 @@ from .. import device_or_cuda
 from ..config import DynamicsConfig
 from ..ops import elastic, ell, transfer
 from ..solvers import cg as cgmod, smoothers
+from .lattice import adaptive_frame
 from .scene import Scene
 from . import quasistatic as qs
 
@@ -231,6 +232,24 @@ def step_to_tol(scene: Scene, params, st: DynState,
         fmin = np.minimum(fmin, fn)
     v = (x - x_old) * inv_dt
     return st._replace(x=x, v=v), k, cgmod.newton_exit_norm(fn, fmin)
+
+
+def frame_adaptive(scene: Scene, params, st: DynState,
+                   dyn: DynamicsConfig = DynamicsConfig(),
+                   tol: float = 1e-4, max_newton: int = 20,
+                   use_multigrid: bool = True, matrix_free: bool = False,
+                   use_fas: bool = False, max_halvings: int = 3,
+                   gravity_scale=1.0):
+    """step_to_tol with adaptive time substepping: a frame whose Newton
+    budget exits above tol (or diverges: +inf) is redone from the original
+    state as 2^h substeps of dt/2^h, up to 2^max_halvings
+    (lattice.adaptive_frame). Returns (state, max Newton over the accepted
+    substeps, worst substep exit norm, n_substeps)."""
+    def step(s, dt, damp):
+        return step_to_tol(scene, params, s, dyn, tol, max_newton,
+                           use_multigrid, matrix_free, use_fas,
+                           gravity_scale=gravity_scale, dt=dt, damping=damp)
+    return adaptive_frame(step, st, dyn, tol, max_halvings)
 
 
 class DynamicSim:

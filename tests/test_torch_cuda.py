@@ -11,10 +11,11 @@ import pytest
 import torch
 
 from fem_simulation_tpu_torch import mesh as meshlib
-from fem_simulation_tpu_torch.config import SolverConfig
+from fem_simulation_tpu_torch.config import ClothConfig, SolverConfig
 from fem_simulation_tpu_torch.ops import _cuda, ell
 from fem_simulation_tpu_torch.ops import ell_kernels as ek
 from fem_simulation_tpu_torch.ops import lattice_kernels as lk
+from fem_simulation_tpu_torch.sim import cloth as tcloth
 from fem_simulation_tpu_torch.sim import dynamic as tdyn
 from fem_simulation_tpu_torch.sim import lattice as tlat
 from fem_simulation_tpu_torch.sim import lattice_mg as tmg
@@ -690,6 +691,41 @@ def test_cheby_rejects_too_many_sweeps(scene):
                            scene.cell_mask, DX, MU, LA, coeffs)
 
 
+@pytest.mark.cuda
+def test_cloth_frames_on_card_match_cpu():
+    """Cloth frames on the card: the reference 5-CG frame and step_to_tol
+    (tol 2.5e-4, pins [0, res]) on the 16x16 grid launch the SpMV kernel
+    once per CG / PCG matvec, repeat their bits, and match the CPU run with
+    the plain versions: equal Newton counts, x within 1e-4."""
+    _need_cuda()
+    cfg, pins = ClothConfig(res_x=16, res_y=16), [0, 16]
+    gpu = tcloth.ClothScene(cfg, pins=pins, device="cuda")
+    cpu = tcloth.ClothScene(cfg, pins=pins, device="cpu")
+    sg = tcloth.step(gpu, gpu.params, tcloth.init_state(gpu))
+    sc = tcloth.step(cpu, cpu.params, tcloth.init_state(cpu))
+    assert float((sg.x.cpu() - sc.x).abs().max()) <= 1e-5
+
+    def run(scene):
+        st, ks = tcloth.init_state(scene), []
+        for _ in range(4):
+            st, k, fn = tcloth.step_to_tol(scene, scene.params, st,
+                                           tol=2.5e-4)
+            assert fn <= 2.5e-4
+            ks.append(k)
+        return st, ks
+
+    ek.reset_launches()
+    ell.cuda_calls["spmv"] = 0
+    st1, ks1 = run(gpu)
+    torch.cuda.synchronize()
+    assert ek.launches["spmv"] == ell.cuda_calls["spmv"] > 0
+    st2, ks2 = run(gpu)
+    assert ks1 == ks2 and torch.equal(st1.x, st2.x)
+    st3, ks3 = run(cpu)
+    assert ks3 == ks1 and max(ks1) >= 1
+    assert float((st1.x.cpu() - st3.x).abs().max()) <= 1e-4
+
+
 _ENTRY_POINTS = {
     "Scene": lambda m, **kw: tscene.Scene(
         m, solver=SolverConfig(n_levels=2), **kw).x0,
@@ -703,6 +739,14 @@ _ENTRY_POINTS = {
         *tlat.state_to_numpy(tlat.LatticeScene(m, device="cpu")
                              .init_state()), **kw).x,
     "dynamic.state_from_numpy": lambda m, **kw: tdyn.state_from_numpy(
+        np.zeros((4, 3)), np.zeros((4, 3)), np.zeros(4), np.zeros((4, 3)),
+        **kw).x,
+    # the cloth takes no mesh
+    "ClothScene": lambda m, **kw: tcloth.ClothScene(
+        ClothConfig(res_x=2, res_y=2), **kw).params["x0"],
+    "ClothSim": lambda m, **kw: tcloth.ClothSim(
+        ClothConfig(res_x=2, res_y=2), **kw).state.x,
+    "cloth.state_from_numpy": lambda m, **kw: tcloth.state_from_numpy(
         np.zeros((4, 3)), np.zeros((4, 3)), np.zeros(4), np.zeros((4, 3)),
         **kw).x,
 }

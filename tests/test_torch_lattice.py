@@ -131,7 +131,18 @@ def test_port_imports_no_jax():
         "                                               pkg.__name__ + '.')]\n"
         "assert {'fem_simulation_tpu_torch.sim.dynamic',\n"
         "        'fem_simulation_tpu_torch.sim.lattice_mg',\n"
-        "        'fem_simulation_tpu_torch.ops.ell_kernels'} <= set(names)\n"
+        "        'fem_simulation_tpu_torch.ops.ell_kernels',\n"
+        "        'fem_simulation_tpu_torch.ops.spring',\n"
+        "        'fem_simulation_tpu_torch.sim.cloth',\n"
+        "        'fem_simulation_tpu_torch.sim.picking',\n"
+        "        'fem_simulation_tpu_torch.harness.compare',\n"
+        "        'fem_simulation_tpu_torch.utils.viz',\n"
+        "        'fem_simulation_tpu_torch.utils.io',\n"
+        "        'fem_simulation_tpu_torch.utils.debug',\n"
+        "        'fem_simulation_tpu_torch.utils.profiling',\n"
+        "        'fem_simulation_tpu_torch.render.camera',\n"
+        "        'fem_simulation_tpu_torch.render.window',\n"
+        "        'fem_simulation_tpu_torch.render.live'} <= set(names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
