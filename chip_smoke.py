@@ -70,6 +70,20 @@ Phase 8  the rest of exp1: the SpMV against its plain version on the cloth
          violent kick of the 3x3x12 beam (matrix-free, max_newton 10, and
          multigrid, max_newton 20) with n_sub equal to the CPU's; a
          HeadlessWindow loop of 8 DynamicSim frames.
+Phase 9  the learning slice. The backward kernels (ell_spmv_t, ell_outer,
+         ell_jacobi_bwd) against their plain versions, and the autograd
+         Functions against torch.autograd through spmv_plain / jacobi_plain
+         (Jacobi at 1 and 3 iterations, with and without x0), on the same
+         CUDA tensors at the fine Hessian of the 19k and 21k Scenes and every
+         level of the 2k one; two runs bit-identical; timed beside their
+         bounds (and BSR(A^T) @ g for ell_spmv_t). Then, counters zeroed:
+         exp2 (InterpTrainer on the 16x16x72 beam, 21,097 vertices: modes P
+         and p_hat, l2, unroll 4, 10 SGD and 10 Adam steps each, compare(8);
+         10 steps with two coarse Jacobi iterations) and exp3 on the same
+         beam (generate_rollout 4 frames; 20 Adam steps of MDN3 with mse and
+         with the residual loss, 5 of MultiLevel3; evaluate_residual,
+         learned_step, warmstart_stats(4); train_energy_gcn 10 steps on the
+         2k beam); then the first 2 exp2 steps again on the CPU.
 
 Launch counters are zeroed just before each main path and read just after.
 Every failure raises and exits non-zero. The last two lines are the kernel
@@ -85,15 +99,20 @@ import torch
 
 from fem_simulation_tpu_torch import mesh as meshlib
 from fem_simulation_tpu_torch import require_cuda
-from fem_simulation_tpu_torch.config import ClothConfig, SolverConfig
+from fem_simulation_tpu_torch.config import (ClothConfig, SolverConfig,
+                                             TrainInterpConfig,
+                                             TrainSolverConfig)
 from fem_simulation_tpu_torch.harness import compare as harness
 from fem_simulation_tpu_torch.ops import _cuda, ell
+from fem_simulation_tpu_torch.ops import transfer as tops
 from fem_simulation_tpu_torch.ops import ell_kernels as ek
 from fem_simulation_tpu_torch.ops import lattice_kernels as lk
 from fem_simulation_tpu_torch.sim import lattice as tlat
 from fem_simulation_tpu_torch.sim import lattice_mg as tmg
 from fem_simulation_tpu_torch.sim import quasistatic as qs
 from fem_simulation_tpu_torch.render import HeadlessWindow
+from fem_simulation_tpu_torch.models import train_interp as ti
+from fem_simulation_tpu_torch.models import train_solver as tsolve
 from fem_simulation_tpu_torch.sim import cloth, dynamic
 from fem_simulation_tpu_torch.sim.cloth import ClothScene, ClothSim
 from fem_simulation_tpu_torch.sim.dynamic import DynamicSim
@@ -128,7 +147,16 @@ TPU_KERNELS = {   # the pallas_call each kernel replaces
     # the smoothers are fused around the SpMV's row pass
     "gs": "fem_simulation_tpu/ops/pallas_kernels.py:68",
     "jacobi": "fem_simulation_tpu/ops/pallas_kernels.py:68",
+    # the backward kernels: no TPU kernel of their own; the JAX package
+    # takes these gradients with jax.grad of the same SpMV and smoother
+    # (models/train_interp.py:51-79 through ops/ell.py:29)
+    "spmv_t": "fem_simulation_tpu/ops/pallas_kernels.py:68",
+    "outer": "fem_simulation_tpu/ops/pallas_kernels.py:68",
+    "jacobi_bwd": "fem_simulation_tpu/ops/pallas_kernels.py:68",
 }
+ELL_FORWARD = ("spmv", "gs", "jacobi")
+ELL_BACKWARD = ("spmv_t", "outer", "jacobi_bwd")
+EXP_BEAM = (16, 16, 72)       # the exp2 / exp3 drivers' beam: 21,097 vertices
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
 # FLOP/s outside the tensor cores. Every kernel here computes in float32.
 HBM_BYTES_PER_S = 3.35e12
@@ -797,7 +825,8 @@ def quasi_runs(label, sc, runs):
             # a V-cycle: two residual SpMVs and two smoother calls per
             # level above the coarsest, one smoother call there
             want = dict(spmv=2 * (sc.n_levels - 1),
-                        gs=2 * (sc.n_levels - 1) + 1, jacobi=0)
+                        gs=2 * (sc.n_levels - 1) + 1, jacobi=0,
+                        **{name: 0 for name in ELL_BACKWARD})
             check(per_step == want, f"{label} {method}: launches per step "
                   f"{per_step}, expected {want}")
         out[method] = dict(fn_first=float(fn[0]), fn_last=float(fn[-1]),
@@ -852,8 +881,11 @@ def phase5(uscenes):
         f"smoother calls on CUDA tensors {calls} (jacobi: one per iteration)")
     check(launches == calls, f"launches {launches} != those the calls on "
           f"CUDA tensors ask for {calls}")
-    check(all(n > 0 for n in launches.values()),
+    check(all(launches[n] > 0 for n in ELL_FORWARD),
           f"a kernel of the path was never launched: {launches}")
+    check(all(launches[n] == 0 for n in ELL_BACKWARD),
+          f"a backward kernel ran on a path that takes no gradient: "
+          f"{launches}")
     return results, launches
 
 
@@ -1585,8 +1617,391 @@ def phase8(cloths, uscene2k):
         f"tensors {calls}")
     check(launches == calls, f"launches {launches} != those the calls on "
           f"CUDA tensors ask for {calls}")
-    check(all(n > 0 for n in launches.values()),
+    check(all(launches[n] > 0 for n in ELL_FORWARD),
           f"a block-ELL kernel of the path was never launched: {launches}")
+    check(all(launches[n] == 0 for n in ELL_BACKWARD),
+          f"a backward kernel ran on a path that takes no gradient: "
+          f"{launches}")
+    return results, launches
+
+
+# -- phase 9 -----------------------------------------------------------------
+
+def spmv_t_bound(n, k, kt, skip):
+    """values and mask once (through the table), the table, g in and gx out
+    (diag_slot where a slot is left out); 21 FLOPs an entry."""
+    return bound(n * k * 40 + n * kt * 4 + 24 * n + (4 * n if skip else 0),
+                 n * k * 21.0)
+
+
+def outer_bound(n, k):
+    """g, x, nbr and mask in, the (N, K, 3, 3) gradient out; 12 FLOPs an
+    entry."""
+    return bound(n * k * 44 + 24 * n, n * k * 12.0)
+
+
+def jacobi_bwd_bound(n, k):
+    """The row pass's values, nbr and mask, diag_slot, b, x_t and gbar in;
+    lam, gb and the diagonal blocks' gradient out; 18 K + ~150 FLOPs a
+    row."""
+    return bound(n * k * 44 + 4 * n + 36 * n + 24 * n + 36 * n,
+                 n * (18.0 * k + 150.0))
+
+
+def bsr_t_of(values, mask, tt):
+    """A^T as a torch BSR tensor (row j: the blocks values[e]^T of its
+    transpose-table entries, masked ones dropped), for timing one library
+    call A^T @ g on the same matrix."""
+    n, k = mask.shape
+    e = tt.long().reshape(-1)
+    rows = torch.arange(n, device=values.device).repeat_interleave(
+        tt.shape[1])
+    live = e >= 0
+    e, rows = e[live], rows[live]
+    keep = mask.reshape(-1)[e] > 0
+    e, rows = e[keep], rows[keep]
+    blocks = values.reshape(n * k, 3, 3)[e].transpose(1, 2).contiguous()
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=values.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    return torch.sparse_bsr_tensor(crow, e // k, blocks, size=(3 * n, 3 * n))
+
+
+def _bwd_outputs(fn, vals, op, g, b, xt):
+    """(lam, gb, gv) of one jacobi_bwd call (gv: every slot, the others
+    zero), into zeros."""
+    gb, gv = torch.zeros_like(g), torch.zeros_like(vals)
+    lam = fn(vals, op.nbr, op.mask, op.diag_slot, b, xt, g, gb, gv)
+    return torch.cat([lam.reshape(-1), gb.reshape(-1), gv.reshape(-1)])
+
+
+def _grads(fn, leaves, w):
+    """d (fn(*leaves) . w) / d leaves, leaves fresh copies."""
+    leaves = [None if t is None else t.detach().clone().requires_grad_()
+              for t in leaves]
+    out = fn(*leaves)
+    return torch.autograd.grad((out * w).sum(),
+                               [t for t in leaves if t is not None])
+
+
+def exp2_coarse_values(sc, x):
+    """The exp2 cycle's coarse matrix at x (classic position restriction):
+    the values its coarse Jacobi solve, and so the backward kernels, get."""
+    t = sc.params["transfers"][0]
+    xc = tops.restrict(t["r_idx"], t["r_w_norm"], x)
+    return qs.assemble_coarse_rediscretized(sc, sc.params, 1, xc,
+                                            with_fix_diag=True)
+
+
+def phase9_kernels(uscenes, sc21, reps):
+    """ell_spmv_t, ell_outer and ell_jacobi_bwd against their plain versions
+    on the same CUDA tensors, and the Functions' gradients against
+    torch.autograd through spmv_plain / jacobi_plain (1 and 3 iterations,
+    with and without x0), at the fine Hessian of the 19k and 21k Scenes,
+    the 21k Scene's exp2 coarse matrix (the learning path's shape) and every
+    level of the 2k one: max|d| <= 1e-5 max|ref| (another summation order;
+    fp32 FMA contraction), two runs bit-identical; timed."""
+    rows = {name: {"max_abs_err": 0.0, "by_beam": {}, "by_level": []}
+            for name in ELL_BACKWARD}
+    cases = [("19k", uscenes["19k"], 0), ("21k", sc21, 0), ("21k", sc21, 1)
+             ] + [("2k", uscenes["2k"], li)
+                  for li in range(uscenes["2k"].n_levels)]
+    chains = {}
+    for label, sc, li in cases:
+        if label not in chains:
+            rng = np.random.default_rng(19)
+            x = sc.x0 + torch.from_numpy(0.01 * rng.standard_normal(
+                tuple(sc.x0.shape)).astype(np.float32)).to(sc.device)
+            fine = qs.assemble_fine(sc, sc.params, x)
+            chains[label] = (qs.galerkin_chain(sc, sc.params, fine)
+                             if label == "2k" else
+                             [fine, exp2_coarse_values(sc, x)])
+        vals = chains[label][li]
+        op = sc.make_op(li)
+        n, k = vals.shape[:2]
+        tt = op.transpose_table()
+        kt = tt.shape[1]
+        rng = np.random.default_rng(23 + li)
+        g, v, b, x0 = (torch.from_numpy(s * rng.standard_normal(
+            (n, 3)).astype(np.float32)).to(sc.device)
+            for s in (1.0, 1.0, 1.0, 0.1))
+        kern = {
+            "spmv_t": (lambda: ek.spmv_t(vals, op.mask, tt, g),
+                       lambda: ek.spmv_t_plain(vals, op.mask, tt, g)),
+            "spmv_t diag out": (
+                lambda: ek.spmv_t(vals, op.mask, tt, g, op.diag_slot, -1.0),
+                lambda: ek.spmv_t_plain(vals, op.mask, tt, g, op.diag_slot,
+                                        -1.0)),
+            "outer": (lambda: ek.outer(g, op.nbr, op.mask, v),
+                      lambda: ek.outer_plain(g, op.nbr, op.mask, v)),
+            "jacobi_bwd": (
+                lambda: _bwd_outputs(ek.jacobi_bwd, vals, op, g, b, v),
+                lambda: _bwd_outputs(ek.jacobi_bwd_plain, vals, op, g, b, v)),
+        }
+        errs = {}
+        for case, (kf, pf) in kern.items():
+            got, again, ref = kf(), kf(), pf()
+            torch.cuda.synchronize()
+            err, scale = max_err(got, ref), float(ref.abs().max())
+            check(torch.equal(got, again), f"{case} {label} level {li}: two "
+                  "runs differ")
+            check(err <= 1e-5 * scale, f"{case} {label} level {li}: max|d| "
+                  f"{err:.3e} > 1e-5 * {scale:.3e}")
+            name = case.split()[0]
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            errs[case] = err / scale
+        # the Functions (the kernels) against autograd of the plain forwards
+        fn_err = 0.0
+        spmv_k = lambda V, X: ek.spmv(V, op.nbr, op.mask, X)
+        spmv_p = lambda V, X: ek.spmv_plain(V, op.nbr, op.mask, X)
+        pairs = [(spmv_k, spmv_p, [vals, v])]
+        for its in (1, 3):
+            for start in (None, x0):
+                pairs.append((
+                    lambda V, B, X0, its=its: ek.jacobi(
+                        V, op.nbr, op.mask, op.diag_slot, B, X0, its, tt),
+                    lambda V, B, X0, its=its: ek.jacobi_plain(
+                        V, op.nbr, op.mask, op.diag_slot, B, X0, its),
+                    [vals, b, start]))
+        for fk, fp, leaves in pairs:
+            got, again = _grads(fk, leaves, g), _grads(fk, leaves, g)
+            ref = _grads(fp, leaves, g)
+            torch.cuda.synchronize()
+            for a, a2, r in zip(got, again, ref):
+                check(torch.equal(a, a2), f"backward {label} level {li}: "
+                      "two runs differ")
+                e = max_err(a, r) / float(r.abs().max())
+                check(e <= 1e-5, f"backward {label} level {li}: max rel "
+                      f"|d| {e:.3e} > 1e-5 against autograd of the plain "
+                      "version")
+                fn_err = max(fn_err, e)
+        # times: the kernel (events; device us by the profiler), the plain
+        # version, the bound, and A^T @ g by BSR for the transposed product
+        timing = {
+            "spmv_t": (kern["spmv_t"], "ell_spmv_t_kernel",
+                       spmv_t_bound(n, k, kt, False)),
+            "outer": (kern["outer"], "ell_outer_kernel", outer_bound(n, k)),
+            "jacobi_bwd": (
+                (lambda: ek.jacobi_bwd(vals, op.nbr, op.mask, op.diag_slot,
+                                       b, v, g, torch.empty_like(g),
+                                       torch.empty_like(vals)),
+                 lambda: ek.jacobi_bwd_plain(
+                     vals, op.nbr, op.mask, op.diag_slot, b, v, g,
+                     torch.empty_like(g), torch.empty_like(vals))),
+                "ell_jacobi_bwd_kernel", jacobi_bwd_bound(n, k)),
+        }
+        parts = []
+        for name, ((kf, pf), kname, (b_ms, b_by)) in timing.items():
+            ms = cuda_ms(kf, reps)
+            us = device_us(kf, 10, kname)
+            plain_ms = cuda_ms(pf, 3, warmup=1)
+            lib_ms = None
+            if name == "spmv_t":
+                At = bsr_t_of(vals, op.mask, tt)
+                gl = g.reshape(-1)
+                lib_err = max_err((At @ gl).reshape(-1, 3),
+                                  ek.spmv_t_plain(vals, op.mask, tt, g))
+                check(lib_err <= 1e-4 * float(ek.spmv_t_plain(
+                    vals, op.mask, tt, g).abs().max()),
+                      f"BSR(A^T) @ g {label}: max|d| {lib_err:.3e}")
+                lib_ms = cuda_ms(lambda: At @ gl, reps)
+            entry = dict(ms=ms, device_us=us, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            rows[name]["by_level"].append(dict(beam=label, level=li, n=n,
+                                               **entry))
+            if li == 0:
+                rows[name]["by_beam"][label] = entry
+            parts.append(f"{name} {ms:.4f} ms (device {us} us, plain "
+                         f"{plain_ms:.3f}, bound {b_ms:.5f} {b_by}"
+                         + (f", BSR(A^T) @ g {lib_ms:.4f}" if lib_ms else "")
+                         + ")")
+        log(f"phase9 backward {label:4s} level {li} N {n} K {k} Kt {kt} max "
+            f"rel |d| " + " ".join(f"{c} {e:.2e}" for c, e in errs.items())
+            + f"; Functions vs autograd of plain {fn_err:.2e}; same bits "
+            "twice")
+        log(f"phase9 time     {label:4s} level {li}: " + "  ".join(parts))
+    return rows
+
+
+def exp2_steps(tr, steps, seed=0):
+    """The first `steps` clamped-SGD steps of tr.train(steps, seed) by hand:
+    [(loss, d loss / d w)] (for the card / CPU comparison)."""
+    _, vids, deltas = tr.schedule(steps, seed)
+    w, out = tr.w.detach().clone(), []
+    for vid, d in zip(vids, deltas):
+        x = tr.scene.x0.clone()
+        x[int(vid)] += torch.from_numpy(d).to(x.device)
+        total, _, _, g = tr.loss_and_grad(w, x)
+        out.append((float(total), g.cpu()))
+        w = torch.clamp(w - tr.cfg.lr * g, 0.0, 1.0)
+    return out
+
+
+def trace_step(step, reps=2):
+    """(ms a call by events, device ops a call, device busy ms a call) of
+    step() after a warm-up."""
+    step()
+    ms = cuda_ms(step, reps, warmup=1)
+    ops = whole_trace(step, reps, 1)
+    return (ms, sum(n for n, _ in ops.values()),
+            sum(n * us for n, us in ops.values()) * 1e-3)
+
+
+def phase9(sc21, sc2k, sc21_cpu, steps=10):
+    """The learning path on the card, the block-ELL counters zeroed just
+    before and read just after: exp2 and exp3 at the drivers' width
+    (16x16x72), train_energy_gcn on the 2k beam; then exp2's first two
+    steps on the CPU. exp2's one coarse Jacobi iteration from zero sends no
+    gradient through A^T: ell_spmv_t is not on this path."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    results = {}
+    torch.cuda.synchronize()
+    ek.reset_launches()
+    for name in ell.cuda_calls:
+        ell.cuda_calls[name] = 0
+    # exp2: both modes, both optimizers, l2, unroll 4. SGD at lr 1e-4: at
+    # the default 1e-3 p_hat's clamped SGD leaves the coarse positions
+    # degenerate at this beam in both packages (the JAX package's loss
+    # 3.75 -> 6.7e10 at its second step)
+    for mode in ("P", "p_hat"):
+        for opt in ("sgd", "adam"):
+            cfg = TrainInterpConfig(mode=mode, loss="l2", unroll=4,
+                                    optimizer=opt,
+                                    lr=1e-4 if opt == "sgd" else 1e-3)
+            tr = ti.InterpTrainer(sc21, cfg)
+            before = dict(ek.launches)
+            hist, ms, wall = timed_run(tr.train, steps)
+            used = {k: (ek.launches[k] - before[k]) / steps
+                    for k in ("jacobi", "jacobi_bwd", "outer", "spmv_t")}
+            check(bool(np.isfinite(hist).all()), f"exp2 {mode} {opt}: loss "
+                  "not finite")
+            w = tr.w
+            check(float(w.min()) >= 0.0 and float(w.max()) <= 1.0,
+                  f"exp2 {mode} {opt}: weights left [0, 1]")
+            cmp = tr.compare(iterations=8)
+            log(f"phase9 exp2 21k {mode:5s} {opt:4s} l2 unroll 4 {steps} "
+                f"steps ms/step {ms:.2f} (host clock {wall:.2f})  loss "
+                f"{hist[0]:.4e} -> {hist[-1]:.4e}  probe "
+                f"{tr.history['probe_resid'][0]:.3e} -> "
+                f"{tr.history['probe_resid'][-1]:.3e}  launches/step {used}"
+                f"  compare(8) classic {cmp['classic'][-1]:.3e} trained "
+                f"{cmp['trained'][-1]:.3e}")
+            results[f"exp2 {mode} {opt}"] = dict(
+                ms_per_step=ms, wall_ms_per_step=wall,
+                loss_first=float(hist[0]), loss_last=float(hist[-1]),
+                classic_last=float(cmp["classic"][-1]),
+                trained_last=float(cmp["trained"][-1]))
+    # where an exp2 step's time goes
+    pins = np.nonzero(sc21.params["levels"][0]["pin_mask"].cpu().numpy())[0]
+    xs = sc21.x0.clone()
+    xs[int(pins[0])] += 1e-3
+    tr = ti.InterpTrainer(sc21, TrainInterpConfig(mode="p_hat", loss="l2",
+                                                  unroll=4))
+    ms, n_ops, busy = trace_step(lambda: tr.loss_and_grad(tr.w, xs))
+    # run-to-run spread of a whole gradient: torch's own gather backward
+    # (index_add_ in ops.take_rows) adds with atomics on the card
+    g1, g2 = (tr.loss_and_grad(tr.w, xs)[3] for _ in range(2))
+    spread = max_err(g1, g2) / float(g1.abs().max())
+    log(f"phase9 exp2 21k loss_and_grad (unroll 4) ms {ms:.2f}  device ops "
+        f"{n_ops:.0f}  device busy {busy:.2f} ms  idle share "
+        f"{1 - busy / ms:.3f}  two runs max|d grad| / max|grad| {spread:.3e}")
+    results["exp2 step"] = dict(ms=ms, device_ops=n_ops, busy_ms=busy,
+                                grad_spread=spread)
+
+    # exp3 on the same beam
+    cfg3 = TrainSolverConfig(frames=4)
+    (xt, xsol, res), ms, wall = timed_run(
+        lambda n: tsolve.generate_rollout(sc21, cfg3, seed=0), 1)
+    check(bool(torch.isfinite(xsol).all()), "exp3 rollout not finite")
+    log(f"phase9 exp3 21k generate_rollout 4 frames {ms:.1f} ms  ||f|| "
+        f"{res.cpu().numpy().tolist()}")
+    results["exp3 rollout"] = dict(ms=ms, res_inf=res.cpu().numpy().tolist())
+    trainers = {}
+    for name, kw, n_steps in (("MDN3 mse", dict(loss="mse"), 20),
+                              ("MDN3 residual", dict(loss="residual"), 20),
+                              ("MultiLevel3 mse", dict(loss="mse"), 5)):
+        tr3 = tsolve.SolverNetTrainer(
+            sc21, TrainSolverConfig(frames=4, **kw),
+            multilevel=name.startswith("Multi"), predict_delta=True)
+        t0 = time.perf_counter()
+        losses = tr3.train(n_steps, frames=4)
+        wall = time.perf_counter() - t0
+        check(bool(np.isfinite(losses).all()), f"exp3 {name}: not finite")
+        log(f"phase9 exp3 21k {name:16s} {n_steps} Adam steps (with its "
+            f"4-frame rollout) {wall:.2f} s  loss {losses[0]:.3e} -> "
+            f"{losses[-1]:.3e}")
+        results[f"exp3 {name}"] = dict(seconds=wall,
+                                       loss_first=float(losses[0]),
+                                       loss_last=float(losses[-1]))
+        trainers[name] = tr3
+    tr3 = trainers["MDN3 mse"]
+    opt = torch.optim.Adam(tr3.model.parameters(), lr=1e-3)
+
+    def mdn3_step():
+        opt.zero_grad(set_to_none=True)
+        tr3.loss_fn(xt[1], xsol[1]).backward()
+        opt.step()
+    ms, n_ops, busy = trace_step(mdn3_step)
+
+    def mdn3_grads():
+        tr3.model.zero_grad(set_to_none=True)
+        tr3.loss_fn(xt[1], xsol[1]).backward()
+        return torch.cat([p.grad.reshape(-1)
+                          for p in tr3.model.parameters()])
+    g1, g2 = mdn3_grads(), mdn3_grads()
+    spread3 = max_err(g1, g2) / float(g1.abs().max())
+    log(f"phase9 exp3 21k MDN3 Adam step ms {ms:.2f}  device ops {n_ops:.0f}"
+        f"  device busy {busy:.2f} ms  idle share {1 - busy / ms:.3f}  two "
+        f"runs max|d grad| / max|grad| {spread3:.3e}")
+    results["exp3 step"] = dict(ms=ms, device_ops=n_ops, busy_ms=busy,
+                                grad_spread=spread3)
+    one_shot = tr3.evaluate_residual(xt[-1])
+    st = tr3.learned_step(dynamic.init_state(sc21))
+    check(np.isfinite(one_shot) and bool(torch.isfinite(st.x).all()),
+          "exp3 evaluate_residual / learned_step not finite")
+    stats = tr3.warmstart_stats(frames=4)
+    check(bool((stats["fn_plain"] <= TOL).all()), "warmstart: plain solves "
+          f"missed tol {stats['fn_plain']}")
+    log(f"phase9 exp3 21k evaluate_residual {one_shot:.3e}  warmstart 4 "
+        f"frames newton plain {stats['k_plain'].tolist()} warm "
+        f"{stats['k_warm'].tolist()}  ms/frame plain {stats['ms_plain']:.2f}"
+        f" warm {stats['ms_warm']:.2f}")
+    results["exp3 warmstart"] = dict(
+        k_plain=stats["k_plain"].tolist(), k_warm=stats["k_warm"].tolist(),
+        ms_plain=stats["ms_plain"], ms_warm=stats["ms_warm"])
+    _, energies = tsolve.train_energy_gcn(sc2k, iterations=10)
+    check(bool(np.isfinite(energies).all()) and energies[-1] < energies[0],
+          f"train_energy_gcn: energy {energies[0]:.4e} -> {energies[-1]:.4e}")
+    log(f"phase9 train_energy_gcn 2k 10 steps energy {energies[0]:.6e} -> "
+        f"{energies[-1]:.6e}")
+    torch.cuda.synchronize()
+    launches, calls = dict(ek.launches), dict(ell.cuda_calls)
+    log(f"phase9 kernel launches {launches}, asked for by the calls on CUDA "
+        f"tensors {calls}")
+    check(launches == calls, f"launches {launches} != those the calls on "
+          f"CUDA tensors ask for {calls}")
+    for name in ("outer", "jacobi_bwd", "jacobi", "spmv"):
+        check(launches[name] > 0, f"{name} never launched on the learning "
+              f"path: {launches}")
+    check(launches["spmv_t"] == 0, "ell_spmv_t launched on the learning "
+          f"path, whose gradient needs no A^T: {launches}")
+
+    # exp2's first two SGD steps on the card and on the CPU
+    cfg = TrainInterpConfig(mode="P", loss="l2", unroll=4, lr=1e-4)
+    t0 = time.perf_counter()
+    gpu = exp2_steps(ti.InterpTrainer(sc21, cfg), 2)
+    cpu = exp2_steps(ti.InterpTrainer(sc21_cpu, cfg), 2)
+    dl = max(abs(a[0] - c[0]) / abs(c[0]) for a, c in zip(gpu, cpu))
+    dg = max(max_err(a[1], c[1]) / float(c[1].abs().max())
+             for a, c in zip(gpu, cpu))
+    log(f"phase9 exp2 21k P first 2 SGD steps card / CPU: loss "
+        f"{[a[0] for a in gpu]} / {[c[0] for c in cpu]}  max rel |d loss| "
+        f"{dl:.3e}  max|d grad| / max|grad| {dg:.3e}  "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(dl <= 1e-3, f"exp2 card vs CPU: loss differs by {dl:.3e} relative")
+    check(dg <= 1e-3, f"exp2 card vs CPU: gradient differs by {dg:.3e} of "
+          "its max")
+    results["exp2 card vs cpu"] = dict(loss_rel=dl, grad_rel=dg)
     return results, launches
 
 
@@ -1646,8 +2061,22 @@ def main() -> int:
     cloths = {label: cloth_scene(res, dev) for label, res in CLOTHS.items()}
     phase8_spmv(cloths, rows["spmv"], reps=50)
     results8, counts8 = phase8(cloths, uscenes["2k"])
-    for name in ("spmv", "gs", "jacobi"):
+    for name in ELL_FORWARD:
         counts[name] += counts8[name]
+    t0 = time.perf_counter()
+    sc21 = Scene(meshlib.beam(*EXP_BEAM, dx=DX),
+                 solver=SolverConfig(n_levels=2), device=dev)
+    sc21_cpu = Scene(sc21.mesh, solver=sc21.solver, device="cpu")
+    log(f"phase9 scene 21k levels {sc21.n_levels} vertices "
+        + " / ".join(str(lv.n_verts) for lv in sc21.hier.levels)
+        + f" K {sc21.level(0).K} (card and CPU built in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    rows.update(phase9_kernels(uscenes, sc21, reps=20))
+    results9, counts9 = phase9(sc21, uscenes["2k"], sc21_cpu)
+    for name in ELL_FORWARD:
+        counts[name] += counts9[name]
+    for name in ELL_BACKWARD:
+        counts[name] = counts9[name]
 
     summary = {label: {k: v for k, v in r.items() if k != "state8"}
                for label, r in results.items()}
@@ -1655,16 +2084,23 @@ def main() -> int:
     log("phase5 summary " + json.dumps(uresults))
     log("phase7 summary " + json.dumps(results7))
     log("phase8 summary " + json.dumps(results8))
+    log("phase9 summary " + json.dumps(results9))
     log(f"phase3 max|dx| {err3:.3e}  phase6 max rel |d f| {rel6:.3e} "
         f"max|d x| {err6:.3e}  phase7 max rel |d f| {rel7:.3e}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     # the kernels the multigrid path launches: the line's numbers from its
     # 19k fine level (lat_cheby: a pre-smooth with its residual;
-    # lat_diag_shift: projected; lat_power), the others' from the 19k beam
+    # lat_diag_shift: projected; lat_power), the backward kernels' from the
+    # 21k beam's coarse level, the others' from the 19k beam
     fine19 = levels7["19k"][0]
     at_level = {"cheby": fine19["cheby_pre"],
                 "diag_shift": fine19["diag_shift"], "power": fine19["power"]}
+    # the backward kernels' numbers at the exp2 cycle's coarse matrix of the
+    # 21k beam, the shape the learning path gives them
+    for name in ELL_BACKWARD:
+        at_level[name] = next(e for e in rows[name]["by_level"]
+                              if (e["beam"], e["level"]) == ("21k", 1))
     per_level = {"cheby": ("cheby_pre", "cheby_post", "cheby_coarse"),
                  "diag_shift": ("diag_shift", "diag_shift_unprojected",
                                 "diag_shift_ties", "diag_shift_plan"),
@@ -1676,7 +2112,7 @@ def main() -> int:
         r = rows[name]
         at = at_level.get(name, r["by_beam"].get("19k"))
         out = {"name": name, "route": "cuda",
-               "source": (ELL_SOURCE if name in ("spmv", "gs", "jacobi")
+               "source": (ELL_SOURCE if name in ELL_FORWARD + ELL_BACKWARD
                           else LATTICE_SOURCE),
                "replaces": TPU_KERNELS[name], "launches": launches,
                "max_abs_err": r["max_abs_err"], "ms": at["ms"],
@@ -1685,6 +2121,8 @@ def main() -> int:
                "library_ms": at.get("library_ms"), "by_beam": r["by_beam"]}
         if "by_cloth" in r:          # phase 8: at the cloth Hessians
             out["by_cloth"] = r["by_cloth"]
+        if name in ELL_BACKWARD:     # phase 9: every shape it ran at
+            out["by_level"] = r["by_level"]
         if name in per_level:        # phase 7: at the multigrid level shapes
             out["by_level"] = {
                 label: [{"level": e["level"], "shape": e["shape"],
@@ -1698,7 +2136,9 @@ def main() -> int:
                                                 "energy", "fused_pcg",
                                                 "spmv", "gs", "jacobi",
                                                 "hvp", "diag", "cheby",
-                                                "diag_shift", "power")],
+                                                "diag_shift", "power",
+                                                "spmv_t", "outer",
+                                                "jacobi_bwd")],
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

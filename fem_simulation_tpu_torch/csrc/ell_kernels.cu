@@ -64,6 +64,36 @@
 // two per iteration (one plain launch each). One warp takes a row, lane k
 // slot k, a fixed shuffle butterfly sums the slots: run-to-run identical.
 //
+// The backward kernels (no TPU kernel of their own: the JAX package gets
+// these gradients from jax.grad of the SpMV and of the smoother's
+// composition, models/train_interp.py:51-79) make the SpMV and the Jacobi
+// smoother differentiable under torch.autograd (ops/ell_kernels.py,
+// EllSpmvFn / EllJacobiFn):
+//
+//   ell_spmv_t      gx[j] = alpha * sum over (i, k) with nbr[i, k] = j of
+//                   mask[i, k] * values[i, k]^T g[i]   (optionally leaving
+//                   out the slot k = skip[i] of every row)
+//   ell_outer       gv[i, k] (+)= alpha * g[i] (x) (x[nbr[i, k]] mask[i, k]),
+//                   j-major as the forward reads values (optionally leaving
+//                   slot skip[i] of every row untouched)
+//   ell_jacobi_bwd  the adjoint of one Jacobi iteration
+//                   x_{t+1} = D^{-1} (b - O x_t): lam = D^{-T} gbar by the
+//                   forward's own adjugate formula, gb (+)= lam, and the
+//                   exact derivative of that formula with respect to the
+//                   diagonal block, (+)= into gv[i, diag_slot[i]].
+//
+// The rest of a Jacobi iteration's adjoint is ell_outer (-lam (x) x_t into
+// the off-diagonal slots) and ell_spmv_t (gbar_t = -O^T lam, the diagonal
+// slot left out). The transposed product is a gather, not a scatter: a
+// transpose table built once on the host lists, for every column j, the
+// flat entries e = i * K + k with nbr[i, k] = j in increasing e, padded
+// with -1. The ELL tables pad a row with slots that point at the row
+// itself, so for a structurally symmetric matrix every column has exactly
+// K entries and the table is (N, K). One warp takes a column, lane t the
+// entries t, t + 32, ..., a fixed butterfly sums them: no float atomics,
+// and the result repeats bit for bit. Bound: memory, as the forward (the
+// values are read once more, through the table).
+//
 // No --use_fast_math: the build keeps IEEE arithmetic.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -227,6 +257,176 @@ ell_gs_coop_kernel(const __grid_constant__ GsArgs P) {
     }
 }
 
+// gx[col] = alpha * sum of mask[e] values[e]^T g[e / K] over the entries e
+// of the column's transpose-table row (-1: padding), one warp a column.
+__global__ void __launch_bounds__(kThreads)
+ell_spmv_t_kernel(const float* __restrict__ values,
+                  const float* __restrict__ mask, const int* __restrict__ tt,
+                  const int* __restrict__ skip, const float* __restrict__ g,
+                  float* __restrict__ gx, float alpha, int N, int K, int Kt) {
+    const int lane = threadIdx.x & 31;
+    const int col = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+    if (col >= N) return;  // the column is uniform across the warp
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+    for (int t = lane; t < Kt; t += 32) {
+        const int e = tt[static_cast<long long>(col) * Kt + t];
+        if (e < 0) continue;
+        const int i = e / K;
+        if (skip != nullptr && e - i * K == skip[i]) continue;
+        const float m = mask[e];
+        const float* v = values + 9LL * e;
+        const float g0 = g[3LL * i], g1 = g[3LL * i + 1], g2 = g[3LL * i + 2];
+        s0 += (v[0] * g0 + v[3] * g1 + v[6] * g2) * m;
+        s1 += (v[1] * g0 + v[4] * g1 + v[7] * g2) * m;
+        s2 += (v[2] * g0 + v[5] * g1 + v[8] * g2) * m;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        s0 += __shfl_down_sync(0xffffffffu, s0, off);
+        s1 += __shfl_down_sync(0xffffffffu, s1, off);
+        s2 += __shfl_down_sync(0xffffffffu, s2, off);
+    }
+    if (lane == 0) {
+        float* out = gx + 3LL * col;
+        out[0] = alpha * s0;
+        out[1] = alpha * s1;
+        out[2] = alpha * s2;
+    }
+}
+
+// gv[e, j, l] (+)= alpha * (g[i, j] * (x[nbr[e], l] * mask[e])), e = i K + k,
+// a thread an output float, so a warp's stores are contiguous (32-bit
+// indices: the wrapper checks 9 N K < 2^31); slot skip[i] of row i is left
+// as it is.
+__global__ void __launch_bounds__(kThreads)
+ell_outer_kernel(const float* __restrict__ g, const int* __restrict__ nbr,
+                 const float* __restrict__ mask, const float* __restrict__ x,
+                 const int* __restrict__ skip, float alpha, int accumulate,
+                 float* __restrict__ gv, int total, int K) {
+    const int t = blockIdx.x * kThreads + threadIdx.x;
+    if (t >= total) return;
+    const int e = t / 9, r = t - 9 * e, j = r / 3, l = r - 3 * j;
+    const int i = e / K;
+    if (skip != nullptr && e - i * K == skip[i]) return;
+    const float xm = x[3 * nbr[e] + l] * mask[e];
+    const float p = alpha * (g[3 * i + j] * xm);
+    gv[t] = accumulate ? gv[t] + p : p;
+}
+
+// The adjoint of one Jacobi iteration at a row (one warp a row, lane k
+// slot k, as relax_row): lam = s C gbar with C the cofactor matrix of the
+// diagonal block D and s = det / (det^2 + eps), the transpose of the
+// forward's x = s C^T r. With gv given, the forward's residual
+// r = b - sum_{k != ds} A_k (xt[nbr_k] m_k) is recomputed and the exact
+// derivative of x = s(det) C(D)^T r with respect to D goes to the diagonal
+// slot: row p of it is
+//   s (r_{p-1} (D_{p+1} x gbar) + r_{p+1} (gbar x D_{p+2}))
+//     + s'(det) (r . C gbar) C_p,        s' = (eps - det^2) / (det^2 + eps)^2
+// (indices mod 3; row n of C is D_{n+1} x D_{n+2}).
+__global__ void __launch_bounds__(kThreads)
+ell_jacobi_bwd_kernel(const RelaxArgs A, const float* __restrict__ xt,
+                      const float* __restrict__ gbar, float* __restrict__ lam,
+                      float* __restrict__ gb, float* __restrict__ gv,
+                      int accumulate, int N) {
+    const unsigned full = 0xffffffffu;
+    const int lane = threadIdx.x & 31;
+    const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+    if (row >= N) return;
+    const int K = A.K;
+    const int ds = A.diag_slot[row];
+    const float bj = lane < 3 ? A.b[3LL * row + lane] : 0.f;
+    const float gj = lane < 3 ? gbar[3LL * row + lane] : 0.f;
+    float v[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+    if (lane < K) {
+        const long long e = static_cast<long long>(row) * K + lane;
+        if (gv != nullptr) {  // the whole row: the residual is needed
+#pragma unroll
+            for (int t = 0; t < 9; ++t) v[t] = A.values[9 * e + t];
+            const float m = A.mask[e];
+            const long long c = 3LL * A.nbr[e];
+            const float x0 = xt[c] * m, x1 = xt[c + 1] * m, x2 = xt[c + 2] * m;
+            if (lane != ds) {
+                s0 = v[0] * x0 + v[1] * x1 + v[2] * x2;
+                s1 = v[3] * x0 + v[4] * x1 + v[5] * x2;
+                s2 = v[6] * x0 + v[7] * x1 + v[8] * x2;
+            }
+        } else if (lane == ds) {
+#pragma unroll
+            for (int t = 0; t < 9; ++t) v[t] = A.values[9 * e + t];
+        }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        s0 += __shfl_down_sync(full, s0, off);
+        s1 += __shfl_down_sync(full, s1, off);
+        s2 += __shfl_down_sync(full, s2, off);
+    }
+    float d[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) d[t] = __shfl_sync(full, v[t], ds);
+    const float b1 = __shfl_sync(full, bj, 1), b2 = __shfl_sync(full, bj, 2);
+    const float g1 = __shfl_sync(full, gj, 1), g2 = __shfl_sync(full, gj, 2);
+    if (lane != 0) return;
+    const float g0 = gj;
+    const float a00 = d[0], a01 = d[1], a02 = d[2], a10 = d[3], a11 = d[4],
+                a12 = d[5], a20 = d[6], a21 = d[7], a22 = d[8];
+    // ops/ell.py solve3x3: the cofactors, det / (det^2 + eps)
+    const float c00 = a11 * a22 - a12 * a21;
+    const float c01 = a12 * a20 - a10 * a22;
+    const float c02 = a10 * a21 - a11 * a20;
+    const float det = a00 * c00 + a01 * c01 + a02 * c02;
+    const float c10 = a02 * a21 - a01 * a22;
+    const float c11 = a00 * a22 - a02 * a20;
+    const float c12 = a01 * a20 - a00 * a21;
+    const float c20 = a01 * a12 - a02 * a11;
+    const float c21 = a02 * a10 - a00 * a12;
+    const float c22 = a00 * a11 - a01 * a10;
+    const float den = det * det + 1e-12f;
+    const float inv_det = det / den;
+    const float u0 = c00 * g0 + c01 * g1 + c02 * g2;
+    const float u1 = c10 * g0 + c11 * g1 + c12 * g2;
+    const float u2 = c20 * g0 + c21 * g1 + c22 * g2;
+    const float l0 = u0 * inv_det, l1 = u1 * inv_det, l2 = u2 * inv_det;
+    float* lo = lam + 3LL * row;
+    lo[0] = l0;
+    lo[1] = l1;
+    lo[2] = l2;
+    if (gb != nullptr) {
+        float* o = gb + 3LL * row;
+        o[0] = accumulate ? o[0] + l0 : l0;
+        o[1] = accumulate ? o[1] + l1 : l1;
+        o[2] = accumulate ? o[2] + l2 : l2;
+    }
+    if (gv == nullptr) return;
+    const float r[3] = {bj - s0, b1 - s1, b2 - s2};
+    const float h = (1e-12f - det * det) / den / den
+                    * (r[0] * u0 + r[1] * u1 + r[2] * u2);
+    const float D[3][3] = {{a00, a01, a02}, {a10, a11, a12}, {a20, a21, a22}};
+    const float C[3][3] = {{c00, c01, c02}, {c10, c11, c12}, {c20, c21, c22}};
+    const float G[3] = {g0, g1, g2};
+    float* o = gv + 9 * (static_cast<long long>(row) * K + ds);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+        const float* P = D[(p + 1) % 3];   // D_{p+1}
+        const float* Q = D[(p + 2) % 3];   // D_{p+2}
+        const float rm = r[(p + 2) % 3], rp = r[(p + 1) % 3];
+        // r_{p-1} (D_{p+1} x g) + r_{p+1} (g x D_{p+2})
+        const float q0 = rm * (P[1] * G[2] - P[2] * G[1])
+                         + rp * (G[1] * Q[2] - G[2] * Q[1]);
+        const float q1 = rm * (P[2] * G[0] - P[0] * G[2])
+                         + rp * (G[2] * Q[0] - G[0] * Q[2]);
+        const float q2 = rm * (P[0] * G[1] - P[1] * G[0])
+                         + rp * (G[0] * Q[1] - G[1] * Q[0]);
+        const float w0 = inv_det * q0 + h * C[p][0];
+        const float w1 = inv_det * q1 + h * C[p][1];
+        const float w2 = inv_det * q2 + h * C[p][2];
+        o[3 * p] = accumulate ? o[3 * p] + w0 : w0;
+        o[3 * p + 1] = accumulate ? o[3 * p + 1] + w1 : w1;
+        o[3 * p + 2] = accumulate ? o[3 * p + 2] + w2 : w2;
+    }
+}
+
 int blocks_for_rows(int rows) {
     return (rows + kRowsPerBlock - 1) / kRowsPerBlock;
 }
@@ -303,6 +503,53 @@ int ell_jacobi(const float* values, const int* nbr, const float* mask,
         ell_relax_rows_kernel<<<blocks_for_rows(N), kThreads, 0, st>>>(
             A, it % 2 ? xb : xa, it % 2 ? xa : xb, 0, N);
     }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// gx (N, 3) = alpha * (values^T-gather of g), through the transpose table
+// tt (N, Kt) int32 of flat entries (-1 padded); skip (N,) int32 or null: the
+// slot of each row to leave out (the diagonal, for the Jacobi adjoint).
+// Requires N >= 1, 1 <= K, Kt >= 1 and every table entry < N * K.
+int ell_spmv_t(const float* values, const float* mask, const int* tt,
+               const int* skip, const float* g, float* gx, float alpha, int N,
+               int K, int Kt, void* stream) {
+    if (N < 1 || K < 1 || Kt < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    ell_spmv_t_kernel<<<blocks_for_rows(N), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        values, mask, tt, skip, g, gx, alpha, N, K, Kt);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// gv (N, K, 3, 3): slot k of row i (+)= alpha * g[i] (x) (x[nbr[i, k]]
+// mask[i, k]) (accumulate != 0: added to gv); skip (N,) int32 or null: the
+// slot of each row left untouched.
+int ell_outer(const float* g, const int* nbr, const float* mask,
+              const float* x, const int* skip, float alpha, int accumulate,
+              float* gv, int N, int K, void* stream) {
+    if (N < 1 || K < 1 || 9LL * N * K >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int total = 9 * N * K;
+    ell_outer_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        g, nbr, mask, x, skip, alpha, accumulate, gv, total, K);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The adjoint of one Jacobi iteration that read xt (N, 3): lam (N, 3) =
+// D^{-T} gbar; gb (N, 3) or null (+)= lam; gv (N, K, 3, 3) or null: the
+// diagonal slots (+)= the diagonal blocks' gradient, other slots untouched
+// (accumulate != 0: add to gb and gv, else store).
+int ell_jacobi_bwd(const float* values, const int* nbr, const float* mask,
+                   const int* diag_slot, const float* b, const float* xt,
+                   const float* gbar, float* lam, float* gb, float* gv,
+                   int accumulate, int N, int K, void* stream) {
+    if (N < 1 || K < 1 || K > 32)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const RelaxArgs A{values, nbr, mask, diag_slot, b, K};
+    ell_jacobi_bwd_kernel<<<blocks_for_rows(N), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        A, xt, gbar, lam, gb, gv, accumulate, N);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/) with nvcc and ctypes.
 
 One shared library holds every kernel: lattice_kernels.cu (with
-lattice_chain.cuh) and ell_kernels.cu (the SpMV and the fused smoothers). It
+lattice_chain.cuh) and ell_kernels.cu (the SpMV, the fused smoothers and
+their backward kernels). It
 is built at first use, from the package's own sources, into `fem_simulation_tpu_torch/build/` under a name
 keyed by a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is reused. Each translation unit gets its own nvcc,
@@ -10,7 +11,7 @@ failed build or a failed load raises: there is no fallback to the plain
 torch versions for CUDA tensors.
 
 Also the wrappers' shared dispatch and argument checks (`on_cpu`,
-`require`).
+`require`, `records_grad`, `refuse_grad`).
 """
 from __future__ import annotations
 
@@ -109,13 +110,17 @@ def _declare(lib) -> None:
     lib.ell_spmv.argtypes = [P, P, P, P, P, I, I, I, P]
     lib.ell_gs.argtypes = [P, P, P, P, ctypes.POINTER(I), I, P, P, I, I, I, P]
     lib.ell_jacobi.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+    lib.ell_spmv_t.argtypes = [P] * 6 + [F, I, I, I, P]
+    lib.ell_outer.argtypes = [P] * 5 + [F, I, P, I, I, P]
+    lib.ell_jacobi_bwd.argtypes = [P] * 10 + [I, I, I, P]
     lib.lat_error_string.argtypes = [I]
     lib.lat_error_string.restype = ctypes.c_char_p
     for name in ("lat_force", "lat_hvp", "lat_diag", "lat_energy",
                  "lat_newton_plan", "lat_level_plan", "lat_cheby",
                  "lat_diag_shift", "lat_power", "lat_fused_newton",
                  "lat_fused_pcg",
-                 "ell_spmv", "ell_gs", "ell_jacobi"):
+                 "ell_spmv", "ell_gs", "ell_jacobi", "ell_spmv_t",
+                 "ell_outer", "ell_jacobi_bwd"):
         getattr(lib, name).restype = I
 
 
@@ -151,6 +156,22 @@ def on_cpu(*tensors) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     return False
+
+
+def records_grad(*tensors) -> bool:
+    """True when autograd records and one of the tensors (None: skipped)
+    requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when records_grad(*tensors): `what` is a kernel wrapper with no
+    backward, whose output would carry no grad_fn (a silent detach)."""
+    if records_grad(*tensors):
+        raise RuntimeError(
+            f"{what} has no backward: call it under torch.no_grad() or on "
+            "tensors that do not require grad")
 
 
 def require(t: torch.Tensor, shape, name: str, dtype=torch.float32) -> None:

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import take_rows
+
 # Corner sign table, local corner index = 4*di + 2*dj + dk (mesh.CORNER_OFFSETS),
 # mapped to reference-element coordinates in {-1, +1}^3.
 _SIGNS = np.array(
@@ -77,7 +79,7 @@ def lumped_mass(vol, hexes, n_verts: int, density: float = 1.0):
 
 def _deformation(x, hexes, g):
     """F[h, q] = sum_i x_i (g_i)^T  -> (H, 8, 3, 3)."""
-    return torch.einsum("hir,hqic->hqrc", x[hexes], g)
+    return torch.einsum("hir,hqic->hqrc", take_rows(x, hexes), g)
 
 
 def _green(F):
@@ -134,7 +136,7 @@ def _corner_gather(fc, cidx, cmask):
     """Sum per-corner contributions (H*8, ...) onto vertices through the
     inverse map, in fixed slot order."""
     extra = (None,) * (fc.dim() - 1)
-    return torch.sum(fc[cidx] * cmask[(...,) + extra], dim=1)
+    return torch.sum(take_rows(fc, cidx) * cmask[(...,) + extra], dim=1)
 
 
 def force_gather(x, hexes, det, g, mu, la, cidx, cmask, n_verts):

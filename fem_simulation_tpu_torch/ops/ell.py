@@ -5,7 +5,8 @@ most 27 block entries per row, so it is a dense (N, K, 3, 3) value tensor
 plus an (N, K) neighbor table and an (N, K) 0/1 mask. `spmv` and
 `spmv_rows` go through the block-ELL SpMV kernel wrapper
 (`ops/ell_kernels.py`): the CUDA kernel for CUDA tensors, its plain torch
-version for CPU tensors.
+version for CPU tensors, and its autograd Function (backward kernels
+`ell_spmv_t` and `ell_outer`) when a gradient is recorded.
 """
 from __future__ import annotations
 
@@ -15,15 +16,18 @@ from . import ell_kernels
 
 # kernel launches that the calls made on CUDA tensors ask for (spmv +
 # spmv_rows here, one each; in solvers/smoothers.py gauss_seidel one and
-# jacobi one per iteration), counted apart from the kernels' own launch
-# counts (ell_kernels.launches) so that a run can check that every such call
-# launched its kernel
-cuda_calls = {"spmv": 0, "gs": 0, "jacobi": 0}
+# jacobi one per iteration; the backward kernels spmv_t, outer and
+# jacobi_bwd in the backward of ell_kernels.EllSpmvFn / EllJacobiFn),
+# counted apart from the kernels' own launch counts (ell_kernels.launches)
+# so that a run can check that every such call launched its kernel
+cuda_calls = {"spmv": 0, "gs": 0, "jacobi": 0, "spmv_t": 0, "outer": 0,
+              "jacobi_bwd": 0}
 
 
 def spmv(values, nbr, mask, x):
     """y = A @ x with A in block-ELL form: values (N, K, 3, 3), nbr (N, K)
-    int32, mask (N, K) 0/1 float, x (N, 3)."""
+    int32, mask (N, K) 0/1 float, x (N, 3). Differentiable in values and x
+    (see ell_kernels.spmv_rows)."""
     if values.is_cuda:
         cuda_calls["spmv"] += 1
     return ell_kernels.spmv(values, nbr, mask, x)

@@ -8,24 +8,41 @@
 `ell_jacobi`): row product, 3x3 adjugate solve and update in one kernel,
 all iterations in one call.
 
+Gradients: `spmv` / `spmv_rows` and `jacobi` go through the autograd
+Functions `EllSpmvFn` and `EllJacobiFn` whenever autograd records and an
+input requires grad. Their backward runs three kernels of its own:
+`spmv_t` (`ell_spmv_t`, the transposed product, a gather through a
+transpose table built once on the host, `transpose_table`), `outer`
+(`ell_outer`, the gradient with respect to the values) and `jacobi_bwd`
+(`ell_jacobi_bwd`, the adjoint of one Jacobi iteration's 3x3 solve). A
+Jacobi iteration's adjoint is `jacobi_bwd`, then `outer` for its
+off-diagonal slots and, where the iterate before it needs a gradient,
+`spmv_t` without the diagonal slot; the forward keeps every iterate (one
+launch an iteration into its own output). `gs` has no backward and raises
+when asked for one.
+
 Dispatch: a wrapper checks its arguments' dtypes, shapes and contiguity,
 then runs its plain version (`*_plain`) only when its tensors lie on the
 CPU. For CUDA tensors it launches the kernel or raises; it never falls back.
 `launches[name]` counts kernel launches (`spmv`: one per call with a
 non-empty row range; `gs`: one cooperative launch per call with iterations
-> 0; `jacobi`: one per iteration); `ops.ell.cuda_calls` counts, one layer up,
-the launches that the calls made on CUDA tensors ask for, so a run can check
-that every call launched.
+> 0; `jacobi`: one per iteration; `spmv_t`, `outer`, `jacobi_bwd`: one per
+call); `ops.ell.cuda_calls` counts, one layer up (for the backward kernels:
+in the Functions' backward), the launches that the calls made on CUDA
+tensors ask for, so a run can check that every call launched.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _cuda
 
-launches = {"spmv": 0, "gs": 0, "jacobi": 0}
+launches = {"spmv": 0, "gs": 0, "jacobi": 0, "spmv_t": 0, "outer": 0,
+            "jacobi_bwd": 0}
 
 def reset_launches() -> None:
     for name in launches:
@@ -55,12 +72,15 @@ def _check(values, nbr, mask, x):
     return n, k
 
 
-def spmv_rows(values, nbr, mask, x, r0: int, r1: int):
-    """y = (A @ x)[r0:r1], (r1 - r0, 3), for A in block-ELL form."""
-    n, k = _check(values, nbr, mask, x)
-    r0, r1 = int(r0), int(r1)
-    if not 0 <= r0 <= r1 <= n:
-        raise ValueError(f"row range [{r0}, {r1}) outside [0, {n})")
+def _count_call(name: str, t) -> None:
+    """ops.ell.cuda_calls[name] += 1 for a launch asked for on CUDA tensors."""
+    if t.is_cuda:
+        from . import ell
+        ell.cuda_calls[name] += 1
+
+
+def _spmv_rows(values, nbr, mask, x, r0: int, r1: int):
+    """The forward, arguments checked: plain on the CPU, else one launch."""
     if _cuda.on_cpu(values, nbr, mask, x):
         return spmv_rows_plain(values, nbr, mask, x, r0, r1)
     y = torch.empty((r1 - r0, 3), dtype=torch.float32, device=x.device)
@@ -70,10 +90,61 @@ def spmv_rows(values, nbr, mask, x, r0: int, r1: int):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.ell_spmv(values.data_ptr(), nbr.data_ptr(), mask.data_ptr(),
-                           x.data_ptr(), y.data_ptr(), r0, r1, k, stream)
+                           x.data_ptr(), y.data_ptr(), r0, r1,
+                           int(values.shape[1]), stream)
     launches["spmv"] += 1
     _cuda.check(err, "ell_spmv")
     return y
+
+
+class EllSpmvFn(torch.autograd.Function):
+    """y = (A @ x)[r0:r1], differentiable in values and x. Backward: the
+    values' gradient g (x) (x[nbr] mask) by `outer`, x's A^T g by `spmv_t`
+    (rows outside [r0, r1) take a zero gradient). tt: A's transpose table
+    (`transpose_table(nbr)`), or None when x takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, values, x, nbr, mask, r0, r1, tt):
+        if ctx.needs_input_grad[1] and tt is None:
+            raise ValueError("x's gradient needs A's transpose table tt")
+        ctx.save_for_backward(values, x, nbr, mask, tt)
+        ctx.rows = (r0, r1)
+        return _spmv_rows(values, nbr, mask, x, r0, r1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        values, x, nbr, mask, tt = ctx.saved_tensors
+        r0, r1 = ctx.rows
+        n = values.shape[0]
+        g = gy.contiguous()
+        if (r0, r1) != (0, n):
+            g = torch.zeros((n, 3), dtype=gy.dtype, device=gy.device)
+            g[r0:r1] = gy
+        gv = gx = None
+        cpu = not g.is_cuda        # any float dtype there (gradcheck)
+        if ctx.needs_input_grad[0]:
+            _count_call("outer", g)
+            gv = (outer_plain if cpu else outer)(g, nbr, mask, x)
+        if ctx.needs_input_grad[1]:
+            _count_call("spmv_t", g)
+            gx = (spmv_t_plain if cpu else spmv_t)(values, mask, tt, g)
+        return gv, gx, None, None, None, None, None
+
+
+def spmv_rows(values, nbr, mask, x, r0: int, r1: int):
+    """y = (A @ x)[r0:r1], (r1 - r0, 3), for A in block-ELL form.
+    Differentiable in values and x (`EllSpmvFn`; when x requires grad, A's
+    transpose table is built here from nbr, one host copy a call)."""
+    n = _check(values, nbr, mask, x)[0]
+    r0, r1 = int(r0), int(r1)
+    if not 0 <= r0 <= r1 <= n:
+        raise ValueError(f"row range [{r0}, {r1}) outside [0, {n})")
+    if _cuda.records_grad(values, x, mask):
+        _cuda.refuse_grad("mask, a 0/1 table,", mask)
+        tt = transpose_table(nbr) if _cuda.records_grad(x) else None
+        return EllSpmvFn.apply(values, x, nbr, mask, r0, r1, tt)
+    return _spmv_rows(values, nbr, mask, x, r0, r1)
 
 
 def spmv(values, nbr, mask, x):
@@ -82,21 +153,216 @@ def spmv(values, nbr, mask, x):
     return spmv_rows(values, nbr, mask, x, 0, values.shape[0])
 
 
+# -- the backward kernels ------------------------------------------------------
+
+def transpose_table(nbr) -> torch.Tensor:
+    """(N, Kt) int32 on nbr's device: row j lists the flat entries
+    e = i * K + k with nbr[i, k] == j in increasing e, padded with -1; Kt is
+    the largest count (K for the repo's structurally symmetric operators,
+    whose padded slots point at their own row). Built on the host."""
+    nb = nbr.detach().cpu().numpy().astype(np.int64).reshape(-1)
+    n = int(nbr.shape[0])
+    order = np.argsort(nb, kind="stable")
+    cols = nb[order]
+    pos = np.arange(nb.size) - np.searchsorted(cols, cols)
+    kt = int(pos.max()) + 1 if nb.size else 1
+    table = np.full((n, kt), -1, dtype=np.int32)
+    table[cols, pos] = order.astype(np.int32)
+    return torch.from_numpy(table).to(nbr.device)
+
+
+def spmv_t_plain(values, mask, tt, g, skip=None, alpha: float = 1.0):
+    """The kernel's plain version: per entry mask values^T g[row], gathered
+    through the transpose table and summed over its row."""
+    n, k = mask.shape
+    part = torch.einsum("nkji,nj->nki", values, g) * mask[..., None]
+    if skip is not None:
+        slots = torch.arange(k, device=values.device)
+        keep = slots[None, :] != skip.long()[:, None]
+        part = torch.where(keep[..., None], part, torch.zeros_like(part))
+    src = torch.cat([part.reshape(-1, 3), part.new_zeros((1, 3))])
+    idx = torch.where(tt >= 0, tt.long(), torch.full_like(tt.long(), n * k))
+    return alpha * src[idx].sum(dim=1)
+
+
+def outer_plain(g, nbr, mask, x, skip=None, alpha: float = 1.0, out=None,
+                accumulate: bool = False):
+    """The kernel's plain version, into `out` (allocated when None):
+    slot k of row i (+)= alpha * g[i] (x) (x[nbr[i, k]] mask[i, k]); slot
+    skip[i] untouched (zero in a new `out`)."""
+    n, k = mask.shape
+    xm = x[nbr.long()] * mask[..., None]
+    p = alpha * (g[:, None, :, None] * xm[:, :, None, :])
+    if out is None:
+        out = torch.zeros((n, k, 3, 3), dtype=g.dtype, device=g.device)
+    if accumulate:
+        p = out + p
+    if skip is not None:
+        slots = torch.arange(k, device=g.device)
+        keep = slots[None, :] != skip.long()[:, None]
+        p = torch.where(keep[..., None, None], p, out)
+    out.copy_(p)
+    return out
+
+
+def jacobi_bwd_plain(values, nbr, mask, diag_slot, b, xt, gbar, gb=None,
+                     gv=None, accumulate: bool = False):
+    """The kernel's plain version: returns lam = D^{-T} gbar by the
+    forward's adjugate formula; gb (+)= lam, and the diagonal slots of gv
+    (+)= the exact derivative of that formula in the diagonal blocks
+    (csrc/ell_kernels.cu, ell_jacobi_bwd_kernel, has the algebra)."""
+    n = values.shape[0]
+    rows = torch.arange(n, device=values.device)
+    ds = diag_slot.long()
+    D = values[rows, ds]
+    # row p of the cofactor matrix: D_{p+1} x D_{p+2}
+    C = torch.stack([torch.linalg.cross(D[:, (p + 1) % 3], D[:, (p + 2) % 3])
+                     for p in range(3)], dim=1)
+    det = (D[:, 0, 0] * C[:, 0, 0] + D[:, 0, 1] * C[:, 0, 1]
+           + D[:, 0, 2] * C[:, 0, 2])
+    den = det * det + 1e-12
+    inv_det = det / den
+    u = torch.einsum("npm,nm->np", C, gbar)
+    lam = u * inv_det[:, None]
+    if gb is not None:
+        gb.copy_(gb + lam if accumulate else lam)
+    if gv is not None:
+        r = b - _offdiag_rows_plain(values, nbr, mask, diag_slot, xt, 0, n)
+        h = (1e-12 - det * det) / den / den * (r * u).sum(-1)
+        gD = torch.stack([
+            inv_det[:, None] * (
+                r[:, (p + 2) % 3, None]
+                * torch.linalg.cross(D[:, (p + 1) % 3], gbar)
+                + r[:, (p + 1) % 3, None]
+                * torch.linalg.cross(gbar, D[:, (p + 2) % 3]))
+            + h[:, None] * C[:, p] for p in range(3)], dim=1)
+        gv[rows, ds] = gv[rows, ds] + gD if accumulate else gD
+    return lam
+
+
+def spmv_t(values, mask, tt, g, skip=None, alpha: float = 1.0):
+    """gx (N, 3) = alpha * A^T g through A's transpose table tt (N, Kt)
+    int32 (`transpose_table`); skip (N,) int32 or None: the slot of each
+    row to leave out."""
+    if values.dim() != 4 or tuple(values.shape[2:]) != (3, 3):
+        raise ValueError(f"values: expected (N, K, 3, 3), got {tuple(values.shape)}")
+    n, k = int(values.shape[0]), int(values.shape[1])
+    _cuda.require(values, (n, k, 3, 3), "values")
+    _cuda.require(mask, (n, k), "mask")
+    _cuda.require(g, (n, 3), "g")
+    if tt.dim() != 2 or tt.shape[0] != n or tt.shape[1] < 1:
+        raise ValueError(f"tt: expected ({n}, Kt), got {tuple(tt.shape)}")
+    _cuda.require(tt, tuple(tt.shape), "tt", dtype=torch.int32)
+    if skip is not None:
+        _cuda.require(skip, (n,), "skip", dtype=torch.int32)
+    tensors = (values, mask, tt, g) + (() if skip is None else (skip,))
+    if _cuda.on_cpu(*tensors):
+        return spmv_t_plain(values, mask, tt, g, skip, alpha)
+    gx = torch.empty((n, 3), dtype=torch.float32, device=g.device)
+    lib = _cuda.load()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    with torch.cuda.device(g.device):
+        err = lib.ell_spmv_t(values.data_ptr(), mask.data_ptr(),
+                             tt.data_ptr(),
+                             None if skip is None else skip.data_ptr(),
+                             g.data_ptr(), gx.data_ptr(), float(alpha), n, k,
+                             int(tt.shape[1]), stream)
+    launches["spmv_t"] += 1
+    _cuda.check(err, "ell_spmv_t")
+    return gx
+
+
+def outer(g, nbr, mask, x, skip=None, alpha: float = 1.0, out=None,
+          accumulate: bool = False):
+    """gv (N, K, 3, 3): slot k of row i (+)= alpha * g[i] (x)
+    (x[nbr[i, k]] mask[i, k]), into `out` (allocated when None; zeros
+    where skip leaves a slot); skip (N,) int32 or None: the slot of each row
+    left untouched; accumulate: add to `out` instead of storing."""
+    n, k = mask.shape
+    _cuda.require(g, (n, 3), "g")
+    _cuda.require(nbr, (n, k), "nbr", dtype=torch.int32)
+    _cuda.require(mask, (n, k), "mask")
+    _cuda.require(x, (n, 3), "x")
+    if skip is not None:
+        _cuda.require(skip, (n,), "skip", dtype=torch.int32)
+    if out is not None:
+        _cuda.require(out, (n, k, 3, 3), "out")
+    elif accumulate:
+        raise ValueError("accumulate needs an out tensor")
+    tensors = (g, nbr, mask, x) + tuple(t for t in (skip, out)
+                                        if t is not None)
+    if _cuda.on_cpu(*tensors):
+        return outer_plain(g, nbr, mask, x, skip, alpha, out, accumulate)
+    if out is None:
+        out = (torch.empty if skip is None else torch.zeros)(
+            (n, k, 3, 3), dtype=torch.float32, device=g.device)
+    lib = _cuda.load()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    with torch.cuda.device(g.device):
+        err = lib.ell_outer(g.data_ptr(), nbr.data_ptr(), mask.data_ptr(),
+                            x.data_ptr(),
+                            None if skip is None else skip.data_ptr(),
+                            float(alpha), int(accumulate), out.data_ptr(), n,
+                            k, stream)
+    launches["outer"] += 1
+    _cuda.check(err, "ell_outer")
+    return out
+
+
+def jacobi_bwd(values, nbr, mask, diag_slot, b, xt, gbar, gb=None, gv=None,
+               accumulate: bool = False):
+    """The adjoint of one Jacobi iteration that read xt: returns
+    lam = D^{-T} gbar (N, 3); gb (N, 3) or None (+)= lam; gv (N, K, 3, 3)
+    or None: its diagonal slots (+)= the diagonal blocks' gradient, the
+    others untouched (accumulate: add, else store)."""
+    n, k = _check_smoother(values, nbr, mask, diag_slot, b, xt)
+    _cuda.require(gbar, (n, 3), "gbar")
+    if gb is not None:
+        _cuda.require(gb, (n, 3), "gb")
+    if gv is not None:
+        _cuda.require(gv, (n, k, 3, 3), "gv")
+    tensors = (values, nbr, mask, diag_slot, b, xt, gbar) + tuple(
+        t for t in (gb, gv) if t is not None)
+    if _cuda.on_cpu(*tensors):
+        return jacobi_bwd_plain(values, nbr, mask, diag_slot, b, xt, gbar,
+                                gb, gv, accumulate)
+    lam = torch.empty_like(gbar)
+    lib = _cuda.load()
+    stream = torch.cuda.current_stream(b.device).cuda_stream
+    with torch.cuda.device(b.device):
+        err = lib.ell_jacobi_bwd(
+            values.data_ptr(), nbr.data_ptr(), mask.data_ptr(),
+            diag_slot.data_ptr(), b.data_ptr(), xt.data_ptr(),
+            gbar.data_ptr(), lam.data_ptr(),
+            None if gb is None else gb.data_ptr(),
+            None if gv is None else gv.data_ptr(), int(accumulate), n, k,
+            stream)
+    launches["jacobi_bwd"] += 1
+    _cuda.check(err, "ell_jacobi_bwd")
+    return lam
+
+
 # -- fused smoothers -----------------------------------------------------------
 
-def _relax_rows_plain(values, nbr, mask, diag_slot, b, x, r0: int, r1: int):
-    """Rows [r0, r1) of D^{-1} (b - sum over every slot but the diagonal's of
-    A_ik (x[nbr_ik] mask_ik)): the kernels' row pass, step by step."""
-    from . import ell
-    rows = torch.arange(r0, r1, device=values.device)
+def _offdiag_rows_plain(values, nbr, mask, diag_slot, x, r0: int, r1: int):
+    """Rows [r0, r1) of sum over every slot but the diagonal's of
+    A_ik (x[nbr_ik] mask_ik)."""
     slots = torch.arange(mask.shape[1], device=values.device)
     ds = diag_slot[r0:r1].long()
     off = slots[None, :] != ds[:, None]                   # (R, K)
     vals = torch.where(off[..., None, None], values[r0:r1],
                        torch.zeros_like(values[r0:r1]))
     xg = x[nbr[r0:r1].long()] * mask[r0:r1, :, None]
-    s = torch.einsum("nkji,nki->nj", vals, xg)
-    return ell.solve3x3(values[rows, ds], b[r0:r1] - s)
+    return torch.einsum("nkji,nki->nj", vals, xg)
+
+
+def _relax_rows_plain(values, nbr, mask, diag_slot, b, x, r0: int, r1: int):
+    """Rows [r0, r1) of D^{-1} (b - sum over every slot but the diagonal's of
+    A_ik (x[nbr_ik] mask_ik)): the kernels' row pass, step by step."""
+    from . import ell
+    rows = torch.arange(r0, r1, device=values.device)
+    s = _offdiag_rows_plain(values, nbr, mask, diag_slot, x, r0, r1)
+    return ell.solve3x3(values[rows, diag_slot[r0:r1].long()], b[r0:r1] - s)
 
 
 def gs_plain(values, nbr, mask, diag_slot, color_offsets, b, x0=None,
@@ -142,6 +408,7 @@ def gs(values, nbr, mask, diag_slot, color_offsets, b, x0=None,
     [color_offsets[c], color_offsets[c + 1]) and must be an independent set
     (`solvers.smoothers.EllOperator` checks it)."""
     tensors = (values, nbr, mask, diag_slot, b) + (() if x0 is None else (x0,))
+    _cuda.refuse_grad("ell_kernels.gs", *tensors)
     n, k = _check_smoother(values, nbr, mask, diag_slot, b, x0)
     offs = [int(c) for c in color_offsets]
     nc = len(offs) - 1
@@ -168,19 +435,107 @@ def gs(values, nbr, mask, diag_slot, color_offsets, b, x0=None,
     return x
 
 
-def jacobi(values, nbr, mask, diag_slot, b, x0=None, iterations: int = 2):
+def _jacobi_step(values, nbr, mask, diag_slot, b, x):
+    """One Jacobi iteration from x into a new tensor: plain on the CPU, else
+    one launch."""
+    if _cuda.on_cpu(values, b, x):
+        return _relax_rows_plain(values, nbr, mask, diag_slot, b, x, 0,
+                                 values.shape[0])
+    out = torch.empty_like(x)
+    lib = _cuda.load()
+    stream = torch.cuda.current_stream(b.device).cuda_stream
+    with torch.cuda.device(b.device):
+        # one iteration reads xa and writes xb: x is not written
+        err = lib.ell_jacobi(values.data_ptr(), nbr.data_ptr(),
+                             mask.data_ptr(), diag_slot.data_ptr(),
+                             b.data_ptr(), x.data_ptr(), out.data_ptr(),
+                             int(values.shape[0]), int(values.shape[1]), 1,
+                             stream)
+    launches["jacobi"] += 1
+    _cuda.check(err, "ell_jacobi")
+    return out
+
+
+class EllJacobiFn(torch.autograd.Function):
+    """`iterations` (>= 1) block-Jacobi iterations from x0 (zero for None),
+    differentiable in values, b and x0. The forward keeps every iterate
+    (one launch an iteration, each into its own output); the backward runs,
+    last iteration first, `jacobi_bwd` (lam, b's gradient, the diagonal
+    blocks'), `outer` (-lam (x) x_t into the off-diagonal slots) and, where
+    the iterate before needs a gradient, `spmv_t` (-O^T lam, the diagonal
+    slot left out). tt: A's transpose table (`transpose_table(nbr)`), or
+    None where no gradient reaches an iterate before the last
+    (`needs_table`)."""
+
+    @staticmethod
+    def forward(ctx, values, b, x0, nbr, mask, diag_slot, iterations, tt):
+        if tt is None and needs_table(iterations, x0):
+            raise ValueError(f"{iterations} Jacobi iterations from x0 "
+                             f"{'None' if x0 is None else 'given'}: the "
+                             "gradient needs A's transpose table tt")
+        xs = [torch.zeros_like(b) if x0 is None else x0]
+        for _ in range(iterations):
+            xs.append(_jacobi_step(values, nbr, mask, diag_slot, b, xs[-1]))
+        ctx.save_for_backward(values, b, nbr, mask, diag_slot, tt, *xs[:-1])
+        ctx.zero_start = x0 is None
+        return xs[-1]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        values, b, nbr, mask, diag_slot, tt, *xs = ctx.saved_tensors
+        need_v, need_b, need_x0 = ctx.needs_input_grad[:3]
+        g = g.contiguous()
+        gv = torch.empty_like(values) if need_v else None
+        gb = torch.empty_like(b) if need_b else None
+        cpu = not g.is_cuda        # any float dtype there (gradcheck)
+        bwd = jacobi_bwd_plain if cpu else jacobi_bwd
+        for t in range(len(xs) - 1, -1, -1):
+            first = t == len(xs) - 1
+            _count_call("jacobi_bwd", g)
+            lam = bwd(values, nbr, mask, diag_slot, b, xs[t], g, gb, gv,
+                      accumulate=not first)
+            # -lam (x) x_t: nothing to add where x_t is the zero start
+            if need_v and (first or t > 0 or not ctx.zero_start):
+                _count_call("outer", g)
+                (outer_plain if cpu else outer)(
+                    lam, nbr, mask, xs[t], skip=diag_slot, alpha=-1.0,
+                    out=gv, accumulate=not first)
+            if t > 0 or need_x0:
+                _count_call("spmv_t", g)
+                g = (spmv_t_plain if cpu else spmv_t)(
+                    values, mask, tt, lam, skip=diag_slot, alpha=-1.0)
+        return (gv, gb, g if need_x0 else None, None, None, None, None,
+                None)
+
+
+def needs_table(iterations: int, x0) -> bool:
+    """Whether the gradient of `iterations` Jacobi iterations from x0 runs
+    through A^T (an iterate before the last, or x0, takes a gradient)."""
+    return iterations > 1 or (x0 is not None and x0.requires_grad)
+
+
+def jacobi(values, nbr, mask, diag_slot, b, x0=None, iterations: int = 2,
+           tt=None):
     """`iterations` block-Jacobi iterations x <- D^{-1} (b - (L + U) x) from
-    x0 (zero by default; not modified), (N, 3)."""
+    x0 (zero by default; not modified), (N, 3). Differentiable in values, b
+    and x0 (`EllJacobiFn`; tt: A's transpose table, required when the
+    gradient runs through A^T, `needs_table`)."""
     tensors = (values, nbr, mask, diag_slot, b) + (() if x0 is None else (x0,))
     n, k = _check_smoother(values, nbr, mask, diag_slot, b, x0)
     iterations = int(iterations)
     if iterations < 0:
         raise ValueError(f"iterations {iterations} < 0")
+    if iterations == 0:
+        _cuda.on_cpu(*tensors)
+        return torch.zeros_like(b) if x0 is None else x0.clone()
+    if _cuda.records_grad(values, b, x0, mask):
+        _cuda.refuse_grad("mask, a 0/1 table,", mask)
+        return EllJacobiFn.apply(values, b, x0, nbr, mask, diag_slot,
+                                 iterations, tt)
     if _cuda.on_cpu(*tensors):
         return jacobi_plain(values, nbr, mask, diag_slot, b, x0, iterations)
     xa = torch.zeros_like(b) if x0 is None else x0.clone()
-    if iterations == 0:
-        return xa
     xb = torch.empty_like(xa)
     lib = _cuda.load()
     stream = torch.cuda.current_stream(b.device).cuda_stream

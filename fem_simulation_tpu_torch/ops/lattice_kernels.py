@@ -14,7 +14,9 @@ diagonal blocks as 6 channels), `level_matvec_cf` (the level operator
 Dispatch: a wrapper runs its plain version (`*_plain`) only when its tensors
 lie on the CPU. For CUDA tensors it launches the kernel or raises; it never
 falls back. Every wrapper adds one to `launches[name]` where it launches its
-kernel, and nowhere else.
+kernel, and nowhere else. No kernel here has a backward: a wrapper raises
+when autograd records and one of its inputs requires grad, on either
+device, rather than return an output with no grad_fn.
 """
 from __future__ import annotations
 
@@ -510,6 +512,7 @@ def force_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
     """Elastic force of a displacement field; (3, X, Y, Z) -> (3, X, Y, Z).
     Allocates only its output: one launch on halo tiles, or the two passes
     with their cell scratch kept per device, stream and lattice."""
+    _cuda.refuse_grad("lattice_kernels.force_cf", x_cf, cell_mask)
     if _cuda.on_cpu(x_cf, cell_mask):
         return force_cf_plain(x_cf, cell_mask, dx, mu, la)
     X, Y, Z = _vertex_grid(x_cf, cell_mask)
@@ -535,6 +538,7 @@ def hvp_cf(x_cf, p_cf, cell_mask, dx: float, mu: float, la: float):
     displacement field: (3, X, Y, Z) x2 -> (3, X, Y, Z). One launch on halo
     tiles, or the two passes where hvp_plan picks them (their cell scratch
     kept per device, stream and lattice); allocates only its output."""
+    _cuda.refuse_grad("lattice_kernels.hvp_cf", x_cf, p_cf, cell_mask)
     if _cuda.on_cpu(x_cf, p_cf, cell_mask):
         return hvp_cf_plain(x_cf, p_cf, cell_mask, dx, mu, la)
     return _lat_hvp(x_cf, p_cf, cell_mask, None, None, dx, mu, la)
@@ -546,6 +550,8 @@ def level_matvec_cf(u_cf, p_cf, cell_mask, ctrl, vert_mask, dx: float,
     fields: u_cf, p_cf (3, X, Y, Z); ctrl, vert_mask (X, Y, Z). hvp_cf's
     launch with the shift and mask in its vertex pass (counted as "hvp");
     allocates only its output."""
+    _cuda.refuse_grad("lattice_kernels.level_matvec_cf",
+                      u_cf, p_cf, cell_mask, ctrl, vert_mask)
     if _cuda.on_cpu(u_cf, p_cf, cell_mask, ctrl, vert_mask):
         return level_matvec_cf_plain(u_cf, p_cf, cell_mask, ctrl, vert_mask,
                                      dx, mu, la)
@@ -586,6 +592,7 @@ def hess_diag_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
     (3, X, Y, Z) -> (X, Y, Z, 3, 3). Allocates only its output: the cell
     scratch and the six-channel vertex sums are kept per device, stream and
     lattice, and one gather makes the blocks."""
+    _cuda.refuse_grad("lattice_kernels.hess_diag_cf", x_cf, cell_mask)
     if _cuda.on_cpu(x_cf, cell_mask):
         return hess_diag_lattice_plain(x_cf.permute(1, 2, 3, 0), cell_mask,
                                        dx, mu, la)
@@ -612,6 +619,7 @@ def hess_diag_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
 def hess_diag_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
     """Vertex-diagonal Hessian blocks: (X, Y, Z, 3) -> (X, Y, Z, 3, 3)
     (hess_diag_cf after one channel-first copy of the field)."""
+    _cuda.refuse_grad("lattice_kernels.hess_diag_lattice", x_lat, cell_mask)
     if _cuda.on_cpu(x_lat, cell_mask):
         return hess_diag_lattice_plain(x_lat, cell_mask, dx, mu, la)
     return hess_diag_cf(x_lat.permute(3, 0, 1, 2).contiguous(), cell_mask,
@@ -623,6 +631,8 @@ def elastic_energy_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
     tensor on the field's device. One launch on the field as it is;
     allocates only its output (the partials and the ticket are kept per
     device, stream and lattice)."""
+    _cuda.refuse_grad("lattice_kernels.elastic_energy_lattice",
+                      x_lat, cell_mask)
     if _cuda.on_cpu(x_lat, cell_mask):
         return elastic_energy_lattice_plain(x_lat, cell_mask, dx, mu, la)
     X, Y, Z = _vertex_grid(x_lat, cell_mask, channel_last=True)
@@ -697,6 +707,8 @@ def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
     m/dt^2, a SUM) and ctrl the Hessian diagonal shift (max(pin, drag) +
     m/dt^2 + (1 - vm)). Returns (dx_cf, f_cf, fn_full, k) with fn_full a
     0-d float32 and k a 0-d int32 tensor (matvecs executed = k - 1)."""
+    _cuda.refuse_grad("lattice_kernels.fused_newton",
+                      u_cf, s_cf, cell_mask, ctrl, rc, vert_mask)
     if _cuda.on_cpu(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask):
         return fused_newton_plain(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask,
                                   dx, mu, la, iterations, tol)
@@ -732,6 +744,8 @@ def fused_pcg(u_cf, f_cf, cell_mask, ctrl, vert_mask, dx: float, mu: float,
     vert_mask: (X, Y, Z); tol a float or a 0-d tensor. Returns (dx_cf, k)
     with k a 0-d int32 tensor (matvecs executed = k - 1); a zero RHS gives
     dx == 0 and k == 1."""
+    _cuda.refuse_grad("lattice_kernels.fused_pcg",
+                      u_cf, f_cf, cell_mask, ctrl, vert_mask)
     if _cuda.on_cpu(u_cf, f_cf, cell_mask, ctrl, vert_mask):
         return fused_pcg_plain(u_cf, f_cf, cell_mask, ctrl, vert_mask, dx, mu,
                                la, iterations, tol)
@@ -788,6 +802,8 @@ def cheby_smooth_cf(u_cf, b_cf, x_cf, d6, ctrl, vert_mask, cell_mask,
     Allocates its outputs only: the second iterate buffer, the direction and
     (exchange tiles) the partial sums are kept per device, stream and
     lattice."""
+    _cuda.refuse_grad("lattice_kernels.cheby_smooth_cf", u_cf, b_cf, x_cf,
+                      d6, ctrl, vert_mask, cell_mask)
     if _cuda.on_cpu(u_cf, b_cf, d6, ctrl, vert_mask, cell_mask,
                     *(() if x_cf is None else (x_cf,))):
         return cheby_smooth_cf_plain(u_cf, b_cf, x_cf, d6, ctrl, vert_mask,
@@ -835,6 +851,8 @@ def hess_diag_shift_cf(u_cf, cell_mask, ctrl, vert_mask, dx: float,
     (ctrl + 1 - vert_mask) I, SPD-projected (ell.spd_project, eps 1e-6,
     rel_floor 1e-3) when project; returns (6, X, Y, Z), the channels
     (xx, xy, xz, yy, yz, zz). Allocates only its output."""
+    _cuda.refuse_grad("lattice_kernels.hess_diag_shift_cf",
+                      u_cf, cell_mask, ctrl, vert_mask)
     if _cuda.on_cpu(u_cf, cell_mask, ctrl, vert_mask):
         return hess_diag_shift_cf_plain(u_cf, cell_mask, ctrl, vert_mask, dx,
                                         mu, la, project)
@@ -878,6 +896,8 @@ def power_lmax_cf(u_cf, d6, ctrl, vert_mask, cell_mask, dx: float, mu: float,
         out = torch.empty((1,), dtype=torch.float32, device=u_cf.device)
     if not 0 <= slot < out.numel():
         raise ValueError(f"slot {slot} outside out ({out.numel()} floats)")
+    _cuda.refuse_grad("lattice_kernels.power_lmax_cf",
+                      u_cf, d6, ctrl, vert_mask, cell_mask, out)
     if _cuda.on_cpu(u_cf, d6, ctrl, vert_mask, cell_mask, out):
         out[slot] = power_lmax_cf_plain(u_cf, d6, ctrl, vert_mask, cell_mask,
                                         dx, mu, la, iters)

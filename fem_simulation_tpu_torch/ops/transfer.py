@@ -12,15 +12,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import take_rows
+
 
 def prolong(p_idx, p_w, xc):
     """x_f = P @ x_c : weighted gather (fine rows <= 8 wide)."""
-    return torch.einsum("fk,fkc->fc", p_w, xc[p_idx])
+    return torch.einsum("fk,fkc->fc", p_w, take_rows(xc, p_idx))
 
 
 def restrict(r_idx, r_w, xf):
     """x_c = R @ x_f = P^T x_f : weighted gather on coarse rows."""
-    return torch.einsum("ck,ckd->cd", r_w, xf[r_idx])
+    return torch.einsum("ck,ckd->cd", r_w, take_rows(xf, r_idx))
 
 
 # entries per gather of the Galerkin plan: a tier holds, for every coarse

@@ -16,6 +16,11 @@ values. On CPU tensors they run `gauss_seidel_plain` / `jacobi_plain`, the
 JAX package's composition: per GS iteration two full SpMVs over masked
 copies of the values and, per color and sweep, a row SpMV
 (`ell.spmv_rows`), an `ell.solve3x3` and a slice update.
+
+`jacobi` is differentiable on both devices: when autograd records it goes
+through `ell_kernels.EllJacobiFn` (its forward and backward kernels on
+CUDA tensors, their plain versions on CPU tensors). `gauss_seidel` has no
+backward and raises when asked for one.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ class EllOperator:
                 f"{bad} unmasked off-diagonal entries couple two rows of one "
                 "color class: the colors are not independent sets")
         self._triangles = None
+        self._transpose = None
 
     def _masks(self):
         """(lower, upper, offdiag) 0/1 masks of the plain versions, built
@@ -65,6 +71,14 @@ class EllOperator:
             upper = self.mask * (self.nbr > row)
             self._triangles = (lower, upper, lower + upper)
         return self._triangles
+
+    def transpose_table(self):
+        """The transpose table of the operator's ELL graph
+        (`ell_kernels.transpose_table`): built on the host at first use,
+        then cached."""
+        if self._transpose is None:
+            self._transpose = ell_kernels.transpose_table(self.nbr)
+        return self._transpose
 
     @property
     def lower(self):
@@ -94,12 +108,20 @@ def jacobi_plain(op: EllOperator, values, b, iterations: int = 2, x0=None):
 
 
 def jacobi(op: EllOperator, values, b, iterations: int = 2, x0=None):
-    """Block Jacobi from x0 (zero by default): x <- D^{-1} (b - (L+U) x)."""
-    if _cuda.on_cpu(values, b):
+    """Block Jacobi from x0 (zero by default): x <- D^{-1} (b - (L+U) x).
+    Differentiable in values, b and x0: when autograd records, through
+    `ell_kernels.EllJacobiFn` on either device."""
+    on_cpu = _cuda.on_cpu(values, b)
+    if on_cpu and not _cuda.records_grad(values, b, x0):
         return jacobi_plain(op, values, b, iterations, x0)
-    ell.cuda_calls["jacobi"] += max(int(iterations), 0)
+    if not on_cpu:
+        ell.cuda_calls["jacobi"] += max(int(iterations), 0)
+    tt = None
+    if (_cuda.records_grad(values, b, x0)
+            and ell_kernels.needs_table(iterations, x0)):
+        tt = op.transpose_table()
     return ell_kernels.jacobi(values, op.nbr, op.mask, op.diag_slot, b, x0,
-                              iterations)
+                              iterations, tt)
 
 
 def _sweep(op: EllOperator, values, D, b_eff, reverse: bool):
@@ -139,7 +161,9 @@ def gauss_seidel_plain(op: EllOperator, values, b, iterations: int = 1,
 
 def gauss_seidel(op: EllOperator, values, b, iterations: int = 1, x0=None):
     """Colored symmetric GS: per iteration a backward sweep using L x_prev,
-    then a forward sweep using U x_bwd, from x0 (zero by default)."""
+    then a forward sweep using U x_bwd, from x0 (zero by default). No
+    backward: raises when autograd records and an input requires grad."""
+    _cuda.refuse_grad("smoothers.gauss_seidel", values, b, x0)
     if _cuda.on_cpu(values, b):
         return gauss_seidel_plain(op, values, b, iterations, x0)
     ell.cuda_calls["gs"] += int(iterations) > 0

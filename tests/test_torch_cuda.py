@@ -11,10 +11,13 @@ import pytest
 import torch
 
 from fem_simulation_tpu_torch import mesh as meshlib
-from fem_simulation_tpu_torch.config import ClothConfig, SolverConfig
+from fem_simulation_tpu_torch.config import (ClothConfig, SolverConfig,
+                                             TrainInterpConfig)
 from fem_simulation_tpu_torch.ops import _cuda, ell
 from fem_simulation_tpu_torch.ops import ell_kernels as ek
 from fem_simulation_tpu_torch.ops import lattice_kernels as lk
+from fem_simulation_tpu_torch.models import train_interp as tti
+from fem_simulation_tpu_torch.models import train_solver as tts
 from fem_simulation_tpu_torch.sim import cloth as tcloth
 from fem_simulation_tpu_torch.sim import dynamic as tdyn
 from fem_simulation_tpu_torch.sim import lattice as tlat
@@ -274,12 +277,93 @@ def test_newton_multigrid_step_launches_spmv(uscene):
     _, fn = sim.newton_multigrid(1)
     torch.cuda.synchronize()
     assert ek.launches == ell.cuda_calls
-    assert ek.launches == {"spmv": 2, "gs": 3, "jacobi": 0}
+    assert ek.launches == {"spmv": 2, "gs": 3, "jacobi": 0, "spmv_t": 0,
+                           "outer": 0, "jacobi_bwd": 0}
     cpu = tscene.Scene(uscene.mesh, solver=uscene.solver, device="cpu")
     sim_cpu = tqs.QuasiStaticSim(cpu)
     _, fn_cpu = sim_cpu.newton_multigrid(1)
     assert float(fn[0]) == pytest.approx(float(fn_cpu[0]), rel=1e-3)
     assert float((sim.x.cpu() - sim_cpu.x).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_plain(uscene):
+    """ell_spmv_t (with and without the diagonal slot), ell_outer and
+    ell_jacobi_bwd on every level of the scene's Galerkin chain against
+    their plain versions on the same CUDA tensors, within 1e-5 of max
+    |ref|; each launches once a call and repeats its bits."""
+    rng = np.random.default_rng(17)
+    x = uscene.x0 + torch.from_numpy(0.01 * rng.standard_normal(
+        tuple(uscene.x0.shape)).astype(np.float32)).cuda()
+    chain = tqs.galerkin_chain(uscene, uscene.params,
+                               tqs.assemble_fine(uscene, uscene.params, x))
+    for li, vals in enumerate(chain):
+        op = uscene.make_op(li)
+        n = vals.shape[0]
+        tt = op.transpose_table()
+        g, v = (torch.from_numpy(rng.standard_normal((n, 3)).astype(
+            np.float32)).cuda() for _ in range(2))
+        calls = {
+            "spmv_t": (lambda: ek.spmv_t(vals, op.mask, tt, g, op.diag_slot,
+                                         -1.0),
+                       lambda: ek.spmv_t_plain(vals, op.mask, tt, g,
+                                               op.diag_slot, -1.0)),
+            "outer": (lambda: ek.outer(g, op.nbr, op.mask, v),
+                      lambda: ek.outer_plain(g, op.nbr, op.mask, v)),
+            "jacobi_bwd": (
+                lambda: torch.cat([r.reshape(-1) for r in _bwd(
+                    ek.jacobi_bwd, vals, op, g, v)]),
+                lambda: torch.cat([r.reshape(-1) for r in _bwd(
+                    ek.jacobi_bwd_plain, vals, op, g, v)])),
+        }
+        for name, (kernel, plain) in calls.items():
+            before = ek.launches[name]
+            got, again, ref = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            assert ek.launches[name] == before + 2, name
+            assert torch.equal(got, again), name
+            assert float((got - ref).abs().max()) <= 1e-5 * float(
+                ref.abs().max()), (name, li)
+
+
+def _bwd(fn, vals, op, g, v):
+    """jacobi_bwd's outputs (lam, gb, gv's diagonal slots) into zeros."""
+    gb, gv = torch.zeros_like(g), torch.zeros_like(vals)
+    lam = fn(vals, op.nbr, op.mask, op.diag_slot, v, v, g, gb, gv)
+    rows = torch.arange(vals.shape[0], device=vals.device)
+    return lam, gb, gv[rows, op.diag_slot.long()]
+
+
+@pytest.mark.cuda
+def test_exp2_gradient_on_the_card(uscene):
+    """exp2's loss gradient on the card goes through the backward kernels,
+    every launch asked for, and equals the CPU's within 1e-3 of max |g|
+    (torch's own gather backward adds in another order on the card)."""
+    cpu = tscene.Scene(uscene.mesh, solver=uscene.solver, device="cpu")
+    pins = np.nonzero(cpu.params["levels"][0]["pin_mask"].numpy() > 0)[0]
+    x = cpu.x0.clone()
+    x[int(pins[0])] += 1e-3
+    # launches (jacobi_bwd, outer, spmv_t): mode P's first cycle builds its
+    # coarse matrix from the classic weights, so its values take no
+    # gradient (no outer); the one iteration from the zero start sends no
+    # gradient further (no spmv_t)
+    for cfg, want in (
+            (TrainInterpConfig(mode="P", loss="l2", unroll=2), (2, 1, 0)),
+            (TrainInterpConfig(mode="p_hat", loss="l2"), (1, 1, 0))):
+        ek.reset_launches()
+        for name in ell.cuda_calls:
+            ell.cuda_calls[name] = 0
+        tr = tti.InterpTrainer(uscene, cfg)
+        total, _, _, g = tr.loss_and_grad(tr.w, x.cuda())
+        torch.cuda.synchronize()
+        assert ek.launches == ell.cuda_calls
+        assert (ek.launches["jacobi_bwd"], ek.launches["outer"],
+                ek.launches["spmv_t"]) == want
+        trc = tti.InterpTrainer(cpu, cfg)
+        total_c, _, _, gc = trc.loss_and_grad(trc.w, x)
+        assert float(total) == pytest.approx(float(total_c), rel=1e-3)
+        assert float((g.cpu() - gc).abs().max()) <= 1e-3 * float(
+            gc.abs().max())
 
 
 def _level_systems(uscene):
@@ -749,6 +833,11 @@ _ENTRY_POINTS = {
     "cloth.state_from_numpy": lambda m, **kw: tcloth.state_from_numpy(
         np.zeros((4, 3)), np.zeros((4, 3)), np.zeros(4), np.zeros((4, 3)),
         **kw).x,
+    # the trainers take their scene's device
+    "InterpTrainer": lambda m, **kw: tti.InterpTrainer(tscene.Scene(
+        m, solver=SolverConfig(n_levels=2), **kw)).w,
+    "SolverNetTrainer": lambda m, **kw: tts.SolverNetTrainer(tscene.Scene(
+        m, solver=SolverConfig(n_levels=2), **kw)).graph.table,
 }
 
 
