@@ -85,6 +85,39 @@ Phase 9  the learning slice. The backward kernels (ell_spmv_t, ell_outer,
          learned_step, warmstart_stats(4); train_energy_gcn 10 steps on the
          2k beam); then the first 2 exp2 steps again on the CPU.
 
+Phase 10 distribution, on 4 z-slabs sharing the card (a DeviceGrid of 4
+         entries). lat_force, lat_hvp and lat_diag on the slabs of the
+         16x16x256 beam (74,273 vertices, n_own 65, 17x17x67-vertex slabs),
+         exchanged and folded, against the same kernels on the whole
+         lattice (max|d| <= 1e-5 max|ref|), one slab's bits against the
+         whole lattice's, each kernel's time at the slab shape, the exchange
+         of one matvec (4 planes a slab). Then, counters zeroed: the halo
+         lattice step (make_dist_step's defaults: constant gravity, dt
+         0.033, tol 1e-4, max_newton 20, PCG 60 / 1e-2) for 16 frames from
+         rest at 74k against the same code on one slab; the distributed
+         multigrid on the 16x16x64 beam (3 levels, z_multiple 4: a
+         quasi-static solve from rest, max_newton 100, with every level
+         sharded and again with the coarsest replicated, and 16 frames of
+         make_dist_mg_step) against LatticeMG with the same z_multiple on
+         the whole lattice; the unstructured halo SpMV, CG and Newton step
+         (8 frames) on the 16x16x64 Scene against the whole mesh; the dp
+         batch of 8 scenes of the 8x8x24 beam (identical entries equal to
+         one dynamic.step) and the batched_scenes driver (10 frames);
+         entry.dryrun_multichip(4). While they run, the arguments of every
+         kernel wrapper they call are copied once for each shape (every
+         sharded level's slabs, the replicated coarsest level, the dry
+         run's thin slabs, the halo rows of ell_spmv); after the counters
+         are read, each kernel is held against its plain version on those
+         copies, each float input followed by NaNs so that a read past its
+         end shows (max|d| <= 1e-5 max|ref|; lat_cheby, lat_power and the
+         energy 1e-4). The references hold each frame from the distributed
+         run's own input (equal Newton, ||f|| within 1e-3 relative + 5e-6,
+         x within 1e-4), and each path's trajectory from rest against the
+         reference's own: x within 1e-4 at every frame, and every frame
+         whose Newton count or ||f|| differs taken apart (the reference's
+         code on the distributed run's input gives the distributed run's
+         norms: one ulp of x can move ||f|| by as much as tol).
+
 Launch counters are zeroed just before each main path and read just after.
 Every failure raises and exits non-zero. The last two lines are the kernel
 table as JSON and the result line {"ok": true, "device": {...}}.
@@ -118,7 +151,14 @@ from fem_simulation_tpu_torch.sim.cloth import ClothScene, ClothSim
 from fem_simulation_tpu_torch.sim.dynamic import DynamicSim
 from fem_simulation_tpu_torch.sim.picking import Picker
 from fem_simulation_tpu_torch.sim.scene import Scene
+from fem_simulation_tpu_torch.solvers import cg as cgmod
 from fem_simulation_tpu_torch.solvers import smoothers
+from fem_simulation_tpu_torch import entry
+from fem_simulation_tpu_torch.examples import batched_scenes
+from fem_simulation_tpu_torch.parallel import dist as pdist
+from fem_simulation_tpu_torch.parallel import halo as phalo
+from fem_simulation_tpu_torch.parallel import lattice_halo as plh
+from fem_simulation_tpu_torch.parallel import lattice_mg_dist as pmgd
 
 MU, LA = 250.0, 37.0
 TOL = 1e-4
@@ -159,6 +199,9 @@ ELL_BACKWARD = ("spmv_t", "outer", "jacobi_bwd")
 EXP_BEAM = (16, 16, 72)       # the exp2 / exp3 drivers' beam: 21,097 vertices
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
 # FLOP/s outside the tensor cores. Every kernel here computes in float32.
+SLABS10 = 4                   # phase 10: z-slabs, all on the one card
+FRAMES10 = 16
+NEWTON_FRAMES10 = 8
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # f32 FLOPs of the energy chain per cell (8 quad points: deformation 147,
@@ -989,7 +1032,7 @@ def two_passes(shape, device, fn):
         lk._hvp_plans[key] = own
 
 
-def diag_shift_err(where, u, dargs, got, ref, tol=1e-4):
+def diag_shift_err(where, u, dargs, got, ref, tol=1e-4, phase="phase7"):
     """lat_diag_shift's projected blocks against the plain chain's
     (hess_diag_shift_cf_plain): (max|d|, max|ref|, record), max|d| over the
     blocks where no rotation of either chain's projection meets an exact
@@ -1006,7 +1049,7 @@ def diag_shift_err(where, u, dargs, got, ref, tol=1e-4):
     n_tie, n_off = int(tie.sum()), int(off.sum())
     err = float(d[~tie].max()) if n_tie < tie.numel() else 0.0
     tie_err = float(d[tie].max()) if n_tie else 0.0
-    log(f"phase7 diag_shift {where}: {n_tie} blocks tie in a rotation of "
+    log(f"{phase} diag_shift {where}: {n_tie} blocks tie in a rotation of "
         f"either chain, max|d| there {tie_err:.3e}; {n_off} blocks off by "
         f"more than {tol} * max|ref| ({int((off & tie).sum())} of them "
         f"tied)")
@@ -1014,7 +1057,7 @@ def diag_shift_err(where, u, dargs, got, ref, tol=1e-4):
         i = tuple(int(v) for v in torch.nonzero(off)[0])
         k = [float(v) for v in raw_k[i].flatten()]
         p = [float(v) for v in raw_p[i].flatten()]
-        log(f"phase7 diag_shift {where} block {i} tied {bool(tie[i])}: raw "
+        log(f"{phase} diag_shift {where} block {i} tied {bool(tie[i])}: raw "
             f"kernel {k}; raw plain {p}; projected kernel "
             f"{got[(slice(None),) + i].tolist()}; plain "
             f"{ref[(slice(None),) + i].tolist()}")
@@ -2005,6 +2048,746 @@ def phase9(sc21, sc2k, sc21_cpu, steps=10):
     return results, launches
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+def slab_frames(step, blockify, slabs, sc, n):
+    """n frames of a distributed lattice step from rest: (Newton counts,
+    exit norms, x after every frame, (x, v) before every frame), the fields
+    whole."""
+    xb = blockify(sc.x0)
+    vb = blockify(torch.zeros_like(sc.x0))
+    ks, fns, xs, ins = [], [], [], []
+    for _ in range(n):
+        ins.append((slabs.gather(xb), slabs.gather(vb)))
+        xb, vb, k, fn = step(xb, vb)
+        ks.append(k)
+        fns.append(fn)
+        xs.append(slabs.gather(xb))
+    return ks, fns, xs, ins
+
+
+def within_policy(a, b) -> bool:
+    """||f||_inf a within 1e-3 relative + 5e-6 of b."""
+    return abs(a - b) <= 1e-3 * abs(b) + 5e-6
+
+
+def check_policy(label, ks, fns, xs, ks1, fns1, xs1):
+    """The float32 policy of the port's parity tests, frame by frame: equal
+    Newton counts, ||f||_inf within 1e-3 relative + 5e-6, x within 1e-4.
+    Each reference frame starts from the state the checked run gave that
+    frame (a float32 trajectory drifts, and near the tolerance a drifted
+    state can take one Newton iteration more). Returns (max |d fn|,
+    max |d x|)."""
+    check(list(ks) == list(ks1), f"{label}: Newton {ks} vs {ks1}")
+    dfn = max(abs(a - b) for a, b in zip(fns, fns1))
+    for a, b in zip(fns, fns1):
+        check(within_policy(a, b), f"{label}: ||f|| {a:.6e} vs {b:.6e}")
+    dx = max(float((torch.as_tensor(a).cpu() - torch.as_tensor(b).cpu())
+                   .abs().max()) for a, b in zip(xs, xs1))
+    check(dx <= 1e-4, f"{label}: max|d x| {dx:.3e} > 1e-4")
+    return dfn, dx
+
+
+def reference_frames(step, ins):
+    """(Newton counts, exit norms, x) of step(x, v) from each input."""
+    out = ([], [], [])
+    for x, v in ins:
+        for lst, val in zip(out, step(x, v)):
+            lst.append(val)
+    return out
+
+
+def _x_of(inputs):
+    """x of a frame's inputs ((x, v) or a state), on the host."""
+    x = inputs[0] if isinstance(inputs, tuple) else inputs.x
+    return torch.as_tensor(x).cpu()
+
+
+def trajectory_policy(label, got, ref, norm_at):
+    """Two runs of the same frames from rest, each on its own trajectory:
+    got and ref are (Newton counts, exit norms, x after every frame, the
+    inputs of every frame). x within 1e-4 at every frame. A frame where the
+    Newton counts differ or ||f||_inf is outside 1e-3 relative + 5e-6 is
+    taken apart with norm_at(code, inputs, j): ||f||_inf after j Newton
+    iterations of that frame run again from `inputs` by the checked code
+    ("got") or the reference's ("ref"). With k the smaller count: the
+    reference's code on the checked run's input gives the checked run's
+    norms within the ||f|| policy after every iteration up to k (the two
+    codes agree on one input, so the difference comes from the inputs),
+    where the counts differ the run that stopped at k is at or under tol
+    and the other above it, and the inputs are within 1e-4. Logs the norms
+    and the inputs' distance in ulps of max |x|. Returns (max|d x|, the
+    frames taken apart)."""
+    ks, fns, xs, ins = got
+    ks1, fns1, xs1, ins1 = ref
+    check(len(ks) == len(ks1), f"{label}: {len(ks)} vs {len(ks1)} frames")
+    tol32 = np.float32(TOL)
+    apart = []
+    for i in range(len(ks)):
+        if ks[i] == ks1[i] and within_policy(fns[i], fns1[i]):
+            continue
+        k = min(ks[i], ks1[i])
+        a = [norm_at("got", ins[i], j) for j in range(k + 1)]
+        b = [norm_at("ref", ins1[i], j) for j in range(k + 1)]
+        c = [norm_at("ref", ins[i], j) for j in range(k + 1)]
+        stopped, went_on = (a[k], b[k]) if ks[i] == k else (b[k], a[k])
+        converged = (ks[i] == ks1[i] or np.float32(stopped) <= tol32
+                     < np.float32(went_on))
+        same_code = all(within_policy(u, w) for u, w in zip(c, a))
+        xa, xb = _x_of(ins[i]), _x_of(ins1[i])
+        dx_in = max_err(xa, xb)
+        ulp = float(np.spacing(np.float32(xa.abs().max())))
+        log(f"{label} frame {i + 1}: Newton {ks[i]} vs {ks1[i]}; inputs "
+            f"max|d x| {dx_in:.3e} ({dx_in / ulp:.2f} ulp of max|x|); "
+            f"||f|| after 0..{k} iterations " + " ".join(
+                f"{v:.9e}" for v in a) + " vs " + " ".join(
+                f"{v:.9e}" for v in b) + " (tol "
+            f"{float(tol32):.9e}); the reference's code on the checked "
+            "input " + " ".join(f"{v:.9e}" for v in c))
+        check(converged and same_code and dx_in <= 1e-4,
+              f"{label} frame {i + 1}: Newton {ks[i]} vs {ks1[i]}: stopped "
+              f"at tol {converged}, one code on one input {same_code}, "
+              f"inputs max|d x| {dx_in:.3e}")
+        apart.append(dict(frame=i + 1, newton=[ks[i], ks1[i]],
+                          input_max_d_x=dx_in, input_ulps=dx_in / ulp,
+                          fn=[a, b], ref_code_on_checked_input=c))
+    dx = max(float((torch.as_tensor(a).cpu() - torch.as_tensor(b).cpu())
+                   .abs().max()) for a, b in zip(xs, xs1))
+    check(dx <= 1e-4, f"{label}: trajectory max|d x| {dx:.3e} > 1e-4")
+    return dx, apart
+
+
+def _diag_plain(x_cf, cell_mask, dx, mu, la):
+    return lk.hess_diag_lattice_plain(x_cf.permute(1, 2, 3, 0), cell_mask,
+                                      dx, mu, la)
+
+
+def _power_plain(u_cf, d6, ctrl, vert_mask, cell_mask, dx, mu, la, out=None,
+                 slot=0, iters=6):
+    return lk.power_lmax_cf_plain(u_cf, d6, ctrl, vert_mask, cell_mask, dx,
+                                  mu, la, iters=iters)
+
+
+# the wrappers that phase 10's main path calls: (module, attribute, the
+# kernel's row in the kernels line, its plain version on the same arguments,
+# the tolerance on max|d| / max|ref|: 1e-5 for the field operators, 1e-4
+# for lat_cheby's and lat_power's recurrences (as phase 7) and for the
+# energy, a sum over every cell (as phase 1))
+PATH_WRAPPERS = (
+    (lk, "force_cf", "force", lk.force_cf_plain, 1e-5),
+    (lk, "hvp_cf", "hvp", lk.hvp_cf_plain, 1e-5),
+    (lk, "level_matvec_cf", "hvp", lk.level_matvec_cf_plain, 1e-5),
+    (lk, "hess_diag_cf", "diag", _diag_plain, 1e-5),
+    (lk, "hess_diag_shift_cf", "diag_shift", lk.hess_diag_shift_cf_plain,
+     1e-5),
+    (lk, "cheby_smooth_cf", "cheby", lk.cheby_smooth_cf_plain, 1e-4),
+    (lk, "power_lmax_cf", "power", _power_plain, 1e-4),
+    (lk, "elastic_energy_lattice", "energy", lk.elastic_energy_lattice_plain,
+     1e-4),
+    (ek, "_spmv_rows", "spmv", ek.spmv_rows_plain, 1e-5),
+)
+# floats after each float input in its copy: a read past the end shows
+SENTINEL = 4096
+
+
+def _describe(a):
+    if torch.is_tensor(a):
+        return ("t",) + tuple(a.shape)
+    if isinstance(a, (list, tuple, np.ndarray)):
+        return ("seq", len(a))
+    return a
+
+
+def _fenced(a):
+    """A copy of a CUDA tensor; a float one in a buffer that goes on with
+    SENTINEL NaNs."""
+    if not torch.is_tensor(a):
+        return a
+    if not a.is_floating_point():
+        return a.detach().clone()
+    buf = torch.full((a.numel() + SENTINEL,), float("nan"), dtype=a.dtype,
+                     device=a.device)
+    out = buf[:a.numel()].view(a.shape)
+    out.copy_(a)
+    return out
+
+
+class PathCapture:
+    """While started, records the arguments of a call of each wrapper in
+    PATH_WRAPPERS at each distinct signature (shapes, scalars, the length
+    of a coefficient list) on CUDA tensors, as copies: the first call whose
+    first argument (the displacement, or the SpMV's values) is not all zero,
+    else the first call (at rest the force and the energy are zero on both
+    sides). The call itself goes on unchanged (it launches and counts as
+    before). check() then runs each wrapper's kernel and plain version on
+    the copies."""
+
+    def __init__(self):
+        self.calls = {}
+        self.saved = []
+
+    def start(self):
+        for mod, attr, row, plain, rtol in PATH_WRAPPERS:
+            orig = getattr(mod, attr)
+            self.saved.append((mod, attr, orig))
+            setattr(mod, attr, self._wrap(orig, attr, row, plain, rtol))
+
+    def stop(self):
+        for mod, attr, orig in reversed(self.saved):
+            setattr(mod, attr, orig)
+        self.saved = []
+
+    def _wrap(self, orig, attr, row, plain, rtol):
+        def wrapper(*args, **kwargs):
+            if any(torch.is_tensor(a) and a.is_cuda for a in args):
+                key = ((attr,) + tuple(_describe(a) for a in args)
+                       + tuple((k, _describe(v))
+                               for k, v in sorted(kwargs.items())))
+                if key not in self.calls or (
+                        self.calls[key][7] and bool(args[0].any())):
+                    self.calls[key] = (
+                        attr, orig, row, plain, rtol,
+                        tuple(_fenced(a) for a in args),
+                        {k: _fenced(v) for k, v in kwargs.items()},
+                        not bool(args[0].any()))
+            return orig(*args, **kwargs)
+        return wrapper
+
+    def shapes(self, attr):
+        """The vertex grids (or (N, K, r0, r1) of the SpMV) `attr` ran at."""
+        return {_grid_of(attr, c[5]) for c in self.calls.values()
+                if c[0] == attr}
+
+    def check(self, rows):
+        """Every recorded call's kernel against its plain version, with the
+        plan each ran; the rows' max_abs_err and by_path_shape updated.
+        Returns the number of signatures checked."""
+        lib = _cuda.load()
+        level = {"cheby_smooth_cf": lk.CHEBY,
+                 "hess_diag_shift_cf": lk.DIAG_SHIFT,
+                 "power_lmax_cf": lk.POWER}
+        for attr, orig, row, plain, rtol, args, kwargs, rest in \
+                self.calls.values():
+            grid = _grid_of(attr, args)
+            dev = args[0].device
+            if attr == "force_cf":
+                plan = _plan_text(lk._force_plan(*grid, dev))
+            elif attr in ("hvp_cf", "level_matvec_cf"):
+                plan = _plan_text(lk._hvp_plan(*grid, dev))
+            elif attr in level:
+                plan = _plan_text(lk._level_plan(lib, *grid, dev,
+                                                 level[attr]))
+            elif attr == "elastic_energy_lattice":
+                plan = "grid {} lanes {}".format(
+                    *lk.energy_plan(*grid, lk._sms(dev.index)))
+            else:
+                plan = "two passes and a gather" if row == "diag" else None
+            got = orig(*args, **kwargs)
+            ref = plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            pairs = (list(zip(got, ref)) if isinstance(got, tuple)
+                     else [(got, ref)])
+            err = scale = 0.0
+            for g_, r_ in pairs:
+                check(bool(torch.isfinite(g_).all()),
+                      f"phase10 {attr} at {grid}: non-finite output")
+                if attr == "hess_diag_shift_cf" and kwargs.get(
+                        "project", args[7] if len(args) > 7 else True):
+                    e_, s_, _ = diag_shift_err(
+                        f"phase10 path {grid}", args[0], args[1:7], g_, r_,
+                        tol=rtol, phase="phase10")
+                else:
+                    e_, s_ = max_err(g_, r_), float(r_.abs().max())
+                err, scale = max(err, e_), max(scale, s_)
+            check(err <= rtol * scale, f"phase10 {attr} at {grid}: max|d| "
+                  f"{err:.3e} > {rtol} * {scale:.3e}")
+            rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"], err)
+            rows[row].setdefault("by_path_shape", []).append(dict(
+                wrapper=attr, shape=list(grid), max_abs_err=err,
+                max_ref=scale, plan=plan, at_rest=rest))
+            log(f"phase10 path shape {attr:22s} {str(grid):18s} max|d| "
+                f"{err:.3e} (max|ref| {scale:.3e}, tolerance {rtol:g})"
+                + (" at rest, the only call" if rest else "")
+                + ("" if plan is None else f"  plan {plan}"))
+        return len(self.calls)
+
+
+def _grid_of(attr, args):
+    if attr == "_spmv_rows":
+        return tuple(args[0].shape[:2]) + (int(args[4]), int(args[5]))
+    if attr == "elastic_energy_lattice":
+        return tuple(args[0].shape[:3])
+    return tuple(args[0].shape[1:])
+
+
+def phase10_operators(sc, rows, reps):
+    """lat_force, lat_hvp and lat_diag on 4 z-slabs of the 74k beam (the
+    slabs share the card), exchanged and folded, against the same kernels
+    on the whole lattice (max|d| <= 1e-5 max|ref|); whether one slab gives
+    the whole lattice's bits; each kernel's time at the slab shape beside
+    its plain version and its bound; the exchange of one matvec."""
+    rng = np.random.default_rng(10)
+    vm3 = sc.vert_mask[..., None]
+    u = torch.from_numpy(0.03 * rng.standard_normal(sc.x0.shape).astype(
+        np.float32)).to(sc.device) * vm3
+    p = torch.from_numpy(rng.standard_normal(sc.x0.shape).astype(
+        np.float32)).to(sc.device)
+    x = sc.x0 + u
+    u_cf = (x - sc.x0).permute(3, 0, 1, 2).contiguous()
+    p_cf = p.permute(3, 0, 1, 2).contiguous()
+    cm = sc.cell_mask
+    whole = {"force": lambda: lk.force_cf(u_cf, cm, DX, MU, LA),
+             "hvp": lambda: lk.hvp_cf(u_cf, p_cf, cm, DX, MU, LA),
+             "diag": lambda: lk.hess_diag_cf(u_cf, cm, DX, MU, LA)}
+    ref = {"force": whole["force"]().permute(1, 2, 3, 0),
+           "hvp": whole["hvp"]().permute(1, 2, 3, 0),
+           "diag": whole["diag"]()}
+    out = {}
+    for D in (SLABS10, 1):
+        grid = pdist.make_device_mesh(D, dp=1)
+        slabs = plh.LatticeSlabs(sc, D, grid)
+        xb, pb = slabs.scatter(x), slabs.scatter(p)
+        ops = plh.SlabOps(slabs, grid, "sp", MU, LA)
+        dist_ops = {"force": lambda: ops.force(ops.disp(xb)),
+                    "hvp": lambda: ops.hvp(ops.disp(xb), pb),
+                    "diag": lambda: ops.diag(ops.disp(xb))}
+        got = {"force": slabs.gather(dist_ops["force"]()),
+               "hvp": slabs.gather(dist_ops["hvp"]()),
+               "diag": lk.sym_blocks(slabs.gather(dist_ops["diag"]())
+                                     .permute(3, 0, 1, 2))}
+        torch.cuda.synchronize()
+        if D == 1:
+            bits = {name: bool(torch.equal(got[name], ref[name]))
+                    for name in ref}
+            log(f"phase10 one slab: bit-equal to the whole lattice "
+                + " ".join(f"{n} {b}" for n, b in bits.items()))
+            out["one_slab_bits"] = bits
+            continue
+        blk = xb[0]
+        log(f"phase10 grid {grid}: D {D} n_own {slabs.n_own} Zp {slabs.Zp} "
+            f"slab {tuple(blk.shape)} ({blk.shape[1]}x{blk.shape[2]}x"
+            f"{blk.shape[3]} vertices) cells {tuple(ops.cells[0].shape)}")
+        for name in ref:
+            err = max_err(got[name], ref[name])
+            scale = float(ref[name].abs().max())
+            check(err <= 1e-5 * scale, f"phase10 {name}: max|d| {err:.3e} > "
+                  f"1e-5 * {scale:.3e}")
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            log(f"phase10 {name:5s} {D} slabs vs whole lattice max|d| "
+                f"{err:.3e} (max|ref| {scale:.3e})")
+        # one halo matvec: 4 plane shifts, one plane a slab each
+        u_ext = ops.disp(xb)
+        pdist.reset_counts()
+        ops.hvp(u_ext, pb)
+        c = dict(pdist.counts)
+        check(c["planes"] == 4 * D, f"phase10 matvec planes {c}")
+        log(f"phase10 exchange of one matvec: {c['shift']} shifts, "
+            f"{c['planes'] // D} planes a slab, {c['bytes']} bytes between "
+            "slabs")
+        out["matvec_exchange"] = c
+        # each kernel at the slab shape (the first slab's extended block)
+        cm0 = ops.cells[0]
+        u0 = u_ext[0]
+        p0 = plh.refresh(pb)[0]
+        slab_sc = type("Slab", (), {"vert_mask": blk[0], "cell_mask": cm0})
+        bounds = lattice_bounds(slab_sc, 1)
+        cases = {
+            "force": (lambda: lk.force_cf(u0, cm0, DX, MU, LA),
+                      lambda: lk.force_cf_plain(u0, cm0, DX, MU, LA)),
+            "hvp": (lambda: lk.hvp_cf(u0, p0, cm0, DX, MU, LA),
+                    lambda: lk.hvp_cf_plain(u0, p0, cm0, DX, MU, LA)),
+            "diag": (lambda: lk.hess_diag_cf(u0, cm0, DX, MU, LA),
+                     lambda: lk.hess_diag_lattice_plain(
+                         u0.permute(1, 2, 3, 0), cm0, DX, MU, LA)),
+        }
+        for name, (kern, plain) in cases.items():
+            err = max_err(kern(), plain())
+            scale = float(plain().abs().max())
+            check(err <= 1e-4 * scale, f"phase10 {name} slab: max|d| "
+                  f"{err:.3e}")
+            ms = cuda_ms(kern, reps)
+            plain_ms = cuda_ms(plain, max(reps // 2, 3), warmup=1)
+            dist_ms = cuda_ms(dist_ops[name], max(reps // 2, 3))
+            whole_ms = cuda_ms(whole[name], max(reps // 2, 3))
+            b_ms, b_by = bounds[name]
+            plan = (lk._force_plan if name == "force" else lk._hvp_plan)(
+                *blk.shape[1:], blk.device) if name != "diag" else None
+            rows[name]["by_slab"] = dict(
+                shape=list(blk.shape[1:]), slabs=D, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                dist_op_ms=dist_ms, whole_lattice_ms=whole_ms,
+                plan=None if plan is None else _plan_text(plan))
+            log(f"phase10 time {name:5s} slab {tuple(blk.shape[1:])} kernel "
+                f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms "
+                f"({b_by})  max|d| {err:.3e}; {D}-slab op with exchange "
+                f"{dist_ms:.4f} ms vs whole lattice {whole_ms:.4f} ms"
+                + ("" if plan is None else f"; plan {_plan_text(plan)}"))
+    return out
+
+
+def phase10_path(scenes, uscenes, rows):
+    """The distributed paths on 4 z-slabs sharing the card, counters zeroed
+    just before and read just after, the arguments of every kernel wrapper
+    they call recorded at each shape (PathCapture); then every recorded
+    call's kernel against its plain version, and the references (the same
+    code on one slab, the whole-lattice and whole-mesh solvers): each frame
+    from the state the distributed run gave it, and each run's trajectory
+    from rest against the reference's own (trajectory_policy)."""
+    sc74, sc19, usc19, usc2 = (scenes["74k"], scenes["19k"], uscenes["19k"],
+                               uscenes["2k"])
+    grid = pdist.make_device_mesh(SLABS10, dp=1)
+    res = {"grid": repr(grid)}
+    t0 = time.perf_counter()
+    # the distributed objects: host tables built before the counters
+    slabs = plh.LatticeSlabs(sc74, SLABS10, grid)
+    step, blockify = plh.make_dist_step(slabs, grid)
+    solve, place_q = pmgd.make_dist_mg_quasistatic(sc19, grid, n_levels=3,
+                                                   tol=TOL, max_newton=100)
+    solve8, _ = pmgd.make_dist_mg_quasistatic(sc19, grid, n_levels=3, tol=TOL,
+                                              max_newton=100,
+                                              min_planes_per_dev=8)
+    step_mg, place = pmgd.make_dist_mg_step(sc19, grid, n_levels=3)
+    part = phalo.partition_slabs(usc19.hier.levels[0], SLABS10)
+    nstep = phalo.make_dist_newton_step(usc19, part, grid, tol=TOL)
+    matvec, scatter, gather = phalo.make_dist_matvec(part, grid)
+    grid_b = pdist.make_device_mesh(4)
+    bstep, bparams, bstate = pdist.make_batched_step(usc2, grid_b, 8)
+    vals = qs.assemble_elastic(usc19, usc19.params, 0, usc19.x0)
+    p0 = usc19.params["levels"][0]
+    eye2 = 2.0 * torch.eye(3, device=vals.device).expand(vals.shape[0], 3, 3)
+    vals = ell.add_to_diag(vals, p0["diag_slot"], eye2)
+    full = vals * p0["mask"][..., None, None]
+    rng = np.random.default_rng(12)
+    xr = torch.from_numpy(rng.standard_normal((vals.shape[0], 3)).astype(
+        np.float32)).to(vals.device)
+    log(f"phase10 tables built in {time.perf_counter() - t0:.1f} s; "
+        "multigrid levels "
+        + " ".join(f"{tuple(lv.vert_mask.shape)}{'*' if s else ''}"
+                   for lv, s in zip(solve.mg.levels, solve.mg.level_specs))
+        + " (* sharded); with 8 planes a slab: "
+        + " ".join('sharded' if s else 'replicated'
+                   for s in solve8.mg.level_specs))
+    # one traced frame for the device ops (not counted)
+    xb0, vb0 = blockify(sc74.x0), blockify(torch.zeros_like(sc74.x0))
+    ops74 = whole_trace(lambda: step(xb0, vb0), 1, 1)
+    torch.cuda.synchronize()
+
+    cap = PathCapture()
+    lk.reset_launches()
+    ek.reset_launches()
+    for name in ell.cuda_calls:
+        ell.cuda_calls[name] = 0
+    pdist.reset_counts()
+    cap.start()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # 1. the lattice halo step at 74k
+    before = dict(lk.launches)
+    start.record()
+    got74 = slab_frames(step, blockify, slabs, sc74, FRAMES10)
+    end.record()
+    torch.cuda.synchronize()
+    ms74 = start.elapsed_time(end) / FRAMES10
+    ex74 = dict(pdist.counts)
+    ks, fns = got74[0], got74[1]
+    check(max(fns) <= 1.01 * TOL, f"phase10 dist step: ||f|| {max(fns):.3e}")
+    newton = sum(ks)
+    per = {n: (lk.launches[n] - before[n]) / FRAMES10
+           for n in ("force", "hvp", "diag")}
+    check(min(per.values()) > 0, f"phase10 dist step launches {per}")
+    res["dist_step"] = dict(
+        ms_per_frame=ms74, newton=ks, fn_max=max(fns), device_ops=round(sum(
+            n for n, _ in ops74.values())), launches_per_frame=per,
+        per_newton={k: v / newton for k, v in ex74.items()})
+    log(f"phase10 dist step 74k {SLABS10} slabs {FRAMES10} frames: ms/frame "
+        f"{ms74:.2f} (CUDA events)  newton {ks}  max||f|| {max(fns):.3e}  "
+        f"device ops in frame 1 {res['dist_step']['device_ops']}  launches "
+        "a frame " + " ".join(f"{n} {v:.1f}" for n, v in per.items()))
+    log("phase10 dist step exchange a Newton iteration: " + " ".join(
+        f"{k} {v / newton:.1f}" for k, v in ex74.items()))
+
+    # 2. the distributed multigrid at 19k
+    pdist.reset_counts()
+    calls0 = dict(solve.mg.calls)
+    before = dict(lk.launches)
+    start.record()
+    xq, kq, fq = solve(place_q(sc19.x0))
+    end.record()
+    torch.cuda.synchronize()
+    ms_q = start.elapsed_time(end)
+    check(fq <= TOL, f"phase10 dist MG quasistatic: ||f|| {fq:.3e}")
+    mv = solve.mg.calls["matvec"] - calls0["matvec"]
+    lq = {n: lk.launches[n] - before[n] for n in
+          ("hvp", "diag", "cheby", "diag_shift", "power")}
+    check(lq["hvp"] == SLABS10 * mv and lq["cheby"] == lq["power"] == 0,
+          f"phase10 dist MG launches {lq}, {mv} sharded matvecs")
+    log(f"phase10 dist MG quasistatic 19k: newton {kq} ||f|| {fq:.3e} ms "
+        f"{ms_q:.1f} (CUDA events)  sharded matvecs {mv} -> lat_hvp "
+        f"{lq['hvp']}, lat_diag {lq['diag']}; replicated-level kernels cheby "
+        f"{lq['cheby']} power {lq['power']} diag_shift {lq['diag_shift']}; "
+        "exchange " + " ".join(f"{k} {v}" for k, v in pdist.counts.items()))
+    before = dict(lk.launches)
+    x8, k8, f8 = solve8(place_q(sc19.x0))
+    check(f8 <= TOL, f"phase10 dist MG (8 planes): ||f|| {f8:.3e}")
+    l8 = {n: lk.launches[n] - before[n] for n in
+          ("hvp", "cheby", "diag_shift", "power")}
+    check(l8["cheby"] > 0 and l8["power"] > 0 and l8["diag_shift"] > 0,
+          f"phase10 replicated coarsest launched {l8}")
+    log(f"phase10 dist MG quasistatic 19k, coarsest replicated: newton {k8} "
+        f"||f|| {f8:.3e}  launches " + " ".join(f"{n} {v}"
+                                                for n, v in l8.items()))
+    got_mg = ([], [], [], [])
+    ins_mg = got_mg[3]
+    st = place(sc19.init_state())
+    start.record()
+    for _ in range(FRAMES10):
+        ins_mg.append(st)
+        st, k, fn = step_mg(st)
+        for lst, v in zip(got_mg, (k, fn, st.x)):
+            lst.append(v)
+    end.record()
+    torch.cuda.synchronize()
+    ms_mg = start.elapsed_time(end) / FRAMES10
+    check(max(got_mg[1]) <= TOL, "phase10 dist MG step missed tol")
+    log(f"phase10 dist MG step 19k {FRAMES10} frames: ms/frame {ms_mg:.2f}  "
+        f"newton {got_mg[0]}  max||f|| {max(got_mg[1]):.3e}; sharded calls "
+        f"{step_mg.mg.calls}")
+
+    # 3. the unstructured halo path at 19k
+    om = [torch.from_numpy(part.own_mask[d]).to(xr.device)[:, None]
+          for d in range(SLABS10)]
+    vl = matvec.prepare([vals[torch.from_numpy(part.own_global[d]).long()
+                              .to(vals.device)] for d in range(SLABS10)])
+    y = gather(matvec(vl, scatter(xr)))
+    xs_cg = gather(phalo.dist_cg(lambda v: matvec(vl, v),
+                                 [b * m for b, m in zip(scatter(xr), om)],
+                                 grid, iterations=40, tol=1e-6))
+    got_u = ([], [], [], [])
+    ins_u = got_u[3]
+    n_u = usc19.hier.levels[0].n_verts
+    x_sh = phalo.slab_scatter(part, usc19.x0, grid.line("sp"))
+    v_sh = [torch.zeros_like(a) for a in x_sh]
+    start.record()
+    for _ in range(NEWTON_FRAMES10):
+        ins_u.append((phalo.slab_gather(part, x_sh, n_u),
+                      phalo.slab_gather(part, v_sh, n_u)))
+        x_sh, v_sh, k, fn = nstep(x_sh, v_sh)
+        for lst, v in zip(got_u, (k, fn, phalo.slab_gather(part, x_sh, n_u))):
+            lst.append(v)
+    end.record()
+    torch.cuda.synchronize()
+    ms_u = start.elapsed_time(end) / NEWTON_FRAMES10
+    check(max(got_u[1]) <= 1.01 * TOL, "phase10 dist Newton missed tol")
+    log(f"phase10 dist unstructured Newton 19k {NEWTON_FRAMES10} frames: "
+        f"ms/frame {ms_u:.2f}  newton {got_u[0]}  max||f|| "
+        f"{max(got_u[1]):.3e}")
+
+    # 4. the dp batch: 8 scenes of the 8x8x24 beam on a 2 x 2 grid
+    xbt = pdist.stack_batch(bstep(bparams, bstate)).x
+    ms_b, fns_b = batched_scenes.main(["--frames", "10", "--n-devices", "4"])
+
+    # 5. the dry run of the six programs on 4 slabs
+    lines = entry.dryrun_multichip(SLABS10)
+    torch.cuda.synchronize()
+    cap.stop()
+    launches = {**dict(lk.launches), **dict(ek.launches)}
+    check(ek.launches["spmv"] == ell.cuda_calls["spmv"] > 0,
+          f"phase10 spmv launches {ek.launches['spmv']} vs calls "
+          f"{ell.cuda_calls['spmv']}")
+    log("phase10 kernel launches " + json.dumps(launches))
+
+    # every kernel at every shape the path gave it, against its plain
+    # version; first, that the shapes the distributed solvers build are
+    # among them: the 74k slabs, each sharded multigrid level's slabs, the
+    # replicated coarsest level (8 planes a slab), the halo rows
+    t0 = time.perf_counter()
+    slab74 = (sc74.shape[0], sc74.shape[1], slabs.n_own + 2)
+    want = {a: {slab74} for a in ("force_cf", "hvp_cf")}
+    want["hess_diag_cf"] = {slab74}
+    want["level_matvec_cf"] = set()
+    for mg in (solve.mg, step_mg.mg):
+        for li, lvl in enumerate(mg.levels):
+            X, Y, Z = lvl.vert_mask.shape
+            if mg.sharded(li):
+                sl = (X, Y, Z // mg.n_sp + 2)
+                want["level_matvec_cf"].add(sl)
+                want["hess_diag_cf"].add(sl)
+    for li, lvl in enumerate(solve8.mg.levels):
+        if not solve8.mg.sharded(li):
+            for a in ("cheby_smooth_cf", "power_lmax_cf",
+                      "hess_diag_shift_cf"):
+                want.setdefault(a, set()).add(tuple(lvl.vert_mask.shape))
+    n_rows = part.n_own + part.n_halo + 1
+    halo_rows = {(n_rows, vals.shape[1], 0, part.n_own)}
+    for attr, grids in want.items():
+        check(grids <= cap.shapes(attr), f"phase10 {attr}: the path ran at "
+              f"{sorted(cap.shapes(attr))}, not at {sorted(grids)}")
+    check(halo_rows <= cap.shapes("_spmv_rows"),
+          f"phase10 spmv: halo rows {halo_rows} not among "
+          f"{sorted(cap.shapes('_spmv_rows'))}")
+    n_sig = cap.check(rows)
+    log(f"phase10 path shapes: {n_sig} wrapper signatures, each kernel "
+        "against its plain version on inputs followed by "
+        f"{SENTINEL} NaNs, in {time.perf_counter() - t0:.1f} s")
+    res["path_shapes"] = n_sig
+
+    # -- the references, after the counters were read ------------------------
+    t0 = time.perf_counter()
+    grid1 = pdist.make_device_mesh(1, dp=1)
+    slabs1 = plh.LatticeSlabs(sc74, 1, grid1)
+    step1, blockify1 = plh.make_dist_step(slabs1, grid1)
+
+    def one_slab(x, v):
+        xb, _, k, fn = step1(blockify1(x), blockify1(v))
+        return k, fn, slabs1.gather(xb)
+    dfn, dx = check_policy("phase10 dist step 4 vs 1 slab", *got74[:3],
+                           *reference_frames(one_slab, got74[3]))
+    res["dist_step"].update(max_d_fn=dfn, max_d_x=dx)
+    log(f"phase10 dist step vs the same code on 1 slab, frame by frame: "
+        f"Newton equal, max|d fn| {dfn:.3e} max|d x| {dx:.3e}")
+    ref74 = slab_frames(step1, blockify1, slabs1, sc74, FRAMES10)
+    capped = {}
+
+    def norm74(code, ins, j):
+        sl, gr = (slabs, grid) if code == "got" else (slabs1, grid1)
+        if (code, j) not in capped:
+            capped[code, j] = plh.make_dist_step(sl, gr, max_newton=j)
+        st_j, bl = capped[code, j]
+        return st_j(bl(ins[0]), bl(ins[1]))[3]
+    tx, splits = trajectory_policy(
+        "phase10 dist step trajectory 4 vs 1 slab", got74, ref74, norm74)
+    res["dist_step"].update(trajectory=dict(newton_1slab=ref74[0],
+                                            max_d_x=tx, taken_apart=splits))
+    log(f"phase10 dist step trajectory from rest, 4 vs 1 slab: newton "
+        f"{got74[0]} vs {ref74[0]}, max|d x| {tx:.3e}, {len(splits)} frames "
+        "taken apart")
+
+    mg_q = tmg.LatticeMG(sc19, n_levels=3, dt=None, z_multiple=SLABS10)
+    ref_q = tmg.quasistatic_to_tol_mg(sc19, mg_q, sc19.x0, tol=TOL,
+                                      max_newton=100)
+    dq = check_policy("phase10 dist MG quasistatic", [kq], [fq], [xq],
+                      [ref_q[1]], [ref_q[2]], [ref_q[0]])
+    d8 = check_policy("phase10 dist MG quasistatic, replicated coarsest",
+                      [k8], [f8], [x8], [ref_q[1]], [ref_q[2]], [ref_q[0]])
+    mg_d = tmg.LatticeMG(sc19, n_levels=3, z_multiple=SLABS10)
+
+    def whole_mg(x, v):
+        st1, k, fn = tmg.step_to_tol_mg(sc19, mg_d, x, tol=TOL)
+        return k, fn, st1.x
+    dmg = check_policy("phase10 dist MG step", *got_mg[:3],
+                       *reference_frames(whole_mg,
+                                         [(st, None) for st in ins_mg]))
+    ref_mg = ([], [], [], [])
+    st = sc19.init_state()
+    for _ in range(FRAMES10):
+        ref_mg[3].append(st)
+        st, k, fn = tmg.step_to_tol_mg(sc19, mg_d, st, tol=TOL)
+        for lst, v in zip(ref_mg, (k, fn, st.x)):
+            lst.append(v)
+
+    def norm_mg(code, st, j):
+        return tmg.step_to_tol_mg(sc19, step_mg.mg if code == "got" else
+                                  mg_d, st, tol=TOL, max_newton=j)[2]
+    tmgx, splits_mg = trajectory_policy(
+        "phase10 dist MG step trajectory vs LatticeMG", got_mg, ref_mg,
+        norm_mg)
+    log(f"phase10 dist MG vs LatticeMG (z_multiple {SLABS10}): quasistatic "
+        f"newton {kq} / {k8} vs {ref_q[1]}, ||f|| {fq:.3e} / {f8:.3e} vs "
+        f"{ref_q[2]:.3e}, max|d x| {dq[1]:.3e} / {d8[1]:.3e}; step frame by "
+        f"frame max|d fn| {dmg[0]:.3e} max|d x| {dmg[1]:.3e}")
+    res["dist_mg"] = dict(
+        quasistatic=dict(newton=kq, fn=fq, ms=ms_q, sharded_matvecs=mv,
+                         launches=lq, max_d_x=dq[1]),
+        replicated_coarsest=dict(newton=k8, fn=f8, launches=l8,
+                                 max_d_x=d8[1]),
+        step=dict(ms_per_frame=ms_mg, newton=got_mg[0],
+                  fn_max=max(got_mg[1]), max_d_fn=dmg[0], max_d_x=dmg[1],
+                  sharded_calls=dict(step_mg.mg.calls),
+                  trajectory=dict(newton_whole=ref_mg[0], max_d_x=tmgx,
+                                  taken_apart=splits_mg)))
+    log(f"phase10 dist MG step trajectory from rest vs LatticeMG: newton "
+        f"{got_mg[0]} vs {ref_mg[0]}, max|d x| {tmgx:.3e}, {len(splits_mg)} "
+        "frames taken apart")
+
+    ref_y = ell.spmv(full, p0["nbr"], p0["mask"], xr)
+    ey = max_err(y, ref_y)
+    check(ey <= 1e-5 * float(ref_y.abs().max()), f"phase10 dist spmv {ey}")
+    ref_cg = cgmod.cg_operator(lambda v: ell.spmv(full, p0["nbr"], p0["mask"],
+                                                  v), xr, iterations=40,
+                               tol=1e-12)
+
+    def rel_res(xx):
+        r = xr - ell.spmv(full, p0["nbr"], p0["mask"], xx)
+        return float(torch.linalg.norm(r) / torch.linalg.norm(xr))
+    r_d, r_w = rel_res(xs_cg), rel_res(ref_cg)
+    check(r_d <= 1.05 * r_w + 1e-6, f"phase10 dist CG residual {r_d:.3e} vs "
+          f"{r_w:.3e}")
+    zero = torch.zeros(n_u, dtype=torch.float32, device=usc19.device)
+
+    def whole_mesh(x, v):
+        x = torch.from_numpy(x).to(usc19.device)
+        st0 = dynamic.DynState(x=x, v=torch.from_numpy(v).to(usc19.device),
+                               drag_mask=zero, drag_pos=usc19.x0)
+        st1, k, fn = dynamic.step_to_tol(usc19, usc19.params, st0, tol=TOL,
+                                         max_newton=20, matrix_free=True)
+        return k, fn, st1.x
+    du = check_policy("phase10 dist unstructured Newton", *got_u[:3],
+                      *reference_frames(whole_mesh, ins_u))
+    ref_u = ([], [], [], [])
+    st = dynamic.init_state(usc19)
+    for _ in range(NEWTON_FRAMES10):
+        ref_u[3].append((st.x.cpu().numpy(), st.v.cpu().numpy()))
+        st, k, fn = dynamic.step_to_tol(usc19, usc19.params, st, tol=TOL,
+                                        max_newton=20, matrix_free=True)
+        for lst, val in zip(ref_u, (k, fn, st.x)):
+            lst.append(val)
+
+    capped_u = {}
+
+    def norm_u(code, ins, j):
+        x, v = (torch.from_numpy(a).to(usc19.device) for a in ins)
+        if code == "ref":
+            st0 = dynamic.DynState(x=x, v=v, drag_mask=zero,
+                                   drag_pos=usc19.x0)
+            return dynamic.step_to_tol(usc19, usc19.params, st0, tol=TOL,
+                                       max_newton=j, matrix_free=True)[2]
+        if j not in capped_u:
+            capped_u[j] = phalo.make_dist_newton_step(usc19, part, grid,
+                                                      tol=TOL, max_newton=j)
+        step_j, sh = capped_u[j], grid.line("sp")
+        return step_j(phalo.slab_scatter(part, x, sh),
+                      phalo.slab_scatter(part, v, sh))[3]
+    tux, splits_u = trajectory_policy(
+        "phase10 dist unstructured Newton trajectory vs step_to_tol", got_u,
+        ref_u, norm_u)
+    log(f"phase10 dist unstructured Newton trajectory from rest vs "
+        f"step_to_tol(matrix_free): newton {got_u[0]} vs {ref_u[0]}, "
+        f"max|d x| {tux:.3e}, {len(splits_u)} frames taken apart")
+    log(f"phase10 dist spmv 19k max|d| {ey:.3e}; dist CG 40 iterations "
+        f"relative residual {r_d:.3e} (whole mesh {r_w:.3e}); dist Newton vs "
+        f"step_to_tol(matrix_free) frame by frame max|d fn| {du[0]:.3e} "
+        f"max|d x| {du[1]:.3e}")
+    res["dist_unstructured"] = dict(spmv_err=ey, cg_rel_res=r_d,
+                                    ms_per_frame=ms_u, newton=got_u[0],
+                                    fn_max=max(got_u[1]), max_d_x=du[1],
+                                    trajectory=dict(newton_whole=ref_u[0],
+                                                    max_d_x=tux,
+                                                    taken_apart=splits_u))
+
+    ref_b = dynamic.step(usc2, usc2.params, dynamic.init_state(usc2)).x
+    same = all(bool(torch.equal(xbt[i], xbt[0])) for i in range(8))
+    check(same and bool(torch.equal(xbt[0], ref_b)),
+          "phase10 batched step: entries differ or differ from one step")
+    log(f"phase10 batched step: 8 scenes on {grid_b.shape}, entries "
+        "identical and equal to the single-scene step; batched_scenes "
+        f"{ms_b:.2f} ms a batched frame, max||f|| {float(fns_b.max()):.3e}")
+    res["batched"] = dict(ms_per_batched_frame=ms_b,
+                          fn_max=float(fns_b.max()))
+    res["dryrun"] = lines
+    log(f"phase10 references in {time.perf_counter() - t0:.1f} s")
+    return res, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -2078,6 +2861,12 @@ def main() -> int:
     for name in ELL_BACKWARD:
         counts[name] = counts9[name]
 
+    results10 = phase10_operators(scenes["74k"], rows, reps=20)
+    path10, counts10 = phase10_path(scenes, uscenes, rows)
+    results10.update(path10)
+    for name in counts:
+        counts[name] += counts10.get(name, 0)
+
     summary = {label: {k: v for k, v in r.items() if k != "state8"}
                for label, r in results.items()}
     log("phase2 summary " + json.dumps(summary))
@@ -2085,6 +2874,7 @@ def main() -> int:
     log("phase7 summary " + json.dumps(results7))
     log("phase8 summary " + json.dumps(results8))
     log("phase9 summary " + json.dumps(results9))
+    log("phase10 summary " + json.dumps(results10))
     log(f"phase3 max|dx| {err3:.3e}  phase6 max rel |d f| {rel6:.3e} "
         f"max|d x| {err6:.3e}  phase7 max rel |d f| {rel7:.3e}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2119,6 +2909,10 @@ def main() -> int:
                "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
                "bound_by": at["bound_by"],
                "library_ms": at.get("library_ms"), "by_beam": r["by_beam"]}
+        if "by_slab" in r:           # phase 10: at the 74k slab shape
+            out["by_slab"] = r["by_slab"]
+        if "by_path_shape" in r:     # phase 10: every shape of its path
+            out["by_path_shape"] = r["by_path_shape"]
         if "by_cloth" in r:          # phase 8: at the cloth Hessians
             out["by_cloth"] = r["by_cloth"]
         if name in ELL_BACKWARD:     # phase 9: every shape it ran at

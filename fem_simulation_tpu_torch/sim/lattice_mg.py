@@ -109,12 +109,15 @@ class LatticeMG:
     coarse_cg > 0 solves the coarsest level with that many block-Jacobi
     PCG iterations instead of coarse_sweeps Chebyshev sweeps (the outer
     PCG is then flexible). spd_smoother projects the smoother's diagonal
-    blocks onto SPD (the operator itself is left as it is)."""
+    blocks onto SPD (the operator itself is left as it is). z_multiple > 1
+    pads z so that every level's z extent is a multiple of it (the
+    distributed multigrid's slabs); 1 keeps the odd extents."""
 
     def __init__(self, scene: LatticeScene, n_levels: int = 3, nu: int = 2,
                  coarse_sweeps: int = 12,
                  dt: float | None = DynamicsConfig().dt,
-                 coarse_cg: int = 0, spd_smoother: bool = True):
+                 coarse_cg: int = 0, spd_smoother: bool = True,
+                 z_multiple: int = 1):
         self.scene = scene
         self.nu = nu
         self.coarse_sweeps = coarse_sweeps
@@ -124,42 +127,71 @@ class LatticeMG:
         mat = scene.material
         dev = scene.device
 
-        # built on the host in float32, then moved: every level's vertex
-        # grid padded to odd extents (the 2n-1 transfers)
-        vm = scene.vert_mask.cpu()
-        mass = scene.mass.cpu()
-        ctrl = mat.control_mag * scene.pin_mask.cpu()
+        # built on the host in float32, then moved. z_multiple == 1: every
+        # level's vertex grid padded to odd extents (the 2n-1 transfers).
+        # z_multiple > 1 (the distributed multigrid): z padded to a multiple
+        # of z_multiple * 2^(n_levels-1) instead, so that every level's z
+        # extent splits evenly over z_multiple slabs; z then halves exactly
+        # a level (the even-grid transfers of stencil.prolong_lat), x and y
+        # stay odd.
+        vm0 = scene.vert_mask.cpu()
+        mass0 = scene.mass.cpu()
+        ctrl0 = mat.control_mag * scene.pin_mask.cpu()
         if dt is not None:
-            ctrl = ctrl + mass * (1.0 / dt) ** 2
-        tgt = tuple(_odd(n) for n in vm.shape)
-        vm, ctrl, mass = (_pad_to(a, tgt) for a in (vm, ctrl, mass))
-        cm = _pad_to(scene.cell_mask.cpu(), tuple(n - 1 for n in tgt))
-        levels = []
-        dx = scene.mesh.dx
-        for li in range(n_levels):
-            levels.append((cm, vm, ctrl, dx, mass))
-            if li == n_levels - 1:
-                break
-            # a coarse cell is real when any of its 8 fine cells is
-            cpad = _pad_to(cm, tuple(n + n % 2 for n in cm.shape))
-            c2 = cpad.reshape(cpad.shape[0] // 2, 2, cpad.shape[1] // 2, 2,
-                              cpad.shape[2] // 2, 2)
-            cm_c = (c2.amax(dim=(1, 3, 5)) > 0).to(torch.float32)
-            cx, cy, cz = cm_c.shape
-            vm_c = torch.zeros((cx + 1, cy + 1, cz + 1))
-            for (di, dj, dk) in stencil._CORNERS:
-                sl = vm_c[di:di + cx, dj:dj + cy, dk:dk + cz]
-                sl.copy_(torch.maximum(sl, cm_c))
-            # conservative restriction of the control and mass diagonals
-            ctrl_c = _pad_to(stencil.restrict_lat(ctrl[..., None])[..., 0],
-                             vm_c.shape) * vm_c
-            mass_c = _pad_to(stencil.restrict_lat(mass[..., None])[..., 0],
-                             vm_c.shape) * vm_c
-            tgt = tuple(_odd(n) for n in vm_c.shape)
-            vm, ctrl, mass = (_pad_to(a, tgt)
-                              for a in (vm_c, ctrl_c, mass_c))
-            cm = _pad_to(cm_c, tuple(n - 1 for n in tgt))
-            dx = dx * 2.0
+            ctrl0 = ctrl0 + mass0 * (1.0 / dt) ** 2
+
+        def build(tz0):
+            """The levels with level-0 z padded to tz0, or None where the
+            even-z scheme would drop a real coarse cell (the caller retries
+            with more z padding)."""
+            tgt = (_odd(vm0.shape[0]), _odd(vm0.shape[1]), tz0)
+            vm, ctrl, mass = (_pad_to(a, tgt) for a in (vm0, ctrl0, mass0))
+            cm = _pad_to(scene.cell_mask.cpu(), tuple(n - 1 for n in tgt))
+            levels = []
+            dx = scene.mesh.dx
+            for li in range(n_levels):
+                levels.append((cm, vm, ctrl, dx, mass))
+                if li == n_levels - 1:
+                    break
+                # a coarse cell is real when any of its 8 fine cells is
+                cpad = _pad_to(cm, tuple(n + n % 2 for n in cm.shape))
+                c2 = cpad.reshape(cpad.shape[0] // 2, 2,
+                                  cpad.shape[1] // 2, 2,
+                                  cpad.shape[2] // 2, 2)
+                cm_c = (c2.amax(dim=(1, 3, 5)) > 0).to(torch.float32)
+                if z_multiple > 1:
+                    # even z: Z / 2 coarse vertex planes, Z / 2 - 1 cell
+                    # planes; a real cell beyond them: too little slack
+                    zc = vm.shape[2] // 2 - 1
+                    if bool(cm_c[:, :, zc:].max() > 0):
+                        return None
+                    cm_c = cm_c[:, :, :zc]
+                cx, cy, cz = cm_c.shape
+                vm_c = torch.zeros((cx + 1, cy + 1, cz + 1))
+                for (di, dj, dk) in stencil._CORNERS:
+                    sl = vm_c[di:di + cx, dj:dj + cy, dk:dk + cz]
+                    sl.copy_(torch.maximum(sl, cm_c))
+                # conservative restriction of the control and mass diagonals
+                ctrl_c = _pad_to(stencil.restrict_lat(ctrl[..., None])[..., 0],
+                                 vm_c.shape) * vm_c
+                mass_c = _pad_to(stencil.restrict_lat(mass[..., None])[..., 0],
+                                 vm_c.shape) * vm_c
+                tz = vm_c.shape[2] if z_multiple > 1 else _odd(vm_c.shape[2])
+                tgt = (_odd(vm_c.shape[0]), _odd(vm_c.shape[1]), tz)
+                vm, ctrl, mass = (_pad_to(a, tgt)
+                                  for a in (vm_c, ctrl_c, mass_c))
+                cm = _pad_to(cm_c, tuple(n - 1 for n in tgt))
+                dx = dx * 2.0
+            return levels
+
+        Z = vm0.shape[2]
+        if z_multiple == 1:
+            levels = build(_odd(Z))
+        else:
+            unit = z_multiple * 2 ** (n_levels - 1)
+            q = -(-(Z + 1) // unit)
+            while (levels := build(q * unit)) is None:
+                q += 1
 
         self.levels = [MGLevel(cell_mask=cm.to(dev), vert_mask=vm.to(dev),
                                ctrl=ctrl.to(dev), dx=dx, mass=mass.to(dev))
@@ -189,8 +221,16 @@ class LatticeMG:
         # normalization of the displacement restriction (rigid modes map to
         # rigid modes): the restricted vertex mask, clamped; (X, Y, Z)
         self._restrict_w_cf = [
-            torch.clamp(self._restrict(li, lvl.vert_mask[None]), min=1e-6)[0]
-            for li, lvl in enumerate(self.levels[:-1])]
+            torch.clamp(self._pad_coarse(
+                li, stencil.restrict_lat_cf(lvl.vert_mask[None])),
+                min=1e-6)[0] for li, lvl in enumerate(self.levels[:-1])]
+
+    # -- the sharding hook ---------------------------------------------------
+    def constrain(self, li: int, a):
+        """Called on every level-li field entering linearize and vcycle.
+        The identity here; parallel.lattice_mg_dist.DistLatticeMG places the
+        field on the device that holds its level."""
+        return a
 
     # -- the fine lattice inside the padded level-0 grid ---------------------
     def pad(self, a: torch.Tensor) -> torch.Tensor:
@@ -257,6 +297,7 @@ class LatticeMG:
                                  device=x_pad.device)
         x_l = x_pad.permute(3, 0, 1, 2).contiguous()
         for li, lvl in enumerate(self.levels):
+            x_l = self.constrain(li, x_l)
             vm = lvl.vert_mask
             u_cf = x_l - self._x0_cf[li]
             ctrl = lvl.ctrl
@@ -266,9 +307,7 @@ class LatticeMG:
                 ctrl = ctrl + lvl.mass * (inv_dt * inv_dt)
             matvec, d6 = self._level_ops(li, u_cf, ctrl)
             if lmaxes is not None:
-                lk.power_lmax_cf(u_cf, d6, ctrl, vm, lvl.cell_mask, lvl.dx,
-                                 mat.lame_mu, mat.lame_la, out=lmaxes,
-                                 slot=li)
+                self._power(li, u_cf, d6, ctrl, matvec, lmaxes)
             ops.append(LevelOps(matvec, d6, vm, None, u_cf, ctrl))
             if li < self.n_levels - 1:
                 # restrict the displacement (weight-normalized) and anchor
@@ -300,6 +339,14 @@ class LatticeMG:
             return [op._replace(lmax=lm) for op, lm in zip(ops, lmaxes)], \
                 lmaxes
         return self.linearize(x_pad, inv_dt, lmax_cache=lmaxes), lmaxes
+
+    def _power(self, li: int, u_cf, d6, ctrl, matvec, out):
+        """The Chebyshev bound of level li into out[li]: one lat_power
+        launch."""
+        lvl = self.levels[li]
+        mat = self.scene.material
+        lk.power_lmax_cf(u_cf, d6, ctrl, lvl.vert_mask, lvl.cell_mask,
+                         lvl.dx, mat.lame_mu, mat.lame_la, out=out, slot=li)
 
     # -- inter-level transfers (channel-first) -------------------------------
     def _pad_coarse(self, li: int, rc):
@@ -336,6 +383,7 @@ class LatticeMG:
         """One V-cycle from level `level` on the channel-first right-hand
         side b (3, X, Y, Z) of that level's grid; returns the channel-first
         correction."""
+        b = self.constrain(level, b)
         op = ops[level]
         if level == self.n_levels - 1:
             if self.coarse_cg > 0:

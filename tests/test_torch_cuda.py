@@ -17,6 +17,10 @@ from fem_simulation_tpu_torch.ops import _cuda, ell
 from fem_simulation_tpu_torch.ops import ell_kernels as ek
 from fem_simulation_tpu_torch.ops import lattice_kernels as lk
 from fem_simulation_tpu_torch.models import train_interp as tti
+from fem_simulation_tpu_torch.parallel import dist as tdist
+from fem_simulation_tpu_torch.parallel import halo as thalo
+from fem_simulation_tpu_torch.parallel import lattice_halo as tlh
+from fem_simulation_tpu_torch.parallel import lattice_mg_dist as tmgd
 from fem_simulation_tpu_torch.models import train_solver as tts
 from fem_simulation_tpu_torch.sim import cloth as tcloth
 from fem_simulation_tpu_torch.sim import dynamic as tdyn
@@ -841,6 +845,62 @@ _ENTRY_POINTS = {
 }
 
 
+def _slab_setup(m, **kw):
+    sc = tlat.LatticeScene(m, **kw)
+    grid = tdist.make_device_mesh(2, dp=1, **kw)
+    return sc, grid, tlh.LatticeSlabs(sc, 2, grid)
+
+
+def _dist_op(build):
+    def make(m, **kw):
+        sc, grid, slabs = _slab_setup(m, **kw)
+        xb = slabs.scatter(sc.x0)
+        op = build(slabs, grid)
+        return (op(xb, xb) if build is tlh.make_dist_hvp else op(xb))[0]
+    return make
+
+
+def _dist_step(m, **kw):
+    sc, grid, slabs = _slab_setup(m, **kw)
+    step, blockify = tlh.make_dist_step(slabs, grid)
+    return blockify(sc.x0)[0]
+
+
+def _dist_newton(m, **kw):
+    sc = tscene.Scene(m, solver=SolverConfig(n_levels=1), **kw)
+    grid = tdist.make_device_mesh(2, dp=1, **kw)
+    part = thalo.partition_slabs(sc.hier.levels[0], 2)
+    thalo.make_dist_newton_step(sc, part, grid)
+    return thalo.slab_scatter(part, sc.x0, grid.line("sp"))[0]
+
+
+def _batched(m, **kw):
+    sc = tscene.Scene(m, solver=SolverConfig(n_levels=2), **kw)
+    grid = tdist.make_device_mesh(2, **kw)
+    return tdist.make_batched_step(sc, grid, 2)[2][0].x
+
+
+_ENTRY_POINTS.update({
+    # a grid's device is its first entry
+    "make_device_mesh": lambda m, **kw: tdist.make_device_mesh(2, **kw),
+    "DistLatticeMG": lambda m, **kw: tmgd.DistLatticeMG(
+        tlat.LatticeScene(m, **kw), tdist.make_device_mesh(2, dp=1, **kw),
+        n_levels=2).x0_levels[0],
+    "make_dist_mg_step": lambda m, **kw: tmgd.make_dist_mg_step(
+        tlat.LatticeScene(m, **kw), tdist.make_device_mesh(2, dp=1, **kw),
+        n_levels=2)[0].mg.x0_levels[0],
+    "make_dist_mg_quasistatic": lambda m, **kw: tmgd.make_dist_mg_quasistatic(
+        tlat.LatticeScene(m, **kw), tdist.make_device_mesh(2, dp=1, **kw),
+        n_levels=2)[0].mg.x0_levels[0],
+    "make_dist_force": _dist_op(tlh.make_dist_force),
+    "make_dist_hvp": _dist_op(tlh.make_dist_hvp),
+    "make_dist_diag": _dist_op(tlh.make_dist_diag),
+    "make_dist_step": _dist_step,
+    "make_dist_newton_step": _dist_newton,
+    "make_batched_step": _batched,
+})
+
+
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
 def test_entry_points_default_to_the_card(entry):
     """With no device given an entry point takes the GPU, and raises where
@@ -853,3 +913,44 @@ def test_entry_points_default_to_the_card(entry):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make(m)
     assert make(m, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slabs", [2, 4])
+def test_slab_operators_match_whole_lattice_kernels(n_slabs):
+    """lat_force, lat_hvp and lat_diag on z-slabs of the 4x4x33 beam (slabs
+    sharing the card), exchanged and folded, against the same kernels on the
+    whole lattice: max |d| <= 1e-5 max |ref| (the fold sums boundary planes
+    in another order), and every slab a launch."""
+    _need_cuda()
+    sc = tlat.LatticeScene(meshlib.beam(4, 4, 33, dx=DX), device="cuda")
+    grid = tdist.make_device_mesh(n_slabs, dp=1)
+    assert grid.shared or torch.cuda.device_count() >= n_slabs
+    slabs = tlh.LatticeSlabs(sc, n_slabs, grid)
+    u, p = _random_fields(sc, 11)
+    x = sc.x0 + u
+    xb, pb = slabs.scatter(x), slabs.scatter(p)
+    lk.reset_launches()
+    got = {
+        "force": slabs.gather(tlh.make_dist_force(slabs, grid, mu=MU,
+                                                  la=LA)(xb)),
+        "hvp": slabs.gather(tlh.make_dist_hvp(slabs, grid, mu=MU,
+                                              la=LA)(xb, pb)),
+        "diag": lk.sym_blocks(slabs.gather(tlh.make_dist_diag(
+            slabs, grid, mu=MU, la=LA)(xb)).permute(3, 0, 1, 2)),
+    }
+    torch.cuda.synchronize()
+    assert lk.launches["force"] == lk.launches["hvp"] == n_slabs
+    assert lk.launches["diag"] == n_slabs
+    u_cf = (x - sc.x0).permute(3, 0, 1, 2).contiguous()
+    p_cf = p.permute(3, 0, 1, 2).contiguous()
+    ref = {
+        "force": lk.force_cf(u_cf, sc.cell_mask, DX, MU, LA)
+        .permute(1, 2, 3, 0),
+        "hvp": lk.hvp_cf(u_cf, p_cf, sc.cell_mask, DX, MU, LA)
+        .permute(1, 2, 3, 0),
+        "diag": lk.hess_diag_cf(u_cf, sc.cell_mask, DX, MU, LA),
+    }
+    for name in ref:
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 1e-5 * float(ref[name].abs().max()), (name, err)

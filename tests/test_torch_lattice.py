@@ -146,7 +146,13 @@ def test_port_imports_no_jax():
         "        'fem_simulation_tpu_torch.models.gnn',\n"
         "        'fem_simulation_tpu_torch.models.train_interp',\n"
         "        'fem_simulation_tpu_torch.models.train_solver',\n"
-        "        'fem_simulation_tpu_torch.examples.exp2_scale_run'}"
+        "        'fem_simulation_tpu_torch.examples.exp2_scale_run',\n"
+        "        'fem_simulation_tpu_torch.examples.batched_scenes',\n"
+        "        'fem_simulation_tpu_torch.parallel.dist',\n"
+        "        'fem_simulation_tpu_torch.parallel.halo',\n"
+        "        'fem_simulation_tpu_torch.parallel.lattice_halo',\n"
+        "        'fem_simulation_tpu_torch.parallel.lattice_mg_dist',\n"
+        "        'fem_simulation_tpu_torch.entry'}"
         " <= set(names)\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

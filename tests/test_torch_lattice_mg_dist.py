@@ -1,0 +1,156 @@
+"""The port's distributed lattice multigrid (parallel/lattice_mg_dist.py) and
+LatticeMG's z_multiple hierarchy against the JAX package's (CPU).
+
+JAX's DistLatticeMG runs on a mesh of D virtual CPU devices (its XLA path,
+as its own tests run it), the port's on a grid of D CPU entries (the
+kernels' plain versions). The level specs and the even-z hierarchies must
+equal JAX's; solves are held to the float32 policy of the port's parity
+tests (equal Newton counts, ||f||_inf within 1e-3 relative + 5e-6, x
+within 1e-4), against JAX and against the port's own LatticeMG with the
+same z_multiple on the whole lattice. The 3-level cases cover a sharded
+coarse level (D = 2) and a replicated one (D = 4). Each JAX reference is
+computed once, in a module fixture.
+"""
+import numpy as np
+import pytest
+import jax
+import torch
+
+from fem_simulation_tpu import mesh as jmeshlib
+from fem_simulation_tpu.parallel import lattice_mg_dist as jmgd
+from fem_simulation_tpu.sim import lattice as jl
+
+from fem_simulation_tpu_torch import mesh as meshlib
+from fem_simulation_tpu_torch.parallel import dist, make_device_mesh
+from fem_simulation_tpu_torch.parallel import lattice_mg_dist as mgd
+from fem_simulation_tpu_torch.sim import lattice as tl
+from fem_simulation_tpu_torch.sim import lattice_mg as tmg
+
+BEAM = (3, 3, 24)
+CASES = ((2, 3), (4, 3), (4, 2))      # (slabs, levels)
+
+
+def assert_fn_close(got, ref, what=""):
+    got, ref = float(got), float(ref)
+    assert abs(got - ref) <= 1e-3 * abs(ref) + 5e-6, (what, got, ref)
+
+
+def _mesh(D):
+    return jax.sharding.Mesh(np.array(jax.devices()[:D]), ("sp",))
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """JAX's level specs and hierarchies for every case; its quasi-static
+    solve at 4 slabs and 3 levels (a replicated coarsest level) and its
+    dynamic step at 4 slabs and 2 levels (each solve a compile of ~25-40 s
+    of CPU, so one each)."""
+    sc = jl.LatticeScene(jmeshlib.beam(*BEAM, dx=0.1))
+    out = {}
+    for D, nl in CASES:
+        mg = jmgd.DistLatticeMG(sc, _mesh(D), n_levels=nl, dt=None)
+        out[(D, nl)] = dict(
+            specs=[tuple(s) for s in mg.level_specs],
+            levels=[{k: np.asarray(getattr(lvl, k)) for k in
+                     ("cell_mask", "vert_mask", "ctrl", "mass")}
+                    for lvl in mg.levels])
+    solve, place = jmgd.make_dist_mg_quasistatic(sc, _mesh(4), n_levels=3)
+    xq, kq, fq = solve(place(sc.x0))
+    out["quasistatic"] = dict(x=np.asarray(xq), k=int(kq), f=float(fq))
+    step, place = jmgd.make_dist_mg_step(sc, _mesh(4), n_levels=2)
+    st, k, f = step(place(sc.init_state()))
+    out["step"] = dict(x=np.asarray(st.x), k=int(k), f=float(f))
+    return out
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return tl.LatticeScene(meshlib.beam(*BEAM, dx=0.1), device="cpu")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_level_specs_and_even_z_hierarchy_equal_jax(jax_ref, scene, case):
+    D, nl = case
+    grid = make_device_mesh(D, dp=1, device="cpu")
+    mg = mgd.DistLatticeMG(scene, grid, n_levels=nl, dt=None)
+    ref = jax_ref[case]
+    assert mg.level_specs == ref["specs"]
+    assert mg.pad_shape[2] % (D * 2 ** (nl - 1)) == 0
+    # the whole-lattice LatticeMG builds the same hierarchy
+    plain = tmg.LatticeMG(scene, n_levels=nl, dt=None, z_multiple=D)
+    for li, (lvl, plvl, rl) in enumerate(zip(mg.levels, plain.levels,
+                                             ref["levels"])):
+        for k in ("cell_mask", "vert_mask", "ctrl", "mass"):
+            got = getattr(lvl, k).numpy()
+            assert got.shape == rl[k].shape, (li, k)
+            np.testing.assert_allclose(got, rl[k], rtol=1e-6, atol=1e-7,
+                                       err_msg=f"level {li} {k}")
+            assert torch.equal(getattr(lvl, k), getattr(plvl, k))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_dist_mg_quasistatic_matches_whole(scene, case):
+    """The solve on D slabs against the port's LatticeMG with the same
+    z_multiple on the whole lattice."""
+    D, nl = case
+    grid = make_device_mesh(D, dp=1, device="cpu")
+    solve, place = mgd.make_dist_mg_quasistatic(scene, grid, n_levels=nl)
+    dist.reset_counts()
+    x, k, fn = solve(place(scene.x0))
+    assert fn <= 1e-4
+    mg = solve.mg
+    assert mg.calls["matvec"] > 0 and dist.counts["shift"] > 0
+    plain = tmg.LatticeMG(scene, n_levels=nl, dt=None, z_multiple=D)
+    x1, k1, fn1 = tmg.quasistatic_to_tol_mg(scene, plain, scene.x0, tol=1e-4,
+                                            max_newton=50)
+    assert k1 == k
+    assert_fn_close(fn, fn1)
+    np.testing.assert_allclose(x.numpy(), x1.numpy(), atol=1e-4)
+
+
+def test_dist_mg_quasistatic_matches_jax(jax_ref, scene):
+    grid = make_device_mesh(4, dp=1, device="cpu")
+    solve, place = mgd.make_dist_mg_quasistatic(scene, grid, n_levels=3)
+    assert solve.mg.level_specs[-1] == ()
+    x, k, fn = solve(place(scene.x0))
+    ref = jax_ref["quasistatic"]
+    assert fn <= 1e-4 and k == ref["k"]
+    assert_fn_close(fn, ref["f"])
+    np.testing.assert_allclose(x.numpy(), ref["x"], atol=1e-4)
+
+
+def test_dist_mg_step_matches_jax_and_whole(jax_ref, scene):
+    D, nl = 4, 2
+    grid = make_device_mesh(D, dp=1, device="cpu")
+    step, place = mgd.make_dist_mg_step(scene, grid, n_levels=nl)
+    st, k, fn = step(place(scene.init_state()))
+    ref = jax_ref["step"]
+    assert fn <= 1e-4 and k == ref["k"]
+    assert_fn_close(fn, ref["f"])
+    np.testing.assert_allclose(st.x.numpy(), ref["x"], atol=1e-4)
+    plain = tmg.LatticeMG(scene, n_levels=nl, z_multiple=D)
+    st1, k1, fn1 = tmg.step_to_tol_mg(scene, plain, scene.init_state(),
+                                      tol=1e-4)
+    assert k1 == k
+    np.testing.assert_allclose(st.x.numpy(), st1.x.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("D", (2, 4))
+def test_sharded_transfers_equal_whole_level(scene, D):
+    """The slab restriction is the whole-level one bit for bit; the slab
+    prolongation (z first, as the reference's) within float32 rounding."""
+    grid = make_device_mesh(D, dp=1, device="cpu")
+    mg = mgd.DistLatticeMG(scene, grid, n_levels=3, dt=None)
+    plain = tmg.LatticeMG(scene, n_levels=3, dt=None, z_multiple=D)
+    rng = np.random.default_rng(4)
+    for li in range(mg.n_levels - 1):
+        if not mg.sharded(li):
+            continue
+        shape = (3,) + tuple(mg.levels[li].vert_mask.shape)
+        r = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        assert torch.equal(mg._restrict(li, r), plain._restrict(li, r))
+        cshape = (3,) + tuple(mg.levels[li + 1].vert_mask.shape)
+        xc = torch.from_numpy(rng.normal(size=cshape).astype(np.float32))
+        np.testing.assert_allclose(mg._prolong(li, xc).numpy(),
+                                   plain._prolong(li, xc).numpy(),
+                                   rtol=1e-6, atol=1e-6)
