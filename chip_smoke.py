@@ -118,6 +118,22 @@ Phase 10 distribution, on 4 z-slabs sharing the card (a DeviceGrid of 4
          code on the distributed run's input gives the distributed run's
          norms: one ulp of x can move ||f|| by as much as tol).
 
+Phase 11 the low-fill path (ops/boxes.py) on the JAX tests' demo-scale shell,
+         mesh.shell(64, 64, 64, thickness=2) at dx 0.05 (65^3 vertices,
+         46,144 real cells of 262,144): LatticeScene engages the cover at
+         the default box_threshold. lat_force (two passes over the real
+         cells and one launch on the active tiles), lat_energy and
+         lat_fused_newton in cover mode against their plain cover versions
+         and against the dense kernels (the force equal up to the sign of
+         zero), bits repeated, timed beside the dense kernels and the bounds
+         on the real cells. Then, counters zeroed: 48 frames of phase 2's
+         protocol and a quasi-static solve from rest (max_newton 100) on the
+         covered scene, then the same on the dense scene (use_boxes=False).
+         The covered run launches only the cover modes; it is held to the
+         dense one frame by frame from one input (equal Newton, ||f||_inf
+         within 1e-3 relative + 5e-6) and along the trajectory (x within
+         1e-4; every frame at ||f||_inf <= 1.01e-4).
+
 Launch counters are zeroed just before each main path and read just after.
 Every failure raises and exits non-zero. The last two lines are the kernel
 table as JSON and the result line {"ok": true, "device": {...}}.
@@ -126,6 +142,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -2157,6 +2174,345 @@ def trajectory_policy(label, got, ref, norm_at):
     return dx, apart
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+SHELL11 = (64, 64, 64)        # mesh.shell(64, 64, 64, thickness=2)
+COVER_MODES = {"force": "force_cover", "energy": "energy_cover",
+               "fused_newton": "fused_newton_cover"}
+
+
+class FrameIn(NamedTuple):
+    """A frame's input: its state (x first, as _x_of reads it) and index."""
+    x: torch.Tensor
+    st: object
+    frame: int
+
+
+def shell_bounds(sc, k_newton):
+    """lattice_bounds on the real cells and vertices only: the same work for
+    the covered and the dense kernels."""
+    n = float(sc.vert_mask.sum())
+    c = float(sc.cell_mask.sum())
+    field = 3 * n * 4
+    return {
+        "force": bound(2 * field + 4 * c, c * lk.FORCE_FLOPS_PER_CELL),
+        "energy": bound(field + 4 * c + 4, c * ENERGY_FLOPS_PER_CELL),
+        "fused_newton": bound(4 * field + 3 * n * 4 + 4 * c + 8, c * (
+            2 * lk.FORCE_FLOPS_PER_CELL + lk.DIAG_FLOPS_PER_CELL
+            + (k_newton - 1) * lk.HVP_FLOPS_PER_CELL)),
+    }
+
+
+def _ops_us(fn, launches):
+    """Device us of one call of fn (every device op of a call summed) and
+    the ops a call launches."""
+    ops = whole_trace(fn, 20, launches)
+    return (round(sum(n * t for n, t in ops.values()), 2),
+            round(sum(n for n, _ in ops.values())))
+
+
+def phase11_kernels(sc, rows):
+    """The three cover modes on the 64^3 shell against their plain cover
+    versions and the dense kernels (the same wrappers without the cover);
+    times and bounds. Returns an entry a mode for the rows'
+    by_path_shape."""
+    cov = sc.cover
+    sms = lk._sms(sc.x0.device.index)
+    rng = np.random.default_rng(11)
+    vm3 = sc.vert_mask[..., None]
+    u = torch.from_numpy(0.03 * rng.standard_normal(sc.x0.shape).astype(
+        np.float32)).to(sc.x0.device) * vm3
+    u_cf = u.permute(3, 0, 1, 2).contiguous()
+    cm = sc.cell_mask
+    shape = list(sc.shape)
+    out = {}
+    # lat_force in both modes, each against the dense kernel in that mode
+    dense_key = (str(u_cf.device),) + tuple(sc.shape)
+    own = lk._cover_plan(cov, "force", sc.x0.device)
+    tiles = lk.best_force_tiling(*sc.shape, sms, cover=cov)
+    saved = lk._force_plans.get(dense_key)
+    for mode, plan in (("two passes", lk.FORCE_TWO_PASS),
+                       ("active tiles", tiles)):
+        cov.plans[("force", sms)] = plan
+        lk._force_plans[dense_key] = (plan if plan == lk.FORCE_TWO_PASS else
+                                      lk.force_tiling(sc.shape, plan[1:4]))
+
+        def kern():
+            return lk.force_cf(u_cf, cm, DX, MU, LA, cover=cov)
+
+        def whole():
+            return lk.force_cf(u_cf, cm, DX, MU, LA)
+        got, again, ref_d = kern(), kern(), whole()
+        ref = lk.force_cf_plain(u_cf, cm, DX, MU, LA, cover=cov)
+        torch.cuda.synchronize()
+        err, scale = max_err(got, ref), float(ref.abs().max())
+        check(err <= 1e-5 * scale, f"phase11 force cover ({mode}): max|d| "
+              f"{err:.3e} > 1e-5 * {scale:.3e}")
+        check(bool(torch.equal(got, again)), f"phase11 force cover ({mode}):"
+              " two runs differ")
+        check(bool(torch.equal(got, ref_d)), f"phase11 force cover ({mode}):"
+              " differs from the dense kernel beyond the sign of zero")
+        two = plan == lk.FORCE_TWO_PASS
+        us, nops = _ops_us(kern, 2 if two else 1)
+        us_d, _ = _ops_us(whole, 2 if two else 1)
+        ms, ms_d = cuda_ms(kern, 20), cuda_ms(whole, 20)
+        plain_ms = cuda_ms(lambda: lk.force_cf_plain(u_cf, cm, DX, MU, LA,
+                                                     cover=cov), 3, warmup=1)
+        b_ms, b_by = shell_bounds(sc, 1)["force"]
+        n_active = (None if two else cov.tiles(*plan[1:4])[1])
+        out[f"force {mode}"] = dict(
+            wrapper="force_cf", cover_mode=mode, shape=shape,
+            plan=_plan_text(plan), active_tiles=n_active,
+            max_abs_err=err, max_ref=scale, equal_to_dense=True,
+            device_us=us, dense_device_us=us_d, ops_per_call=nops, ms=ms,
+            dense_ms=ms_d, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            main_path=plan == own)
+        rows["force"]["max_abs_err"] = max(rows["force"]["max_abs_err"], err)
+        log(f"phase11 force cover {mode:12s} plan {_plan_text(plan)}"
+            + ("" if two else f" ({n_active} active of {plan[0]})")
+            + f"  max|d| {err:.3e} (max|ref| {scale:.3e}); same bits twice;"
+            f" equal to the dense kernel up to the sign of zero; device us "
+            f"{us} vs dense {us_d}; events ms {ms:.4f} vs {ms_d:.4f}; plain "
+            f"{plain_ms:.3f}; bound {b_ms * 1e3:.2f} us ({b_by})")
+    cov.plans[("force", sms)] = own
+    if saved is None:
+        lk._force_plans.pop(dense_key, None)
+    else:
+        lk._force_plans[dense_key] = saved
+
+    # lat_energy over the real cells
+    def ekern():
+        return lk.elastic_energy_lattice(u, cm, DX, MU, LA, cover=cov)
+
+    def ewhole():
+        return lk.elastic_energy_lattice(u, cm, DX, MU, LA)
+    got, again, ref_d = ekern(), ekern(), ewhole()
+    ref = lk.elastic_energy_lattice_plain(u, cm, DX, MU, LA, cover=cov)
+    torch.cuda.synchronize()
+    err, scale = max_err(got, ref), float(ref.abs())
+    check(err <= 1e-5 * scale and max_err(got, ref_d) <= 1e-5 * scale,
+          f"phase11 energy cover: |d| {err:.3e} / {max_err(got, ref_d):.3e}"
+          f" > 1e-5 * {scale:.3e}")
+    check(bool(torch.equal(got, again)), "phase11 energy cover: two runs "
+          "differ")
+    us, _ = _ops_us(ekern, 1)
+    us_d, _ = _ops_us(ewhole, 1)
+    ms, ms_d = cuda_ms(ekern, 20), cuda_ms(ewhole, 20)
+    plain_ms = cuda_ms(lambda: lk.elastic_energy_lattice_plain(
+        u, cm, DX, MU, LA, cover=cov), 3, warmup=1)
+    b_ms, b_by = shell_bounds(sc, 1)["energy"]
+    grid, lanes = lk._cover_plan(cov, "energy", sc.x0.device)
+    out["energy"] = dict(
+        wrapper="elastic_energy_lattice", cover_mode="real cells",
+        shape=shape, plan=f"grid {grid} lanes {lanes}",
+        dense_plan="grid {} lanes {}".format(*lk.energy_plan(*sc.shape,
+                                                             sms)),
+        max_abs_err=err, max_ref=scale, dense_abs_d=max_err(got, ref_d),
+        device_us=us, dense_device_us=us_d, ms=ms, dense_ms=ms_d,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    rows["energy"]["max_abs_err"] = max(rows["energy"]["max_abs_err"], err)
+    log(f"phase11 energy cover   {grid} blocks over {cov.cells.size} real "
+        f"cells: |d| {err:.3e} vs plain, {max_err(got, ref_d):.3e} vs the "
+        f"dense kernel (|ref| {scale:.6e}); same bits twice; device us {us} "
+        f"vs dense {us_d}; events ms {ms:.4f} vs {ms_d:.4f}; plain "
+        f"{plain_ms:.3f}; bound {b_ms * 1e3:.2f} us ({b_by})")
+
+    # lat_fused_newton over the active tiles
+    args = newton_inputs(sc, rng)
+    dxk, fk, fnk, kk = lk.fused_newton(*args, cover=cov)
+    dx2, f2, fn2, k2 = lk.fused_newton(*args, cover=cov)
+    dxd, fd, fnd, kd = lk.fused_newton(*args)
+    dxp, fp, fnp, kp = lk.fused_newton_plain(*args, cover=cov)
+    torch.cuda.synchronize()
+    kk, kd, kp = int(kk), int(kd), int(kp)
+    fscale = float(fp.abs().max())
+    e_f, e_dx = max_err(fk, fp), max_err(dxk, dxp)
+    check(bool(torch.equal(dxk, dx2) and torch.equal(fk, f2))
+          and float(fnk) == float(fn2), "phase11 fused_newton cover: two "
+          "runs differ")
+    check(e_f <= 1e-5 * fscale, f"phase11 fused_newton cover: f max|d| "
+          f"{e_f:.3e} > 1e-5 * {fscale:.3e}")
+    check(bool(torch.equal(fk, fd)), "phase11 fused_newton cover: f differs"
+          " from the dense kernel's beyond the sign of zero")
+    check(abs(kk - kp) <= 1 and abs(kk - kd) <= 1 and kk > 2,
+          f"phase11 fused_newton cover: k {kk} vs plain {kp}, dense {kd}")
+    for name, dref, fnref, kref in (("plain", dxp, fnp, kp),
+                                    ("dense", dxd, fnd, kd)):
+        tol_ = 1e-3 if kk == kref else 5e-2
+        check(max_err(dxk, dref) <= tol_ * float(dref.abs().max())
+              and abs(float(fnk) - float(fnref)) <= tol_ * max(
+                  fscale, abs(float(fnref))),
+              f"phase11 fused_newton cover vs {name}: dx max|d| "
+              f"{max_err(dxk, dref):.3e}, fn {float(fnk):.6e} vs "
+              f"{float(fnref):.6e}")
+    plan = lk._cover_plan(cov, "newton", sc.x0.device)
+    dplan = lk._newton_plan(_cuda.load(), *sc.shape, sc.x0.device)
+    # under the dense plan's tiles and grid the cover gives the dense bits:
+    # the vertex-pass dots are summed a tile at a time
+    same = bool(torch.equal(dxk, dxd)) and float(fnk) == float(fnd)
+    check(same or plan != dplan, "phase11 fused_newton cover: the dense "
+          "plan, but not the dense kernel's bits")
+    n_active = cov.tiles(*plan[1:4])[1]
+    us = device_us(lambda: lk.fused_newton(*args, cover=cov), 10,
+                   "fused_newton_kernel<false>")
+    us_d = device_us(lambda: lk.fused_newton(*args), 10,
+                     "fused_newton_kernel<false>")
+    ms = cuda_ms(lambda: lk.fused_newton(*args, cover=cov), 5)
+    ms_d = cuda_ms(lambda: lk.fused_newton(*args), 5)
+    plain_ms = cuda_ms(lambda: lk.fused_newton_plain(*args, cover=cov), 3,
+                       warmup=1)
+    b_ms, b_by = shell_bounds(sc, kk)["fused_newton"]
+    out["fused_newton"] = dict(
+        wrapper="fused_newton", cover_mode="active tiles", shape=shape,
+        plan=_plan_text(plan), active_tiles=n_active,
+        dense_plan=_plan_text(dplan), k=[kk, kp, kd], max_abs_err=e_dx,
+        bit_equal_to_dense=same,
+        f_max_abs_err=e_f, max_ref=float(dxp.abs().max()), device_us=us,
+        dense_device_us=us_d, ms=ms, dense_ms=ms_d, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by)
+    rows["fused_newton"]["max_abs_err"] = max(
+        rows["fused_newton"]["max_abs_err"], e_dx)
+    log(f"phase11 fused_newton cover plan {_plan_text(plan)} ({n_active} "
+        f"active of {plan[1] * plan[2] * plan[3]}; dense {_plan_text(dplan)})"
+        f"  k {kk} vs plain {kp}, dense {kd}; max|d f| {e_f:.3e} (max|f| "
+        f"{fscale:.3e}), f equal to the dense kernel's"
+        + ("; dx, fn bit-equal to the dense kernel's" if same else "")
+        + f"; max|d dx| {e_dx:.3e} vs plain;"
+        f" same bits twice; device us {us} vs dense {us_d}; events ms "
+        f"{ms:.4f} vs {ms_d:.4f}; plain {plain_ms:.3f}; bound "
+        f"{b_ms * 1e3:.2f} us ({b_by})")
+    return out
+
+
+def shell_frames(sc, n):
+    """n frames of phase 2's protocol from rest: (Newton counts, exit norms,
+    x after each frame, each frame's input)."""
+    st = sc.init_state()
+    ks, fns, xs, ins = [], [], [], []
+    for i in range(n):
+        ins.append(FrameIn(st.x, st, i))
+        st, k, fn = tlat.step_to_tol(sc, st, tol=TOL, max_newton=20,
+                                     cg_iterations=60, cg_tol=1e-2,
+                                     gravity_scale=gravity_scale(i))
+        ks.append(k)
+        fns.append(fn)
+        xs.append(st.x)
+    return ks, fns, xs, ins
+
+
+def phase11(rows):
+    """The low-fill path on the 64^3 shell: the cover, its kernels, then the
+    covered frames and solve (counters zeroed) against the dense ones."""
+    t0 = time.perf_counter()
+    mesh = meshlib.shell(*SHELL11, thickness=2, dx=DX)
+    sc = tlat.LatticeScene(mesh, device="cuda")
+    dense = tlat.LatticeScene(mesh, device="cuda", use_boxes=False)
+    cov = sc.cover
+    check(cov is not None and dense.cover is None, "phase11: the cover did "
+          f"not engage on the 64^3 shell (ratio {sc.box_cost_ratio:.3f})")
+    sms = lk._sms(sc.x0.device.index)
+    nplan = lk._cover_plan(cov, "newton", sc.x0.device)
+    res = dict(shape=list(sc.shape), real_cells=int(cov.cells.size),
+               cells=cov.grid_cells,
+               real_vertices=int(sc.vert_mask.sum()),
+               box_cost_ratio=sc.box_cost_ratio,
+               newton_active_tiles=cov.tiles(*nplan[1:4])[1],
+               newton_tiles=nplan[1] * nplan[2] * nplan[3],
+               force_plan=_plan_text(lk._cover_plan(cov, "force",
+                                                    sc.x0.device)),
+               energy_plan=list(lk._cover_plan(cov, "energy", sc.x0.device)))
+    log(f"phase11 shell {SHELL11} lattice {sc.shape}: {cov.cells.size} real "
+        f"cells of {cov.grid_cells} "
+        f"({cov.cells.size / cov.grid_cells:.3f}), "
+        f"{res['real_vertices']} real vertices; box_cost_ratio "
+        f"{sc.box_cost_ratio:.4f} (engaged below 0.5); fused_newton plan "
+        f"{_plan_text(nplan)}: {res['newton_active_tiles']} active tiles of "
+        f"{res['newton_tiles']}; force {res['force_plan']}; energy "
+        f"{res['energy_plan']} on {sms} SMs (scenes built in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    res["kernels"] = phase11_kernels(sc, rows)
+
+    def solve(scene):
+        return tlat.quasistatic_to_tol(scene, scene.x0, tol=TOL,
+                                       max_newton=100)
+    for scene in (sc, dense):         # warm-up before the counters start
+        shell_frames(scene, 2)
+        solve(scene)
+    torch.cuda.synchronize()
+    lk.reset_launches()
+    runs = {}
+    for label, scene in (("covered", sc), ("dense", dense)):
+        if label == "dense":
+            torch.cuda.synchronize()
+            counts = dict(lk.launches)
+        (got, ms, wall) = timed_run(lambda n: shell_frames(scene, n), FRAMES)
+        (xq, kq, fq), ms_q, wall_q = timed_run(lambda n: solve(scene), 1)
+        ks, fns = np.array(got[0]), np.array(got[1])
+        check(bool(np.all(fns <= TOL * 1.01)), f"phase11 {label}: tolerance "
+              f"missed, max fn {fns.max():.3e}")
+        check(bool(torch.isfinite(xq).all()) and fq <= TOL,
+              f"phase11 {label} quasistatic: ||f|| {fq:.3e}")
+        runs[label] = dict(got=got, xq=xq)
+        res[label] = dict(ms_per_frame=ms, wall_ms_per_frame=wall,
+                          newton=ks.tolist(), newton_mean=float(ks.mean()),
+                          fn_max=float(fns.max()), quasistatic=dict(
+                              ms=ms_q, wall_ms=wall_q, newton=kq, fn=fq))
+        log(f"phase11 {label:7s} 48 frames: ms/frame {ms:.3f} (host clock "
+            f"{wall:.3f}) newton_mean {ks.mean():.3f} max {ks.max()} fn_max "
+            f"{fns.max():.3e}; quasistatic_to_tol ms/solve {ms_q:.2f} (host "
+            f"clock {wall_q:.2f}) newton {kq} ||f|| {fq:.3e}")
+    log(f"phase11 launches (covered path) {counts}")
+    got = runs["covered"]["got"]
+    newton = sum(got[0]) + res["covered"]["quasistatic"]["newton"]
+    check(counts["fused_newton_cover"] == newton, f"phase11: "
+          f"fused_newton_cover {counts['fused_newton_cover']} != Newton "
+          f"{newton}")
+    check(counts["force_cover"] >= FRAMES, "phase11: force_cover launches "
+          f"{counts['force_cover']} < {FRAMES}")
+    for name in ("fused_newton", "force", "energy", "hvp", "diag"):
+        check(counts[name] == 0, f"phase11: the covered path launched the "
+              f"dense {name} {counts[name]} times")
+
+    # the covered run against the dense code: frame by frame from its own
+    # inputs, then the two trajectories from rest
+    def dense_step(inp, _):
+        st, k, fn = tlat.step_to_tol(dense, inp.st, tol=TOL, max_newton=20,
+                                     cg_iterations=60, cg_tol=1e-2,
+                                     gravity_scale=gravity_scale(inp.frame))
+        return k, fn, st.x
+    dfn, dxf = check_policy("phase11 covered vs dense, frame by frame",
+                            *got[:3], *reference_frames(
+                                dense_step, [(inp, None) for inp in got[3]]))
+
+    def norm_at(code, inp, j):
+        return tlat.step_to_tol(sc if code == "got" else dense, inp.st,
+                                tol=TOL, max_newton=j, cg_iterations=60,
+                                cg_tol=1e-2,
+                                gravity_scale=gravity_scale(inp.frame))[2]
+    tx, apart = trajectory_policy("phase11 covered vs dense trajectory", got,
+                                  runs["dense"]["got"], norm_at)
+    dq = max_err(runs["covered"]["xq"], runs["dense"]["xq"])
+    check(dq <= 1e-4, f"phase11 quasistatic covered vs dense: max|d x| "
+          f"{dq:.3e}")
+    res.update(max_d_fn=dfn, max_d_x_frames=dxf, trajectory_max_d_x=tx,
+               taken_apart=apart, quasistatic_max_d_x=dq,
+               launches={k: v for k, v in counts.items() if v})
+    log(f"phase11 covered vs dense: frame by frame Newton equal, max|d fn| "
+        f"{dfn:.3e} max|d x| {dxf:.3e}; trajectory max|d x| {tx:.3e}, "
+        f"{len(apart)} frames taken apart; quasistatic max|d x| {dq:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for name, cname in COVER_MODES.items():
+        for key, entry in res["kernels"].items():
+            if key.split()[0] == name and entry.get("main_path", True):
+                entry["launches"] = counts[cname]
+            elif key.split()[0] == name:
+                entry["launches"] = 0
+            if key.split()[0] == name:
+                rows[name].setdefault("by_path_shape", []).append(
+                    dict(phase=11, **entry))
+    return res, counts
+
+
 def _diag_plain(x_cf, cell_mask, dx, mu, la):
     return lk.hess_diag_lattice_plain(x_cf.permute(1, 2, 3, 0), cell_mask,
                                       dx, mu, la)
@@ -2866,6 +3222,9 @@ def main() -> int:
     results10.update(path10)
     for name in counts:
         counts[name] += counts10.get(name, 0)
+    results11, counts11 = phase11(rows)
+    for name, cname in COVER_MODES.items():
+        counts[name] += counts11[cname]
 
     summary = {label: {k: v for k, v in r.items() if k != "state8"}
                for label, r in results.items()}
@@ -2875,6 +3234,7 @@ def main() -> int:
     log("phase8 summary " + json.dumps(results8))
     log("phase9 summary " + json.dumps(results9))
     log("phase10 summary " + json.dumps(results10))
+    log("phase11 summary " + json.dumps(results11, default=str))
     log(f"phase3 max|dx| {err3:.3e}  phase6 max rel |d f| {rel6:.3e} "
         f"max|d x| {err6:.3e}  phase7 max rel |d f| {rel7:.3e}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2911,7 +3271,8 @@ def main() -> int:
                "library_ms": at.get("library_ms"), "by_beam": r["by_beam"]}
         if "by_slab" in r:           # phase 10: at the 74k slab shape
             out["by_slab"] = r["by_slab"]
-        if "by_path_shape" in r:     # phase 10: every shape of its path
+        if "by_path_shape" in r:     # phase 10: every shape of its path;
+                                     # phase 11: the cover modes
             out["by_path_shape"] = r["by_path_shape"]
         if "by_cloth" in r:          # phase 8: at the cloth Hessians
             out["by_cloth"] = r["by_cloth"]

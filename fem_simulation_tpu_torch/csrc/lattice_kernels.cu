@@ -64,16 +64,32 @@
 //   barriers where a block computes its halo cells itself, 3 where blocks
 //   exchange partial sums. r, z, p, ap and the diagonal live in device
 //   memory (the 19k grid's whole PCG state is ~1 MB and stays in the 50 MB
-//   L2). Every dot is summed as per-block partials; after the barrier EVERY
-//   block sums the same partials in the same order, so all blocks hold
-//   bit-identical scalars and take the same loop branch (a divergent
-//   branch around grid.sync() would deadlock).
+//   L2). Every dot is summed as partials (a vector phase's per block, a
+//   vertex pass's per tile, so that its bits do not depend on the tiles'
+//   spread over the blocks); after the barrier EVERY block sums the same
+//   partials in the same order, so all blocks hold bit-identical scalars
+//   and take the same loop branch (a divergent branch around grid.sync()
+//   would deadlock).
 // * lat_fused_pcg replaces _run_pcg (pallas_call at :608), entry fused_pcg;
 //   _make_pcg_kernel at :538-554 with the same _pcg_in_kernel. It is the
 //   fused Newton kernel instantiated without its residual and trial phases
 //   (template flag kPcg): the diagonal cell pass, the ctrl shift, and the
 //   PCG loop on the given right-hand side, returning dx and k. Same bound
 //   and the same deterministic partial sums and identical-branch guarantee.
+// * The low-fill path: lat_force, lat_energy and lat_fused_newton take a
+//   cover (ops/boxes.py), the counterpart of the JAX box cover
+//   (fem_simulation_tpu/ops/boxes.py, box_vertex_op / box_scalar_op), which
+//   ran every op box by box. Here each stays one launch and walks a list:
+//   the active tiles (those whose vertices touch a real cell; Tiling::tiles)
+//   in the fused Newton kernel's cell passes and in lat_force's halo tiles,
+//   the real cells in lat_force's two-pass cell pass and in lat_energy's
+//   walk. A cell computed is computed as on the dense grid and a vertex sums
+//   its incident cells in the same corner order, so the force and the
+//   residual equal the dense kernels' up to the sign of zero. What the
+//   cover never writes (inactive tiles' vertices of the outputs) the kernel
+//   zeroes; what it never writes in scratch (partial sums of inactive
+//   exchange tiles, the cells the two passes skip) is the cover's own
+//   zeroed workspace. Bound: as the dense kernels, over the real cells.
 //
 // No --use_fast_math: the build keeps IEEE division and square root.
 #include <cooperative_groups.h>
@@ -104,6 +120,9 @@ constexpr int kForceRows = 24;              // 8 corners x 3 channels
 // Dynamic shared memory of a force or HVP tile, under the 48 KB a launch
 // may take without opting in (the kernels have no static shared memory).
 constexpr int kForceSmem = 48 * 1024;
+// Blocks a covered lat_force on halo tiles adds to zero the vertices of the
+// inactive tiles (each walks several).
+constexpr int kZeroBlocks = 128;
 
 ChainArgs make_chain_args(int X, int Y, int Z, const float* g_host,
                           float det, float mu, float la) {
@@ -322,6 +341,11 @@ struct Tiling {
     int box;            // shared vertex box: >= the vertex count of the box
                         // around the largest tile's cells
     int halo;           // 1: halo mode, 0: exchange mode
+    // A cover (ops/boxes.py): the active tiles, those whose vertices touch a
+    // real cell, in increasing order, then the inactive ones. A pass walks
+    // tiles[0, n_active) only. Null: every tile, in index order.
+    const int* tiles;
+    int n_active;
 };
 
 // One tile: its vertices [x0, x0 + nx) x ... and the cells it computes
@@ -343,6 +367,14 @@ __device__ __forceinline__ void tile_axis(int n, int nt, int it, int halo,
     nc = c1 - c0 + 1;                                // may be 0 (exchange)
 }
 
+// The tiles a pass walks, and the j-th of them (see Tiling::tiles).
+__device__ __forceinline__ int tiles_walked(const Tiling& T) {
+    return T.tiles ? T.n_active : T.ntx * T.nty * T.ntz;
+}
+__device__ __forceinline__ int tile_id(const Tiling& T, int j) {
+    return T.tiles ? T.tiles[j] : j;
+}
+
 __device__ __forceinline__ Tile tile_of(const Lattice& L, const Tiling& T,
                                         int t) {
     Tile R;
@@ -354,6 +386,28 @@ __device__ __forceinline__ Tile tile_of(const Lattice& L, const Tiling& T,
     tile_axis(L.Y, T.nty, R.iy, T.halo, R.y0, R.ny, R.cy0, R.ey);
     tile_axis(L.Z, T.ntz, R.iz, T.halo, R.z0, R.nz, R.cz0, R.ez);
     return R;
+}
+
+// Under a cover: zero the 3-channel fields a (and b, if given) at the
+// vertices of the inactive tiles TL.tiles[n_active, ntiles), the j-th from
+// `first` in steps of `step`. No real cell touches those vertices, so the
+// dense kernels give them +-0 there; a covered pass never reaches them.
+__device__ __forceinline__ void zero_inactive(const Lattice& L,
+                                              const Tiling& TL, int first,
+                                              int step, float* a, float* b) {
+    const int N = L.N, ntiles = TL.ntx * TL.nty * TL.ntz;
+    for (int j = TL.n_active + first; j < ntiles; j += step) {
+        const Tile T = tile_of(L, TL, TL.tiles[j]);
+        for (int vl = threadIdx.x; vl < T.nx * T.ny * T.nz; vl += blockDim.x) {
+            const int z = T.z0 + vl % T.nz, t = vl / T.nz;
+            const int v = ((T.x0 + t / T.ny) * L.Y + T.y0 + t % T.ny) * L.Z + z;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                a[c * N + v] = 0.f;
+                if (b) b[c * N + v] = 0.f;
+            }
+        }
+    }
 }
 
 struct NewtonArgs {
@@ -376,7 +430,8 @@ struct NewtonArgs {
     float* ap;          // (3, N) scratch
     float* xacc;        // (3, N) scratch: the normalized solution
     float* d6;          // (6, N) scratch: ctrl-shifted diagonal blocks
-    float* part;        // (7, gridDim.x) scratch: per-block partials
+    float* part;        // (5 gridDim.x + ntiles) scratch: per-block
+                        // partials, then per-tile partials
     float* pbuf;        // (8, 9, N) scratch, exchange mode: partial vertex
                         // sums by slot; rows 0-2 force / hvp, 3-8 diagonal
     float tol;          // PCG tolerance, relative on ||r||^2
@@ -617,25 +672,28 @@ __device__ __forceinline__ void halo_vertices(const Lattice& L, const Tile& T,
 }
 
 // One cell pass and its vertex pass over this block's tiles: finish(v, tot)
-// is called once for every vertex the block owns with its NCH complete sums.
+// is called once for every vertex the block owns with its NCH complete sums,
+// and tile_done(t) by every thread once a tile's vertices are finished.
 // Exchange mode runs one grid barrier inside, so every block must call it.
 // row0: the first of the NCH pbuf rows this pass uses.
-template <int OP, class Args, class Finish>
+template <int OP, class Args, class Finish, class TileDone>
 __device__ __forceinline__ void cell_vertex_pass(const Args& P,
                                                  const QuadLane& ql, float* sc,
                                                  const CellIn& in, int row0,
                                                  cg::grid_group& grid,
-                                                 Finish finish) {
+                                                 Finish finish,
+                                                 TileDone tile_done) {
     constexpr int NCH = OP == kDiag ? 6 : 3;
     const Lattice& L = P.A.L;
     const int N = L.N, stride = P.T.stride;
-    const int ntiles = P.T.ntx * P.T.nty * P.T.ntz;
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        const Tile T = tile_of(L, P.T, tile);
+    const int walked = tiles_walked(P.T);
+    for (int j = blockIdx.x; j < walked; j += gridDim.x) {
+        const Tile T = tile_of(L, P.T, tile_id(P.T, j));
         tile_cells<OP>(P, T, ql, sc, in);
         __syncthreads();
         if (P.T.halo) {
             halo_vertices<NCH>(L, T, sc, stride, finish);
+            tile_done(tile_id(P.T, j));
         } else {
             // own vertices and the plane above them along each axis
             const int bx = T.x0 + T.nx < L.X ? T.nx + 1 : T.nx;
@@ -658,14 +716,16 @@ __device__ __forceinline__ void cell_vertex_pass(const Args& P,
     }
     if (P.T.halo) return;
     grid.sync();
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        const Tile T = tile_of(L, P.T, tile);
+    for (int j = blockIdx.x; j < walked; j += gridDim.x) {
+        const Tile T = tile_of(L, P.T, tile_id(P.T, j));
         for (int vl = threadIdx.x; vl < T.nx * T.ny * T.nz; vl += blockDim.x) {
             const int lz = vl % T.nz, t = vl / T.nz;
             const int ly = t % T.ny, lx = t / T.ny;
             const int v = ((T.x0 + lx) * L.Y + T.y0 + ly) * L.Z + T.z0 + lz;
             // a lower neighbour tile along an axis wrote the slots with
             // that axis' bit set, for the vertices of this tile's low face
+            // (under a cover an inactive neighbour writes none: its slots
+            // keep the zeros of the cover's own workspace)
             const bool px = lx == 0 && T.ix > 0, py = ly == 0 && T.iy > 0,
                        pz = lz == 0 && T.iz > 0;
             float tot[NCH];
@@ -682,7 +742,27 @@ __device__ __forceinline__ void cell_vertex_pass(const Args& P,
             }
             finish(v, tot);
         }
+        tile_done(tile_id(P.T, j));
     }
+}
+
+template <int OP, class Args, class Finish>
+__device__ __forceinline__ void cell_vertex_pass(const Args& P,
+                                                 const QuadLane& ql, float* sc,
+                                                 const CellIn& in, int row0,
+                                                 cg::grid_group& grid,
+                                                 Finish finish) {
+    cell_vertex_pass<OP>(P, ql, sc, in, row0, grid, finish, [](int) {});
+}
+
+// Ends tile t's share of a dot summed in a vertex pass: the block's sum of
+// acc (block_sum's order) to tpart[t]; acc restarts from zero. Every thread
+// of the block must call it.
+__device__ __forceinline__ void tile_partial(float& acc, float* tpart, int t,
+                                             float* sh) {
+    const float s = block_sum(acc, sh);
+    if (threadIdx.x == 0) tpart[t] = s;
+    acc = 0.f;
 }
 
 // kPcg = false: one Newton iteration (_make_newton_kernel).
@@ -701,21 +781,32 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
     const int nb = gridDim.x;
     const QuadLane ql = quad_lane(P.A.G, threadIdx.x & 7);
     const CellIn at_u = {0.f, nullptr, 0.f, false};
-    float* part_rrb = P.part;
-    float* part_rz0 = P.part + nb;
-    float* part_rr0 = P.part + 2 * nb;
-    float* part_pap = P.part + 3 * nb;
-    float* part_rz = P.part + 4 * nb;
-    float* part_rr = P.part + 5 * nb;
-    float* part_fn = P.part + 6 * nb;
+    float* part_rz0 = P.part;
+    float* part_rr0 = P.part + nb;
+    float* part_rz = P.part + 2 * nb;
+    float* part_rr = P.part + 3 * nb;
+    float* part_fn = P.part + 4 * nb;
+    // The dots summed in a vertex pass (||b||^2, p.Ap) are summed a tile at
+    // a time, then over the tiles in tile order, whichever block walked a
+    // tile: their bits do not depend on how the tiles are spread over the
+    // blocks, so a cover (which walks its active tiles only, their partials
+    // for the others staying zero) gives the dense kernel's bits under the
+    // same tiling and grid. The vector phases' dots are per-block partials.
+    float* tpart = P.part + 5 * nb;
+    const int ntiles = P.T.ntx * P.T.nty * P.T.ntz;
 
     // -- right-hand side b: the residual f = (f_el(u) + s - rc u) vm, or s
     //    itself with kPcg; d6 = diag + ctrl I; ||b||^2 --
     const float* b = kPcg ? P.s : P.f;
     float acc = 0.f;
+    // a cover's passes never reach the inactive tiles: their f and dx are
+    // zero (ordered before any read by the barrier that ends the diagonal)
+    if (!kPcg && P.T.tiles)
+        zero_inactive(P.A.L, P.T, blockIdx.x, gridDim.x, P.f, P.dx);
     if (!kPcg) {
         cell_vertex_pass<kForce>(
-            P, ql, sc, at_u, 0, grid, [&](int v, const float* tot) {
+            P, ql, sc, at_u, 0, grid,
+            [&](int v, const float* tot) {
                 const float vm = P.vm[v], rc = P.rc[v];
 #pragma unroll
                 for (int c = 0; c < 3; ++c) {
@@ -724,7 +815,8 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
                     P.f[c * N + v] = fr;
                     acc += fr * fr;
                 }
-            });
+            },
+            [&](int t) { tile_partial(acc, tpart, t, sh); });
     }
     cell_vertex_pass<kDiag>(
         P, ql, sc, at_u, 3, grid, [&](int v, const float* tot) {
@@ -740,15 +832,14 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
                     acc += fr * fr;
                 }
             }
+        },
+        [&](int t) {
+            if (kPcg) tile_partial(acc, tpart, t, sh);
         });
-    {
-        const float t = block_sum(acc, sh);
-        if (threadIdx.x == 0) part_rrb[blockIdx.x] = t;
-    }
     grid.sync();
 
     // -- normalized RHS (solvers.cg._normalize_rhs), x = 0, z = M^-1 r --
-    const float rr_b = partials_sum(part_rrb, nb, sh);
+    const float rr_b = partials_sum(tpart, ntiles, sh);
     const bool ok_b = rr_b > 0.f;
     const float inv_scale = sqrtf(ok_b ? rr_b : 1.f);
     const float scale_back = ok_b ? inv_scale : 0.f;
@@ -794,7 +885,8 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
         const CellIn along_p = {0.f, pprev, beta, have_prev};
         float a_pap = 0.f;
         cell_vertex_pass<kHvp>(
-            P, ql, sc, along_p, 0, grid, [&](int v, const float* tot) {
+            P, ql, sc, along_p, 0, grid,
+            [&](int v, const float* tot) {
                 const float vm = P.vm[v], ct = P.ctrl[v];
 #pragma unroll
                 for (int c = 0; c < 3; ++c) {
@@ -805,14 +897,11 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
                     P.ap[c * N + v] = apv;
                     a_pap += pv * apv;
                 }
-            });
-        {
-            const float t = block_sum(a_pap, sh);
-            if (threadIdx.x == 0) part_pap[blockIdx.x] = t;
-        }
+            },
+            [&](int t) { tile_partial(a_pap, tpart, t, sh); });
         grid.sync();
 
-        const float pap = partials_sum(part_pap, nb, sh);
+        const float pap = partials_sum(tpart, ntiles, sh);
         const bool ok = pap >= 1e-12f;
         const float alpha = ok ? rz / pap : 0.f;
         a_rz = 0.f;
@@ -1411,7 +1500,13 @@ force_tiles_kernel(const __grid_constant__ ForceArgs P) {
     float* sc = reinterpret_cast<float*>(smem);
     const Lattice& L = P.A.L;
     const int N = L.N;
-    const Tile T = tile_of(L, P.T, blockIdx.x);
+    if (P.T.tiles && static_cast<int>(blockIdx.x) >= P.T.n_active) {
+        // a cover's last blocks zero the inactive tiles' vertices
+        zero_inactive(L, P.T, blockIdx.x - P.T.n_active,
+                      gridDim.x - P.T.n_active, P.out, nullptr);
+        return;
+    }
+    const Tile T = tile_of(L, P.T, tile_id(P.T, blockIdx.x));
     tile_cells_serial(P, T, sc);
     __syncthreads();
     halo_vertices<3>(L, T, sc, P.T.stride, [&](int v, const float* tot) {
@@ -1422,13 +1517,15 @@ force_tiles_kernel(const __grid_constant__ ForceArgs P) {
 
 // The two-pass form's cell pass: a thread a cell, the 8 points unrolled
 // (g as immediate operands), the cell's corner contributions to the scratch
-// cf[(corner * 3 + channel) * C + c].
+// cf[(corner * 3 + channel) * C + c]. cells: the n cells to compute (a
+// cover's real cells), or null: every cell, n = C.
 __global__ void __launch_bounds__(kThreads)
 force_cells(const __grid_constant__ ChainArgs A, const float* __restrict__ u,
-            const float* __restrict__ cm, float* __restrict__ cf) {
-    for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < A.L.C;
-         c += gridDim.x * blockDim.x)
-        cell_force(A, u, cm, cf, c);
+            const float* __restrict__ cm, float* __restrict__ cf,
+            const int* __restrict__ cells, int n) {
+    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
+         j += gridDim.x * blockDim.x)
+        cell_force(A, u, cm, cf, cells ? cells[j] : j);
 }
 
 // The g table in shared memory. A lane's quad_lane reads the column of its
@@ -1443,7 +1540,8 @@ __device__ __forceinline__ const GTab& shared_gtab(const GTab& G, GTab* s) {
 }
 
 // The energy of the cells the calling thread walks (a fixed grid-stride
-// walk), scaled by det * cell mask. kLanes: eight lanes a cell, lane q
+// walk over cells[0, n), or over every cell when cells is null), scaled by
+// det * cell mask. kLanes: eight lanes a cell, lane q
 // takes point q, lane i loads corner i and the cell's lanes pass the
 // corners round, the 8 points summed by a fixed xor exchange and added by
 // the cell's lane 0. Otherwise a thread a cell, the points in sequence.
@@ -1451,7 +1549,8 @@ template <bool kLanes>
 __device__ __forceinline__ float walk_energy(const ChainArgs& A,
                                              const float* __restrict__ u,
                                              const float* __restrict__ cm,
-                                             GTab* gs) {
+                                             const int* __restrict__ cells,
+                                             int n, GTab* gs) {
     const Lattice& L = A.L;
     const int lane = threadIdx.x & 31;
     const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -1461,7 +1560,8 @@ __device__ __forceinline__ float walk_energy(const ChainArgs& A,
         const int first = lane & 24;                  // the cell's lane 0
         const unsigned group = 0xffu << first;        // the cell's 8 lanes
         const QuadLane ql = quad_lane(shared_gtab(A.G, gs), lane & 7);
-        for (int c = tid >> 3; c < L.C; c += nthreads >> 3) {
+        for (int j = tid >> 3; j < n; j += nthreads >> 3) {
+            const int c = cells ? cells[j] : j;
             int cx, cy, cz;
             cell_coords(L, c, cx, cy, cz);
             const float* ui = u + 3 * corner_vertex(L, cx, cy, cz, lane & 7);
@@ -1483,7 +1583,8 @@ __device__ __forceinline__ float walk_energy(const ChainArgs& A,
             if (lane == first) s += (A.det * e) * cm[c];
         }
     } else {
-        for (int c = tid; c < L.C; c += nthreads) {
+        for (int j = tid; j < n; j += nthreads) {
+            const int c = cells ? cells[j] : j;
             int cx, cy, cz;
             cell_coords(L, c, cx, cy, cz);
             float us[8][3];
@@ -1515,12 +1616,14 @@ __device__ __forceinline__ float walk_energy(const ChainArgs& A,
 template <bool kLanes>
 __global__ void __launch_bounds__(kEnergyThreads)
 energy_kernel(const __grid_constant__ ChainArgs A, const float* __restrict__ u,
-              const float* __restrict__ cm, float* __restrict__ part,
-              unsigned* __restrict__ ticket, float* __restrict__ out) {
+              const float* __restrict__ cm, const int* __restrict__ cells,
+              int n, float* __restrict__ part, unsigned* __restrict__ ticket,
+              float* __restrict__ out) {
     __shared__ GTab gs;
     __shared__ float sh[33];
     __shared__ bool is_last;
-    const float t = block_sum(walk_energy<kLanes>(A, u, cm, &gs), sh);
+    const float t = block_sum(walk_energy<kLanes>(A, u, cm, cells, n, &gs),
+                              sh);
     if (threadIdx.x == 0) {
         part[blockIdx.x] = t;
         __threadfence();
@@ -1628,29 +1731,42 @@ const char* lat_error_string(int err) {
 // one launch, a block per halo tile, kForceRows * stride + 4 * box floats
 // of shared memory, at most 48 KB. ntx = 0: the two passes, with cf a
 // scratch of 24*C floats (calls that share it must be ordered on one
-// stream).
+// stream). A cover (list non-null): in the two passes, list holds the
+// n_list real cells the cell pass computes and cf is the cover's own
+// scratch, zero at every other cell (the gather reads them all); on halo
+// tiles, list holds every tile, the n_list active ones first, and up to
+// kZeroBlocks more blocks zero the inactive tiles' vertices.
 int lat_force(const float* u, const float* cm, float* out, float* cf,
-              int ntx, int nty, int ntz, int stride, int box, int X, int Y,
-              int Z, const float* g, float det, float mu, float la,
-              void* stream) {
+              const int* list, int n_list, int ntx, int nty, int ntz,
+              int stride, int box, int X, int Y, int Z, const float* g,
+              float det, float mu, float la, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const ChainArgs A = make_chain_args(X, Y, Z, g, det, mu, la);
     if (ntx == 0) {
-        force_cells<<<blocks_for(A.L.C), kThreads, 0, st>>>(A, u, cm, cf);
+        if (list && (n_list < 1 || n_list > A.L.C))
+            return static_cast<int>(cudaErrorInvalidValue);
+        const int n = list ? n_list : A.L.C;
+        force_cells<<<blocks_for(n), kThreads, 0, st>>>(A, u, cm, cf, list,
+                                                        n);
         gather_vertices<3><<<blocks_for(A.L.N), kThreads, 0, st>>>(A.L, cf,
                                                                    out);
         return static_cast<int>(cudaGetLastError());
     }
     const size_t smem = sizeof(float) * (kForceRows * stride + 4 * box);
-    if (smem > kForceSmem || nty < 1 || ntz < 1)
+    const int ntiles = ntx * nty * ntz;
+    if (smem > kForceSmem || nty < 1 || ntz < 1
+        || (list && (n_list < 1 || n_list > ntiles)))
         return static_cast<int>(cudaErrorInvalidValue);
     ForceArgs P;
     P.A = A;
-    P.T = Tiling{ntx, nty, ntz, stride, box, 1};
+    P.T = Tiling{ntx, nty, ntz, stride, box, 1, list, n_list};
     P.u = u;
     P.cm = cm;
     P.out = out;
-    force_tiles_kernel<<<ntx * nty * ntz, kForceThreads, smem, st>>>(P);
+    const int rest = ntiles - n_list;
+    const int grid =
+        list ? n_list + (rest < kZeroBlocks ? rest : kZeroBlocks) : ntiles;
+    force_tiles_kernel<<<grid, kForceThreads, smem, st>>>(P);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1708,20 +1824,24 @@ int lat_diag(const float* u, const float* cm, float* out, float* cd, int X,
 // One launch of `grid` blocks, eight lanes a cell (lanes = 1) or a thread
 // a cell (ops/lattice_kernels.energy_plan). u: the channel-last
 // (X, Y, Z, 3) field; out: 1 float; part: grid floats; ticket: 1 zero that
-// the kernel leaves zero. Calls that share part and ticket must be ordered
-// on one stream.
+// the kernel leaves zero. cells: a cover's n_cells real cells, the only
+// ones walked; null: every cell. Calls that share part and ticket must be
+// ordered on one stream.
 int lat_energy(const float* u, const float* cm, float* out, float* part,
-               unsigned* ticket, int grid, int lanes, int X, int Y, int Z,
-               const float* g, float det, float mu, float la, void* stream) {
-    if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+               unsigned* ticket, const int* cells, int n_cells, int grid,
+               int lanes, int X, int Y, int Z, const float* g, float det,
+               float mu, float la, void* stream) {
     const ChainArgs A = make_chain_args(X, Y, Z, g, det, mu, la);
+    if (grid < 1 || (cells && (n_cells < 1 || n_cells > A.L.C)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int n = cells ? n_cells : A.L.C;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (lanes)
-        energy_kernel<true><<<grid, kEnergyThreads, 0, st>>>(A, u, cm, part,
-                                                             ticket, out);
+        energy_kernel<true><<<grid, kEnergyThreads, 0, st>>>(
+            A, u, cm, cells, n, part, ticket, out);
     else
-        energy_kernel<false><<<grid, kEnergyThreads, 0, st>>>(A, u, cm, part,
-                                                              ticket, out);
+        energy_kernel<false><<<grid, kEnergyThreads, 0, st>>>(
+            A, u, cm, cells, n, part, ticket, out);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1921,21 +2041,29 @@ int lat_diag_shift(const float* u, const float* cm, const float* ctrl,
 }
 
 // One Newton iteration in one cooperative launch. p: 6*N floats, d6: 6*N,
-// r, z, ap, xacc: 3*N each, part: 7*grid, pbuf: 72*N (read and written in
+// r, z, ap, xacc: 3*N each, part: 5*grid + ntx*nty*ntz, pbuf: 72*N (read
+// and written in
 // exchange mode only); grid, ntx, nty, ntz, stride, box, halo from
-// lat_newton_plan(..., pcg = 0, ...). Calls that share the scratch must be
-// ordered on one stream.
+// lat_newton_plan(..., pcg = 0, ...). A cover (tiles non-null): tiles holds
+// every tile, the n_active active ones first (the plan from
+// ops/lattice_kernels.newton_tiling over the cover, grid at most
+// n_active); the cell passes walk the active tiles only, and p, ap, d6,
+// part and pbuf must be the cover's own scratch, zero wherever no active
+// tile writes them. Calls that share the scratch must be ordered on one stream.
 int lat_fused_newton(float tol, const float* u, const float* s,
                      const float* cm, const float* ctrl, const float* rc,
                      const float* vm, float* dx, float* f, float* fn, int* k,
                      float* r, float* z, float* p, float* ap, float* xacc,
-                     float* d6, float* part, float* pbuf, int grid, int ntx,
-                     int nty, int ntz, int stride, int box, int halo, int X,
-                     int Y, int Z, const float* g, float det, float mu,
-                     float la, int iterations, void* stream) {
+                     float* d6, float* part, float* pbuf, const int* tiles,
+                     int n_active, int grid, int ntx, int nty, int ntz,
+                     int stride, int box, int halo, int X, int Y, int Z,
+                     const float* g, float det, float mu, float la,
+                     int iterations, void* stream) {
+    if (grid < 1 || (tiles && (n_active < 1 || n_active > ntx * nty * ntz)))
+        return static_cast<int>(cudaErrorInvalidValue);
     NewtonArgs P;
     P.A = make_chain_args(X, Y, Z, g, det, mu, la);
-    P.T = Tiling{ntx, nty, ntz, stride, box, halo};
+    P.T = Tiling{ntx, nty, ntz, stride, box, halo, tiles, n_active};
     P.u = u;
     P.s = s;
     P.cm = cm;

@@ -94,13 +94,13 @@ def _build(so_path: str) -> None:
 def _declare(lib) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     chain = [I, I, I, P, F, F, F, P]          # X, Y, Z, g, det, mu, la, stream
-    lib.lat_force.argtypes = [P, P, P, P] + [I] * 5 + chain
+    lib.lat_force.argtypes = [P, P, P, P, P, I] + [I] * 5 + chain
     lib.lat_hvp.argtypes = [P] * 7 + [I] * 5 + chain
     lib.lat_diag.argtypes = [P, P, P, P] + chain
-    lib.lat_energy.argtypes = [P, P, P, P, P, I, I] + chain
+    lib.lat_energy.argtypes = [P, P, P, P, P, P, I, I, I] + chain
     lib.lat_newton_plan.argtypes = [I, I, I, I, I, ctypes.POINTER(I)]
     lib.lat_fused_newton.argtypes = (
-        [F] + [P] * 18 + [I] * 10 + [P, F, F, F, I, P])
+        [F] + [P] * 19 + [I] * 11 + [P, F, F, F, I, P])
     lib.lat_fused_pcg.argtypes = (
         [F] + [P] * 15 + [I] * 10 + [P, F, F, F, I, P])
     lib.lat_level_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]

@@ -11,6 +11,13 @@ diagonal blocks as 6 channels), `level_matvec_cf` (the level operator
 (H(u) p + ctrl p) vm, `hvp_cf`'s launch with its epilogue) and
 `power_lmax_cf` (a level's power iteration for the Chebyshev bound).
 
+`force_cf`, `elastic_energy_lattice` and `fused_newton` take an optional
+`cover` (`ops/boxes.Cover`, the low-fill path): the kernel then walks the
+cover's active tiles or real cells only, under a plan made over the cover,
+with its own workspaces, counted under its own name (`force_cover`,
+`energy_cover`, `fused_newton_cover`); the plain version computes the
+listed cells only (ops/stencil.py's `cells`).
+
 Dispatch: a wrapper runs its plain version (`*_plain`) only when its tensors
 lie on the CPU. For CUDA tensors it launches the kernel or raises; it never
 falls back. Every wrapper adds one to `launches[name]` where it launches its
@@ -48,7 +55,8 @@ SPD_PROJECT_FLOPS = 5 + 18 * 41 + 10 + 6 * 8
 CHEBY_MAX_SWEEPS = 32
 
 launches = {"force": 0, "hvp": 0, "diag": 0, "energy": 0, "fused_newton": 0,
-            "fused_pcg": 0, "cheby": 0, "diag_shift": 0, "power": 0}
+            "fused_pcg": 0, "cheby": 0, "diag_shift": 0, "power": 0,
+            "force_cover": 0, "energy_cover": 0, "fused_newton_cover": 0}
 
 # Launch shapes of csrc/lattice_kernels.cu (kForceThreads, kForceRows,
 # kForceSmem, kEnergyThreads).
@@ -88,6 +96,13 @@ HVP_MODEL = TileModel(8, 6.26, 4.3, 2.26, 0.0144, 7.8, 1.0e-4)
 # (scripts/force_tilings.py on an H100: lanes win at 2k, a thread a cell at
 # 19k and 74k).
 ENERGY_BLOCKS_PER_SM = 2
+# lat_newton_plan's tiles and cost model (csrc/lattice_kernels.cu:
+# kTileWidth, kScratchRows, kSmemCap, kFusedThreads / 8), mirrored by
+# newton_tiling for plans over a cover
+NEWTON_TILE_WIDTH = 5
+NEWTON_SCRATCH_ROWS = 48
+NEWTON_SMEM_FLOATS = 200 * 1024 // 4
+NEWTON_CELLS_PER_ROUND = 512 // 8
 
 _newton_plans: dict = {}
 _level_plans: dict = {}
@@ -183,16 +198,19 @@ def force_tiling(shape, tiles, box_floats: int = 4):
     return (ntx * nty * ntz, ntx, nty, ntz, stride, box)
 
 
-def force_cost(plan, shape, sms: int, model: TileModel = FORCE_MODEL):
+def force_cost(plan, shape, sms: int, model: TileModel = FORCE_MODEL,
+               n_tiles=None, n_cells=None):
     """Modelled device microseconds of a halo-tile kernel (lat_force; lat_hvp
     under HVP_MODEL) under a plan. One launch: the busiest SM runs
     ceil(tiles / sms) tiles, FORCE_RESIDENT at a time (waves), each of
     ceil(cells / FORCE_THREADS) rounds, and computes their cells (halo cells
-    count). Two launches: a fixed part and every cell once."""
+    count). Two launches: a fixed part and every cell once. Under a cover,
+    n_tiles active tiles and n_cells real cells in place of all."""
     if plan == FORCE_TWO_PASS:
-        cells = (shape[0] - 1) * (shape[1] - 1) * (shape[2] - 1)
+        cells = ((shape[0] - 1) * (shape[1] - 1) * (shape[2] - 1)
+                 if n_cells is None else n_cells)
         return model.pass_us + model.pass_cell_us * cells
-    per_sm = -(-plan[0] // sms)
+    per_sm = -(-(plan[0] if n_tiles is None else n_tiles) // sms)
     waves = -(-per_sm // FORCE_RESIDENT)
     rounds = -(-plan[4] // FORCE_THREADS)
     return (model.tile_us + model.wave_us * (waves - 1)
@@ -201,29 +219,54 @@ def force_cost(plan, shape, sms: int, model: TileModel = FORCE_MODEL):
 
 
 def best_force_tiling(X: int, Y: int, Z: int, sms: int,
-                      model: TileModel = FORCE_MODEL):
-    """The halo tiling of least force_cost that fits (ties: fewer tiles)."""
+                      model: TileModel = FORCE_MODEL, cover=None,
+                      bound: float = float("inf")):
+    """The halo tiling of least force_cost that fits (ties: fewer tiles).
+    With a cover (ops/boxes.Cover), a tiling is costed over its active
+    tiles, and only tilings that may cost less than `bound` are counted (a
+    tiling costs at least one tile an SM); None when none may."""
+    shape = (X, Y, Z)
     best = None
-    for tiles in itertools.product(_tile_counts(X), _tile_counts(Y),
-                                   _tile_counts(Z)):
-        plan = force_tiling((X, Y, Z), tiles, model.box_floats)
-        if plan is not None:
-            key = (force_cost(plan, (X, Y, Z), sms, model), plan[0])
+    for ntx, nty in itertools.product(_tile_counts(X), _tile_counts(Y)):
+        fits = []
+        for ntz in _tile_counts(Z):
+            plan = force_tiling(shape, (ntx, nty, ntz), model.box_floats)
+            if plan is not None and force_cost(plan, shape, sms, model,
+                                               n_tiles=1) < bound:
+                fits.append(plan)
+        if not fits:
+            continue
+        counts = ([p[0] for p in fits] if cover is None else
+                  cover.active_counts(ntx, nty, [p[3] for p in fits]))
+        for plan, n in zip(fits, counts):
+            key = (force_cost(plan, shape, sms, model, n_tiles=int(n)),
+                   int(n))
             if best is None or key < best[0]:
                 best = (key, plan)
-    return best[1]
+    return None if best is None else best[1]
 
 
 def force_plan(X: int, Y: int, Z: int, sms: int,
-               model: TileModel = FORCE_MODEL):
+               model: TileModel = FORCE_MODEL, cover=None):
     """What a halo-tile kernel (lat_force; lat_hvp under HVP_MODEL) runs on
     an X x Y x Z vertex lattice on a card of `sms` SMs: the best halo
     tiling, one launch, or FORCE_TWO_PASS where the model says the cells
     computed twice by halo tiles cost more than a second launch (the 74k
-    beam for lat_force)."""
-    tiling = best_force_tiling(X, Y, Z, sms, model)
-    if (force_cost(FORCE_TWO_PASS, (X, Y, Z), sms, model)
-            < force_cost(tiling, (X, Y, Z), sms, model)):
+    beam for lat_force). With a cover (ops/boxes.Cover), both are costed
+    over its active tiles and real cells."""
+    shape = (X, Y, Z)
+    if cover is None:
+        two = force_cost(FORCE_TWO_PASS, shape, sms, model)
+        tiling = best_force_tiling(X, Y, Z, sms, model)
+        n_tiles = tiling[0]
+    else:
+        two = force_cost(FORCE_TWO_PASS, shape, sms, model,
+                         n_cells=cover.cells.size)
+        tiling = best_force_tiling(X, Y, Z, sms, model, cover, bound=two)
+        if tiling is None:
+            return FORCE_TWO_PASS
+        n_tiles = cover.tiles(*tiling[1:4])[1]
+    if two < force_cost(tiling, shape, sms, model, n_tiles=n_tiles):
         return FORCE_TWO_PASS
     return tiling
 
@@ -234,16 +277,64 @@ def hvp_plan(X: int, Y: int, Z: int, sms: int):
     return force_plan(X, Y, Z, sms, HVP_MODEL)
 
 
-def energy_plan(X: int, Y: int, Z: int, sms: int):
+def energy_plan(X: int, Y: int, Z: int, sms: int, cover=None):
     """(blocks, lanes) of lat_energy: eight lanes a cell (lanes = 1) while
     they fit in a block an SM, else a thread a cell; at most
     ENERGY_BLOCKS_PER_SM blocks an SM (the threads walk the cells beyond
-    that)."""
-    cells = (X - 1) * (Y - 1) * (Z - 1)
+    that). With a cover, the cells are its real cells."""
+    cells = ((X - 1) * (Y - 1) * (Z - 1) if cover is None
+             else cover.cells.size)
     lanes = int(8 * cells <= sms * ENERGY_THREADS)
     threads = 8 * cells if lanes else cells
     return (max(1, min(-(-threads // ENERGY_THREADS),
                        ENERGY_BLOCKS_PER_SM * sms)), lanes)
+
+
+def newton_tiling(X: int, Y: int, Z: int, cap: int, cover=None,
+                  mode: int = 0):
+    """(plan, cell_us): the fused Newton kernel's plan (grid, ntx, nty, ntz,
+    stride, box, halo) as lat_newton_plan picks it (the same candidates in
+    the same order, the same model in double precision) on a card that
+    holds `cap` of its blocks at once (its SM count: a block takes an SM's
+    registers), and the model's cell-pass term of that plan, 5 passes of
+    0.9 us a round times the tiles a block walks. With a cover
+    (ops/boxes.Cover) a tiling runs its active tiles only: they set the
+    grid and the waves. mode: as lat_newton_plan's (1 halo, 2 exchange)."""
+    if min(X, Y, Z) < 2 or mode not in (0, 1, 2):
+        raise ValueError(f"lattice {X, Y, Z}, mode {mode}: lat_newton_plan "
+                         "takes X, Y, Z >= 2 and mode 0, 1 or 2")
+    ntx = -(-X // NEWTON_TILE_WIDTH)
+    nty = -(-Y // NEWTON_TILE_WIDTH)
+    active = (None if cover is None
+              else cover.active_counts(ntx, nty, range(1, Z + 1)))
+    best = None
+    for halo in (1, 0):
+        if (mode == 1 and not halo) or (mode == 2 and halo):
+            continue
+        ex = min(-(-X // ntx) + halo, X - 1)
+        ey = min(-(-Y // nty) + halo, Y - 1)
+        for ntz in range(1, Z + 1):
+            ez = min(-(-Z // ntz) + halo, Z - 1)
+            ext = ex * ey * ez
+            box = (ex + 1) * (ey + 1) * (ez + 1)
+            if (NEWTON_SCRATCH_ROWS * (ext | 1) + 8 * box
+                    > NEWTON_SMEM_FLOATS):
+                continue
+            ntiles = (ntx * nty * ntz if active is None
+                      else int(active[ntz - 1]))
+            blocks = min(ntiles, cap)
+            waves = float(-(-ntiles // cap))
+            rounds = float(-(-ext // NEWTON_CELLS_PER_ROUND))
+            cell_us = 5.0 * rounds * 0.9 * waves
+            cost = cell_us + (7.0 if halo else 12.0) * (2.0 + 0.016 * blocks)
+            if best is not None and cost >= best[0]:
+                continue
+            best = (cost, (blocks, ntx, nty, ntz, ext | 1, box, halo),
+                    cell_us)
+    if best is None:
+        raise ValueError(f"no fused Newton tiling fits the lattice "
+                         f"{X, Y, Z}")
+    return best[1], best[2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -271,8 +362,8 @@ def _hvp_plan(X, Y, Z, device):
 
 
 def _kept_scratch(key, floats: int, tickets: int):
-    """(pointer to `floats` floats, pointer to `tickets` zeroed uint32),
-    allocated at the first call with this key and kept."""
+    """(pointer to `floats` floats, pointer to `tickets` uint32), allocated
+    zeroed at the first call with this key and kept."""
     if key not in _workspaces:
         buf = torch.zeros((floats + tickets,), dtype=torch.float32,
                           device=key[0])
@@ -281,21 +372,65 @@ def _kept_scratch(key, floats: int, tickets: int):
     return _workspaces[key][1]
 
 
+def _cover_plan(cover, kind: str, device):
+    """The plan of `kind` ("force", "energy", "newton") over the cover for
+    this device's SM count, made once and kept on the cover."""
+    sms = _sms(device.index)
+    key = (kind, sms)
+    if key not in cover.plans:
+        X, Y, Z = cover.shape
+        if kind == "force":
+            cover.plans[key] = force_plan(X, Y, Z, sms, cover=cover)
+        elif kind == "energy":
+            cover.plans[key] = energy_plan(X, Y, Z, sms, cover=cover)
+        else:
+            cover.plans[key] = newton_tiling(X, Y, Z, sms, cover=cover)[0]
+    return cover.plans[key]
+
+
+def _cover_tiles(cover, tiling, device):
+    """(pointer to the int32 tile order, n_active) of the cover under the
+    tiling (ntx, nty, ntz) on the device, kept on the cover."""
+    name = "tiles %d %d %d" % tuple(tiling)
+    order, n_active = cover.tiles(*tiling)
+    return cover.tensor(name, device, lambda: order).data_ptr(), n_active
+
+
+def _cover_cells(cover, device):
+    """Pointer to the cover's int32 real cells on the device (kept)."""
+    return cover.tensor("cells", device, lambda: cover.cells).data_ptr()
+
+
+def _check_cover(cover, X, Y, Z):
+    if tuple(cover.shape) != (X, Y, Z):
+        raise ValueError(f"cover of the lattice {tuple(cover.shape)} given "
+                         f"for {X, Y, Z}")
+
+
 # -- plain torch versions (channel-first wrappers over ops.stencil) ---------
 
 
-def force_cf_plain(x_cf, cell_mask, dx: float, mu: float, la: float):
+def _cells(cover, device):
+    """The stencil CellList of a cover (None: every cell)."""
+    return None if cover is None else cover.cell_list(device)
+
+
+def force_cf_plain(x_cf, cell_mask, dx: float, mu: float, la: float,
+                   cover=None):
     g, det = _tables(dx, x_cf.device)
     f = stencil.elastic_force_lattice(x_cf.permute(1, 2, 3, 0), cell_mask,
-                                      g, det, mu, la)
+                                      g, det, mu, la,
+                                      _cells(cover, x_cf.device))
     return f.permute(3, 0, 1, 2).contiguous()
 
 
-def hvp_cf_plain(x_cf, p_cf, cell_mask, dx: float, mu: float, la: float):
+def hvp_cf_plain(x_cf, p_cf, cell_mask, dx: float, mu: float, la: float,
+                 cover=None):
     g, det = _tables(dx, x_cf.device)
     h = stencil.elastic_hvp_lattice(x_cf.permute(1, 2, 3, 0),
                                     p_cf.permute(1, 2, 3, 0), cell_mask,
-                                    g, det, mu, la)
+                                    g, det, mu, la,
+                                    _cells(cover, x_cf.device))
     return h.permute(3, 0, 1, 2).contiguous()
 
 
@@ -305,30 +440,35 @@ def level_matvec_cf_plain(u_cf, p_cf, cell_mask, ctrl, vert_mask, dx: float,
             + ctrl * p_cf) * vert_mask
 
 
-def hess_diag_lattice_plain(x_lat, cell_mask, dx: float, mu: float, la: float):
+def hess_diag_lattice_plain(x_lat, cell_mask, dx: float, mu: float, la: float,
+                            cover=None):
     g, det = _tables(dx, x_lat.device)
     return stencil.elastic_hessian_diag_lattice(x_lat, cell_mask, g, det,
-                                                mu, la)
+                                                mu, la,
+                                                _cells(cover, x_lat.device))
 
 
 def elastic_energy_lattice_plain(x_lat, cell_mask, dx: float, mu: float,
-                                 la: float):
+                                 la: float, cover=None):
     g, det = _tables(dx, x_lat.device)
-    return stencil.elastic_energy_lattice(x_lat, cell_mask, g, det, mu, la)
+    return stencil.elastic_energy_lattice(x_lat, cell_mask, g, det, mu, la,
+                                          _cells(cover, x_lat.device))
 
 
 def _pcg_plain(u, b, cell_mask, ctrl, vert_mask, g, det, mu, la, iterations,
-               tol):
+               tol, cells=None):
     """Block-Jacobi PCG of (H(u) + diag(ctrl)) dx = b on the lattice, with
-    the analytic HVP and the ctrl-shifted vertex diagonal; u, b (X, Y, Z, 3).
-    Returns (dx (X, Y, Z, 3), k)."""
+    the analytic HVP and the ctrl-shifted vertex diagonal; u, b (X, Y, Z, 3);
+    cells: a cover's CellList or None. Returns (dx (X, Y, Z, 3), k)."""
     vm3 = vert_mask[..., None]
     eye = torch.eye(3, dtype=u.dtype, device=u.device)
-    diag = (stencil.elastic_hessian_diag_lattice(u, cell_mask, g, det, mu, la)
+    diag = (stencil.elastic_hessian_diag_lattice(u, cell_mask, g, det, mu, la,
+                                                 cells)
             + ctrl[..., None, None] * eye)
 
     def matvec(p):
-        hp = stencil.elastic_hvp_lattice(u, p, cell_mask, g, det, mu, la)
+        hp = stencil.elastic_hvp_lattice(u, p, cell_mask, g, det, mu, la,
+                                         cells)
         return (hp + ctrl[..., None] * p) * vm3
 
     def minv(r):
@@ -351,23 +491,27 @@ def fused_pcg_plain(u_cf, f_cf, cell_mask, ctrl, vert_mask, dx: float,
 
 
 def fused_newton_plain(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
-                       mu: float, la: float, iterations: int = 50, tol=1e-5):
+                       mu: float, la: float, iterations: int = 50, tol=1e-5,
+                       cover=None):
     """The fused Newton iteration as a composition of the plain operators:
     residual, ctrl-shifted block-Jacobi PCG with the analytic HVP, and the
-    trial-step residual norm. Returns (dx_cf, f_cf, fn_full, k)."""
+    trial-step residual norm; over a cover's real cells when one is given.
+    Returns (dx_cf, f_cf, fn_full, k)."""
     g, det = _tables(dx, u_cf.device)
+    cells = _cells(cover, u_cf.device)
     u = u_cf.permute(1, 2, 3, 0)
     s = s_cf.permute(1, 2, 3, 0)
     vm3 = vert_mask[..., None]
     rc3 = rc[..., None]
 
     def resid(uu):
-        fe = stencil.elastic_force_lattice(uu, cell_mask, g, det, mu, la)
+        fe = stencil.elastic_force_lattice(uu, cell_mask, g, det, mu, la,
+                                           cells)
         return (fe + s - rc3 * uu) * vm3
 
     f = resid(u)
     dxl, k = _pcg_plain(u, f, cell_mask, ctrl, vert_mask, g, det, mu, la,
-                        iterations, tol)
+                        iterations, tol, cells)
     fn = ell.inf_norm(resid(u + dxl * vm3))
     return (dxl.permute(3, 0, 1, 2).contiguous(),
             f.permute(3, 0, 1, 2).contiguous(), fn,
@@ -508,27 +652,40 @@ def hess_diag_shift_cf_plain(u_cf, cell_mask, ctrl, vert_mask, dx: float,
 
 # -- public wrappers ---------------------------------------------------------
 
-def force_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
+def force_cf(x_cf, cell_mask, dx: float, mu: float, la: float, cover=None):
     """Elastic force of a displacement field; (3, X, Y, Z) -> (3, X, Y, Z).
     Allocates only its output: one launch on halo tiles, or the two passes
-    with their cell scratch kept per device, stream and lattice."""
+    with their cell scratch kept per device, stream and lattice (and
+    cover). With a cover: the plan over it, the active tiles or the real
+    cells only, counted as "force_cover"."""
     _cuda.refuse_grad("lattice_kernels.force_cf", x_cf, cell_mask)
     if _cuda.on_cpu(x_cf, cell_mask):
-        return force_cf_plain(x_cf, cell_mask, dx, mu, la)
+        return force_cf_plain(x_cf, cell_mask, dx, mu, la, cover)
     X, Y, Z = _vertex_grid(x_cf, cell_mask)
     lib = _cuda.load()
     dev = x_cf.device
-    plan = _force_plan(X, Y, Z, dev)
     tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
-    cf = None
-    if plan == FORCE_TWO_PASS:
-        cf = _kept_scratch((str(dev), tail[-1], "force", X, Y, Z),
-                           24 * cell_mask.numel(), 0)[0]
+    cf, lst, n_lst = None, None, 0
+    if cover is None:
+        plan = _force_plan(X, Y, Z, dev)
+        if plan == FORCE_TWO_PASS:
+            cf = _kept_scratch((str(dev), tail[-1], "force", X, Y, Z),
+                               24 * cell_mask.numel(), 0)[0]
+    else:
+        _check_cover(cover, X, Y, Z)
+        plan = _cover_plan(cover, "force", dev)
+        if plan == FORCE_TWO_PASS:
+            # the cover's own scratch: the cells it never writes stay zero
+            cf = _kept_scratch((str(dev), tail[-1], "force_cover", X, Y, Z,
+                                cover.key), 24 * cell_mask.numel(), 0)[0]
+            lst, n_lst = _cover_cells(cover, dev), int(cover.cells.size)
+        else:
+            lst, n_lst = _cover_tiles(cover, plan[1:4], dev)
     out = torch.empty_like(x_cf)
     with torch.cuda.device(dev):
         err = lib.lat_force(x_cf.data_ptr(), cell_mask.data_ptr(),
-                            out.data_ptr(), cf, *plan[1:], *tail)
-    launches["force"] += 1
+                            out.data_ptr(), cf, lst, n_lst, *plan[1:], *tail)
+    launches["force" if cover is None else "force_cover"] += 1
     _cuda.check(err, "lat_force")
     return out
 
@@ -626,27 +783,38 @@ def hess_diag_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
                         dx, mu, la)
 
 
-def elastic_energy_lattice(x_lat, cell_mask, dx: float, mu: float, la: float):
+def elastic_energy_lattice(x_lat, cell_mask, dx: float, mu: float, la: float,
+                           cover=None):
     """Total StVK elastic energy of a displacement field (X, Y, Z, 3), a 0-d
     tensor on the field's device. One launch on the field as it is;
     allocates only its output (the partials and the ticket are kept per
-    device, stream and lattice)."""
+    device, stream and lattice, and cover). With a cover: its real cells
+    only, under energy_plan over them, counted as "energy_cover"."""
     _cuda.refuse_grad("lattice_kernels.elastic_energy_lattice",
                       x_lat, cell_mask)
     if _cuda.on_cpu(x_lat, cell_mask):
-        return elastic_energy_lattice_plain(x_lat, cell_mask, dx, mu, la)
+        return elastic_energy_lattice_plain(x_lat, cell_mask, dx, mu, la,
+                                            cover)
     X, Y, Z = _vertex_grid(x_lat, cell_mask, channel_last=True)
     lib = _cuda.load()
     dev = x_lat.device
     tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
-    grid, lanes = energy_plan(X, Y, Z, _sms(dev.index))
-    part, ticket = _kept_scratch((str(dev), tail[-1], "energy", X, Y, Z,
-                                  grid), grid, 1)
+    if cover is None:
+        grid, lanes = energy_plan(X, Y, Z, _sms(dev.index))
+        key = (str(dev), tail[-1], "energy", X, Y, Z, grid)
+        cells, n_cells = None, 0
+    else:
+        _check_cover(cover, X, Y, Z)
+        grid, lanes = _cover_plan(cover, "energy", dev)
+        key = (str(dev), tail[-1], "energy_cover", X, Y, Z, grid, cover.key)
+        cells, n_cells = _cover_cells(cover, dev), int(cover.cells.size)
+    part, ticket = _kept_scratch(key, grid, 1)
     out = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.lat_energy(x_lat.data_ptr(), cell_mask.data_ptr(),
-                             out.data_ptr(), part, ticket, grid, lanes, *tail)
-    launches["energy"] += 1
+                             out.data_ptr(), part, ticket, cells, n_cells,
+                             grid, lanes, *tail)
+    launches["energy" if cover is None else "energy_cover"] += 1
     _cuda.check(err, "lat_energy")
     return out
 
@@ -673,21 +841,20 @@ def _newton_plan(lib, X, Y, Z, device, pcg: bool = False):
     return _newton_plans[key]
 
 
-def _workspace(lib, X, Y, Z, device, stream: int):
-    """The fused kernels' scratch pointers (r, z, p, ap, xacc, d6, part,
-    pbuf): one tensor per lattice, device, stream and pair of plans,
-    allocated at first use and kept. fused_newton and fused_pcg share it, so
-    calls that share it are ordered on its stream."""
-    plans = tuple(_newton_plan(lib, X, Y, Z, device, pcg)
-                  for pcg in (False, True))
-    key = (str(device), stream, X, Y, Z, plans)
+def _fused_scratch(key, plans, n: int):
+    """The scratch pointers (r, z, p, ap, xacc, d6, part, pbuf) of the fused
+    kernels under `plans`, for a lattice of n vertices: one zeroed tensor
+    per key, allocated at first use and kept (part: 5 per-block partials a
+    block, then one a tile). Under a cover, what no active tile writes
+    keeps its zeros."""
     if key not in _workspaces:
-        n = X * Y * Z
         grid = max(plan[0] for plan in plans)
+        ntiles = max(plan[1] * plan[2] * plan[3] for plan in plans)
         exchange = any(not plan[6] for plan in plans)
-        floats = (3 * n, 3 * n, 6 * n, 3 * n, 3 * n, 6 * n, 7 * grid,
-                  72 * n if exchange else 0)
-        buf = torch.empty((sum(floats),), dtype=torch.float32, device=device)
+        floats = (3 * n, 3 * n, 6 * n, 3 * n, 3 * n, 6 * n,
+                  5 * grid + ntiles, 72 * n if exchange else 0)
+        buf = torch.zeros((sum(floats),), dtype=torch.float32,
+                          device=key[0])
         ptrs, at = [], buf.data_ptr()
         for count in floats:
             ptrs.append(at)
@@ -696,31 +863,53 @@ def _workspace(lib, X, Y, Z, device, stream: int):
     return _workspaces[key][1]
 
 
+def _workspace(lib, X, Y, Z, device, stream: int):
+    """The fused kernels' scratch pointers: one tensor per lattice, device,
+    stream and pair of plans. fused_newton and fused_pcg share it, so calls
+    that share it are ordered on its stream."""
+    plans = tuple(_newton_plan(lib, X, Y, Z, device, pcg)
+                  for pcg in (False, True))
+    return _fused_scratch((str(device), stream, X, Y, Z, plans), plans,
+                          X * Y * Z)
+
+
 def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
-                 mu: float, la: float, iterations: int = 50, tol=1e-5):
-    """One Newton iteration of the implicit step on the dense lattice:
+                 mu: float, la: float, iterations: int = 50, tol=1e-5,
+                 cover=None):
+    """One Newton iteration of the implicit step on the lattice:
       f   = (f_el(u) + s - rc u) vm
       dx  = block-Jacobi PCG of (H(u) + diag(ctrl)) dx = f
       fn  = ||f(u + dx vm)||_inf
     u_cf, s_cf: (3, X, Y, Z); ctrl, rc, vert_mask: (X, Y, Z). s includes the
     -rc*x0 shift; rc is the residual's linear coefficient (pin + drag +
     m/dt^2, a SUM) and ctrl the Hessian diagonal shift (max(pin, drag) +
-    m/dt^2 + (1 - vm)). Returns (dx_cf, f_cf, fn_full, k) with fn_full a
-    0-d float32 and k a 0-d int32 tensor (matvecs executed = k - 1)."""
+    m/dt^2 + (1 - vm)). With a cover (ops/boxes.Cover), the cell passes
+    walk its active tiles only, under newton_tiling's plan over it, with
+    the cover's own zeroed scratch; counted as "fused_newton_cover".
+    Returns (dx_cf, f_cf, fn_full, k) with fn_full a 0-d float32 and k a
+    0-d int32 tensor (matvecs executed = k - 1)."""
     _cuda.refuse_grad("lattice_kernels.fused_newton",
                       u_cf, s_cf, cell_mask, ctrl, rc, vert_mask)
     if _cuda.on_cpu(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask):
         return fused_newton_plain(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask,
-                                  dx, mu, la, iterations, tol)
+                                  dx, mu, la, iterations, tol, cover)
     X, Y, Z = _vertex_grid(u_cf, cell_mask)
     _cuda.require(s_cf, u_cf.shape, "s_cf")
     for name, t in (("ctrl", ctrl), ("rc", rc), ("vert_mask", vert_mask)):
         _cuda.require(t, (X, Y, Z), name)
     lib = _cuda.load()
     dev = u_cf.device
-    plan = _newton_plan(lib, X, Y, Z, dev)
     tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
-    scratch = _workspace(lib, X, Y, Z, dev, tail[-1])
+    if cover is None:
+        plan = _newton_plan(lib, X, Y, Z, dev)
+        scratch = _workspace(lib, X, Y, Z, dev, tail[-1])
+        tiles, n_active = None, 0
+    else:
+        _check_cover(cover, X, Y, Z)
+        plan = _cover_plan(cover, "newton", dev)
+        scratch = _fused_scratch((str(dev), tail[-1], X, Y, Z, (plan,),
+                                  cover.key), (plan,), X * Y * Z)
+        tiles, n_active = _cover_tiles(cover, plan[1:4], dev)
     out = torch.empty((2,) + tuple(u_cf.shape), dtype=torch.float32,
                       device=dev)
     dxc, fc = out[0], out[1]
@@ -729,9 +918,10 @@ def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
     ptrs = [t.data_ptr() for t in (u_cf, s_cf, cell_mask, ctrl, rc, vert_mask,
                                    dxc, fc, fn, k)]
     with torch.cuda.device(dev):
-        err = lib.lat_fused_newton(float(tol), *ptrs, *scratch, *plan,
-                                   *tail[:-1], int(iterations), tail[-1])
-    launches["fused_newton"] += 1
+        err = lib.lat_fused_newton(float(tol), *ptrs, *scratch, tiles,
+                                   n_active, *plan, *tail[:-1],
+                                   int(iterations), tail[-1])
+    launches["fused_newton" if cover is None else "fused_newton_cover"] += 1
     _cuda.check(err, "lat_fused_newton")
     return dxc, fc, fn, k
 

@@ -7,12 +7,20 @@ run on CPU tensors; the multigrid transfers (`prolong_lat`, `restrict_lat`)
 are plain torch on every device.
 
 Layout: vertex fields (X, Y, Z, 3) on the bounding lattice; cell mask
-(X-1, Y-1, Z-1), 1.0 on real cells. All operators take DISPLACEMENTS
+(X-1, Y-1, Z-1), 1.0 on real cells. The elastic operators take an optional
+`cells` (a CellList: a cover's real cells, ops/boxes.py): they then compute
+the listed cells only, with the same per-cell formulas on the gathered
+corner fields, and add each corner's contributions to its vertex in the
+same corner order, so the vertex sums equal the dense ones up to the sign
+of zero (a dense sum adds +-0 for every empty cell). All operators take
+DISPLACEMENTS
 u = x - x0 from the rest lattice: F = I + sum_i u_i g_iq^T with the identity
 added analytically, so the f32 noise of F does not grow with the coordinate
 magnitude (the position form sums eight |x|*(2/dx)-sized terms that cancel).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,16 +74,62 @@ def lattice_material_tables(dx: float, device="cpu"):
     return torch.from_numpy(g_table(dx)).to(device), (dx / 2.0) ** 3
 
 
-def _cell_slices(x_lat):
-    """The 8 corner fields of every cell as shifted slices."""
+class CellList(NamedTuple):
+    """Listed cells of a lattice: their flat indices into the (X-1, Y-1,
+    Z-1) cell grid, and the flat vertex index of each one's 8 corners in
+    _CORNERS order; int64 on the fields' device."""
+    cells: torch.Tensor      # (n,)
+    corners: torch.Tensor    # (8, n)
+
+
+def cell_list(cells, shape, device) -> CellList:
+    """CellList of the flat cell indices `cells` (a numpy int array) on a
+    vertex lattice of `shape`."""
+    X, Y, Z = shape
+    c = torch.as_tensor(np.asarray(cells, np.int64))
+    cz = c % (Z - 1)
+    t = c // (Z - 1)
+    cy, cx = t % (Y - 1), t // (Y - 1)
+    corners = torch.stack([((cx + di) * Y + cy + dj) * Z + cz + dk
+                           for (di, dj, dk) in _CORNERS])
+    return CellList(c.to(device), corners.to(device))
+
+
+def _cell_slices(x_lat, cells=None):
+    """The 8 corner fields of every cell as shifted slices, or of the listed
+    cells as (n, 1, 1, C) gathers (the dense formulas run on them as on a
+    cell grid of n x 1 x 1)."""
+    if cells is not None:
+        flat = x_lat.reshape(-1, x_lat.shape[-1])
+        return [flat[c].view(-1, 1, 1, flat.shape[-1]) for c in cells.corners]
     X, Y, Z = x_lat.shape[:3]
     return [x_lat[di:di + X - 1, dj:dj + Y - 1, dk:dk + Z - 1]
             for (di, dj, dk) in _CORNERS]
 
 
-def _deformation(u_lat, g):
+def _cell_values(cell_mask, cells=None):
+    """The cell mask over the cells computed: the grid, or (n, 1, 1)."""
+    if cells is None:
+        return cell_mask
+    return cell_mask.reshape(-1)[cells.cells].view(-1, 1, 1)
+
+
+def _add_to_corner(out, i, val, cells=None):
+    """out[vertex at corner i of each computed cell] += val in place; out is
+    (X, Y, Z, ...) and val the cells' values (cell grid or (n, 1, 1))."""
+    if cells is None:
+        di, dj, dk = _CORNERS[i]
+        X, Y, Z = out.shape[:3]
+        out[di:di + X - 1, dj:dj + Y - 1, dk:dk + Z - 1] += val
+        return
+    tail = out.shape[3:]
+    out.view((-1,) + tail).index_add_(0, cells.corners[i],
+                                      val.reshape((-1,) + tail))
+
+
+def _deformation(u_lat, g, cells=None):
     """F[x, y, z, q, r, d] = I + sum_i u_i[r] g[i, q, d] over the cells."""
-    xs = _cell_slices(u_lat)
+    xs = _cell_slices(u_lat, cells)
     F = sum(torch.einsum("xyzr,qd->xyzqrd", xs[i], g[i]) for i in range(8))
     return F + torch.eye(3, dtype=u_lat.dtype, device=u_lat.device)
 
@@ -89,36 +143,36 @@ def _strain_stress(F, mu, la):
     return E, trE, M
 
 
-def _gather_corners(cell_field, g, shape, sign_det):
+def _gather_corners(cell_field, g, shape, sign_det, cells=None):
     """out[vertex] = sign_det * sum over incident cells and q of
     cell_field[..., q, r, d] g[i, q, d] (cell_field already masked)."""
     X, Y, Z = shape
     out = torch.zeros((X, Y, Z, 3), dtype=cell_field.dtype,
                       device=cell_field.device)
-    for i, (di, dj, dk) in enumerate(_CORNERS):
+    for i in range(8):
         fi = sign_det * torch.einsum("xyzqrd,qd->xyzr", cell_field, g[i])
-        out[di:di + X - 1, dj:dj + Y - 1, dk:dk + Z - 1] += fi
+        _add_to_corner(out, i, fi, cells)
     return out
 
 
-def elastic_force_lattice(u_lat, cell_mask, g, det, mu, la):
+def elastic_force_lattice(u_lat, cell_mask, g, det, mu, la, cells=None):
     """Elastic force on the vertex lattice: corner i of every cell gets
     -det * sum_q P(F_q) g_iq with P = F M, masked by the cell mask."""
-    F = _deformation(u_lat, g)
+    F = _deformation(u_lat, g, cells)
     _, _, M = _strain_stress(F, mu, la)
     P = F @ M
-    Pm = P * cell_mask[..., None, None, None]
-    return _gather_corners(Pm, g, u_lat.shape[:3], -det)
+    Pm = P * _cell_values(cell_mask, cells)[..., None, None, None]
+    return _gather_corners(Pm, g, u_lat.shape[:3], -det, cells)
 
 
-def elastic_hvp_lattice(u_lat, p_lat, cell_mask, g, det, mu, la):
+def elastic_hvp_lattice(u_lat, p_lat, cell_mask, g, det, mu, la, cells=None):
     """Analytic Hessian-vector product (positive-definite convention, the
     negated directional derivative of elastic_force_lattice along p):
       dF = sum_i p_i g_i^T, dE = (dF^T F + F^T dF)/2,
       dP = dF M + F (2 mu dE + la tr(dE) I), (H p)_i = det sum_q dP g_iq."""
-    F = _deformation(u_lat, g)
+    F = _deformation(u_lat, g, cells)
     _, _, M = _strain_stress(F, mu, la)
-    ps = _cell_slices(p_lat)
+    ps = _cell_slices(p_lat, cells)
     dF = sum(torch.einsum("xyzr,qd->xyzqrd", ps[i], g[i]) for i in range(8))
     eye = torch.eye(3, dtype=F.dtype, device=F.device)
     dE = 0.5 * (torch.einsum("...ba,...bc->...ac", dF, F)
@@ -126,37 +180,38 @@ def elastic_hvp_lattice(u_lat, p_lat, cell_mask, g, det, mu, la):
     trdE = torch.diagonal(dE, dim1=-2, dim2=-1).sum(-1)
     dM = 2.0 * mu * dE + la * trdE[..., None, None] * eye
     dP = dF @ M + F @ dM
-    dPm = dP * cell_mask[..., None, None, None]
-    return _gather_corners(dPm, g, u_lat.shape[:3], det)
+    dPm = dP * _cell_values(cell_mask, cells)[..., None, None, None]
+    return _gather_corners(dPm, g, u_lat.shape[:3], det, cells)
 
 
-def elastic_energy_lattice(u_lat, cell_mask, g, det, mu, la):
+def elastic_energy_lattice(u_lat, cell_mask, g, det, mu, la, cells=None):
     """Total StVK energy sum_cells det * sum_q (mu |E|^2 + la/2 tr(E)^2)."""
-    F = _deformation(u_lat, g)
+    F = _deformation(u_lat, g, cells)
     E, trE, _ = _strain_stress(F, mu, la)
     psi = mu * torch.sum(E * E, dim=(-2, -1)) + 0.5 * la * trE * trE
-    return torch.sum(psi * cell_mask[..., None] * det)
+    return torch.sum(psi * _cell_values(cell_mask, cells)[..., None] * det)
 
 
-def elastic_hessian_diag_lattice(u_lat, cell_mask, g, det, mu, la):
+def elastic_hessian_diag_lattice(u_lat, cell_mask, g, det, mu, la,
+                                 cells=None):
     """Vertex-diagonal 3x3 Hessian blocks (X, Y, Z, 3, 3): per cell, q and
     corner i with a = g_iq and v = F a,
       D_i = det (a^T M a I + (mu + la) v v^T + mu |a|^2 F F^T)."""
-    F = _deformation(u_lat, g)
+    F = _deformation(u_lat, g, cells)
     _, _, M = _strain_stress(F, mu, la)
     C = torch.einsum("...rc,...sc->...rs", F, F)
     X, Y, Z = u_lat.shape[:3]
     out = torch.zeros((X, Y, Z, 3, 3), dtype=u_lat.dtype, device=u_lat.device)
     eye = torch.eye(3, dtype=u_lat.dtype, device=u_lat.device)
-    cm = cell_mask[..., None, None]
-    for i, (di, dj, dk) in enumerate(_CORNERS):
+    cm = _cell_values(cell_mask, cells)[..., None, None]
+    for i in range(8):
         v = torch.einsum("xyzqrc,qc->xyzqr", F, g[i])
         s1 = torch.einsum("qc,xyzqcd,qd->xyzq", g[i], M, g[i])
         gg_q = torch.einsum("qc,qc->q", g[i], g[i])
         Hd = det * (torch.einsum("xyzq,ji->xyzji", s1, eye)
                     + (mu + la) * torch.einsum("xyzqj,xyzqi->xyzji", v, v)
                     + mu * torch.einsum("q,xyzqji->xyzji", gg_q, C))
-        out[di:di + X - 1, dj:dj + Y - 1, dk:dk + Z - 1] += Hd * cm
+        _add_to_corner(out, i, Hd * cm, cells)
     return out
 
 

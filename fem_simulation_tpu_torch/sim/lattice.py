@@ -14,8 +14,14 @@ sync); a solve reads its initial residual and its PCG total once more.
 Host-side scalar tests are made in float32, as the reference makes them on
 device scalars.
 
-Only the dense grid is ported: a mesh that the reference would cover with
-boxes runs here on its whole bounding lattice, which is an exact relabeling.
+Low-fill meshes (shells, thin plates, multi-part scenes) take the cover of
+`ops/boxes.py`, the counterpart of the reference's box cover: when the
+fused Newton kernel's modelled cell passes over the cover cost less than
+`box_threshold` times the dense grid's, the scene holds a `cover`, and the
+residual force, the energy and every `fused_newton` call compute its real
+cells or active tiles only (one launch each, as on the dense grid). The
+vertex-diagonal and Hessian operators (`elastic_diag`, `elastic_hvp_fn`)
+stay on the dense grid, which is exact.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from .. import device_or_cuda
 from .. import hierarchy as hl
 from .. import mesh as meshlib
 from ..config import DynamicsConfig, MaterialConfig
+from ..ops import boxes as boxlib
 from ..ops import ell, stencil
 from ..ops import lattice_kernels as lk
 from ..solvers import cg as cgmod
@@ -41,11 +48,18 @@ class LatState(NamedTuple):
 
 
 class LatticeScene:
-    """Lattice embedding of a voxel mesh + per-vertex fields on `device`."""
+    """Lattice embedding of a voxel mesh + per-vertex fields on `device`.
+
+    use_boxes / box_threshold: the low-fill cover (ops/boxes.py) engages
+    when the mask leaves a cell empty and box_cost_ratio, the fused Newton
+    kernel's modelled cell-pass time over the cover against the dense
+    grid's (on this device's SMs; an H100's for a CPU scene), is below
+    box_threshold. `cover` is the engaged Cover or None."""
 
     def __init__(self, mesh: meshlib.HexMesh,
                  material: MaterialConfig = MaterialConfig(), pins=None,
-                 device=None):
+                 device=None, use_boxes: bool = True,
+                 box_threshold: float = 0.5):
         self.mesh = mesh
         self.material = material
         self.device = device_or_cuda(device)
@@ -98,12 +112,19 @@ class LatticeScene:
         self.pin_mask = dev(pm)
         self.pin_pos = self.x0
 
+        cover = boxlib.Cover(cmask)
+        sms = (lk._sms(self.cell_mask.device.index)
+               if self.device.type == "cuda" else boxlib.PLAN_SMS)
+        self.box_cost_ratio = cover.cost_ratio(sms) if cover.sparse else 1.0
+        self.cover = (cover if use_boxes and cover.sparse
+                      and self.box_cost_ratio < box_threshold else None)
+
     # -- elastic ops (displacement form: u = x - x0 is taken here, once) ----
     def elastic_force(self, x):
         mat = self.material
         u_cf = (x - self.x0).permute(3, 0, 1, 2).contiguous()
         f = lk.force_cf(u_cf, self.cell_mask, self.mesh.dx, mat.lame_mu,
-                        mat.lame_la)
+                        mat.lame_la, cover=self.cover)
         return f.permute(1, 2, 3, 0)
 
     def elastic_diag(self, x):
@@ -129,7 +150,7 @@ class LatticeScene:
         mat = self.material
         return lk.elastic_energy_lattice(x - self.x0, self.cell_mask,
                                          self.mesh.dx, mat.lame_mu,
-                                         mat.lame_la)
+                                         mat.lame_la, cover=self.cover)
 
     def init_state(self) -> LatState:
         return LatState(x=self.x0, v=torch.zeros_like(self.x0),
@@ -228,7 +249,8 @@ def step_to_tol(scene: LatticeScene, st: LatState,
         dx_cf, f_cf, fn_full, cg_k = lk.fused_newton(
             (x - scene.x0).permute(3, 0, 1, 2).contiguous(), s_cf,
             scene.cell_mask, ctrl, rc, scene.vert_mask, scene.mesh.dx,
-            mat.lame_mu, mat.lame_la, iterations=cg_iterations, tol=cg_tol)
+            mat.lame_mu, mat.lame_la, iterations=cg_iterations, tol=cg_tol,
+            cover=scene.cover)
         # pcg's iteration count starts at 1: matvecs executed = cg_k - 1
         cg_tot = cg_tot + cg_k - 1
         dx = dx_cf.permute(1, 2, 3, 0)
@@ -516,7 +538,7 @@ def quasistatic_to_tol(scene: LatticeScene, x, tol: float = 1e-4,
                 (xx - scene.x0).permute(3, 0, 1, 2).contiguous(), s_cf,
                 scene.cell_mask, ctrl, rc, scene.vert_mask, scene.mesh.dx,
                 mat.lame_mu, mat.lame_la, iterations=cg_iterations,
-                tol=tol_rr)
+                tol=tol_rr, cover=scene.cover)
             cg_tot = cg_tot + cg_k - 1
             fn_prev = fn
             xx, fn = newton_update(

@@ -954,3 +954,205 @@ def test_slab_operators_match_whole_lattice_kernels(n_slabs):
     for name in ref:
         err = float((got[name] - ref[name]).abs().max())
         assert err <= 1e-5 * float(ref[name].abs().max()), (name, err)
+
+
+# -- the low-fill cover (ops/boxes.py) ---------------------------------------
+
+_SHELLS = {"20": (20, 20, 20), "64": (64, 64, 64)}
+
+
+@pytest.fixture(scope="module")
+def shells():
+    """{size: (covered scene, dense scene)} of the 2-cell shells on the
+    card; the 20^3 cover is forced (box_threshold 2.0), the 64^3 one
+    engages at the default."""
+    _need_cuda()
+    out = {}
+    for name, cells in _SHELLS.items():
+        m = meshlib.shell(*cells, thickness=2, dx=0.05)
+        cov = tlat.LatticeScene(m, device="cuda",
+                                box_threshold=2.0 if name == "20" else 0.5)
+        assert cov.cover is not None, name
+        out[name] = (cov, tlat.LatticeScene(m, device="cuda",
+                                            use_boxes=False))
+    return out
+
+
+def _close(got, ref, rtol):
+    return float((got - ref).abs().max()) <= rtol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shell", sorted(_SHELLS))
+@pytest.mark.parametrize("mode", ["tiles", "two_pass"])
+def test_cover_force_matches_plain_and_dense(shells, shell, mode):
+    """lat_force over the cover, on its active tiles and in the two passes
+    over its real cells: within 1e-5 of max |ref| of the plain cover
+    version, equal to the dense kernel in the same mode up to the sign of
+    zero (the same cells, summed in the same corner order), the same bits
+    on a rerun, counted as force_cover."""
+    sc, dense = shells[shell]
+    cov = sc.cover
+    sms = lk._sms(sc.x0.device.index)
+    u, _ = _random_fields(sc, 31)
+    u_cf = u.permute(3, 0, 1, 2).contiguous()
+    if mode == "two_pass":
+        plan = lk.FORCE_TWO_PASS
+    else:
+        plan = lk.best_force_tiling(*sc.shape, sms, cover=cov)
+    saved = dict(cov.plans)
+    key = (str(u.device),) + tuple(sc.shape)
+    saved_dense = lk._force_plans.get(key)
+    cov.plans[("force", sms)] = plan
+    lk._force_plans[key] = plan if mode == "two_pass" else lk.force_tiling(
+        sc.shape, plan[1:4])
+    try:
+        before = dict(lk.launches)
+        got = lk.force_cf(u_cf, sc.cell_mask, 0.05, MU, LA, cover=cov)
+        again = lk.force_cf(u_cf, sc.cell_mask, 0.05, MU, LA, cover=cov)
+        whole = lk.force_cf(u_cf, sc.cell_mask, 0.05, MU, LA)
+        torch.cuda.synchronize()
+    finally:
+        cov.plans.clear()
+        cov.plans.update(saved)
+        if saved_dense is None:
+            lk._force_plans.pop(key, None)
+        else:
+            lk._force_plans[key] = saved_dense
+    assert lk.launches["force_cover"] == before["force_cover"] + 2
+    assert lk.launches["force"] == before["force"] + 1
+    ref = lk.force_cf_plain(u_cf, sc.cell_mask, 0.05, MU, LA, cover=cov)
+    assert _close(got, ref, 1e-5)
+    assert torch.equal(got, again)
+    assert torch.equal(got, whole)            # == takes -0 as +0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shell", sorted(_SHELLS))
+def test_cover_energy_matches_plain_and_dense(shells, shell):
+    """lat_energy over the real cells: within 1e-5 relative of the plain
+    cover version and of the dense kernel, the same bits on a rerun,
+    counted as energy_cover."""
+    sc, _ = shells[shell]
+    u, _ = _random_fields(sc, 32)
+    before = lk.launches["energy_cover"]
+    got = lk.elastic_energy_lattice(u, sc.cell_mask, 0.05, MU, LA,
+                                    cover=sc.cover)
+    again = lk.elastic_energy_lattice(u, sc.cell_mask, 0.05, MU, LA,
+                                      cover=sc.cover)
+    whole = lk.elastic_energy_lattice(u, sc.cell_mask, 0.05, MU, LA)
+    ref = lk.elastic_energy_lattice_plain(u, sc.cell_mask, 0.05, MU, LA,
+                                          cover=sc.cover)
+    torch.cuda.synchronize()
+    assert lk.launches["energy_cover"] == before + 2
+    assert torch.equal(got, again)
+    assert _close(got, ref, 1e-5) and _close(got, whole, 1e-5)
+
+
+def _newton_args(sc, seed):
+    rng = np.random.default_rng(seed)
+    mat = sc.material
+    inv_dt = 1.0 / 0.033
+    vm3 = sc.vert_mask[..., None]
+
+    def noise(scale):
+        return scale * torch.from_numpy(rng.standard_normal(
+            tuple(sc.x0.shape)).astype(np.float32)).cuda()
+    x = sc.x0 + noise(0.01) * vm3
+    x_tilde = sc.x0 + noise(0.005) * vm3
+    ctrl = (mat.control_mag * sc.pin_mask + sc.mass * inv_dt * inv_dt
+            + (1.0 - sc.vert_mask))
+    rc = mat.control_mag * sc.pin_mask + sc.mass * inv_dt * inv_dt
+    s_aff = (mat.control_mag * sc.pin_mask[..., None] * sc.pin_pos
+             + (sc.mass * inv_dt * inv_dt)[..., None] * x_tilde)
+    s_aff[..., 1] += sc.mass * mat.gravity
+    s_cf = (s_aff - rc[..., None] * sc.x0).permute(3, 0, 1, 2).contiguous()
+    u_cf = (x - sc.x0).permute(3, 0, 1, 2).contiguous()
+    return (u_cf, s_cf, sc.cell_mask, ctrl, rc, sc.vert_mask, 0.05,
+            mat.lame_mu, mat.lame_la, 60, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shell", sorted(_SHELLS))
+def test_cover_fused_newton_matches_plain_and_dense(shells, shell):
+    """lat_fused_newton over the cover's active tiles (halo tiles at 20^3,
+    exchange tiles at 64^3): the residual f within 1e-5 of max |ref| of the
+    plain cover version and equal to the dense kernel's up to the sign of
+    zero; the same bits on a rerun; counted as fused_newton_cover. Where
+    the cover's plan is the dense one (64^3: the same tiles and grid) dx, fn
+    and k equal the dense kernel's (the vertex-pass dots are summed a tile
+    at a time, whichever block walks the tile). Otherwise the PCG dots sum
+    in another order, and as against the plain version (chip_smoke.py phase
+    1 holds the dense kernel so): k within one, dx within 1e-3 of max |dx|
+    and fn within 1e-3 of max(max |f|, fn) at equal k, 5e-2 at k one
+    apart."""
+    sc, _ = shells[shell]
+    args = _newton_args(sc, 33)
+    before = lk.launches["fused_newton_cover"]
+    dxk, fk, fnk, kk = lk.fused_newton(*args, cover=sc.cover)
+    dx2, f2, fn2, k2 = lk.fused_newton(*args, cover=sc.cover)
+    dxd, fd, fnd, kd = lk.fused_newton(*args)
+    dxp, fp, fnp, kp = lk.fused_newton_plain(*args, cover=sc.cover)
+    torch.cuda.synchronize()
+    assert lk.launches["fused_newton_cover"] == before + 2
+    assert torch.equal(dxk, dx2) and torch.equal(fk, f2)
+    assert float(fnk) == float(fn2) and int(kk) == int(k2)
+    assert _close(fk, fp, 1e-5) and torch.equal(fk, fd)
+    X, Y, Z = sc.shape
+    same_plan = (lk._cover_plan(sc.cover, "newton", sc.x0.device)
+                 == lk._newton_plan(_cuda.load(), X, Y, Z, sc.x0.device))
+    assert same_plan == (shell == "64")
+    if same_plan:
+        assert torch.equal(dxk, dxd) and float(fnk) == float(fnd)
+        assert int(kk) == int(kd)
+    for dx_ref, fn_ref, k_ref in ((dxp, fnp, kp), (dxd, fnd, kd)):
+        k_ref = int(k_ref)
+        assert abs(int(kk) - k_ref) <= 1 and int(kk) > 2, (int(kk), k_ref)
+        rtol = 1e-3 if int(kk) == k_ref else 5e-2
+        err = float((dxk - dx_ref).abs().max())
+        assert err <= rtol * float(dx_ref.abs().max()), (err, int(kk), k_ref)
+        scale = max(float(fp.abs().max()), abs(float(fn_ref)))
+        assert abs(float(fnk) - float(fn_ref)) <= rtol * scale, (
+            float(fnk), float(fn_ref))
+
+
+@pytest.mark.cuda
+def test_covered_frames_launch_only_cover_modes(shells):
+    """Two frames of the covered 20^3 shell launch fused_newton_cover once a
+    Newton iteration and force_cover at least once a frame, and never the
+    dense force, energy or Newton kernels; they match the CPU run."""
+    sc, _ = shells["20"]
+    lk.reset_launches()
+    st = sc.init_state()
+    ks = []
+    for i in range(2):
+        st, k, fn = tlat.step_to_tol(sc, st)
+        assert fn <= 1e-4
+        ks.append(k)
+    torch.cuda.synchronize()
+    assert lk.launches["fused_newton_cover"] == sum(ks) > 0
+    assert lk.launches["force_cover"] >= 2
+    for name in ("fused_newton", "force", "energy", "hvp", "diag"):
+        assert lk.launches[name] == 0, name
+    cpu = tlat.LatticeScene(sc.mesh, device="cpu", box_threshold=2.0)
+    assert cpu.cover is not None
+    sc_cpu = cpu.init_state()
+    for k in ks:
+        sc_cpu, kc, _ = tlat.step_to_tol(cpu, sc_cpu)
+        assert kc == k
+    assert float((sc_cpu.x - st.x.cpu()).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(9, 9, 25), (17, 17, 65), (17, 17, 257),
+                                   (21, 21, 21), (65, 65, 65), (3, 5, 7)])
+def test_newton_plan_mirror_equals_lat_newton_plan(scene, shape):
+    """newton_tiling, which plans over a cover, gives the card's own
+    lat_newton_plan for the dense lattice in every mode (the same model,
+    one block an SM)."""
+    lib = _cuda.load()
+    dev = scene.x0.device
+    for mode in (0, 1, 2):
+        want = lk.ask_newton_plan(lib, *shape, dev, False, mode)
+        assert lk.newton_tiling(*shape, lk._sms(dev.index),
+                                mode=mode)[0] == want, mode

@@ -132,6 +132,7 @@ def test_port_imports_no_jax():
         "assert {'fem_simulation_tpu_torch.sim.dynamic',\n"
         "        'fem_simulation_tpu_torch.sim.lattice_mg',\n"
         "        'fem_simulation_tpu_torch.ops.ell_kernels',\n"
+        "        'fem_simulation_tpu_torch.ops.boxes',\n"
         "        'fem_simulation_tpu_torch.ops.spring',\n"
         "        'fem_simulation_tpu_torch.sim.cloth',\n"
         "        'fem_simulation_tpu_torch.sim.picking',\n"
