@@ -99,7 +99,15 @@ Phase 10 distribution, on 4 z-slabs sharing the card (a DeviceGrid of 4
          quasi-static solve from rest, max_newton 100, with every level
          sharded and again with the coarsest replicated, and 16 frames of
          make_dist_mg_step) against LatticeMG with the same z_multiple on
-         the whole lattice; the unstructured halo SpMV, CG and Newton step
+         the whole lattice, and a quasi-static solve of the 16x16x256 beam
+         (every level sharded) against the same and phase 7's Newton count;
+         each hierarchy's slab layout (every sharded level's fields slab
+         fields on their devices) and whole-field crossings, a solve's and
+         a V-cycle's (1 split + 1 join, plus 1 gather + 1 scatter at a
+         sharded -> replicated boundary, at three nu / coarse_sweeps),
+         device ops a V-cycle, one slab a device group bit-equal to one
+         group of 4, and each solve and the frames timed again warm; the
+         unstructured halo SpMV, CG and Newton step
          (8 frames) on the 16x16x64 Scene against the whole mesh; the dp
          batch of 8 scenes of the 8x8x24 beam (identical entries equal to
          one dynamic.step) and the batched_scenes driver (10 frames);
@@ -176,6 +184,7 @@ from fem_simulation_tpu_torch.parallel import dist as pdist
 from fem_simulation_tpu_torch.parallel import halo as phalo
 from fem_simulation_tpu_torch.parallel import lattice_halo as plh
 from fem_simulation_tpu_torch.parallel import lattice_mg_dist as pmgd
+from fem_simulation_tpu_torch.parallel import slab_field as pslab
 
 MU, LA = 250.0, 37.0
 TOL = 1e-4
@@ -2781,7 +2790,184 @@ def phase10_operators(sc, rows, reps):
     return out
 
 
-def phase10_path(scenes, uscenes, rows):
+def crossings_since(mg, before):
+    """A DistLatticeMG's whole-field crossings since `before`."""
+    return {k: mg.crossings[k] - before[k] for k in before}
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def mg_placement(mg, ops):
+    """Where each level's linearized fields live: for a sharded level each
+    of u_cf, ctrl, d6 and vmask must be a SlabField whose group tensors lie
+    on their groups' devices, (slabs, C..., X, Y, Z / D), contiguous; a
+    replicated level's are whole on the home device. One dict a level."""
+    out = []
+    for li, op in enumerate(ops):
+        X, Y, Z = mg.levels[li].vert_mask.shape
+        if not mg.sharded(li):
+            check(all(torch.is_tensor(getattr(op, n)) and getattr(op, n)
+                      .device == mg.home for n in ("u_cf", "d6", "vmask")),
+                  f"phase10 level {li}: replicated fields not whole at home")
+            out.append(dict(level=li, sharded=False, shape=[X, Y, Z],
+                            u_cf=list(op.u_cf.shape),
+                            device=str(op.u_cf.device)))
+            continue
+        groups = {}
+        for name, chans in (("u_cf", (3,)), ("ctrl", ()), ("d6", (6,)),
+                            ("vmask", ())):
+            f = getattr(op, name)
+            check(isinstance(f, pslab.SlabField),
+                  f"phase10 level {li} {name}: not a slab field")
+            for (a, b), part in zip(mg.layout.groups, f.parts):
+                check(part.device == mg.devices[a] and part.is_contiguous()
+                      and tuple(part.shape) == (b - a,) + chans
+                      + (X, Y, Z // mg.n_sp),
+                      f"phase10 level {li} {name}: group tensor "
+                      f"{tuple(part.shape)} on {part.device}")
+            groups[name] = [[list(p.shape), str(p.device)] for p in f.parts]
+        out.append(dict(level=li, sharded=True, shape=[X, Y, Z],
+                        groups=len(mg.layout.groups), fields=groups))
+    return out
+
+
+def phase10_mg_slabs(scenes, grid, solves, step_mg, place, ms_frame,
+                     newton7):
+    """The distributed multigrid's slab layout, after its path ran: each
+    hierarchy's per-level placement; one V-cycle's whole-field crossings (1
+    split + 1 join, plus 1 gather + 1 scatter a sharded -> replicated
+    boundary) at three (nu, coarse_sweeps); device ops and ms a V-cycle;
+    one slab a device group against the one group of 4 (bit-equal x, k,
+    ||f||); the 74k solve against LatticeMG with the same z_multiple on
+    the whole lattice (the ||f|| policy) and phase 7's Newton count; then
+    each solve and the 19k frames timed again, warm, with no path capture.
+    `solves`: label -> (solve, place, x, k, fn, ms of the path's solve)."""
+    card = card_line()
+    out = {"card": card, "layout": {}, "crossings_per_vcycle": {},
+           "ops_per_vcycle": {}, "ms_per_vcycle": {}}
+    for label, (solve, place_s, x, k, fn, _) in solves.items():
+        mg = solve.mg
+        sc = scenes[label.split()[0]]
+        ops, _ = mg.newton_ops(mg.pad(sc.x0))
+        out["layout"][label] = lay = mg_placement(mg, ops)
+        for e in lay:
+            if e["sharded"]:
+                f = e["fields"]
+                log(f"phase10 dist MG {label} level {e['level']} "
+                    f"{tuple(e['shape'])}: sharded, {e['groups']} group(s); "
+                    + "; ".join(f"{n} " + ", ".join(f"{tuple(sh)} on {d}"
+                                                    for sh, d in f[n])
+                                for n in ("u_cf", "ctrl", "d6", "vmask")))
+            else:
+                log(f"phase10 dist MG {label} level {e['level']} "
+                    f"{tuple(e['shape'])}: replicated, whole "
+                    f"{tuple(e['u_cf'])} on {e['device']}")
+        b = mg.pad_cf(sc.dyn_force(sc.x0, sc.x0, 0.0))
+        g = sum(1 for li in range(mg.n_levels - 1)
+                if mg.sharded(li) and not mg.sharded(li + 1))
+        want = dict(split=1, join=1, gather=g, scatter=g)
+        nu, sweeps = mg.nu, mg.coarse_sweeps
+        got = {}
+        for nu_, sw in ((nu, sweeps), (1, 12), (3, 6)):
+            mg.nu, mg.coarse_sweeps = nu_, sw
+            before = dict(mg.crossings)
+            mg.vcycle(ops, b)
+            got[f"nu {nu_} coarse_sweeps {sw}"] = c = crossings_since(
+                mg, before)
+            check(c == want, f"phase10 dist MG {label}: a V-cycle at nu "
+                  f"{nu_}, coarse_sweeps {sw} crossed {c}, not {want}")
+        mg.nu, mg.coarse_sweeps = nu, sweeps
+        out["crossings_per_vcycle"][label] = got
+        n_ops = round(sum(n for n, _ in whole_trace(
+            lambda: mg.vcycle(ops, b), 3, 1).values()))
+        ms_v = cuda_ms(lambda: mg.vcycle(ops, b), 5)
+        out["ops_per_vcycle"][label] = n_ops
+        out["ms_per_vcycle"][label] = ms_v
+        log(f"phase10 dist MG {label} a V-cycle: crossings " + " ".join(
+            f"{n} {v}" for n, v in want.items()) + f" at every (nu, "
+            f"coarse_sweeps) of {list(got)}; {n_ops} device ops, "
+            f"{ms_v:.2f} ms (CUDA events) [{card}]")
+
+    # one slab a device group against the one group of 4
+    solve, place_q, xq, kq, fq, _ = solves["19k"]
+    saved = pslab.slab_groups
+    pslab.slab_groups = lambda devices: [(i, i + 1)
+                                         for i in range(len(devices))]
+    try:
+        solve1, _ = pmgd.make_dist_mg_quasistatic(
+            scenes["19k"], grid, n_levels=3, tol=TOL, max_newton=100)
+    finally:
+        pslab.slab_groups = saved
+    check(len(solve1.mg.layout.groups) == SLABS10,
+          f"phase10 grouping: {solve1.mg.layout.groups}")
+    x1, k1, f1 = solve1(place_q(scenes["19k"].x0))
+    same = bool(torch.equal(x1, xq)) and k1 == kq and f1 == fq
+    check(same, f"phase10 dist MG one slab a group: newton {k1} vs {kq}, "
+          f"||f|| {f1:.6e} vs {fq:.6e}, max|d x| "
+          f"{float((x1 - xq).abs().max()):.3e}")
+    ops1, _ = solve1.mg.newton_ops(solve1.mg.pad(scenes["19k"].x0))
+    b = solve1.mg.pad_cf(scenes["19k"].dyn_force(scenes["19k"].x0,
+                                                 scenes["19k"].x0, 0.0))
+    n_ops1 = round(sum(n for n, _ in whole_trace(
+        lambda: solve1.mg.vcycle(ops1, b), 3, 1).values()))
+    out["one_slab_a_group"] = dict(bit_equal=same, newton=k1,
+                                   ops_per_vcycle=n_ops1)
+    log(f"phase10 dist MG 19k, one slab a group ({SLABS10} groups) against "
+        f"one group of {SLABS10}: x, newton and ||f|| bit-equal {same}; "
+        f"{n_ops1} device ops a V-cycle against "
+        f"{out['ops_per_vcycle']['19k']}")
+
+    # the 74k solve against the whole lattice and phase 7's Newton count
+    sc74 = scenes["74k"]
+    _, _, x74, k74, f74, _ = solves["74k"]
+    mg74 = tmg.LatticeMG(sc74, n_levels=3, dt=None, z_multiple=SLABS10)
+    ref = tmg.quasistatic_to_tol_mg(sc74, mg74, sc74.x0, tol=TOL,
+                                    max_newton=100)
+    d74 = check_policy("phase10 dist MG quasistatic 74k", [k74], [f74],
+                       [x74], [ref[1]], [ref[2]], [ref[0]])
+    check(k74 == newton7, f"phase10 dist MG 74k: newton {k74}, phase 7's "
+          f"quasistatic_to_tol_mg {newton7}")
+    out["quasistatic_74k"] = dict(newton=k74, newton_whole=ref[1],
+                                  newton_phase7=newton7, fn=f74,
+                                  fn_whole=ref[2], max_d_fn=d74[0],
+                                  max_d_x=d74[1])
+    log(f"phase10 dist MG quasistatic 74k: newton {k74} (LatticeMG, "
+        f"z_multiple {SLABS10}, whole lattice: {ref[1]}; phase 7's "
+        f"quasistatic_to_tol_mg: {newton7}), ||f|| {f74:.3e} vs "
+        f"{ref[2]:.3e}, max|d x| {d74[1]:.3e}")
+
+    # warm, with no path capture
+    warm = {}
+    for label, (solve, place_s, *_rest) in solves.items():
+        sc = scenes[label.split()[0]]
+        warm[label] = cuda_ms(lambda: solve(place_s(sc.x0)), 2, warmup=1)
+    sc19 = scenes["19k"]
+
+    def frames():
+        st = place(sc19.init_state())
+        for _ in range(FRAMES10):
+            st, _, _ = step_mg(st)
+    warm["19k frame"] = cuda_ms(frames, 1, warmup=0) / FRAMES10
+    out["warm_ms"] = warm
+    log(f"phase10 dist MG times [{card}], CUDA events: a solve at 19k "
+        f"{solves['19k'][5]:.1f} ms on the path (under its capture), "
+        f"{warm['19k']:.1f} warm; coarsest replicated "
+        f"{warm['19k replicated coarsest']:.1f} warm; 74k "
+        f"{solves['74k'][5]:.1f} on the path, {warm['74k']:.1f} warm; a "
+        f"frame at 19k {ms_frame:.2f} on the path, {warm['19k frame']:.2f} "
+        "warm (PR 10, on an H100 80GB HBM3 at 700 W: 447-508 ms a solve, "
+        "190.7-231.8 a frame); "
+        "device ops a V-cycle " + " ".join(
+            f"{k} {v}" for k, v in out["ops_per_vcycle"].items()))
+    return out
+
+
+def phase10_path(scenes, uscenes, rows, newton7):
     """The distributed paths on 4 z-slabs sharing the card, counters zeroed
     just before and read just after, the arguments of every kernel wrapper
     they call recorded at each shape (PathCapture); then every recorded
@@ -2802,6 +2988,8 @@ def phase10_path(scenes, uscenes, rows):
     solve8, _ = pmgd.make_dist_mg_quasistatic(sc19, grid, n_levels=3, tol=TOL,
                                               max_newton=100,
                                               min_planes_per_dev=8)
+    solve74, place74 = pmgd.make_dist_mg_quasistatic(sc74, grid, n_levels=3,
+                                                     tol=TOL, max_newton=100)
     step_mg, place = pmgd.make_dist_mg_step(sc19, grid, n_levels=3)
     part = phalo.partition_slabs(usc19.hier.levels[0], SLABS10)
     nstep = phalo.make_dist_newton_step(usc19, part, grid, tol=TOL)
@@ -2865,12 +3053,14 @@ def phase10_path(scenes, uscenes, rows):
     # 2. the distributed multigrid at 19k
     pdist.reset_counts()
     calls0 = dict(solve.mg.calls)
+    cross0 = dict(solve.mg.crossings)
     before = dict(lk.launches)
     start.record()
     xq, kq, fq = solve(place_q(sc19.x0))
     end.record()
     torch.cuda.synchronize()
     ms_q = start.elapsed_time(end)
+    per_solve = {"19k": crossings_since(solve.mg, cross0)}
     check(fq <= TOL, f"phase10 dist MG quasistatic: ||f|| {fq:.3e}")
     mv = solve.mg.calls["matvec"] - calls0["matvec"]
     lq = {n: lk.launches[n] - before[n] for n in
@@ -2883,7 +3073,9 @@ def phase10_path(scenes, uscenes, rows):
         f"{lq['cheby']} power {lq['power']} diag_shift {lq['diag_shift']}; "
         "exchange " + " ".join(f"{k} {v}" for k, v in pdist.counts.items()))
     before = dict(lk.launches)
+    cross0 = dict(solve8.mg.crossings)
     x8, k8, f8 = solve8(place_q(sc19.x0))
+    per_solve["19k replicated coarsest"] = crossings_since(solve8.mg, cross0)
     check(f8 <= TOL, f"phase10 dist MG (8 planes): ||f|| {f8:.3e}")
     l8 = {n: lk.launches[n] - before[n] for n in
           ("hvp", "cheby", "diag_shift", "power")}
@@ -2892,6 +3084,33 @@ def phase10_path(scenes, uscenes, rows):
     log(f"phase10 dist MG quasistatic 19k, coarsest replicated: newton {k8} "
         f"||f|| {f8:.3e}  launches " + " ".join(f"{n} {v}"
                                                 for n, v in l8.items()))
+    calls0 = dict(solve74.mg.calls)
+    cross0 = dict(solve74.mg.crossings)
+    before = dict(lk.launches)
+    start.record()
+    x74, k74, f74 = solve74(place74(sc74.x0))
+    end.record()
+    torch.cuda.synchronize()
+    ms_q74 = start.elapsed_time(end)
+    per_solve["74k"] = crossings_since(solve74.mg, cross0)
+    check(f74 <= TOL, f"phase10 dist MG quasistatic 74k: ||f|| {f74:.3e}")
+    mv74 = solve74.mg.calls["matvec"] - calls0["matvec"]
+    l74 = {n: lk.launches[n] - before[n] for n in ("hvp", "diag", "cheby")}
+    check(l74["hvp"] == SLABS10 * mv74 and l74["cheby"] == 0,
+          f"phase10 dist MG 74k launches {l74}, {mv74} sharded matvecs")
+    log(f"phase10 dist MG quasistatic 74k: newton {k74} ||f|| {f74:.3e} ms "
+        f"{ms_q74:.1f} (CUDA events)  sharded matvecs {mv74} -> lat_hvp "
+        f"{l74['hvp']}, lat_diag {l74['diag']}")
+    for label, (mg_, k_) in {"19k": (solve.mg, kq),
+                             "19k replicated coarsest": (solve8.mg, k8),
+                             "74k": (solve74.mg, k74)}.items():
+        c = per_solve[label]
+        # a linearization a Newton iteration splits the fine positions
+        # once; every V-cycle and outer matvec splits once and joins once
+        check(c["split"] - c["join"] == k_, f"phase10 dist MG {label} "
+              f"crossings a solve {c}, newton {k_}")
+        log(f"phase10 dist MG {label} crossings in the solve: " + " ".join(
+            f"{n} {v}" for n, v in c.items()))
     got_mg = ([], [], [], [])
     ins_mg = got_mg[3]
     st = place(sc19.init_state())
@@ -2961,7 +3180,7 @@ def phase10_path(scenes, uscenes, rows):
     want = {a: {slab74} for a in ("force_cf", "hvp_cf")}
     want["hess_diag_cf"] = {slab74}
     want["level_matvec_cf"] = set()
-    for mg in (solve.mg, step_mg.mg):
+    for mg in (solve.mg, step_mg.mg, solve74.mg):
         for li, lvl in enumerate(mg.levels):
             X, Y, Z = lvl.vert_mask.shape
             if mg.sharded(li):
@@ -3051,11 +3270,21 @@ def phase10_path(scenes, uscenes, rows):
         f"newton {kq} / {k8} vs {ref_q[1]}, ||f|| {fq:.3e} / {f8:.3e} vs "
         f"{ref_q[2]:.3e}, max|d x| {dq[1]:.3e} / {d8[1]:.3e}; step frame by "
         f"frame max|d fn| {dmg[0]:.3e} max|d x| {dmg[1]:.3e}")
+    slabs_res = phase10_mg_slabs(
+        scenes, grid, {"19k": (solve, place_q, xq, kq, fq, ms_q),
+                       "19k replicated coarsest": (solve8, place_q, x8, k8,
+                                                   f8, None),
+                       "74k": (solve74, place74, x74, k74, f74, ms_q74)},
+        step_mg, place, ms_mg, newton7)
+    slabs_res["crossings_per_solve"] = per_solve
     res["dist_mg"] = dict(
         quasistatic=dict(newton=kq, fn=fq, ms=ms_q, sharded_matvecs=mv,
                          launches=lq, max_d_x=dq[1]),
         replicated_coarsest=dict(newton=k8, fn=f8, launches=l8,
                                  max_d_x=d8[1]),
+        quasistatic_74k=dict(newton=k74, fn=f74, ms=ms_q74,
+                             sharded_matvecs=mv74, launches=l74),
+        slabs=slabs_res,
         step=dict(ms_per_frame=ms_mg, newton=got_mg[0],
                   fn_max=max(got_mg[1]), max_d_fn=dmg[0], max_d_x=dmg[1],
                   sharded_calls=dict(step_mg.mg.calls),
@@ -3218,7 +3447,9 @@ def main() -> int:
         counts[name] = counts9[name]
 
     results10 = phase10_operators(scenes["74k"], rows, reps=20)
-    path10, counts10 = phase10_path(scenes, uscenes, rows)
+    path10, counts10 = phase10_path(
+        scenes, uscenes, rows,
+        results7["solves"]["74k quasistatic_to_tol_mg"]["newton"])
     results10.update(path10)
     for name in counts:
         counts[name] += counts10.get(name, 0)

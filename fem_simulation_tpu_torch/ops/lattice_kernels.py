@@ -526,22 +526,24 @@ _UPPER = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
 def sym_blocks(d6):
-    """(6, X, Y, Z) symmetric channels -> (X, Y, Z, 3, 3) blocks."""
-    X, Y, Z = d6.shape[1:]
-    return d6.permute(1, 2, 3, 0)[..., list(_SYM_BLOCK)].reshape(X, Y, Z, 3, 3)
+    """(..., 6, X, Y, Z) symmetric channels -> (..., X, Y, Z, 3, 3) blocks."""
+    return d6.movedim(-4, -1)[..., list(_SYM_BLOCK)].reshape(
+        tuple(d6.shape[:-4]) + tuple(d6.shape[-3:]) + (3, 3))
 
 
 def sym_channels(blocks):
-    """(X, Y, Z, 3, 3) blocks -> their upper triangle, (6, X, Y, Z)."""
-    return torch.stack([blocks[..., r, c] for r, c in _UPPER])
+    """(..., X, Y, Z, 3, 3) blocks -> their upper triangle,
+    (..., 6, X, Y, Z)."""
+    return torch.stack([blocks[..., r, c] for r, c in _UPPER], dim=-4)
 
 
 def sym_solve_cf(d6, r_cf):
-    """Adjugate solve of the 6-channel blocks on a channel-first field:
+    """Adjugate solve of the 6-channel blocks on a channel-first field
+    (leading axes allowed: (..., 6, X, Y, Z) and (..., 3, X, Y, Z)):
     ell.solve3x3(sym_blocks(d6), r) bit for bit (the same products in the
     same order: on a symmetric block c10 = c01, c20 = c02, c21 = c12),
     without expanding the blocks or permuting the field."""
-    a, b, c, d, e, f = d6
+    a, b, c, d, e, f = d6.unbind(-4)
     c00 = d * f - e * e
     c01 = e * c - b * f
     c02 = b * e - d * c
@@ -550,10 +552,10 @@ def sym_solve_cf(d6, r_cf):
     c12 = b * c - a * e
     c22 = a * d - b * b
     inv_det = det / (det * det + 1e-12)
-    r0, r1, r2 = r_cf
+    r0, r1, r2 = r_cf.unbind(-4)
     return torch.stack([(c00 * r0 + c01 * r1 + c02 * r2) * inv_det,
                         (c01 * r0 + c11 * r1 + c12 * r2) * inv_det,
-                        (c02 * r0 + c12 * r1 + c22 * r2) * inv_det])
+                        (c02 * r0 + c12 * r1 + c22 * r2) * inv_det], dim=-4)
 
 
 @functools.lru_cache(maxsize=64)

@@ -3,41 +3,44 @@
 Port of `fem_simulation_tpu/parallel/lattice_mg_dist.py`. The solver is
 `sim/lattice_mg.py`: `DistLatticeMG` overrides only the level operators
 (matvec and diagonal), the smoother and power iteration that run on them,
-the inter-level transfers and the `constrain` hook, so the single-device
-and distributed multigrids cannot drift apart.
+the inter-level transfers, the level fields and the `constrain` hook, so
+the single-device and distributed multigrids cannot drift apart.
 
 A level whose z extent has at least `min_planes_per_dev` planes a slab (and
-splits evenly) is sharded: its operators run on z-slabs on the grid's `sp`
-devices with the plane halo of parallel/lattice_halo.py (extend, the
-kernel on each slab, fold). Smaller levels are replicated (coarse-grid
-agglomeration): their compute is O(N / 8^level) and they keep the
+splits evenly) is sharded: its fields live in z-slabs on the grid's `sp`
+devices (parallel/slab_field.py: one tensor a device group of slabs) from
+`linearize` through every V-cycle, as the reference's `constrain`
+(with_sharding_constraint) keeps them: the displacement, the control
+shift, the smoother's blocks, the masks, the rest grid and every V-cycle
+vector. Smaller levels are replicated (coarse-grid agglomeration) on the
+grid's first device: their compute is O(N / 8^level) and they keep the
 single-device level kernels.
 
 Sharded levels, by kernel:
-  matvec      `lat_hvp` a slab (`level_matvec_cf`, the control shift and
-              mask in its vertex pass; the shift's ghost planes are zero, so
-              the ghost planes carry the HVP's partial sums alone), folded.
+  matvec      slab field -> slab field: extend, `lat_hvp` a slab
+              (`level_matvec_cf`, the control shift and mask in its vertex
+              pass; the shift's ghost planes are zero, so the ghost planes
+              carry the HVP's partial sums alone), fold.
   diagonal    the two-pass `lat_diag` a slab, folded, and only then shifted
-              and SPD-projected: on a boundary plane a slab's block is still
-              a partial sum, and the projection is not linear (the fused
-              `lat_diag_shift` projects in its vertex pass).
+              and SPD-projected on the slabs: on a boundary plane a slab's
+              block is still a partial sum, and the projection is not
+              linear (the fused `lat_diag_shift` projects in its vertex
+              pass).
   smoother    Chebyshev sweeps through the halo matvec (`lat_cheby` is one
               cooperative launch over a whole level, with no exchange
               inside); the power iteration likewise (`lat_power`), its dot
-              products `psum`s of the slabs' partials.
-  transfers   restriction and prolongation a slab with a one-plane halo.
+              products `psum`s of the slabs' partials in slab order.
+  transfers   restriction and prolongation a slab with a one-plane halo;
+              into a replicated level one gather of the coarse field, out
+              of one a scatter of each slab's coarse planes.
 
-Between operators the multigrid's fields are whole, on the grid's first
-device (where the scene is): a sharded operator splits its inputs into
-slabs, one on each `sp` device, and joins its result there, and
-`constrain` moves a field home. This is not the reference's layout: its
-`constrain` (with_sharding_constraint) keeps a sharded level's fields
-split along z between operators, so the vector work and the memory of a
-level are spread over the devices. On one card, where every slab shares
-the card, the two layouts do the same work. On several cards this port
-keeps all of the multigrid's vector work and fields on the first card and
-copies each slab out and back for every sharded operator, a known gap
-(ROADMAP).
+What still crosses whole, counted in `crossings`: the outer solver's
+Newton and PCG vectors stay whole on the scene's device, so a V-cycle
+splits its right-hand side once and joins its correction once, and the
+outer PCG's matvec splits and joins once a call; `linearize` splits the
+fine positions once; a sharded coarsest level with coarse_cg > 0 runs
+today's whole-field PCG there (its reduction order), a join on entry, a
+split on exit, a join of its blocks and a split and join a matvec.
 
 The reference's `use_pallas` and `min_lane_cells` (its TPU lane gate) are
 not ported: every level runs the CUDA kernels.
@@ -50,10 +53,11 @@ from ..config import DynamicsConfig
 from ..ops import ell, stencil
 from ..ops import lattice_kernels as lk
 from ..sim.lattice import LatState, LatticeScene
-from ..sim.lattice_mg import (LatticeMG, quasistatic_to_tol_mg,
-                              step_to_tol_mg)
-from .dist import DeviceGrid, canonical_device, dot, shift_planes
-from .lattice_halo import extend, fold
+from ..sim.lattice_mg import (LatticeMG, LevelFields, _pad_cf,
+                              quasistatic_to_tol_mg, step_to_tol_mg)
+from ..solvers import cg as cgmod
+from .dist import DeviceGrid, canonical_device
+from .slab_field import SlabField, SlabLayout
 
 
 def _cell_slabs(cell_mask, n_sp: int, devices):
@@ -77,12 +81,16 @@ def _cell_slabs(cell_mask, n_sp: int, devices):
 
 
 class DistLatticeMG(LatticeMG):
-    """LatticeMG whose fine levels run z-slab operators on the grid's `sp`
-    devices; levels with fewer than `min_planes_per_dev` vertex planes a
-    slab are replicated. `level_specs[li]` is (None, None, axis) for a
-    sharded level and () for a replicated one, as the reference's
-    PartitionSpecs read. z_multiple defaults to the slab count, so every
-    level's z extent splits evenly."""
+    """LatticeMG whose fine levels keep their fields in z-slabs on the
+    grid's `sp` devices and run z-slab operators there; levels with fewer
+    than `min_planes_per_dev` vertex planes a slab are replicated.
+    `level_specs[li]` is (None, None, axis) for a sharded level and () for
+    a replicated one, as the reference's PartitionSpecs read. z_multiple
+    defaults to the slab count, so every level's z extent splits evenly.
+
+    `calls` counts the sharded operator calls (each launches its kernel on
+    every slab), `crossings` the whole fields split into slabs, joined from
+    them, gathered into a replicated level and scattered out of one."""
 
     def __init__(self, scene: LatticeScene, grid: DeviceGrid,
                  axis: str = "sp", min_planes_per_dev: int = 4, **kw):
@@ -95,51 +103,61 @@ class DistLatticeMG(LatticeMG):
                              f"first device is {grid.device}")
         n_sp = grid.shape[axis]
         self.n_sp = n_sp
+        self.layout = SlabLayout(self.devices)
         kw.setdefault("z_multiple", n_sp)
         super().__init__(scene, **kw)
         self.level_specs = []
         self._cells = {}
         self._vm_slabs = {}
+        self._v0 = {}
         for li, lvl in enumerate(self.levels):
             z = lvl.vert_mask.shape[2]
             sharded = z >= min_planes_per_dev * n_sp and z % n_sp == 0
             self.level_specs.append((None, None, axis) if sharded else ())
-            if sharded:
-                self._cells[li] = _cell_slabs(lvl.cell_mask, n_sp,
-                                              self.devices)
-                # the mask's ghost planes are the neighbors' own: the ghost
-                # partial sums of the HVP pass through it unchanged
-                self._vm_slabs[li] = extend(self._split(lvl.vert_mask))
-        # sharded operator calls (each launches its kernel on every slab)
+            if not sharded:
+                continue
+            self._cells[li] = _cell_slabs(lvl.cell_mask, n_sp, self.devices)
+            fl = self.fields[li]
+            self.fields[li] = LevelFields(*(
+                None if a is None else self.layout.split(a) for a in fl))
+            # the mask's ghost planes are the neighbors' own: the ghost
+            # partial sums of the HVP pass through it unchanged
+            self._vm_slabs[li] = self.fields[li].vert_mask.extend().slabs()
+            # the power iteration's start vector (lat_power's)
+            vm = lvl.vert_mask
+            shape = tuple(vm.shape)
+            n = shape[0] * shape[1] * shape[2]
+            start = torch.sin(torch.arange(n, dtype=torch.float32,
+                                           device=vm.device))
+            self._v0[li] = self.layout.split(
+                (vm * start.reshape(shape)).expand((3,) + shape).contiguous())
         self.calls = {"matvec": 0, "diag": 0, "smooth": 0, "power": 0}
+        self.crossings = {"split": 0, "join": 0, "gather": 0, "scatter": 0}
 
     def sharded(self, li: int) -> bool:
         return li in self._cells
 
-    # -- splitting a whole field into slabs and joining it back --------------
-    def _split(self, a):
-        """A whole level field (..., Z) -> its owned slabs, slab d on the
-        grid's device d."""
-        z = a.shape[-1] // self.n_sp
-        return [a[..., d * z:(d + 1) * z].to(dev, non_blocking=True)
-                for d, dev in enumerate(self.devices)]
+    # -- whole fields into slabs and back (counted) --------------------------
+    def _split(self, a) -> SlabField:
+        self.crossings["split"] += 1
+        return self.layout.split(a)
 
-    def _join(self, blocks):
-        """Slabs with ghost planes -> the whole field of their owned planes
-        on the home device."""
-        return torch.cat([b[..., 1:-1].to(self.home, non_blocking=True)
-                          for b in blocks], -1)
-
-    def _dot(self, a, b):
-        return dot(self._split(a), self._split(b))
+    def _join(self, f: SlabField):
+        self.crossings["join"] += 1
+        return f.join(self.home)
 
     def constrain(self, li, a):
-        """The field whole on the home device (the reference keeps a
-        sharded level's field split; see the module docstring)."""
-        if self.sharded(li) and a.shape[-1] % self.n_sp:
+        """A field entering level li where the level's fields live: split
+        into slabs on a sharded level (a slab field stays as it is), whole
+        on the home device on a replicated one."""
+        if not self.sharded(li):
+            return a.to(self.home)
+        if isinstance(a, SlabField):
+            return a
+        if a.shape[-1] % self.n_sp:
             raise ValueError(f"level {li}: z extent {a.shape[-1]} does not "
                              f"split over {self.n_sp} slabs")
-        return a.to(self.home)
+        return self._split(a)
 
     # -- level operators on sharded levels -----------------------------------
     def _level_ops(self, li: int, u_cf, ctrl):
@@ -149,27 +167,37 @@ class DistLatticeMG(LatticeMG):
         mat = self.scene.material
         mu, la, dx = mat.lame_mu, mat.lame_la, lvl.dx
         cells, vms = self._cells[li], self._vm_slabs[li]
-        u = extend(self._split(u_cf))
-        ctrl_s = [torch.cat([torch.zeros_like(c[..., :1]), c,
-                             torch.zeros_like(c[..., :1])], -1)
-                  for c in self._split(ctrl)]
+        u = u_cf.extend()
+        ctrl_s = ctrl.ghost_zero().slabs()
+        u_s = u.slabs()
 
-        def matvec(p):
+        def slab_matvec(p):
             self.calls["matvec"] += 1
             hp = [lk.level_matvec_cf(ub, pb, cm, c, vm, dx, mu, la)
-                  for ub, pb, cm, c, vm in zip(u, extend(self._split(p)),
+                  for ub, pb, cm, c, vm in zip(u_s, p.extend().slabs(),
                                                cells, ctrl_s, vms)]
-            return self._join(fold(hp))
+            return self.layout.stack(hp).fold()
+
+        def matvec(p):
+            """Slabs to slabs; a whole field (the outer PCG's) is split and
+            the product joined."""
+            if isinstance(p, SlabField):
+                return slab_matvec(p)
+            return self._join(slab_matvec(self._split(p)))
 
         self.calls["diag"] += 1
-        d6 = self._join(fold([lk.sym_channels(lk.hess_diag_cf(
-            ub, cm, dx, mu, la)) for ub, cm in zip(u, cells)]))
-        eye = torch.eye(3, dtype=d6.dtype, device=d6.device)
-        blocks = (lk.sym_blocks(d6)
-                  + (ctrl + (1.0 - lvl.vert_mask))[..., None, None] * eye)
-        if self.spd_smoother:
-            blocks = ell.spd_project(blocks, eps=1e-6, rel_floor=1e-3)
-        return matvec, lk.sym_channels(blocks)
+        d6 = self.layout.stack([lk.sym_channels(lk.hess_diag_cf(
+            ub, cm, dx, mu, la)) for ub, cm in zip(u_s, cells)]).fold()
+        spd = self.spd_smoother
+
+        def shift_project(d, c, vm):
+            eye = torch.eye(3, dtype=d.dtype, device=d.device)
+            blocks = lk.sym_blocks(d) + (c + (1.0 - vm))[..., None, None] * eye
+            if spd:
+                blocks = ell.spd_project(blocks, eps=1e-6, rel_floor=1e-3)
+            return lk.sym_channels(blocks)
+        return matvec, SlabField.apply(shift_project, d6, ctrl,
+                                       self.fields[li].vert_mask)
 
     def _power(self, li, u_cf, d6, ctrl, matvec, out, iters: int = 6):
         """Power iteration on D^-1 A through the halo matvec, from
@@ -177,30 +205,26 @@ class DistLatticeMG(LatticeMG):
         if not self.sharded(li):
             return super()._power(li, u_cf, d6, ctrl, matvec, out)
         self.calls["power"] += 1
-        vm = self.levels[li].vert_mask
-        shape = tuple(vm.shape)
-        n = shape[0] * shape[1] * shape[2]
-        start = torch.sin(torch.arange(n, dtype=torch.float32,
-                                       device=vm.device))
-        v = (vm * start.reshape(shape)).expand((3,) + shape).contiguous()
+        vm = self.fields[li].vert_mask
+        v = self._v0[li]
         lam = None
         for _ in range(iters):
-            w = lk.sym_solve_cf(d6, matvec(v)) * vm
-            ww = self._dot(w, w)
-            lam = torch.sqrt(ww / torch.clamp(self._dot(v, v), min=1e-30))
+            w = SlabField.apply(lk.sym_solve_cf, d6, matvec(v)) * vm
+            ww = w.dot(w)
+            lam = torch.sqrt(ww / torch.clamp(v.dot(v), min=1e-30))
             v = w / torch.clamp(torch.sqrt(ww), min=1e-30)
         out[li] = lam * 1.1
 
     def _smooth(self, level, op, b, x, degree, want_residual=False):
         """Chebyshev on D^-1 A through the level's matvec (on a sharded
-        level the halo matvec; lat_cheby elsewhere)."""
+        level the halo matvec on slab fields; lat_cheby elsewhere)."""
         if not self.sharded(level):
             return super()._smooth(level, op, b, x, degree, want_residual)
         self.calls["smooth"] += 1
         coeffs = lk.cheby_coeffs(op.lmax, degree)
 
         def solve(r):
-            return lk.sym_solve_cf(op.d6, r) * op.vmask
+            return SlabField.apply(lk.sym_solve_cf, op.d6, r) * op.vmask
         z = solve(b if x is None else b - op.matvec(x))
         d = z / coeffs[0]
         x = d if x is None else x + d
@@ -210,57 +234,106 @@ class DistLatticeMG(LatticeMG):
             x = x + d
         return (x, b - op.matvec(x)) if want_residual else x
 
+    def vcycle(self, ops, b, level: int = 0):
+        """LatticeMG.vcycle on slab fields; a whole right-hand side on a
+        sharded level is split once and its correction joined once."""
+        if not self.sharded(level):
+            return super().vcycle(ops, b, level)
+        whole = not isinstance(b, SlabField)
+        if level == self.n_levels - 1 and self.coarse_cg > 0:
+            # the whole-field PCG, its reduction order as on one device
+            op = ops[level]
+            d6 = self._join(op.d6)
+            vm = self.levels[level].vert_mask
+            x = cgmod.pcg_operator(
+                op.matvec, lambda r: lk.sym_solve_cf(d6, r) * vm,
+                b if whole else self._join(b), iterations=self.coarse_cg,
+                tol=1e-4)
+            return x if whole else self._split(x)
+        x = super().vcycle(ops, b, level)
+        return self._join(x) if whole else x
+
     # -- transfers with a one-plane halo on sharded fine levels --------------
-    def _restrict(self, li, r):
+    def _down(self, li, r):
+        """Slab restriction: onto the next level's slabs, or gathered once
+        into a replicated next level."""
         if not self.sharded(li):
-            return super()._restrict(li, r)
+            return super()._down(li, r)
         # slab d's left ghost is global plane d z_loc - 1 (zeros on the
         # first slab: the zero boundary); coarse plane K reads fine planes
         # 2K-1 .. 2K+1, all inside the ghost-extended slab (z_loc is even on
         # every level, so the coarse planes split evenly too)
-        own = self._split(r)
-        lo = shift_planes([b[..., -1] for b in own], +1)
-        out = []
-        for b, l in zip(own, lo):
-            ext = torch.cat([torch.zeros_like(b[..., :1]) if l is None
-                             else l.unsqueeze(-1), b], -1)
-            y = stencil._conv_half(stencil._conv_half(ext, 1), 2)
-            y = stencil._conv_half(y, 3)
-            out.append(y[:, ::2, ::2, 1::2].to(self.home, non_blocking=True))
-        return self._pad_coarse(li, torch.cat(out, -1))
+        lo = r.neighbor_plane(+1)
 
-    def _prolong(self, li, xc):
+        def body(own, lo):
+            ext = torch.cat([lo.unsqueeze(-1), own], -1)
+            y = stencil._conv_half(stencil._conv_half(ext, -3), -2)
+            y = stencil._conv_half(y, -1)
+            return y[..., ::2, ::2, 1::2]
+        rc = SlabField(self.layout, [body(p, l) for p, l in zip(r.parts, lo)])
+        if not self.sharded(li + 1):
+            self.crossings["gather"] += 1
+            return self._pad_coarse(li, rc.join(self.home))
+        # pad x and y up to the next level's grid (z halves exactly)
+        X, Y, Z = self.levels[li + 1].vert_mask.shape
+        tgt = (X, Y, Z // self.n_sp)
+        return SlabField.apply(lambda a: a.contiguous() if a.shape[-3:] == tgt
+                               else _pad_cf(a, tgt), rc)
+
+    def _up(self, li, xc):
+        """Slab prolongation onto level li's slabs, from the coarse level's
+        slabs or, out of a replicated coarse level, one scatter of each
+        slab's coarse plane range."""
         if not self.sharded(li):
-            return super()._prolong(li, xc)
+            return super()._up(li, xc)
         sx, sy, sz = self.levels[li].vert_mask.shape
-        xc = xc[:, :(sx + 1) // 2, :(sy + 1) // 2, :sz // 2]
+        cx, cy = (sx + 1) // 2, (sy + 1) // 2
         z_loc = sz // self.n_sp
         zc_loc = sz // 2 // self.n_sp
         if self.sharded(li + 1):
             # the right ghost is the next slab's first coarse plane (zeros
             # after the last slab: the zero boundary)
-            own = self._split(xc)
-            hi = shift_planes([b[..., 0] for b in own], -1)
-            locs = [torch.cat([b, torch.zeros_like(b[..., :1]) if h is None
-                               else h.unsqueeze(-1)], -1)
-                    for b, h in zip(own, hi)]
+            xc = SlabField.apply(lambda a: a[..., :cx, :cy, :], xc)
+            hi = xc.neighbor_plane(-1)
+            locs = [torch.cat([p, h.unsqueeze(-1)], -1)
+                    for p, h in zip(xc.parts, hi)]
         else:
+            self.crossings["scatter"] += 1
+            xc = xc[:, :cx, :cy, :sz // 2]
             xcp = torch.cat([xc, torch.zeros_like(xc[..., :1])], -1)
-            locs = [xcp[..., d * zc_loc:d * zc_loc + zc_loc + 1].to(dev)
-                    for d, dev in enumerate(self.devices)]
-        out = []
-        for loc in locs:
+            locs = [torch.stack([xcp[..., d * zc_loc:d * zc_loc + zc_loc + 1]
+                                 for d in range(a, b)])
+                    .to(self.devices[a], non_blocking=True)
+                    for a, b in self.layout.groups]
+
+        def body(loc):
             # slab-local fine plane i (global d z_loc + i, even): loc[i / 2]
             # for even i, the mean of its two coarse neighbors for odd i
-            C, Xc, Yc, _ = loc.shape
-            z = loc.new_zeros((C, Xc, Yc, 2 * (zc_loc + 1)))
+            z = loc.new_zeros(tuple(loc.shape[:-1]) + (2 * (zc_loc + 1),))
             z[..., ::2] = loc
-            z = stencil._conv_half(z, 3)[..., :z_loc]
-            f = z.new_zeros((C, sx, sy, z_loc))
-            f[:, ::2, ::2] = z
-            f = stencil._conv_half(stencil._conv_half(f, 1), 2)
-            out.append(f.to(self.home, non_blocking=True))
-        return torch.cat(out, -1)
+            z = stencil._conv_half(z, -1)[..., :z_loc]
+            f = z.new_zeros(tuple(z.shape[:-3]) + (sx, sy, z_loc))
+            f[..., ::2, ::2, :] = z
+            return stencil._conv_half(stencil._conv_half(f, -3), -2)
+        return SlabField(self.layout, [body(loc) for loc in locs])
+
+    # -- the transfers on whole fields -------------------------------------
+    def _restrict(self, li, r):
+        """Whole level-li field -> whole level li+1 field (the slab
+        restriction on a sharded level)."""
+        if not self.sharded(li):
+            return super()._restrict(li, r)
+        rc = self._down(li, self._split(r))
+        return self._join(rc) if isinstance(rc, SlabField) else rc
+
+    def _prolong(self, li, xc):
+        """Whole level li+1 field -> whole level-li field (the slab
+        prolongation on a sharded level)."""
+        if not self.sharded(li):
+            return super()._prolong(li, xc)
+        if self.sharded(li + 1):
+            xc = self._split(xc)
+        return self._join(self._up(li, xc))
 
 
 def _place(st, device):

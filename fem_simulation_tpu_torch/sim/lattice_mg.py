@@ -79,6 +79,18 @@ class LevelOps(NamedTuple):
     ctrl: torch.Tensor       # (X, Y, Z) the whole diagonal shift
 
 
+class LevelFields(NamedTuple):
+    """A level's fields where linearize and the V-cycle take them: the
+    level's own tensors here, slabs on a sharded level of
+    parallel.lattice_mg_dist.DistLatticeMG."""
+    vert_mask: torch.Tensor  # (X, Y, Z)
+    ctrl: torch.Tensor       # (X, Y, Z)
+    mass: torch.Tensor       # (X, Y, Z)
+    x0_cf: torch.Tensor      # (3, X, Y, Z) the rest grid, channel-first
+    restrict_w: torch.Tensor | None  # (X, Y, Z) _restrict_w_cf of the
+                             # level above (None on level 0)
+
+
 def _pad_to(a: torch.Tensor, shape) -> torch.Tensor:
     """a zero-padded at the high end of its first three axes to `shape`."""
     out = a.new_zeros(tuple(shape) + tuple(a.shape[3:]))
@@ -224,12 +236,15 @@ class LatticeMG:
             torch.clamp(self._pad_coarse(
                 li, stencil.restrict_lat_cf(lvl.vert_mask[None])),
                 min=1e-6)[0] for li, lvl in enumerate(self.levels[:-1])]
+        self.fields = [LevelFields(lvl.vert_mask, lvl.ctrl, lvl.mass, x0, w)
+                       for lvl, x0, w in zip(self.levels, self._x0_cf,
+                                             [None] + self._restrict_w_cf)]
 
     # -- the sharding hook ---------------------------------------------------
     def constrain(self, li: int, a):
         """Called on every level-li field entering linearize and vcycle.
         The identity here; parallel.lattice_mg_dist.DistLatticeMG places the
-        field on the device that holds its level."""
+        field where its level's fields live (slabs on a sharded level)."""
         return a
 
     # -- the fine lattice inside the padded level-0 grid ---------------------
@@ -296,15 +311,15 @@ class LatticeMG:
             lmaxes = torch.empty((self.n_levels,), dtype=torch.float32,
                                  device=x_pad.device)
         x_l = x_pad.permute(3, 0, 1, 2).contiguous()
-        for li, lvl in enumerate(self.levels):
+        for li, fl in enumerate(self.fields):
             x_l = self.constrain(li, x_l)
-            vm = lvl.vert_mask
-            u_cf = x_l - self._x0_cf[li]
-            ctrl = lvl.ctrl
+            vm = fl.vert_mask
+            u_cf = x_l - fl.x0_cf
+            ctrl = fl.ctrl
             if inv_dt is not None:
                 # restricted mass * inv_dt^2 == the restriction of the fine
                 # mass / dt^2 term (restrict_lat is linear)
-                ctrl = ctrl + lvl.mass * (inv_dt * inv_dt)
+                ctrl = ctrl + fl.mass * (inv_dt * inv_dt)
             matvec, d6 = self._level_ops(li, u_cf, ctrl)
             if lmaxes is not None:
                 self._power(li, u_cf, d6, ctrl, matvec, lmaxes)
@@ -312,9 +327,9 @@ class LatticeMG:
             if li < self.n_levels - 1:
                 # restrict the displacement (weight-normalized) and anchor
                 # it at the next level's rest grid
-                nxt = self.levels[li + 1]
-                ur = self._restrict(li, u_cf * vm) / self._restrict_w_cf[li]
-                x_l = self._x0_cf[li + 1] + ur * nxt.vert_mask
+                nxt = self.fields[li + 1]
+                ur = self._down(li, u_cf * vm) / nxt.restrict_w
+                x_l = nxt.x0_cf + ur * nxt.vert_mask
         host = lmax_cache if lmaxes is None else lmaxes.cpu().numpy()
         return [op._replace(lmax=np.float32(host[li]))
                 for li, op in enumerate(ops)]
@@ -366,6 +381,16 @@ class LatticeMG:
             xc[:, :(src[0] + 1) // 2, :(src[1] + 1) // 2,
                :(src[2] + 1) // 2], shape=src)
 
+    def _down(self, li: int, r):
+        """The restriction as linearize and the V-cycle apply it, onto
+        where level li+1's fields live (_restrict here)."""
+        return self._restrict(li, r)
+
+    def _up(self, li: int, xc):
+        """The prolongation as the V-cycle applies it, onto where level
+        li's fields live (_prolong here)."""
+        return self._prolong(li, xc)
+
     # -- V-cycle preconditioner ---------------------------------------------
     def _smooth(self, level: int, op: LevelOps, b, x, degree: int,
                 want_residual: bool = False):
@@ -392,10 +417,9 @@ class LatticeMG:
                     b, iterations=self.coarse_cg, tol=1e-4)
             return self._smooth(level, op, b, None, self.coarse_sweeps)
         x, r = self._smooth(level, op, b, None, self.nu, want_residual=True)
-        nxt = self.levels[level + 1]
-        rc = self._restrict(level, r) * nxt.vert_mask
+        rc = self._down(level, r) * ops[level + 1].vmask
         xc = self.vcycle(ops, rc, level + 1)
-        x = x + self._prolong(level, xc) * op.vmask
+        x = x + self._up(level, xc) * op.vmask
         return self._smooth(level, op, b, x, self.nu)
 
 

@@ -154,3 +154,103 @@ def test_sharded_transfers_equal_whole_level(scene, D):
         np.testing.assert_allclose(mg._prolong(li, xc).numpy(),
                                    plain._prolong(li, xc).numpy(),
                                    rtol=1e-6, atol=1e-6)
+
+
+def _one_slab_a_group(devices):
+    return [(i, i + 1) for i in range(len(devices))]
+
+
+@pytest.mark.parametrize("D", (2, 4))
+def test_slab_field_halo_and_dot_equal_block_lists(monkeypatch, D):
+    """SlabField's split / join, extend, fold, neighbour planes and dot
+    against the list-of-blocks halo of parallel/lattice_halo.py, bit for
+    bit and with the same exchange counts, in one group and in one group a
+    slab."""
+    from fem_simulation_tpu_torch.parallel import lattice_halo as lh
+    from fem_simulation_tpu_torch.parallel import slab_field
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.normal(size=(3, 5, 4, 4 * D)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(3, 5, 4, 4 * D)).astype(np.float32))
+    blocks = [a[..., d * 4:(d + 1) * 4] for d in range(D)]
+    ext_ref = lh.extend(blocks)
+    dist.reset_counts()
+    lh.fold(lh.extend(blocks))
+    counts_ref = dict(dist.counts)
+    dot_ref = dist.dot(blocks, [b[..., d * 4:(d + 1) * 4] for d in range(D)])
+    for groups in (None, _one_slab_a_group):
+        if groups is not None:
+            monkeypatch.setattr(slab_field, "slab_groups", groups)
+        layout = slab_field.SlabLayout([torch.device("cpu")] * D)
+        assert len(layout.groups) == (1 if groups is None else D)
+        f = layout.split(a)
+        assert torch.equal(f.join("cpu"), a)
+        dist.reset_counts()
+        ext = f.extend()
+        folded = ext.fold()
+        assert dist.counts == counts_ref
+        for got, ref in zip(ext.slabs(), ext_ref):
+            assert torch.equal(got, ref)
+        ref = lh.fold([e.clone() for e in ext_ref])
+        assert torch.equal(folded.join("cpu"),
+                           torch.cat([r[..., 1:-1] for r in ref], -1))
+        lo = torch.cat(f.neighbor_plane(+1))
+        hi = torch.cat(f.neighbor_plane(-1))
+        for d in range(D):
+            assert torch.equal(lo[d], ext_ref[d][..., 0])
+            assert torch.equal(hi[d], ext_ref[d][..., -1])
+        assert torch.equal(f.dot(layout.split(b)), dot_ref)
+
+
+@pytest.mark.parametrize("D", (2, 4))
+def test_dist_mg_grouping_invariant(monkeypatch, scene, D):
+    """One slab a device group gives the one-group solve bit for bit."""
+    from fem_simulation_tpu_torch.parallel import slab_field
+    grid = make_device_mesh(D, dp=1, device="cpu")
+    solve, place = mgd.make_dist_mg_quasistatic(scene, grid, n_levels=3)
+    assert len(solve.mg.layout.groups) == 1
+    x, k, fn = solve(place(scene.x0))
+    monkeypatch.setattr(slab_field, "slab_groups", _one_slab_a_group)
+    solve1, _ = mgd.make_dist_mg_quasistatic(scene, grid, n_levels=3)
+    assert len(solve1.mg.layout.groups) == D
+    x1, k1, fn1 = solve1(place(scene.x0))
+    assert torch.equal(x1, x) and k1 == k and fn1 == fn
+
+
+@pytest.mark.parametrize("D", (2, 4))
+def test_dist_mg_fields_stay_in_slabs(scene, D):
+    """After linearize every field of a sharded level is a slab field on
+    its devices; one V-cycle splits its right-hand side once and joins its
+    correction once, plus one gather and one scatter into and out of a
+    replicated coarsest level (D = 4), whatever nu and coarse_sweeps."""
+    from fem_simulation_tpu_torch.parallel.slab_field import SlabField
+    grid = make_device_mesh(D, dp=1, device="cpu")
+    mg = mgd.DistLatticeMG(scene, grid, n_levels=3, dt=None)
+    rng = np.random.default_rng(3)
+    du = torch.from_numpy(0.01 * rng.normal(size=tuple(scene.x0.shape))
+                          .astype(np.float32)) * scene.vert_mask[..., None]
+    ops, _ = mg.newton_ops(mg.pad(scene.x0 + du))
+    replicated = [li for li in range(mg.n_levels) if not mg.sharded(li)]
+    assert replicated == ([] if D == 2 else [2])
+    for li, op in enumerate(ops):
+        if not mg.sharded(li):
+            assert torch.is_tensor(op.u_cf) and torch.is_tensor(op.d6)
+            continue
+        X, Y, Z = mg.levels[li].vert_mask.shape
+        for name, chans in (("u_cf", (3,)), ("ctrl", ()), ("d6", (6,)),
+                            ("vmask", ())):
+            f = getattr(op, name)
+            assert isinstance(f, SlabField), (li, name)
+            for (a, b), part in zip(mg.layout.groups, f.parts):
+                assert part.device == mg.devices[a]
+                assert part.shape == (b - a,) + chans + (X, Y, Z // D)
+                assert part.is_contiguous()
+    r = torch.from_numpy(rng.normal(size=(3,) + mg.pad_shape)
+                         .astype(np.float32))
+    want = dict(split=1, join=1, gather=len(replicated),
+                scatter=len(replicated))
+    for nu, sweeps in ((1, 12), (3, 4)):
+        mg.nu, mg.coarse_sweeps = nu, sweeps
+        before = dict(mg.crossings)
+        x = mg.vcycle(ops, r)
+        assert torch.is_tensor(x) and x.shape == r.shape
+        assert {k: mg.crossings[k] - before[k] for k in before} == want
