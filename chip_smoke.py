@@ -11,7 +11,9 @@ Phase 1  runs every lattice kernel against its plain torch version on the
          displacement, mu=250, la=37) with stated tolerances, and times both;
          force and energy must launch one device op a call (torch.profiler)
          and repeat their bits; prints the force tiling of each beam and
-         the device us of force, energy and fused_newton.
+         the device us of force, energy and fused_newton. lat_diag and
+         lat_diag_shift run under their plans and under each form forced
+         (halo tiles, two passes), each checked and timed (diag_forms).
 Phase 2  the lattice main path: LatticeScene(mesh.beam(...), device="cuda")
          stepped 48 frames to ||f||_inf <= 1e-4 under the excited protocol
          (gravity scaled by cos(2 pi t / 16), dt 0.033, max_newton 20, cg
@@ -38,8 +40,9 @@ Phase 7  lattice quasi-static solvers and multigrid: on every level of the
          3-level hierarchies of the three beams (dx doubling per level)
          lat_hvp (under its plan and in PR 1's two passes, and as the level
          matvec with the shift and mask in its vertex pass), the multigrid's
-         power iteration lat_power, the two-pass lat_diag, the multigrid's
-         fused diagonal lat_diag_shift and its Chebyshev smoother lat_cheby
+         power iteration lat_power, lat_diag and the multigrid's fused
+         diagonal lat_diag_shift (under their plans and each form forced:
+         halo tiles, two passes), and its Chebyshev smoother lat_cheby
          (pre-smooth with residual, post-smooth, coarse sweeps) against their
          plain versions (the projected diagonal outside the blocks where a
          Jacobi rotation of either chain meets an exact tie, which are
@@ -118,9 +121,11 @@ Phase 10 distribution, on 4 z-slabs sharing the card (a DeviceGrid of 4
          are read, each kernel is held against its plain version on those
          copies, each float input followed by NaNs so that a read past its
          end shows (max|d| <= 1e-5 max|ref|; lat_cheby, lat_power and the
-         energy 1e-4). The references hold each frame from the distributed
-         run's own input (equal Newton, ||f|| within 1e-3 relative + 5e-6,
-         x within 1e-4), and each path's trajectory from rest against the
+         energy 1e-4), and at each shape of lat_diag or lat_diag_shift both
+         run under their plans and each form forced (diag_forms). The
+         references hold each frame from the distributed run's own input
+         (equal Newton, ||f|| within 1e-3 relative + 5e-6, x within 1e-4),
+         and each path's trajectory from rest against the
          reference's own: x within 1e-4 at every frame, and every frame
          whose Newton count or ||f|| differs taken apart (the reference's
          code on the distributed run's input gives the distributed run's
@@ -369,7 +374,7 @@ def lattice_bounds(sc, k_newton):
     return {
         "force": bound(2 * field + 4 * c, active * lk.FORCE_FLOPS_PER_CELL),
         "hvp": bound(3 * field + 4 * c, active * lk.HVP_FLOPS_PER_CELL),
-        "diag": bound(field + 9 * n * 4 + 4 * c,
+        "diag": bound(field + 6 * n * 4 + 4 * c,
                       active * lk.DIAG_FLOPS_PER_CELL),
         "energy": bound(field + 4 * c + 4, active * ENERGY_FLOPS_PER_CELL),
         # u, s, ctrl, rc, vm, cm in; dx, f, fn, k out
@@ -379,11 +384,121 @@ def lattice_bounds(sc, k_newton):
     }
 
 
+def diag_bounds(cm, vm):
+    """(bound_ms, bound_by) of lat_diag (u and the cell mask in, 6 channels
+    out) and of lat_diag_shift (u, ctrl, vm and the cell mask in, 6
+    channels out; the projection's FLOPs at the real vertices) on a lattice
+    of this cell and vertex mask."""
+    n, c = vm.numel(), cm.numel()
+    active, verts = float(cm.sum()), float(vm.sum())
+    field = 3 * n * 4
+    return {"diag": bound(field + 4 * c + 6 * n * 4,
+                          active * lk.DIAG_FLOPS_PER_CELL),
+            "diag_shift": bound(field + 4 * c + 2 * n * 4 + 6 * n * 4,
+                                active * lk.DIAG_FLOPS_PER_CELL
+                                + verts * lk.SPD_PROJECT_FLOPS)}
+
+
+def diag_forms(phase, where, u, cm, ctrl, vm, dx, rows, reps=10):
+    """lat_diag (hess_diag6_cf) and lat_diag_shift (hess_diag_shift_cf,
+    projected) on one lattice under the plan diag_plan gives each and under
+    each form forced: the best halo tiling (one launch) and the two passes.
+    Each against its plain version (max|d| <= 1e-4 max|ref|; the projected
+    blocks outside the blocks where a rotation of either chain meets an
+    exact tie, diag_shift_err), two runs bit-identical, one device op a call
+    on tiles and two in two passes, the tiles bit-equal to the two passes
+    (one order of the same sums); timed: device us (torch.profiler)
+    and events ms, beside the plain version and the bound. Returns {kernel:
+    the plan's numbers, with "plan" and every form's under "forms"}; the
+    rows' max_abs_err updated."""
+    shape = tuple(vm.shape)
+    dev = u.device
+    sms = lk._sms(dev.index)
+    args = (cm, dx, MU, LA)
+    dargs = (cm, ctrl, vm, dx, MU, LA)
+    bounds = diag_bounds(cm, vm)
+    out = {}
+    for name in ("diag", "diag_shift"):
+        shift = name == "diag_shift"
+        model = lk.DIAG_SHIFT_MODEL if shift else lk.DIAG_MODEL
+        key = (str(dev), *shape, shift)
+        own = lk._diag_plan(*shape, dev, shift)
+        forms = {"halo tiles": lk.best_force_tiling(*shape, sms, model),
+                 "two passes": lk.FORCE_TWO_PASS}
+        if shift:
+            def call():
+                return lk.hess_diag_shift_cf(u, *dargs)
+
+            def plain():
+                return lk.hess_diag_shift_cf_plain(u, *dargs)
+        else:
+            def call():
+                return lk.hess_diag6_cf(u, *args)
+
+            def plain():
+                return lk.sym_channels(lk.hess_diag_lattice_plain(
+                    u.permute(1, 2, 3, 0), *args))
+        ref = plain()
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        b_ms, b_by = bounds[name]
+        res, outs = {}, {}
+        for form, plan in forms.items():
+            lk._diag_plans[key] = plan
+            try:
+                got, again = call(), call()
+                torch.cuda.synchronize()
+                check(bool(torch.equal(got, again)),
+                      f"{phase} {name} {where} {form}: two runs differ")
+                ties = None
+                if shift:
+                    err, scale, ties = diag_shift_err(
+                        f"{where} {form}", u, dargs, got, ref, phase=phase)
+                else:
+                    err, scale = max_err(got, ref), float(ref.abs().max())
+                check(err <= 1e-4 * scale, f"{phase} {name} {where} {form}:"
+                      f" max|d| {err:.3e} > 1e-4 * {scale:.3e}")
+                n_ops = 2 if plan == lk.FORCE_TWO_PASS else 1
+                ops = whole_trace(call, reps, n_ops)
+                n_got = sum(n for n, _ in ops.values())
+                check(len(ops) <= n_ops and n_got <= n_ops, f"{phase} {name}"
+                      f" {where} {form}: device ops per call {ops}")
+                us = (round(sum(max(1, round(n)) * t
+                                for n, t in ops.values()), 2)
+                      if len(ops) == n_ops else None)
+                ms = cuda_ms(call, reps)
+            finally:
+                lk._diag_plans[key] = own
+            outs[form] = got
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            res[form] = dict(tiling=_plan_text(plan, shift), max_abs_err=err,
+                             device_us=us, ms=ms, share_of_bound=(
+                                 None if us is None else b_ms * 1e3 / us),
+                             ties=ties)
+            log(f"{phase} {name:10s} {where} {shape} {form:10s} max|d| "
+                f"{err:.3e} (max|ref| {scale:.3e}) same bits twice  device "
+                f"{'not captured' if us is None else f'{us} us'}  events "
+                f"{ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})"
+                + ("" if us is None else
+                   f", {100 * b_ms * 1e3 / us:.1f}% of it"))
+        # the same sums in the same order (each kernel's own point order,
+        # the same corner order)
+        check(bool(torch.equal(outs["halo tiles"], outs["two passes"])),
+              f"{phase} {name} {where}: halo tiles and two passes differ")
+        pick = "two passes" if own == lk.FORCE_TWO_PASS else "halo tiles"
+        check(own == forms[pick], f"{phase} {name} {where}: plan {own}")
+        out[name] = dict(res[pick], plan=pick, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         forms=res)
+        log(f"{phase} {name:10s} {where} {shape} plan {pick} "
+            f"({_plan_text(own, shift)}); tiles bit-equal to the two passes")
+    return out
+
+
 def phase1(scenes, reps):
     """Kernel vs plain on the same CUDA tensors; returns per-kernel rows
     {name: {"max_abs_err", "by_beam": {label: {ms, plain_ms, bound_ms,
     bound_by}}}} and the Newton inputs of each beam."""
-    names = ("force", "hvp", "diag", "energy", "fused_newton")
+    names = ("force", "hvp", "diag", "diag_shift", "energy", "fused_newton")
     rows = {name: {"max_abs_err": 0.0, "by_beam": {}} for name in names}
     inputs = {}
     for label, sc in scenes.items():
@@ -447,6 +562,12 @@ def phase1(scenes, reps):
         # fused Newton iteration with drag over the pins
         args = newton_inputs(sc, rng)
         inputs[label] = args
+        # lat_diag and lat_diag_shift under their plans and each form, at
+        # the Newton iteration's displacement and ctrl
+        forms = diag_forms("phase1", label, args[0], cm, args[3],
+                           sc.vert_mask, DX, rows)
+        for name in ("diag", "diag_shift"):
+            rows[name]["by_beam"][label] = forms[name]
         dxk, fk, fnk, kk = lk.fused_newton(*args)
         dxp, fp, fnp, kp = lk.fused_newton_plain(*args)
         torch.cuda.synchronize()
@@ -485,6 +606,8 @@ def phase1(scenes, reps):
             f"{plan[1]}x{plan[2]}x{plan[3]} "
             f"{'halo' if plan[6] else 'exchange'}  device us {us}")
         for name, (kern, plain) in cases.items():
+            if name == "diag":          # timed by diag_forms
+                continue
             n = reps if name != "fused_newton" else max(reps // 4, 3)
             ms = cuda_ms(kern, n)
             plain_ms = cuda_ms(plain, max(n // 2, 3), warmup=1)
@@ -989,9 +1112,9 @@ def phase6(uscene_gpu, steps=5):
 
 def level_bounds(lvl):
     """(bound_ms, bound_by) on one level of lat_hvp (u, p and the cell mask
-    in, the product out; with ctrl and vm in, the level matvec), of the
-    two-pass lat_diag entry (u and the cell mask in, 9 block floats out), of
-    lat_diag_shift (u, ctrl, vm and the cell mask in, 6 channels out) and of
+    in, the product out; with ctrl and vm in, the level matvec), of
+    lat_diag_shift unprojected (u, ctrl, vm and the cell mask in, 6 channels
+    out; diag_bounds has lat_diag's and the projected one's) and of
     lat_power (u, the cell mask, ctrl, vm, d6 and the start in, one float
     out; the 6 iterations of LatticeMG.linearize, an HVP and the vertex
     update each): the chain FLOPs of the level's
@@ -1009,11 +1132,6 @@ def level_bounds(lvl):
             "power": bound(field + 4 * c + (1 + 1 + 6 + 1) * n * 4 + 4,
                            6 * (active * lk.HVP_FLOPS_PER_CELL
                                 + verts * lk.POWER_VERTEX_FLOPS)),
-            "diag": bound(field + 9 * n * 4 + 4 * c,
-                          active * lk.DIAG_FLOPS_PER_CELL),
-            "diag_shift": bound(field + 4 * c + 2 * n * 4 + 6 * n * 4,
-                                active * lk.DIAG_FLOPS_PER_CELL
-                                + verts * lk.SPD_PROJECT_FLOPS),
             "diag_shift_unprojected": bound(
                 field + 4 * c + 2 * n * 4 + 6 * n * 4,
                 active * lk.DIAG_FLOPS_PER_CELL)}
@@ -1035,11 +1153,16 @@ def cheby_bound(lvl, sweeps, warm, residual):
                  + sweeps * verts * lk.CHEBY_VERTEX_FLOPS)
 
 
-def _plan_text(plan):
-    if len(plan) == 6:                  # lat_hvp's (lat_force's form)
-        return ("two passes" if plan == lk.FORCE_TWO_PASS else
-                f"{plan[0]} halo tiles {plan[1]}x{plan[2]}x{plan[3]}, a "
-                f"thread a cell")
+def _plan_text(plan, lanes=False):
+    """A plan in words; lanes: lat_diag_shift's, whose small tiles run
+    eight lanes a cell."""
+    if len(plan) == 6:                  # lat_force's form
+        if plan == lk.FORCE_TWO_PASS:
+            return "two passes"
+        per = ("eight lanes" if lanes and plan[4] <= lk.DIAG_LANE_CELLS
+               else "a thread")
+        return (f"{plan[0]} halo tiles {plan[1]}x{plan[2]}x{plan[3]}, {per} "
+                f"a cell")
     grid, ntx, nty, ntz, _, _, halo = plan
     mode = ("one tile, one block" if ntx * nty * ntz == 1
             else "halo" if halo else "exchange")
@@ -1094,9 +1217,10 @@ def diag_shift_err(where, u, dargs, got, ref, tol=1e-4, phase="phase7"):
 def phase7_kernels(scenes, rows, reps):
     """The multigrid's level operators at every level shape of each beam's
     3-level hierarchy, with the level's dx and ctrl, on a seeded perturbed
-    displacement: lat_hvp and the two-pass lat_diag entry (hess_diag_cf);
-    lat_diag_shift, the multigrid's diagonal (shift and SPD projection
-    fused), projected and not; lat_cheby as the V-cycle calls it (nu = 2:
+    displacement: lat_hvp; lat_diag and lat_diag_shift, the multigrid's
+    diagonal (shift and SPD projection fused), under their plans and each
+    form (diag_forms), and lat_diag_shift unprojected; lat_cheby as the
+    V-cycle calls it (nu = 2:
     pre-smooth from zero with its residual and post-smooth from a start on
     every level but the coarsest; 12 sweeps on the coarsest), with the
     level's Chebyshev bound by power iteration times 1.2. Every result
@@ -1110,7 +1234,7 @@ def phase7_kernels(scenes, rows, reps):
     plain versions. Returns {label: [per-level dict]}."""
     out = {}
     rows["cheby"] = {"max_abs_err": 0.0, "by_beam": {}}
-    rows["diag_shift"] = {"max_abs_err": 0.0, "by_beam": {}}
+    rows.setdefault("diag_shift", {"max_abs_err": 0.0, "by_beam": {}})
     rows["power"] = {"max_abs_err": 0.0, "by_beam": {}}
     lib = _cuda.load()
     for label, sc in scenes.items():
@@ -1128,7 +1252,6 @@ def phase7_kernels(scenes, rows, reps):
                 field(0.1) * vm
             args = (lvl.cell_mask, lvl.dx, MU, LA)
             dargs = (lvl.cell_mask, lvl.ctrl, vm, lvl.dx, MU, LA)
-            u_last = u.permute(1, 2, 3, 0)
             d6 = lk.hess_diag_shift_cf(u, *dargs)
             pargs = (u, d6, lvl.ctrl, vm, *args)
             margs = (u, p, lvl.cell_mask, lvl.ctrl, vm, lvl.dx, MU, LA)
@@ -1146,14 +1269,9 @@ def phase7_kernels(scenes, rows, reps):
                                  lambda: lk.level_matvec_cf_plain(*margs)),
                 "power": (lambda: lk.power_lmax_cf(*pargs),
                           lambda: lk.power_lmax_cf_plain(*pargs)),
-                "diag": (lambda: lk.hess_diag_cf(u, *args),
-                         lambda: lk.hess_diag_lattice_plain(u_last, *args)),
                 "diag_shift_unprojected": (
                     lambda: lk.hess_diag_shift_cf(u, *dargs, False),
                     lambda: lk.hess_diag_shift_cf_plain(u, *dargs, False)),
-                "diag_shift": (
-                    lambda: lk.hess_diag_shift_cf(u, *dargs),
-                    lambda: lk.hess_diag_shift_cf_plain(u, *dargs)),
             }
             smooths = ({"cheby_coarse": (None, 12, False)}
                        if li == mg.n_levels - 1 else
@@ -1167,19 +1285,29 @@ def phase7_kernels(scenes, rows, reps):
                                    *call))
                 bounds[name] = cheby_bound(lvl, sweeps, x is not None, res)
             plans = {k: lk._level_plan(lib, *shape[1:], u.device, k)
-                     for k in (lk.CHEBY, lk.DIAG_SHIFT, lk.POWER)}
+                     for k in (lk.CHEBY, lk.POWER)}
             plans["hvp"] = lk._hvp_plan(*shape[1:], u.device)
+            for k in ("diag", "diag_shift"):
+                plans[k] = lk._diag_plan(*shape[1:], u.device,
+                                         k == "diag_shift")
             entry = {"level": li, "shape": shape[1:], "dx": lvl.dx,
                      "lmax": float(lmax),
                      "cheby_plan": list(plans[lk.CHEBY]),
-                     "diag_shift_plan": list(plans[lk.DIAG_SHIFT]),
+                     "diag_plan": list(plans["diag"]),
+                     "diag_shift_plan": list(plans["diag_shift"]),
                      "hvp_plan": list(plans["hvp"]),
                      "power_plan": list(plans[lk.POWER])}
             log(f"phase7 plan {label:4s} level {li} {shape[1:]} lat_cheby "
-                f"{_plan_text(plans[lk.CHEBY])}; lat_diag_shift "
-                f"{_plan_text(plans[lk.DIAG_SHIFT])}; lat_hvp "
+                f"{_plan_text(plans[lk.CHEBY])}; lat_diag "
+                f"{_plan_text(plans['diag'])}; lat_diag_shift "
+                f"{_plan_text(plans['diag_shift'], True)}; lat_hvp "
                 f"{_plan_text(plans['hvp'])}; lat_power "
                 f"{_plan_text(plans[lk.POWER])}; lmax {float(lmax):.4f}")
+            forms = diag_forms("phase7", f"{label} level {li}", u,
+                               lvl.cell_mask, lvl.ctrl, vm, lvl.dx, rows)
+            entry["diag"] = forms["diag"]
+            entry["diag_shift"] = forms["diag_shift"]
+            entry["diag_shift_ties"] = forms["diag_shift"]["ties"]
             for name, (kern, plain) in cases.items():
                 got, again = kern(), kern()
                 ref = plain()
@@ -1192,11 +1320,7 @@ def phase7_kernels(scenes, rows, reps):
                 for g_, a_, r_ in pairs:
                     check(bool(torch.equal(g_, a_)),
                           f"{name} {label} level {li}: two runs differ")
-                    if name == "diag_shift":
-                        e_, s_, entry["diag_shift_ties"] = diag_shift_err(
-                            f"{label} level {li}", u, dargs, g_, r_)
-                    else:
-                        e_, s_ = max_err(g_, r_), float(r_.abs().max())
+                    e_, s_ = max_err(g_, r_), float(r_.abs().max())
                     check(e_ <= 1e-4 * s_, f"{name} {label} level {li}: "
                           f"max|d| {e_:.3e} > 1e-4 * {s_:.3e}")
                     err, scale = max(err, e_), max(scale, s_)
@@ -1209,23 +1333,24 @@ def phase7_kernels(scenes, rows, reps):
                     rows[kernel]["max_abs_err"], err)
                 ms = cuda_ms(kern, reps)
                 # each op's mean span times its launches a call; None when
-                # the traces lost an op altogether. The two passes of hvp
-                # (where its plan or the case takes them): cell pass and
-                # gather; the two-pass diag: those and the block gather; the
-                # others: one launch a call
+                # the traces lost an op altogether. The two passes (where
+                # the plan or the case takes them): cell pass and gather;
+                # the others: one launch a call
                 two = plans["hvp"] == lk.FORCE_TWO_PASS
                 n_ops = {"hvp": 1 + two, "level_matvec": 1 + two,
-                         "hvp_two_pass": 2, "diag": 3}.get(name, 1)
+                         "hvp_two_pass": 2,
+                         "diag_shift_unprojected": 1 + (
+                             plans["diag_shift"] == lk.FORCE_TWO_PASS),
+                         }.get(name, 1)
                 ops = whole_trace(kern, 20, n_ops)
                 n_got = sum(n for n, _ in ops.values())
                 us = (round(sum(max(1, round(n)) * t
                                 for n, t in ops.values()), 2)
                       if len(ops) >= n_ops else None)
-                if n_ops == 1:
-                    # at most one device op a call (a trace can lose its
-                    # last events, never add any)
-                    check(len(ops) <= 1 and n_got <= 1.0, f"{name} {label} "
-                          f"level {li}: device ops per call {ops}")
+                # at most n_ops device ops a call (a trace can lose its
+                # last events, never add any)
+                check(len(ops) <= n_ops and n_got <= n_ops, f"{name} {label} "
+                      f"level {li}: device ops per call {ops}")
                 plain_ms = cuda_ms(plain, 3, warmup=1)
                 b_ms, b_by = bounds[name]
                 entry[name] = dict(max_abs_err=err, ms=ms, device_us=us,
@@ -2522,9 +2647,9 @@ def phase11(rows):
     return res, counts
 
 
-def _diag_plain(x_cf, cell_mask, dx, mu, la):
-    return lk.hess_diag_lattice_plain(x_cf.permute(1, 2, 3, 0), cell_mask,
-                                      dx, mu, la)
+def _diag6_plain(x_cf, cell_mask, dx, mu, la):
+    return lk.sym_channels(lk.hess_diag_lattice_plain(
+        x_cf.permute(1, 2, 3, 0), cell_mask, dx, mu, la))
 
 
 def _power_plain(u_cf, d6, ctrl, vert_mask, cell_mask, dx, mu, la, out=None,
@@ -2542,7 +2667,7 @@ PATH_WRAPPERS = (
     (lk, "force_cf", "force", lk.force_cf_plain, 1e-5),
     (lk, "hvp_cf", "hvp", lk.hvp_cf_plain, 1e-5),
     (lk, "level_matvec_cf", "hvp", lk.level_matvec_cf_plain, 1e-5),
-    (lk, "hess_diag_cf", "diag", _diag_plain, 1e-5),
+    (lk, "hess_diag6_cf", "diag", _diag6_plain, 1e-5),
     (lk, "hess_diag_shift_cf", "diag_shift", lk.hess_diag_shift_cf_plain,
      1e-5),
     (lk, "cheby_smooth_cf", "cheby", lk.cheby_smooth_cf_plain, 1e-4),
@@ -2625,12 +2750,14 @@ class PathCapture:
 
     def check(self, rows):
         """Every recorded call's kernel against its plain version, with the
-        plan each ran; the rows' max_abs_err and by_path_shape updated.
-        Returns the number of signatures checked."""
+        plan each ran; lat_diag and lat_diag_shift at each of their shapes
+        also under each form (diag_forms: on a lat_diag slab, ones for the
+        vertex mask and a seeded positive ctrl); the rows' max_abs_err and
+        by_path_shape updated. Returns the number of signatures checked."""
         lib = _cuda.load()
-        level = {"cheby_smooth_cf": lk.CHEBY,
-                 "hess_diag_shift_cf": lk.DIAG_SHIFT,
-                 "power_lmax_cf": lk.POWER}
+        level = {"cheby_smooth_cf": lk.CHEBY, "power_lmax_cf": lk.POWER}
+        diags = ("hess_diag6_cf", "hess_diag_shift_cf")
+        rng = np.random.default_rng(13)
         for attr, orig, row, plain, rtol, args, kwargs, rest in \
                 self.calls.values():
             grid = _grid_of(attr, args)
@@ -2642,11 +2769,14 @@ class PathCapture:
             elif attr in level:
                 plan = _plan_text(lk._level_plan(lib, *grid, dev,
                                                  level[attr]))
+            elif attr in diags:
+                shift = attr == "hess_diag_shift_cf"
+                plan = _plan_text(lk._diag_plan(*grid, dev, shift), shift)
             elif attr == "elastic_energy_lattice":
                 plan = "grid {} lanes {}".format(
                     *lk.energy_plan(*grid, lk._sms(dev.index)))
             else:
-                plan = "two passes and a gather" if row == "diag" else None
+                plan = None
             got = orig(*args, **kwargs)
             ref = plain(*args, **kwargs)
             torch.cuda.synchronize()
@@ -2674,6 +2804,22 @@ class PathCapture:
                 f"{err:.3e} (max|ref| {scale:.3e}, tolerance {rtol:g})"
                 + (" at rest, the only call" if rest else "")
                 + ("" if plan is None else f"  plan {plan}"))
+            if attr in diags:
+                u, cm = args[0], args[1]
+                if attr == "hess_diag_shift_cf":
+                    ctrl, vm, dx = args[2], args[3], args[4]
+                else:
+                    dx = args[2]
+                    vm = torch.ones(grid, device=dev)
+                    ctrl = torch.from_numpy((1.0 + rng.random(grid)).astype(
+                        np.float32)).to(dev)
+                forms = diag_forms("phase10", f"path {attr}", u, cm, ctrl,
+                                   vm, dx, rows)
+                rows[row]["by_path_shape"][-1]["forms"] = {
+                    k: {f: {m: e[m] for m in ("device_us", "ms",
+                                              "share_of_bound")}
+                        for f, e in v["forms"].items()}
+                    for k, v in forms.items()}
         return len(self.calls)
 
 
@@ -2761,9 +2907,8 @@ def phase10_operators(sc, rows, reps):
                       lambda: lk.force_cf_plain(u0, cm0, DX, MU, LA)),
             "hvp": (lambda: lk.hvp_cf(u0, p0, cm0, DX, MU, LA),
                     lambda: lk.hvp_cf_plain(u0, p0, cm0, DX, MU, LA)),
-            "diag": (lambda: lk.hess_diag_cf(u0, cm0, DX, MU, LA),
-                     lambda: lk.hess_diag_lattice_plain(
-                         u0.permute(1, 2, 3, 0), cm0, DX, MU, LA)),
+            "diag": (lambda: lk.hess_diag6_cf(u0, cm0, DX, MU, LA),
+                     lambda: _diag6_plain(u0, cm0, DX, MU, LA)),
         }
         for name, (kern, plain) in cases.items():
             err = max_err(kern(), plain())
@@ -2775,18 +2920,20 @@ def phase10_operators(sc, rows, reps):
             dist_ms = cuda_ms(dist_ops[name], max(reps // 2, 3))
             whole_ms = cuda_ms(whole[name], max(reps // 2, 3))
             b_ms, b_by = bounds[name]
-            plan = (lk._force_plan if name == "force" else lk._hvp_plan)(
-                *blk.shape[1:], blk.device) if name != "diag" else None
+            plan = (lk._force_plan(*blk.shape[1:], blk.device)
+                    if name == "force" else
+                    lk._hvp_plan(*blk.shape[1:], blk.device) if name == "hvp"
+                    else lk._diag_plan(*blk.shape[1:], blk.device, False))
             rows[name]["by_slab"] = dict(
                 shape=list(blk.shape[1:]), slabs=D, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                 dist_op_ms=dist_ms, whole_lattice_ms=whole_ms,
-                plan=None if plan is None else _plan_text(plan))
+                plan=_plan_text(plan))
             log(f"phase10 time {name:5s} slab {tuple(blk.shape[1:])} kernel "
                 f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms "
                 f"({b_by})  max|d| {err:.3e}; {D}-slab op with exchange "
-                f"{dist_ms:.4f} ms vs whole lattice {whole_ms:.4f} ms"
-                + ("" if plan is None else f"; plan {_plan_text(plan)}"))
+                f"{dist_ms:.4f} ms vs whole lattice {whole_ms:.4f} ms; plan "
+                f"{_plan_text(plan)}")
     return out
 
 
@@ -3178,7 +3325,7 @@ def phase10_path(scenes, uscenes, rows, newton7):
     t0 = time.perf_counter()
     slab74 = (sc74.shape[0], sc74.shape[1], slabs.n_own + 2)
     want = {a: {slab74} for a in ("force_cf", "hvp_cf")}
-    want["hess_diag_cf"] = {slab74}
+    want["hess_diag6_cf"] = {slab74}
     want["level_matvec_cf"] = set()
     for mg in (solve.mg, step_mg.mg, solve74.mg):
         for li, lvl in enumerate(mg.levels):
@@ -3186,7 +3333,7 @@ def phase10_path(scenes, uscenes, rows, newton7):
             if mg.sharded(li):
                 sl = (X, Y, Z // mg.n_sp + 2)
                 want["level_matvec_cf"].add(sl)
-                want["hess_diag_cf"].add(sl)
+                want["hess_diag6_cf"].add(sl)
     for li, lvl in enumerate(solve8.mg.levels):
         if not solve8.mg.sharded(li):
             for a in ("cheby_smooth_cf", "power_lmax_cf",
@@ -3485,7 +3632,7 @@ def main() -> int:
     per_level = {"cheby": ("cheby_pre", "cheby_post", "cheby_coarse"),
                  "diag_shift": ("diag_shift", "diag_shift_unprojected",
                                 "diag_shift_ties", "diag_shift_plan"),
-                 "diag": ("diag",),
+                 "diag": ("diag", "diag_plan"),
                  "hvp": ("hvp", "hvp_two_pass", "level_matvec", "hvp_plan"),
                  "power": ("power", "power_plan", "lmax")}
 

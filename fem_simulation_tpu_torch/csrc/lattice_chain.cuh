@@ -9,10 +9,12 @@
 // identity added analytically (the position form cancels |x|*(2/dx)-sized
 // terms and sets a coordinate-dependent f32 noise floor).
 //
-// The loops over corners, quadrature points and 3x3 components are fully
-// unrolled, so every index into the g table is a compile-time constant and
-// the per-cell state (8 corners x 3, F, M, dF, dM, the 24 or 48 corner
-// accumulators) lives in registers.
+// The force and HVP chains unroll their loops over corners, quadrature
+// points and 3x3 components fully, so every index into the g table is a
+// compile-time constant and the per-cell state (8 corners x 3, F, M, dF, dM,
+// the 24 corner accumulators) lives in registers. The diagonal chain
+// (diag_chain, at the end) runs its points in sequence or in pairs and
+// keeps its 48 corner sums in registers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -216,52 +218,6 @@ __device__ __forceinline__ int diag_s(int ch) {
     return ch < 3 ? ch : (ch < 5 ? ch - 2 : 2);
 }
 
-// Vertex-diagonal Hessian chain, 6 symmetric channels per corner: with
-// a = g_iq and v = F a,
-//   acc[i][rs] = sum_q delta_rs a^T M a + (mu+la) v_r v_s + mu |a|^2 (F F^T)_rs.
-// The caller scales by det * cell mask.
-__device__ __forceinline__ void diag_chain(const float us[8][3],
-                                           const GTab& G, float mu, float la,
-                                           float acc[8][6]) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int ch = 0; ch < 6; ++ch) acc[i][ch] = 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-        float F[3][3], E[3][3], M[3][3], Gm[6];
-        deformation(us, G, q, F);
-        const float trE = green_strain(F, E);
-        stvk_stress(E, trE, mu, la, M);
-#pragma unroll
-        for (int ch = 0; ch < 6; ++ch) {
-            const int r = diag_r(ch), s = diag_s(ch);
-            Gm[ch] = F[r][0] * F[s][0] + F[r][1] * F[s][1] + F[r][2] * F[s][2];
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const float a0 = G.g[i][q][0], a1 = G.g[i][q][1],
-                        a2 = G.g[i][q][2];
-            const float gg = a0 * a0 + a1 * a1 + a2 * a2;
-            float v[3];
-#pragma unroll
-            for (int r = 0; r < 3; ++r)
-                v[r] = F[r][0] * a0 + F[r][1] * a1 + F[r][2] * a2;
-            const float aMa = a0 * (M[0][0] * a0 + M[0][1] * a1 + M[0][2] * a2)
-                            + a1 * (M[1][0] * a0 + M[1][1] * a1 + M[1][2] * a2)
-                            + a2 * (M[2][0] * a0 + M[2][1] * a1 + M[2][2] * a2);
-#pragma unroll
-            for (int ch = 0; ch < 6; ++ch) {
-                const int r = diag_r(ch), s = diag_s(ch);
-                float contrib = (mu + la) * v[r] * v[s] + (mu * gg) * Gm[ch];
-                if (r == s) contrib += aMa;
-                acc[i][ch] += contrib;
-            }
-        }
-    }
-}
-
 // Cell passes: write one cell's corner contributions, summed over q, to the
 // scratch cf[(i*NCH + ch)*C + c] (coalesced across neighbouring cells).
 __device__ __forceinline__ void cell_force(const ChainArgs& A, const float* u,
@@ -293,22 +249,6 @@ __device__ __forceinline__ void cell_hvp(const ChainArgs& A, const float* u,
     for (int i = 0; i < 8; ++i) {
 #pragma unroll
         for (int r = 0; r < 3; ++r) cf[(i * 3 + r) * A.L.C + c] = acc[i][r] * w;
-    }
-}
-
-__device__ __forceinline__ void cell_diag(const ChainArgs& A, const float* u,
-                                          const float* cm, float* cd, int c) {
-    int cx, cy, cz;
-    cell_coords(A.L, c, cx, cy, cz);
-    float us[8][3], acc[8][6];
-    load_corners(u, A.L, cx, cy, cz, us);
-    diag_chain(us, A.G, A.mu, A.la, acc);
-    const float w = A.det * cm[c];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int ch = 0; ch < 6; ++ch)
-            cd[(i * 6 + ch) * A.L.C + c] = acc[i][ch] * w;
     }
 }
 
@@ -468,8 +408,9 @@ __device__ __forceinline__ void emit_corner(const float P[3][3],
         out[r] = P[r][0] * gq[0] + P[r][1] * gq[1] + P[r][2] * gq[2];
 }
 
-// One point's contribution to corner i's 6 diagonal channels (diag_chain's
-// arithmetic): Gm = F F^T in the symmetric channel order.
+// One point's contribution to corner i's 6 diagonal channels: with a = g_iq
+// and v = F a, delta_rs a^T M a + (mu+la) v_r v_s + mu |a|^2 (F F^T)_rs;
+// Gm = F F^T in the symmetric channel order.
 __device__ __forceinline__ void diag_corner(const float F[3][3],
                                             const float M[3][3],
                                             const float Gm[6],
@@ -529,5 +470,74 @@ __device__ __forceinline__ void sum_points_to_corners(Contrib contrib, int lane,
         const float keep = lo ? a2[1][ch] : a2[0][ch];
         const float send = lo ? a2[0][ch] : a2[1][ch];
         out[ch] = keep + __shfl_xor_sync(full, send, 1);
+    }
+}
+
+// Vertex-diagonal Hessian chain of one cell, 6 symmetric channels per
+// corner: acc[i][ch] = sum over the points of diag_corner's contribution,
+// the points one at a time, corner i's displacement read as corner(i) at
+// every point, so that registers hold the 48 sums and not the 24 corner
+// values as well. The caller scales by det * cell mask. The points' order:
+// * kPairs false: in sequence (lat_diag's order, that of its first
+//   two-pass form);
+// * kPairs true: ((c0 + c4) + (c2 + c6)) + ((c1 + c5) + (c3 + c7)), c_q
+//   point q's contribution: the order in which the eight-lane kernels'
+//   exchange (sum_points_to_corners) sums the points, so lat_diag_shift
+//   keeps the bits of its first, eight-lane form. Partial sums wait in two
+//   slots of 48 floats: stash(slot, acc) writes them, add_stash(slot, acc)
+//   sets acc = slot + acc.
+template <bool kPairs, class Corner, class Stash, class AddStash>
+__device__ __forceinline__ void diag_chain(const GTab& G, float mu, float la,
+                                           Corner corner, Stash stash,
+                                           AddStash add_stash,
+                                           float acc[8][6]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch) acc[i][ch] = 0.f;
+    }
+#pragma unroll 1
+    for (int s = 0; s < 8; ++s) {
+        // kPairs: points 0 4 2 6 1 5 3 7, a pair's first one assigned
+        const int q = kPairs ? ((s >> 1) & 1) * 2 + (s >> 2) + (s & 1) * 4
+                             : s;
+        const bool add = !kPairs || (s & 1);
+        const QuadLane g = quad_lane(G, q);
+        float F[3][3], M[3][3], Gm[6];
+        zero3x3(F);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const float3 a = corner(i);
+            const float us[3] = {a.x, a.y, a.z};
+            grad_add(us, g.gq[i], F);
+        }
+        deformation_stress(F, mu, la, M);
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch) {
+            const int r = diag_r(ch), c = diag_s(ch);
+            Gm[ch] = F[r][0] * F[c][0] + F[r][1] * F[c][1] + F[r][2] * F[c][2];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            float o[6];
+            diag_corner(F, M, Gm, g.gq[i], mu, la, o);
+#pragma unroll
+            for (int ch = 0; ch < 6; ++ch)
+                acc[i][ch] = add ? acc[i][ch] + o[ch] : o[ch];
+        }
+        if constexpr (kPairs) {
+            if (s == 1) {           // c0 + c4
+                stash(0, acc);
+            } else if (s == 3) {    // (c0 + c4) + (c2 + c6)
+                add_stash(0, acc);
+                stash(0, acc);
+            } else if (s == 5) {    // c1 + c5
+                stash(1, acc);
+            }
+        }
+    }
+    if constexpr (kPairs) {
+        add_stash(1, acc);          // (c1 + c5) + (c3 + c7)
+        add_stash(0, acc);
     }
 }

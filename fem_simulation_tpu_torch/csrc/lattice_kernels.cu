@@ -38,9 +38,11 @@
 //   it (sim/lattice_mg.py:469-479): every iteration of one level's power
 //   iteration on D^-1 A in one cooperative launch (see power_kernel).
 // * lat_diag replaces _run_diag (pallas_call at :251), entry
-//   hess_diag_lattice; _diag_into at :129-164. lat_hvp's two passes with 6
-//   symmetric channels (930 FLOP per cell and quad point, 48 floats of
-//   scratch per cell).
+//   hess_diag_lattice; _diag_into at :129-164 (930 FLOP per cell and quad
+//   point, 6 symmetric channels a vertex), and with the multigrid's shift
+//   and SPD projection in its vertex pass serves lat_diag_shift. As lat_hvp:
+//   one launch on halo tiles, a thread a cell, or where its plan says the
+//   two passes (see diag_tiles_kernel).
 // * lat_energy replaces _run_energy (pallas_call at :200), entry
 //   elastic_energy_lattice; _make_energy_kernel at :166-189. One launch:
 //   psi per cell (eight lanes a cell, one quadrature point each, on small
@@ -117,9 +119,16 @@ constexpr int kScratchRows = 48;
 // The standalone force and HVP tiles: a thread a cell, two blocks an SM.
 constexpr int kForceThreads = 256;
 constexpr int kForceRows = 24;              // 8 corners x 3 channels
-// Dynamic shared memory of a force or HVP tile, under the 48 KB a launch
-// may take without opting in (the kernels have no static shared memory).
+// Dynamic shared memory of a force, HVP or diagonal tile, under the 48 KB a
+// launch may take without opting in (the kernels have no static shared
+// memory).
 constexpr int kForceSmem = 48 * 1024;
+// A diagonal tile's 48 rows of corner sums (96 with lat_diag_shift's
+// partial sums) need more: it opts in to up to kDiagSmem (two blocks an SM
+// still fit the SM's 228 KB).
+constexpr int kDiagRows = 48;               // 8 corners x 6 channels
+constexpr int kDiagSmem = 110 * 1024;
+constexpr int kMaxDevices = 64;
 // Blocks a covered lat_force on halo tiles adds to zero the vertices of the
 // inactive tiles (each walks several).
 constexpr int kZeroBlocks = 128;
@@ -268,7 +277,7 @@ __device__ __forceinline__ void sym_solve(const float* d6, int N, int v,
 }
 
 // ---------------------------------------------------------------------------
-// Two-pass kernels: hvp, diag
+// Two-pass kernels: hvp, diag (its vertex pass is gather_diag)
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
@@ -280,12 +289,55 @@ hvp_cells(const __grid_constant__ ChainArgs A, const float* __restrict__ u,
         cell_hvp(A, u, p, cm, cf, c);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The diagonal's cell pass, a thread a cell (two blocks an SM): diag_chain
+// (kPairs: its two slots of partial sums in shared memory, 96 floats a
+// thread) with each corner read through the read-only cache at every
+// point, the cell's 48 corner sums scaled by det * cell mask to the scratch
+// cd[(corner * 6 + channel) * C + c].
+template <bool kPairs>
+__global__ void __launch_bounds__(kThreads, 2)
 diag_cells(const __grid_constant__ ChainArgs A, const float* __restrict__ u,
            const float* __restrict__ cm, float* __restrict__ cd) {
-    for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < A.L.C;
-         c += gridDim.x * blockDim.x)
-        cell_diag(A, u, cm, cd, c);
+    // kPairs: 96 rows of kThreads floats (a constant row stride, so that
+    // every row's offset is an immediate)
+    extern __shared__ float4 smem[];
+    float* st = reinterpret_cast<float*>(smem) + threadIdx.x;
+    const Lattice& L = A.L;
+    const int N = L.N, YZ = L.Y * L.Z;
+    for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < L.C;
+         c += gridDim.x * blockDim.x) {
+        int cx, cy, cz;
+        cell_coords(L, c, cx, cy, cz);
+        const int v0 = corner_vertex(L, cx, cy, cz, 0);
+        float acc[8][6];
+        diag_chain<kPairs>(
+            A.G, A.mu, A.la,
+            [&](int i) {
+                const int v = v0 + ((i >> 2) & 1) * YZ + ((i >> 1) & 1) * L.Z
+                            + (i & 1);
+                return make_float3(__ldg(u + v), __ldg(u + N + v),
+                                   __ldg(u + 2 * N + v));
+            },
+            [&](int slot, const float (*a)[6]) {
+#pragma unroll
+                for (int j = 0; j < 48; ++j)
+                    st[(slot * 48 + j) * kThreads] = a[j / 6][j % 6];
+            },
+            [&](int slot, float (*a)[6]) {
+#pragma unroll
+                for (int j = 0; j < 48; ++j)
+                    a[j / 6][j % 6] =
+                        st[(slot * 48 + j) * kThreads] + a[j / 6][j % 6];
+            },
+            acc);
+        const float w = A.det * cm[c];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+            for (int ch = 0; ch < 6; ++ch)
+                cd[(i * 6 + ch) * L.C + c] = acc[i][ch] * w;
+        }
+    }
 }
 
 // out[ch][v] = sum over incident cells of scratch channel ch
@@ -1032,15 +1084,14 @@ cudaError_t launch_fused(NewtonArgs& P, int grid, cudaStream_t st) {
 // lat_diag_shift replaces, on the same path, hess_diag_lattice (_run_diag,
 // pallas_call at :251) together with what the JAX LatticeMG.linearize does
 // to its blocks (:393-406): + (ctrl + 1 - vm) I, then
-// ell.spd_project(eps 1e-6, rel_floor 1e-3). One launch, a block per halo
-// tile (the fused kernel's kDiag cell pass, 128 registers), and in the
-// vertex pass, in registers: the shift, 6 cyclic-Jacobi sweeps of rotations
-// (0,1), (0,2), (1,2), the eigenvalue floor and the rebuild V diag(w) V^T,
-// whose upper triangle is stored as the 6 channels. No cell scratch in
-// device memory, no separate gather. The projection repeats
-// ell.spd_project's float32 operations one by one, each rounded as torch
-// rounds it (no contraction into fma), with sign(0) = 0 as torch.sign has
-// it: a block with app == aqq gets no rotation.
+// ell.spd_project(eps 1e-6, rel_floor 1e-3). It is lat_diag (below) with
+// these in its vertex pass, in registers: the shift, 6 cyclic-Jacobi sweeps
+// of rotations (0,1), (0,2), (1,2), the eigenvalue floor and the rebuild
+// V diag(w) V^T, whose upper triangle is stored as the 6 channels
+// (spd_project). The projection repeats ell.spd_project's float32
+// operations one by one, each rounded as torch rounds it (no contraction
+// into fma), with sign(0) = 0 as torch.sign has it: a block with app == aqq
+// gets no rotation.
 
 constexpr int kMaxSweeps = 32;
 
@@ -1069,10 +1120,12 @@ struct DiagArgs {
     Tiling T;
     const float* u;     // (3, N) displacement
     const float* cm;    // (C,) cell mask
-    const float* ctrl;  // (N,) diagonal shift
-    const float* vm;    // (N,) vertex mask
-    float* out;         // (6, N) the shifted (projected) blocks
-    int project;        // 1: SPD-project the shifted blocks
+    const float* ctrl;  // (N,) diagonal shift, or null: the blocks alone
+    const float* vm;    // (N,) vertex mask (with ctrl)
+    float* out;         // (6, N) the (shifted, projected) blocks
+    int project;        // 1: SPD-project the shifted blocks (with ctrl)
+    int lane_cells;     // with ctrl: a tile of at most this many cells runs
+                        // eight lanes a cell
 };
 
 __global__ void __launch_bounds__(kFusedThreads, 1)
@@ -1206,29 +1259,6 @@ __device__ __forceinline__ void spd_project(float a[6]) {
             o = __fadd_rn(o, __fmul_rn(__fmul_rn(w[j], V[r][j]), V[c][j]));
         a[ch] = o;
     }
-}
-
-__global__ void __launch_bounds__(kFusedThreads, 1)
-diag_tiles_kernel(const __grid_constant__ DiagArgs P) {
-    extern __shared__ float4 smem[];  // scratch rows, then the vertex box
-    float* sc = reinterpret_cast<float*>(smem);
-    const Lattice& L = P.A.L;
-    const int N = L.N;
-    const QuadLane ql = quad_lane(P.A.G, threadIdx.x & 7);
-    const Tile T = tile_of(L, P.T, blockIdx.x);
-    const CellIn at_u = {0.f, nullptr, 0.f, false};
-    tile_cells<kDiag>(P, T, ql, sc, at_u);
-    __syncthreads();
-    halo_vertices<6>(L, T, sc, P.T.stride, [&](int v, const float* tot) {
-        const float shift = P.ctrl[v] + (1.f - P.vm[v]);
-        float a[6];
-#pragma unroll
-        for (int ch = 0; ch < 6; ++ch)
-            a[ch] = ch == 0 || ch == 3 || ch == 5 ? tot[ch] + shift : tot[ch];
-        if (P.project) spd_project(a);
-#pragma unroll
-        for (int ch = 0; ch < 6; ++ch) P.out[ch * N + v] = a[ch];
-    });
 }
 
 // ---------------------------------------------------------------------------
@@ -1409,6 +1439,151 @@ power_kernel(const __grid_constant__ PowerArgs P) {
         norm = fmaxf(sqrtf(ww), 1e-30f);
     }
     if (blockIdx.x == 0 && threadIdx.x == 0) P.out[0] = lam * 1.1f;
+}
+
+// ---------------------------------------------------------------------------
+// The vertex-diagonal blocks: lat_diag, and lat_diag_shift's shift and
+// projection
+// ---------------------------------------------------------------------------
+//
+// One kernel for both: the 6-channel diagonal chain (diag_chain, 930 FLOP
+// per cell and quad point) and a vertex pass whose epilogue writes the
+// blocks, or with ctrl the blocks + (ctrl + 1 - vm) I, SPD-projected when
+// asked (spd_project, in registers). Bound on this card: the chain's
+// float32 operations (7.3 us at the 74k beam); the bytes are one read of u
+// and one write of 6 channels. At the small shapes of the multigrid's
+// levels a launch's fixed cost and, with the projection, its serial chain
+// of 18 rotations (each with three IEEE divisions and two square roots)
+// set the time instead. The plan (ops/lattice_kernels.diag_plan: force_plan
+// under a cost model fitted to scripts/diag_tilings.py on an H100) picks
+// one of two forms:
+// * halo tiles, one launch: a block per halo tile of lat_force's tiles, the
+//   tile's vertex box of u staged once in shared memory, a thread a cell
+//   with the quadrature points in sequence or in pairs (the 8 corners' 48
+//   sums in registers, 128 of them a thread), the corner sums through
+//   shared memory and each vertex's in the fixed corner order of the gather
+//   below: no cell scratch in device memory, and the two passes' bits.
+// * two passes (where the cells computed twice cost more than a second
+//   launch: the 74k beam): diag_cells writes every cell's 48 corner sums to
+//   a cell scratch, gather_diag sums each vertex's 8 cells and applies the
+//   epilogue.
+// A cell's points are summed in sequence for lat_diag and in pairs for
+// lat_diag_shift (the eight-lane exchange's order; diag_chain), so each
+// keeps the bits of its first form: for lat_diag the two passes with the
+// chain fully unrolled (255 registers, one block an SM), for
+// lat_diag_shift eight lanes a cell on the fused kernels' halo tiles.
+// Exchange tiles (each cell once, the tiles' upper-face partial sums
+// through device memory, a second launch for the vertex pass) were built
+// and timed, and lost at every shape (PERF.md).
+
+// The blocks at vertex v from the complete sums tot of its 6 channels.
+__device__ __forceinline__ void diag_out(const DiagArgs& P, int N, int v,
+                                         const float* tot) {
+    float a[6];
+#pragma unroll
+    for (int ch = 0; ch < 6; ++ch) a[ch] = tot[ch];
+    if (P.ctrl != nullptr) {
+        const float shift = P.ctrl[v] + (1.f - P.vm[v]);
+        a[0] += shift;
+        a[3] += shift;
+        a[5] += shift;
+        if (P.project) spd_project(a);
+    }
+#pragma unroll
+    for (int ch = 0; ch < 6; ++ch) P.out[ch * N + v] = a[ch];
+}
+
+// A block per halo tile, kForceThreads threads, two blocks an SM, a thread
+// a cell: diag_chain with each corner of u read from the shared box at
+// every point (kPairs: its two slots of partial sums are the cell's scratch
+// rows and 48 rows more), the 48 sums scaled by det * cell mask into the
+// shared scratch sc[(corner * 6 + channel) * stride + cell], then the halo
+// vertex pass. kPairs on a tile of at most lane_cells cells: eight lanes a
+// cell instead (tile_cells, the fused kernels' diagonal pass, whose point
+// exchange sums in diag_chain's pair order), where a chain's latency is
+// what a launch waits for.
+template <bool kPairs>
+__global__ void __launch_bounds__(kForceThreads, 2)
+diag_tiles_kernel(const __grid_constant__ DiagArgs P) {
+    extern __shared__ float4 smem[];  // scratch rows, then the vertex box
+    float* sc = reinterpret_cast<float*>(smem);
+    const Lattice& L = P.A.L;
+    // kPairs: rows of kForceThreads floats (a constant row stride, so that
+    // every row's offset is an immediate), the tile's cells one round
+    const int stride = kPairs ? kForceThreads : P.T.stride;
+    const Tile T = tile_of(L, P.T, blockIdx.x);
+    const int n_ext = T.ex * T.ey * T.ez;
+    float4* su = reinterpret_cast<float4*>(sc + (kPairs ? 2 : 1) * kDiagRows
+                                                    * stride);
+    const CellIn at_u = {0.f, nullptr, 0.f, false};
+    if (kPairs && n_ext <= P.lane_cells) {
+        // a small tile: eight lanes a cell, the points summed in the same
+        // order, and a cell's chain eight times shorter
+        tile_cells<kDiag>(P, T, quad_lane(P.A.G, threadIdx.x & 7), sc, at_u);
+        __syncthreads();
+        halo_vertices<6>(L, T, sc, P.T.stride, [&](int v, const float* tot) {
+            diag_out(P, L.N, v, tot);
+        });
+        return;
+    }
+    stage_box<kDiag>(P, T, su, nullptr, at_u);
+    __syncthreads();
+    const int byn = T.ey + 1, bzn = T.ez + 1;
+    for (int cl = threadIdx.x; cl < n_ext; cl += blockDim.x) {
+        const int lz = cl % T.ez, t = cl / T.ez;
+        const int lx = t / T.ey, ly = t % T.ey;
+        const int b0 = (lx * byn + ly) * bzn + lz;
+        float acc[8][6];
+        diag_chain<kPairs>(
+            P.A.G, P.A.mu, P.A.la,
+            [&](int i) {
+                const float4 a = su[b0 + (((i >> 2) & 1) * byn
+                                          + ((i >> 1) & 1)) * bzn + (i & 1)];
+                return make_float3(a.x, a.y, a.z);
+            },
+            [&](int slot, const float (*a)[6]) {
+#pragma unroll
+                for (int j = 0; j < 48; ++j)
+                    sc[(slot * 48 + j) * stride + cl] = a[j / 6][j % 6];
+            },
+            [&](int slot, float (*a)[6]) {
+#pragma unroll
+                for (int j = 0; j < 48; ++j)
+                    a[j / 6][j % 6] =
+                        sc[(slot * 48 + j) * stride + cl] + a[j / 6][j % 6];
+            },
+            acc);
+        const int c = ((T.cx0 + lx) * (L.Y - 1) + T.cy0 + ly) * (L.Z - 1)
+                    + T.cz0 + lz;
+        const float w = P.A.det * P.cm[c];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+            for (int ch = 0; ch < 6; ++ch)
+                sc[(i * 6 + ch) * stride + cl] = acc[i][ch] * w;
+        }
+    }
+    __syncthreads();
+    halo_vertices<6>(L, T, sc, stride, [&](int v, const float* tot) {
+        diag_out(P, L.N, v, tot);
+    });
+}
+
+// The two passes' vertex pass: a vertex's 8 incident cells from the cell
+// scratch cd in fixed corner order, then diag_out.
+__global__ void __launch_bounds__(kThreads)
+gather_diag(const __grid_constant__ DiagArgs P, const float* __restrict__ cd) {
+    const Lattice& L = P.A.L;
+    for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < L.N;
+         v += gridDim.x * blockDim.x) {
+        int x, y, z;
+        vertex_coords(L, v, x, y, z);
+        float tot[6];
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch)
+            tot[ch] = gather_vertex<6>(L, cd, ch, x, y, z);
+        diag_out(P, L.N, v, tot);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -1715,6 +1890,25 @@ bool best_tiling(int X, int Y, int Z, int mode, int cap, int box_floats,
     return have;
 }
 
+// Lets fn (one of kOptIns kernels, `which`) take `smem` bytes of dynamic
+// shared memory where that is more than the 48 KB a launch may take
+// without opting in (up to kDiagSmem), once per device.
+constexpr int kOptIns = 3;
+cudaError_t allow_smem(const void* fn, int which, size_t smem) {
+    static bool allowed[kMaxDevices][kOptIns] = {};
+    if (smem <= kForceSmem) return cudaSuccess;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (!allowed[dev][which]) {
+        e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kDiagSmem);
+        allowed[dev][which] = e == cudaSuccess;
+    }
+    return e;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1810,14 +2004,70 @@ int lat_hvp(const float* u, const float* p, const float* cm,
     return static_cast<int>(cudaGetLastError());
 }
 
-// cd: scratch of 48*C floats; out: (6, N)
-int lat_diag(const float* u, const float* cm, float* out, float* cd, int X,
-             int Y, int Z, const float* g, float det, float mu, float la,
-             void* stream) {
-    const ChainArgs A = make_chain_args(X, Y, Z, g, det, mu, la);
+// The vertex-diagonal blocks of u, out (6, N) in the channel order xx xy
+// xz yy yz zz; with ctrl (and vm) shifted by ctrl + 1 - vm and, with
+// project, SPD-projected (lat_diag_shift). Tiling (ntx, nty, ntz, stride,
+// box) from ops/lattice_kernels.diag_plan: one launch, a block per halo
+// tile, kDiagRows * stride + 4 * box floats of shared memory (with ctrl:
+// 2 * kDiagRows rows of kForceThreads floats, stride the tile's cells, at
+// most kForceThreads; a tile of at most lane_cells cells runs eight lanes a
+// cell), at most kDiagSmem; ntx = 0: the two passes, with cd a scratch of
+// 48*C floats (calls that share it must be ordered on one stream).
+int lat_diag(const float* u, const float* cm, const float* ctrl,
+             const float* vm, float* out, float* cd, int project,
+             int lane_cells, int ntx, int nty, int ntz, int stride, int box,
+             int X, int Y, int Z, const float* g, float det, float mu,
+             float la, void* stream) {
+    if ((ctrl == nullptr) != (vm == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    DiagArgs P = {};
+    P.A = make_chain_args(X, Y, Z, g, det, mu, la);
+    P.u = u;
+    P.cm = cm;
+    P.ctrl = ctrl;
+    P.vm = vm;
+    P.out = out;
+    P.project = project;
+    P.lane_cells = lane_cells;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    diag_cells<<<blocks_for(A.L.C), kThreads, 0, st>>>(A, u, cm, cd);
-    gather_vertices<6><<<blocks_for(A.L.N), kThreads, 0, st>>>(A.L, cd, out);
+    // lat_diag_shift sums a cell's points in pairs (see diag_chain), with
+    // twice the shared scratch
+    const bool pairs = ctrl != nullptr;
+    const int rows = (pairs ? 2 : 1) * kDiagRows;
+    cudaError_t e = cudaSuccess;
+    if (ntx == 0) {
+        if (cd == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+        const int blocks = blocks_for(P.A.L.C);
+        if (pairs) {
+            const size_t smem = sizeof(float) * rows * kThreads;
+            e = allow_smem(reinterpret_cast<const void*>(diag_cells<true>),
+                           0, smem);
+            if (e != cudaSuccess) return static_cast<int>(e);
+            diag_cells<true><<<blocks, kThreads, smem, st>>>(P.A, u, cm, cd);
+        } else {
+            diag_cells<false><<<blocks, kThreads, 0, st>>>(P.A, u, cm, cd);
+        }
+        gather_diag<<<blocks_for(P.A.L.N), kThreads, 0, st>>>(P, cd);
+        return static_cast<int>(cudaGetLastError());
+    }
+    const size_t smem =
+        sizeof(float) * (rows * (pairs ? kForceThreads : stride) + 4 * box);
+    if (smem > kDiagSmem || nty < 1 || ntz < 1
+        || (pairs && stride > kForceThreads))
+        return static_cast<int>(cudaErrorInvalidValue);
+    e = allow_smem(pairs ? reinterpret_cast<const void*>(
+                               diag_tiles_kernel<true>)
+                         : reinterpret_cast<const void*>(
+                               diag_tiles_kernel<false>),
+                   pairs ? 1 : 2, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    P.T = Tiling{ntx, nty, ntz, stride, box, 1};
+    if (pairs)
+        diag_tiles_kernel<true><<<ntx * nty * ntz, kForceThreads, smem, st>>>(
+            P);
+    else
+        diag_tiles_kernel<false><<<ntx * nty * ntz, kForceThreads, smem,
+                                   st>>>(P);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1880,44 +2130,28 @@ int lat_newton_plan(int X, int Y, int Z, int pcg, int mode, int* plan) {
 
 // The launch plan of the multigrid's level kernels on the current device,
 // plan = {grid, ntx, nty, ntz, stride, box, halo} as lat_newton_plan's.
-// kernel 0, lat_cheby, and kernel 2, lat_power: the model of one sweep or
+// kernel 0, lat_cheby, and kernel 1, lat_power: the model of one sweep or
 // iteration, its cell pass (0.9 us a round of a block's 16 warps, times the
 // tiles a block walks) and 1 (halo) or 2 (exchange) grid barriers of 2 us +
 // 0.016 us a block, none for a single tile (one block, no cooperative
-// launch). kernel 1, lat_diag_shift: halo tiles, a block a tile (grid =
-// tiles), the rounds of the busiest SM and ~7 us a wave for the
-// projection's serial chain (61.3 us projected against 39.2 unprojected in
-// 3 waves, on an H100). Returns a CUDA error code.
+// launch). Returns a CUDA error code.
 int lat_level_plan(int X, int Y, int Z, int kernel, int* plan) {
-    if (X < 2 || Y < 2 || Z < 2 || kernel < 0 || kernel > 2)
+    if (X < 2 || Y < 2 || Z < 2 || kernel < 0 || kernel > 1)
         return static_cast<int>(cudaErrorInvalidValue);
     const void* fns[] = {reinterpret_cast<const void*>(cheby_kernel),
-                         reinterpret_cast<const void*>(diag_tiles_kernel),
                          reinterpret_cast<const void*>(power_kernel)};
     int cap = 0;
     const cudaError_t e = fused_capacity(fns[kernel], &cap);
     if (e != cudaSuccess) return static_cast<int>(e);
-    bool have;
-    if (kernel == 0 || kernel == 2) {
-        have = best_tiling(
-            X, Y, Z, 0, cap, 8,
-            [](long long ntiles, long long blocks, double waves,
-               double rounds, int halo) {
-                const double barriers =
-                    ntiles == 1 ? 0.0 : (halo ? 1.0 : 2.0);
-                return rounds * 0.9 * waves
-                       + barriers * (2.0 + 0.016 * double(blocks));
-            },
-            plan);
-    } else {
-        have = best_tiling(
-            X, Y, Z, 1, cap, 4,
-            [](long long, long long, double waves, double rounds, int) {
-                return (rounds * 0.9 + 7.0) * waves;
-            },
-            plan);
-        plan[0] = plan[1] * plan[2] * plan[3];
-    }
+    const bool have = best_tiling(
+        X, Y, Z, 0, cap, 8,
+        [](long long ntiles, long long blocks, double waves, double rounds,
+           int halo) {
+            const double barriers = ntiles == 1 ? 0.0 : (halo ? 1.0 : 2.0);
+            return rounds * 0.9 * waves
+                   + barriers * (2.0 + 0.016 * double(blocks));
+        },
+        plan);
     return have ? 0 : static_cast<int>(cudaErrorLaunchOutOfResources);
 }
 
@@ -1973,7 +2207,7 @@ int lat_cheby(const float* u, const float* b, const float* x0,
 
 // One level's power iteration (see power_kernel): iters iterations from
 // vm start, 1.1 lambda to out[0]; w: 6*N floats of scratch, part: 4*grid,
-// pbuf: 72*N (exchange mode only). The plan from lat_level_plan(..., 2,
+// pbuf: 72*N (exchange mode only). The plan from lat_level_plan(..., 1,
 // ...): a single tile runs one block without a cooperative launch. Calls
 // that share the scratch must be ordered on one stream.
 int lat_power(const float* u, const float* cm, const float* ctrl,
@@ -2012,32 +2246,6 @@ int lat_power(const float* u, const float* cm, const float* ctrl,
         dim3(kFusedThreads), args, smem, st);
     const cudaError_t last = cudaGetLastError();
     return static_cast<int>(e != cudaSuccess ? e : last);
-}
-
-// The vertex-diagonal blocks shifted by ctrl + 1 - vm and, with project,
-// SPD-projected (see diag_tiles_kernel): out (6, N) in the channel order
-// xx xy xz yy yz zz. One launch, a block per halo tile of the plan from
-// lat_level_plan(..., 1, ...).
-int lat_diag_shift(const float* u, const float* cm, const float* ctrl,
-                   const float* vm, float* out, int project, int ntx,
-                   int nty, int ntz, int stride, int box, int X, int Y,
-                   int Z, const float* g, float det, float mu, float la,
-                   void* stream) {
-    const size_t smem = sizeof(float) * (kScratchRows * stride + 4 * box);
-    if (smem > kSmemCap || ntx < 1 || nty < 1 || ntz < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    DiagArgs P = {};
-    P.A = make_chain_args(X, Y, Z, g, det, mu, la);
-    P.T = Tiling{ntx, nty, ntz, stride, box, 1};
-    P.u = u;
-    P.cm = cm;
-    P.ctrl = ctrl;
-    P.vm = vm;
-    P.out = out;
-    P.project = project;
-    diag_tiles_kernel<<<ntx * nty * ntz, kFusedThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(P);
-    return static_cast<int>(cudaGetLastError());
 }
 
 // One Newton iteration in one cooperative launch. p: 6*N floats, d6: 6*N,

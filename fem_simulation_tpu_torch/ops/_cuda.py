@@ -96,7 +96,7 @@ def _declare(lib) -> None:
     chain = [I, I, I, P, F, F, F, P]          # X, Y, Z, g, det, mu, la, stream
     lib.lat_force.argtypes = [P, P, P, P, P, I] + [I] * 5 + chain
     lib.lat_hvp.argtypes = [P] * 7 + [I] * 5 + chain
-    lib.lat_diag.argtypes = [P, P, P, P] + chain
+    lib.lat_diag.argtypes = [P] * 6 + [I] * 7 + chain
     lib.lat_energy.argtypes = [P, P, P, P, P, P, I, I, I] + chain
     lib.lat_newton_plan.argtypes = [I, I, I, I, I, ctypes.POINTER(I)]
     lib.lat_fused_newton.argtypes = (
@@ -105,7 +105,6 @@ def _declare(lib) -> None:
         [F] + [P] * 15 + [I] * 10 + [P, F, F, F, I, P])
     lib.lat_level_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
     lib.lat_cheby.argtypes = [P] * 13 + [I] * 8 + chain
-    lib.lat_diag_shift.argtypes = [P] * 5 + [I] * 6 + chain
     lib.lat_power.argtypes = [P] * 10 + [I] * 8 + chain
     lib.ell_spmv.argtypes = [P, P, P, P, P, I, I, I, P]
     lib.ell_gs.argtypes = [P, P, P, P, ctypes.POINTER(I), I, P, P, I, I, I, P]
@@ -117,7 +116,7 @@ def _declare(lib) -> None:
     lib.lat_error_string.restype = ctypes.c_char_p
     for name in ("lat_force", "lat_hvp", "lat_diag", "lat_energy",
                  "lat_newton_plan", "lat_level_plan", "lat_cheby",
-                 "lat_diag_shift", "lat_power", "lat_fused_newton",
+                 "lat_power", "lat_fused_newton",
                  "lat_fused_pcg",
                  "ell_spmv", "ell_gs", "ell_jacobi", "ell_spmv_t",
                  "ell_outer", "ell_jacobi_bwd"):

@@ -3,13 +3,15 @@
 Port of the entry points of `fem_simulation_tpu/ops/pallas_lattice.py`
 (`force_cf`, `hvp_cf`, `hess_diag_lattice`, `elastic_energy_lattice`,
 `fused_newton`, `fused_pcg`) with the same signatures and layouts. The
-Pallas kernels become the CUDA kernels of `csrc/lattice_kernels.cu`. The
-lattice multigrid's level operators have kernels of their own around the
-HVP and diagonal chains: `cheby_smooth_cf` (every sweep of one Chebyshev
-smoothing call), `hess_diag_shift_cf` (the shifted, SPD-projected
-diagonal blocks as 6 channels), `level_matvec_cf` (the level operator
-(H(u) p + ctrl p) vm, `hvp_cf`'s launch with its epilogue) and
-`power_lmax_cf` (a level's power iteration for the Chebyshev bound).
+Pallas kernels become the CUDA kernels of `csrc/lattice_kernels.cu`;
+`hess_diag6_cf` is the diagonal's launch as its 6 channels, as the slab
+paths take it. The lattice multigrid's level operators have kernels of
+their own around the HVP and diagonal chains: `cheby_smooth_cf` (every
+sweep of one Chebyshev smoothing call), `hess_diag_shift_cf` (the shifted,
+SPD-projected diagonal blocks as 6 channels, lat_diag's launch with its
+epilogue), `level_matvec_cf` (the level operator (H(u) p + ctrl p) vm,
+`hvp_cf`'s launch with its epilogue) and `power_lmax_cf` (a level's power
+iteration for the Chebyshev bound).
 
 `force_cf`, `elastic_energy_lattice` and `fused_newton` take an optional
 `cover` (`ops/boxes.Cover`, the low-fill path): the kernel then walks the
@@ -73,7 +75,9 @@ FORCE_RESIDENT = 2
 
 class TileModel(NamedTuple):
     """A halo-tile kernel's shared floats per vertex of a tile's box, and
-    its cost model in device microseconds (force_cost)."""
+    its cost model in device microseconds (force_cost); its shared scratch
+    rows (corners x channels), shared memory and, where the kernel's rows
+    have a fixed length, that length (the most cells a tile may have)."""
     box_floats: int
     tile_us: float       # one launch: one wave of one round, no cells
     wave_us: float       # each further wave of tiles on an SM
@@ -81,6 +85,9 @@ class TileModel(NamedTuple):
     cell_us: float       # a cell on the busiest SM
     pass_us: float       # two launches: fixed
     pass_cell_us: float  # two launches: a cell of the lattice
+    rows: int = FORCE_ROWS
+    smem_floats: int = FORCE_SMEM_FLOATS
+    fixed_stride: int = 0  # nonzero: the kernel's rows are this long
 
 
 # lat_force: fitted to the times scripts/force_tilings.py measured on an
@@ -91,6 +98,25 @@ FORCE_MODEL = TileModel(4, 4.3, 5.4, 1.2, 0.0074, 5.5, 7.6e-5)
 # within 0.7 us but one; the two passes within 0.7 us); it picks the two
 # passes at the 19k and 74k fine levels, as measured
 HVP_MODEL = TileModel(8, 6.26, 4.3, 2.26, 0.0144, 7.8, 1.0e-4)
+# lat_diag and lat_diag_shift (u staged, 48 rows of corner sums and, for
+# lat_diag_shift, 48 more of partial sums, up to kDiagSmem of shared
+# memory): least squares over the times scripts/diag_tilings.py measured on
+# an H100 at every shape the main paths give them (17 shapes, 9 tilings and
+# the two passes each, a thread a cell; lat_diag within 1.7 us rms,
+# lat_diag_shift 3.1, whose projection the model does not separate); they
+# pick the two passes at the 74k beam and a tiling measured within 3% of
+# the fastest at every other shape, lat_diag_shift with its small tiles on
+# eight lanes a cell too
+DIAG_ROWS = 48
+DIAG_SMEM_FLOATS = 110 * 1024 // 4
+DIAG_MODEL = TileModel(4, 6.37, 4.53, 2.23, 0.0154, 10.2, 1.30e-4,
+                       DIAG_ROWS, DIAG_SMEM_FLOATS)
+DIAG_SHIFT_MODEL = TileModel(4, 14.03, 8.89, 8.37, 0.0161, 17.9, 1.585e-4,
+                             2 * DIAG_ROWS, DIAG_SMEM_FLOATS, FORCE_THREADS)
+# lat_diag_shift's tiles of at most this many cells run eight lanes a cell
+# (scripts/diag_tilings.py on an H100: eight lanes are faster on tiles of up
+# to 99 cells, even at 120, slower from 225)
+DIAG_LANE_CELLS = 128
 # lat_energy takes eight lanes a cell while the lanes of every cell fit in
 # a block an SM, a thread a cell beyond, with at most 2 blocks an SM
 # (scripts/force_tilings.py on an H100: lanes win at 2k, a thread a cell at
@@ -108,6 +134,7 @@ _newton_plans: dict = {}
 _level_plans: dict = {}
 _force_plans: dict = {}
 _hvp_plans: dict = {}
+_diag_plans: dict = {}
 _workspaces: dict = {}
 _tables_cache: dict = {}
 _starts: dict = {}
@@ -184,15 +211,21 @@ def _cell_extent(n: int, nt: int) -> int:
     return max(tile_axis(n, nt, it)[3] for it in range(nt))
 
 
-def force_tiling(shape, tiles, box_floats: int = 4):
+def force_tiling(shape, tiles, box_floats: int = 4, rows: int = FORCE_ROWS,
+                 smem_floats: int = FORCE_SMEM_FLOATS, fixed_stride: int = 0):
     """(ntiles, ntx, nty, ntz, stride, box) of a one-launch plan on halo
-    tiles (lat_force; lat_hvp with box_floats 8): `stride` holds the cells
-    of the largest tile, `box` the vertex box around them. None when that
-    tile does not fit the kernel's shared memory."""
+    tiles (lat_force; lat_hvp with box_floats 8; lat_diag with its 48 rows
+    and its shared memory, lat_diag_shift with 96 rows of fixed_stride):
+    `stride` holds the cells of the largest tile (with fixed_stride: is
+    their count, at most fixed_stride), `box` the vertex box around them.
+    None when that tile does not fit the kernel's shared memory."""
     ext = [_cell_extent(n, nt) for n, nt in zip(shape, tiles)]
-    stride = (ext[0] * ext[1] * ext[2]) | 1
+    cells = ext[0] * ext[1] * ext[2]
+    if fixed_stride and cells > fixed_stride:
+        return None
+    stride = cells if fixed_stride else cells | 1
     box = (ext[0] + 1) * (ext[1] + 1) * (ext[2] + 1)
-    if FORCE_ROWS * stride + box_floats * box > FORCE_SMEM_FLOATS:
+    if rows * (fixed_stride or stride) + box_floats * box > smem_floats:
         return None
     ntx, nty, ntz = tiles
     return (ntx * nty * ntz, ntx, nty, ntz, stride, box)
@@ -230,7 +263,9 @@ def best_force_tiling(X: int, Y: int, Z: int, sms: int,
     for ntx, nty in itertools.product(_tile_counts(X), _tile_counts(Y)):
         fits = []
         for ntz in _tile_counts(Z):
-            plan = force_tiling(shape, (ntx, nty, ntz), model.box_floats)
+            plan = force_tiling(shape, (ntx, nty, ntz), model.box_floats,
+                                model.rows, model.smem_floats,
+                                model.fixed_stride)
             if plan is not None and force_cost(plan, shape, sms, model,
                                                n_tiles=1) < bound:
                 fits.append(plan)
@@ -275,6 +310,14 @@ def hvp_plan(X: int, Y: int, Z: int, sms: int):
     """lat_hvp's plan: force_plan under HVP_MODEL (the two passes at the 19k
     and 74k fine levels)."""
     return force_plan(X, Y, Z, sms, HVP_MODEL)
+
+
+def diag_plan(X: int, Y: int, Z: int, sms: int,
+              model: TileModel = DIAG_MODEL):
+    """lat_diag's plan: force_plan under DIAG_MODEL (lat_diag_shift's under
+    DIAG_SHIFT_MODEL): one launch on halo tiles, or FORCE_TWO_PASS where
+    the model says the cells computed twice cost more (the 74k beam)."""
+    return force_plan(X, Y, Z, sms, model)
 
 
 def energy_plan(X: int, Y: int, Z: int, sms: int, cover=None):
@@ -359,6 +402,18 @@ def _hvp_plan(X, Y, Z, device):
     if key not in _hvp_plans:
         _hvp_plans[key] = hvp_plan(X, Y, Z, _sms(device.index))
     return _hvp_plans[key]
+
+
+def _diag_plan(X, Y, Z, device, shift: bool):
+    """diag_plan for this lattice and device (shift: lat_diag_shift's, under
+    DIAG_SHIFT_MODEL), computed once. A test or a measurement puts another
+    plan under that key to run it."""
+    key = (str(device), X, Y, Z, shift)
+    if key not in _diag_plans:
+        _diag_plans[key] = diag_plan(
+            X, Y, Z, _sms(device.index),
+            DIAG_SHIFT_MODEL if shift else DIAG_MODEL)
+    return _diag_plans[key]
 
 
 def _kept_scratch(key, floats: int, tickets: int):
@@ -746,28 +801,66 @@ def _lat_hvp(u_cf, p_cf, cell_mask, ctrl, vert_mask, dx, mu, la):
 _sym_index: dict = {}
 
 
+def _lat_diag(x_cf, cell_mask, ctrl, vert_mask, project: bool, dx, mu, la,
+              out):
+    """Launch lat_diag into out (6, X, Y, Z) under its plan (with ctrl:
+    lat_diag_shift's), after the argument checks; the two passes' cell
+    scratch is kept per device, stream and lattice. Counts the launch as
+    "diag", or "diag_shift" with ctrl."""
+    X, Y, Z = _vertex_grid(x_cf, cell_mask)
+    shift = ctrl is not None
+    if shift:
+        for name, t in (("ctrl", ctrl), ("vert_mask", vert_mask)):
+            _cuda.require(t, (X, Y, Z), name)
+    lib = _cuda.load()
+    dev = x_cf.device
+    plan = _diag_plan(X, Y, Z, dev, shift)
+    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
+    cd = None
+    if plan == FORCE_TWO_PASS:
+        cd = _kept_scratch((str(dev), tail[-1], "diag", X, Y, Z),
+                           48 * cell_mask.numel(), 0)[0]
+    with torch.cuda.device(dev):
+        err = lib.lat_diag(x_cf.data_ptr(), cell_mask.data_ptr(),
+                           ctrl.data_ptr() if shift else None,
+                           vert_mask.data_ptr() if shift else None,
+                           out.data_ptr(), cd, int(project),
+                           DIAG_LANE_CELLS if shift else 0, *plan[1:],
+                           *tail)
+    launches["diag_shift" if shift else "diag"] += 1
+    _cuda.check(err, "lat_diag")
+    return out
+
+
+def hess_diag6_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
+    """Vertex-diagonal Hessian blocks of a channel-first displacement field
+    as their 6 symmetric channels: (3, X, Y, Z) -> (6, X, Y, Z), the
+    channels (xx, xy, xz, yy, yz, zz). One launch on tiles, or two where
+    diag_plan says; allocates only its output (a new tensor every call)."""
+    _cuda.refuse_grad("lattice_kernels.hess_diag6_cf", x_cf, cell_mask)
+    if _cuda.on_cpu(x_cf, cell_mask):
+        return sym_channels(hess_diag_lattice_plain(
+            x_cf.permute(1, 2, 3, 0), cell_mask, dx, mu, la))
+    X, Y, Z = _vertex_grid(x_cf, cell_mask)
+    out = torch.empty((6, X, Y, Z), dtype=torch.float32, device=x_cf.device)
+    return _lat_diag(x_cf, cell_mask, None, None, False, dx, mu, la, out)
+
+
 def hess_diag_cf(x_cf, cell_mask, dx: float, mu: float, la: float):
     """Vertex-diagonal Hessian blocks of a channel-first displacement field:
-    (3, X, Y, Z) -> (X, Y, Z, 3, 3). Allocates only its output: the cell
-    scratch and the six-channel vertex sums are kept per device, stream and
-    lattice, and one gather makes the blocks."""
+    (3, X, Y, Z) -> (X, Y, Z, 3, 3). Allocates only its output: the six
+    channels are kept per device, stream and lattice, and one gather makes
+    the blocks."""
     _cuda.refuse_grad("lattice_kernels.hess_diag_cf", x_cf, cell_mask)
     if _cuda.on_cpu(x_cf, cell_mask):
         return hess_diag_lattice_plain(x_cf.permute(1, 2, 3, 0), cell_mask,
                                        dx, mu, la)
     X, Y, Z = _vertex_grid(x_cf, cell_mask)
-    lib = _cuda.load()
     dev = x_cf.device
-    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
-    cells, n = 48 * cell_mask.numel(), X * Y * Z
-    key = (str(dev), tail[-1], "diag", X, Y, Z)
-    cd = _kept_scratch(key, cells + 6 * n, 0)[0]
-    d6 = _workspaces[key][0][cells:cells + 6 * n].view(6, X, Y, Z)
-    with torch.cuda.device(dev):
-        err = lib.lat_diag(x_cf.data_ptr(), cell_mask.data_ptr(),
-                           d6.data_ptr(), cd, *tail)
-    launches["diag"] += 1
-    _cuda.check(err, "lat_diag")
+    key = (str(dev), _stream(dev), "diag6", X, Y, Z)
+    _kept_scratch(key, 6 * X * Y * Z, 0)
+    d6 = _workspaces[key][0][:6 * X * Y * Z].view(6, X, Y, Z)
+    _lat_diag(x_cf, cell_mask, None, None, False, dx, mu, la, d6)
     if str(dev) not in _sym_index:
         _sym_index[str(dev)] = torch.tensor(_SYM_BLOCK, device=dev)
     blocks = torch.index_select(d6.permute(1, 2, 3, 0), 3,
@@ -963,15 +1056,14 @@ def fused_pcg(u_cf, f_cf, cell_mask, ctrl, vert_mask, dx: float, mu: float,
 
 
 # lat_level_plan's kernels
-CHEBY, DIAG_SHIFT, POWER = 0, 1, 2
+CHEBY, POWER = 0, 1
 
 
 def _level_plan(lib, X, Y, Z, device, kernel: int):
     """(grid, ntx, nty, ntz, stride, box, halo) that `lat_level_plan`'s cost
-    model gives lat_cheby (kernel CHEBY), lat_diag_shift (DIAG_SHIFT) or
-    lat_power (POWER) on this lattice and device, asked once per (device,
-    X, Y, Z, kernel). A test or a measurement puts another plan under that
-    key to run it."""
+    model gives lat_cheby (kernel CHEBY) or lat_power (POWER) on this
+    lattice and device, asked once per (device, X, Y, Z, kernel). A test or
+    a measurement puts another plan under that key to run it."""
     key = (str(device), X, Y, Z, kernel)
     if key not in _level_plans:
         plan = (ctypes.c_int * 7)()
@@ -1038,32 +1130,21 @@ def cheby_smooth_cf(u_cf, b_cf, x_cf, d6, ctrl, vert_mask, cell_mask,
 
 def hess_diag_shift_cf(u_cf, cell_mask, ctrl, vert_mask, dx: float,
                        mu: float, la: float, project: bool = True):
-    """The multigrid smoother's diagonal blocks in one launch: the
-    vertex-diagonal Hessian blocks of u_cf (3, X, Y, Z) plus
-    (ctrl + 1 - vert_mask) I, SPD-projected (ell.spd_project, eps 1e-6,
-    rel_floor 1e-3) when project; returns (6, X, Y, Z), the channels
-    (xx, xy, xz, yy, yz, zz). Allocates only its output."""
+    """The multigrid smoother's diagonal blocks: the vertex-diagonal Hessian
+    blocks of u_cf (3, X, Y, Z) plus (ctrl + 1 - vert_mask) I,
+    SPD-projected (ell.spd_project, eps 1e-6, rel_floor 1e-3) when project;
+    returns (6, X, Y, Z), the channels (xx, xy, xz, yy, yz, zz). lat_diag
+    with the shift and projection in its vertex pass, under lat_diag_shift's
+    plan (one launch on tiles, or two); allocates only its output."""
     _cuda.refuse_grad("lattice_kernels.hess_diag_shift_cf",
                       u_cf, cell_mask, ctrl, vert_mask)
     if _cuda.on_cpu(u_cf, cell_mask, ctrl, vert_mask):
         return hess_diag_shift_cf_plain(u_cf, cell_mask, ctrl, vert_mask, dx,
                                         mu, la, project)
     X, Y, Z = _vertex_grid(u_cf, cell_mask)
-    for name, t in (("ctrl", ctrl), ("vert_mask", vert_mask)):
-        _cuda.require(t, (X, Y, Z), name)
-    lib = _cuda.load()
-    dev = u_cf.device
-    plan = _level_plan(lib, X, Y, Z, dev, DIAG_SHIFT)
-    tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
-    out = torch.empty((6, X, Y, Z), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.lat_diag_shift(u_cf.data_ptr(), cell_mask.data_ptr(),
-                                 ctrl.data_ptr(), vert_mask.data_ptr(),
-                                 out.data_ptr(), int(project), *plan[1:6],
-                                 *tail)
-    launches["diag_shift"] += 1
-    _cuda.check(err, "lat_diag_shift")
-    return out
+    out = torch.empty((6, X, Y, Z), dtype=torch.float32, device=u_cf.device)
+    return _lat_diag(u_cf, cell_mask, ctrl, vert_mask, project, dx, mu, la,
+                     out)
 
 
 def _start(n: int, device):

@@ -9,7 +9,7 @@ Each block holds its owned planes plus one ghost plane a side,
      (two `shift_planes` of one vertex plane),
   2. run the single-device kernel on the extended block, its cells masked
      to the block's own (`ops.lattice_kernels`: `force_cf` -> lat_force,
-     `hvp_cf` -> lat_hvp, `hess_diag_cf` -> lat_diag),
+     `hvp_cf` -> lat_hvp, `hess_diag6_cf` -> lat_diag),
   3. fold the ghost planes' partial sums into the neighbors' boundary
      planes and zero the ghosts (two more `shift_planes`).
 
@@ -20,8 +20,9 @@ partition of the single-device sums: equal to them up to summation order.
 Layout: a block is channel-first with z last, as the kernels take it: a
 vector field (3, X, Y, n_own + 2), a scalar field (X, Y, n_own + 2), the
 diagonal blocks as their upper triangle (6, X, Y, n_own + 2) (xx xy xz yy
-yz zz, `lattice_kernels.sym_channels`). Global fields are the scene's
-channel-last (X, Y, Z[, C]). The kernels take the displacement u = x - x0.
+yz zz, as `lattice_kernels.hess_diag6_cf` gives them). Global fields are
+the scene's channel-last (X, Y, Z[, C]). The kernels take the displacement
+u = x - x0.
 
 The Newton and PCG loops of `make_dist_step` run on the host: a PCG
 iteration reads its loop condition back once, a Newton iteration its
@@ -177,8 +178,7 @@ class SlabOps:
                      for ub, pb, cm in zip(u, p, self.cells)])
 
     def diag(self, u):
-        return fold([lk.sym_channels(lk.hess_diag_cf(ub, cm, self.dx,
-                                                     self.mu, self.la))
+        return fold([lk.hess_diag6_cf(ub, cm, self.dx, self.mu, self.la)
                      for ub, cm in zip(u, self.cells)])
 
 
@@ -207,8 +207,8 @@ def make_dist_hvp(slabs: LatticeSlabs, grid: DeviceGrid, axis: str = "sp",
 def make_dist_diag(slabs: LatticeSlabs, grid: DeviceGrid, axis: str = "sp",
                    mu: float = 250.0, la: float = 0.0):
     """diag(x_blocks) -> blocks (6, X, Y, n_own + 2), ghosts zero: the
-    upper triangles of the vertex-diagonal Hessian blocks, by the two-pass
-    lat_diag on every block. A boundary vertex's block needs the
+    upper triangles of the vertex-diagonal Hessian blocks, by lat_diag on
+    every block (hess_diag6_cf). A boundary vertex's block needs the
     neighbor's boundary cells, so it is folded like the force."""
     ops = SlabOps(slabs, grid, axis, mu, la)
 

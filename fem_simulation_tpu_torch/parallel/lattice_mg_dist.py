@@ -21,11 +21,10 @@ Sharded levels, by kernel:
               (`level_matvec_cf`, the control shift and mask in its vertex
               pass; the shift's ghost planes are zero, so the ghost planes
               carry the HVP's partial sums alone), fold.
-  diagonal    the two-pass `lat_diag` a slab, folded, and only then shifted
-              and SPD-projected on the slabs: on a boundary plane a slab's
-              block is still a partial sum, and the projection is not
-              linear (the fused `lat_diag_shift` projects in its vertex
-              pass).
+  diagonal    `lat_diag` a slab (`hess_diag6_cf`), folded, and only then
+              shifted and SPD-projected on the slabs: on a boundary plane a
+              slab's block is still a partial sum, and the projection is
+              not linear (`lat_diag_shift` projects in its vertex pass).
   smoother    Chebyshev sweeps through the halo matvec (`lat_cheby` is one
               cooperative launch over a whole level, with no exchange
               inside); the power iteration likewise (`lat_power`), its dot
@@ -186,8 +185,8 @@ class DistLatticeMG(LatticeMG):
             return self._join(slab_matvec(self._split(p)))
 
         self.calls["diag"] += 1
-        d6 = self.layout.stack([lk.sym_channels(lk.hess_diag_cf(
-            ub, cm, dx, mu, la)) for ub, cm in zip(u_s, cells)]).fold()
+        d6 = self.layout.stack([lk.hess_diag6_cf(ub, cm, dx, mu, la)
+                                for ub, cm in zip(u_s, cells)]).fold()
         spd = self.spd_smoother
 
         def shift_project(d, c, vm):

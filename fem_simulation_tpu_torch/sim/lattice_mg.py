@@ -9,8 +9,9 @@ preconditioner keeps the count about flat. Everything is structured:
   coarse operator the elastic operator re-discretized on each coarse
                   lattice (dx doubling per level) at the restricted
                   displacement; its ctrl-shifted, SPD-projected vertex
-                  blocks in one `lat_diag_shift` launch a level
-                  (lattice_kernels.hess_diag_shift_cf)
+                  blocks by `lat_diag_shift` (one launch a level on halo
+                  tiles, two passes where its plan says;
+                  lattice_kernels.hess_diag_shift_cf)
   smoother        Chebyshev on the block-Jacobi-preconditioned operator,
                   every sweep of a smoothing call in one `lat_cheby` launch
                   (lattice_kernels.cheby_smooth_cf); its bound by power
@@ -278,7 +279,7 @@ class LatticeMG:
         from its rest grid, with the diagonal shift ctrl (X, Y, Z): matvec
         p -> (H(u) p + ctrl p) vm in one lat_hvp launch, and the smoother's
         blocks, diagonal + (ctrl + 1 - vm) I, SPD-projected with
-        spd_smoother, in one lat_diag_shift launch. The projection: at large
+        spd_smoother, by lat_diag_shift. The projection: at large
         deformation StVK diagonal blocks go indefinite and a near-singular
         block makes the block solve emit huge steps; only the
         preconditioner is regularized."""

@@ -495,13 +495,30 @@ def test_fused_newton_kernel_matches_plain(scene, plan_mode, monkeypatch):
     assert float((dk - dp).abs().max()) <= 1e-3 * float(dp.abs().max())
 
 
+# lat_diag's and lat_diag_shift's launch forms: the plan's, one launch on
+# the best halo tiling, the two passes
+DIAG_FORMS = ("plan", "halo tiles", "two passes")
+
+
+def _diag_form(monkeypatch, shape, device, shift, form):
+    """Run lat_diag (shift: lat_diag_shift) on this lattice in `form`."""
+    model = lk.DIAG_SHIFT_MODEL if shift else lk.DIAG_MODEL
+    sms = lk._sms(device.index)
+    plan = {"plan": lambda: lk.diag_plan(*shape, sms, model),
+            "halo tiles": lambda: lk.best_force_tiling(*shape, sms, model),
+            "two passes": lambda: lk.FORCE_TWO_PASS}[form]()
+    monkeypatch.setitem(lk._diag_plans, (str(device), *shape, shift), plan)
+
+
 @pytest.mark.cuda
-def test_hvp_diag_kernels_at_mg_levels(scene):
+def test_hvp_diag_kernels_at_mg_levels(scene, monkeypatch):
     """lat_hvp and lat_diag on every level of a 3-level hierarchy (5x5x9,
     3x3x5 and 3x3x3 vertices, dx doubling from level to level) against
     their plain versions: max|d| <= 1e-4 max|ref| (another summation
-    order), two runs bit-identical, one count a call; the channel-last
-    diagonal entry gives the channel-first one's bits."""
+    order), two runs bit-identical, one count a call; lat_diag under its
+    plan, on halo tiles and in two passes, every form with the two passes'
+    bits (the same sums in the same corner order); the channel-last and
+    six-channel diagonal entries give the channel-first one's bits."""
     mg = tmg.LatticeMG(scene, n_levels=3, dt=None)
     mat = scene.material
     rng = np.random.default_rng(17)
@@ -514,20 +531,31 @@ def test_hvp_diag_kernels_at_mg_levels(scene):
         args = (lvl.cell_mask, lvl.dx, mat.lame_mu, mat.lame_la)
         before = dict(lk.launches)
         h = [lk.hvp_cf(u, p, *args) for _ in range(2)]
-        d = [lk.hess_diag_cf(u, *args) for _ in range(2)]
-        d_last = lk.hess_diag_lattice(u.permute(1, 2, 3, 0).contiguous(),
-                                      *args)
         h_ref = lk.hvp_cf_plain(u, p, *args)
         d_ref = lk.hess_diag_lattice_plain(u.permute(1, 2, 3, 0), *args)
         torch.cuda.synchronize()
         assert lk.launches["hvp"] == before["hvp"] + 2, li
-        assert lk.launches["diag"] == before["diag"] + 3, li
-        assert torch.equal(h[0], h[1]) and torch.equal(d[0], d[1]), li
-        assert torch.equal(d[0], d_last), li
-        assert tuple(d[0].shape) == shape[1:] + (3, 3)
-        for got, ref in ((h[0], h_ref), (d[0], d_ref)):
-            assert float((got - ref).abs().max()) <= 1e-4 * float(
-                ref.abs().max()), li
+        assert torch.equal(h[0], h[1]), li
+        assert float((h[0] - h_ref).abs().max()) <= 1e-4 * float(
+            h_ref.abs().max()), li
+        outs = []
+        for form in DIAG_FORMS:
+            _diag_form(monkeypatch, shape[1:], u.device, False, form)
+            before = lk.launches["diag"]
+            d = [lk.hess_diag_cf(u, *args) for _ in range(2)]
+            d_last = lk.hess_diag_lattice(
+                u.permute(1, 2, 3, 0).contiguous(), *args)
+            d6 = lk.hess_diag6_cf(u, *args)
+            torch.cuda.synchronize()
+            assert lk.launches["diag"] == before + 4, (li, form)
+            assert torch.equal(d[0], d[1]), (li, form)
+            assert torch.equal(d[0], d_last), (li, form)
+            assert torch.equal(d6, lk.sym_channels(d[0])), (li, form)
+            assert tuple(d[0].shape) == shape[1:] + (3, 3)
+            assert float((d[0] - d_ref).abs().max()) <= 1e-4 * float(
+                d_ref.abs().max()), (li, form)
+            outs.append(d[0])
+        assert all(torch.equal(o, outs[-1]) for o in outs), li
 
 
 @pytest.mark.cuda
@@ -550,8 +578,10 @@ def test_hvp_diag_kept_scratch_same_bits(scene):
                        *tail) == 0
     d6 = torch.empty((6, X, Y, Z), device="cuda")
     cd = torch.empty(48 * cm.numel(), device="cuda")
-    assert lib.lat_diag(u_cf.data_ptr(), cm.data_ptr(), d6.data_ptr(),
-                        cd.data_ptr(), *tail) == 0
+    plan = lk._diag_plan(X, Y, Z, u.device, False)
+    assert lib.lat_diag(u_cf.data_ptr(), cm.data_ptr(), None, None,
+                        d6.data_ptr(), cd.data_ptr(), 0, 0, *plan[1:],
+                        *tail) == 0
     c = d6.permute(1, 2, 3, 0)
     blocks = torch.stack([torch.stack([c[..., 0], c[..., 1], c[..., 2]], -1),
                           torch.stack([c[..., 1], c[..., 3], c[..., 4]], -1),
@@ -561,6 +591,28 @@ def test_hvp_diag_kept_scratch_same_bits(scene):
         assert torch.equal(lk.hvp_cf(u_cf, p_cf, cm, DX, MU, LA), out)
         assert torch.equal(lk.hess_diag_cf(u_cf, cm, DX, MU, LA), blocks)
         assert torch.equal(lk.hess_diag_lattice(u, cm, DX, MU, LA), blocks)
+        assert torch.equal(lk.hess_diag6_cf(u_cf, cm, DX, MU, LA), d6)
+
+
+@pytest.mark.cuda
+def test_hess_diag6_returns_a_new_tensor_each_call(scene, monkeypatch):
+    """hess_diag6_cf (the slab paths' entry) returns a tensor of its own at
+    every call, in each form: two calls at one shape share no storage (the
+    four slabs of one shape would alias each other through a kept
+    workspace), and hess_diag_cf's kept channels are not among them."""
+    u, _ = _random_fields(scene, 23)
+    u_cf = u.permute(3, 0, 1, 2).contiguous()
+    cm = scene.cell_mask
+    for form in DIAG_FORMS:
+        _diag_form(monkeypatch, scene.shape, u.device, False, form)
+        a = lk.hess_diag6_cf(u_cf, cm, DX, MU, LA)
+        b = lk.hess_diag6_cf(u_cf, cm, DX, MU, LA)
+        blocks = lk.hess_diag_cf(u_cf, cm, DX, MU, LA)
+        ptrs = {t.untyped_storage().data_ptr() for t in (a, b, blocks)}
+        assert len(ptrs) == 3, form
+        assert torch.equal(a, b) and torch.equal(lk.sym_blocks(a), blocks)
+        a.zero_()
+        assert torch.equal(lk.sym_blocks(b), blocks), form
 
 
 _PLAIN = ("force_cf_plain", "hvp_cf_plain", "hess_diag_lattice_plain",
@@ -620,41 +672,50 @@ def _level_inputs(lvl, seed):
 
 
 @pytest.mark.cuda
-def test_cheby_and_diag_shift_at_mg_levels(mg19):
+def test_cheby_and_diag_shift_at_mg_levels(mg19, monkeypatch):
     """lat_cheby (pre-smooth from zero with its residual, post-smooth from
-    a start, 12 coarse sweeps) and lat_diag_shift on every level shape of
-    the 19k hierarchy against their plain versions: max|d| <= 1e-4
-    max|ref| (another summation order, f32 roundoff through the
-    recurrences); two runs bit-identical; one count a call. The projected
-    blocks are held to the plain chain outside the blocks where a Jacobi
-    rotation of either chain meets an exact tie (ell.jacobi_ties: there
-    sign(0) = 0 skips the rotation and an ulp of input moves the block by
-    up to |apq|); their projection is ell.spd_project of the kernel's own
-    shifted blocks everywhere (1e-6)."""
+    a start, 12 coarse sweeps) and lat_diag_shift (under its plan, on halo
+    tiles and in two passes) on every level shape of the 19k hierarchy
+    against their plain versions: max|d| <= 1e-4 max|ref| (another
+    summation order, f32 roundoff through the recurrences); two runs
+    bit-identical; one count a call; the forms' bits equal (one order of
+    the same sums). The projected blocks are held to the plain chain
+    outside the blocks where a Jacobi rotation of either chain meets an
+    exact tie (ell.jacobi_ties: there sign(0) = 0 skips the rotation and an
+    ulp of input moves the block by up to |apq|); their projection is
+    ell.spd_project of the kernel's own shifted blocks everywhere (1e-6)."""
     mat = mg19.scene.material
     mu, la = mat.lame_mu, mat.lame_la
     for li, lvl in enumerate(mg19.levels):
         u, b, x0, ctrl = _level_inputs(lvl, 40 + li)
         args = (lvl.cell_mask, ctrl, lvl.vert_mask, lvl.dx, mu, la)
-        before = lk.launches["diag_shift"]
-        raw = [lk.hess_diag_shift_cf(u, *args, False) for _ in range(2)]
-        d = [lk.hess_diag_shift_cf(u, *args, True) for _ in range(2)]
         ref_raw = lk.hess_diag_shift_cf_plain(u, *args, False)
         ref = lk.hess_diag_shift_cf_plain(u, *args, True)
-        proj = lk.sym_channels(ell.spd_project(lk.sym_blocks(raw[0]),
-                                               eps=1e-6, rel_floor=1e-3))
-        tie = ell.jacobi_ties(lk.sym_blocks(raw[0])) | ell.jacobi_ties(
-            lk.shifted_diag_blocks_plain(u, *args))
-        torch.cuda.synchronize()
-        assert lk.launches["diag_shift"] == before + 4
-        assert torch.equal(raw[0], raw[1]) and torch.equal(d[0], d[1]), li
-        assert float((raw[0] - ref_raw).abs().max()) <= 1e-4 * float(
-            ref_raw.abs().max()), li
-        off = (d[0] - ref).abs().amax(0)[~tie]
-        assert float(off.max()) <= 1e-4 * float(ref.abs().max()), li
-        assert float((d[0] - proj).abs().max()) <= 1e-6 * float(
-            proj.abs().max()), li
-        d6 = d[0]
+        outs = []
+        for form in DIAG_FORMS:
+            _diag_form(monkeypatch, tuple(lvl.vert_mask.shape), u.device,
+                       True, form)
+            before = lk.launches["diag_shift"]
+            raw = [lk.hess_diag_shift_cf(u, *args, False) for _ in range(2)]
+            d = [lk.hess_diag_shift_cf(u, *args, True) for _ in range(2)]
+            proj = lk.sym_channels(ell.spd_project(
+                lk.sym_blocks(raw[0]), eps=1e-6, rel_floor=1e-3))
+            tie = ell.jacobi_ties(lk.sym_blocks(raw[0])) | ell.jacobi_ties(
+                lk.shifted_diag_blocks_plain(u, *args))
+            torch.cuda.synchronize()
+            assert lk.launches["diag_shift"] == before + 4
+            assert torch.equal(raw[0], raw[1]), (li, form)
+            assert torch.equal(d[0], d[1]), (li, form)
+            assert float((raw[0] - ref_raw).abs().max()) <= 1e-4 * float(
+                ref_raw.abs().max()), (li, form)
+            off = (d[0] - ref).abs().amax(0)[~tie]
+            assert float(off.max()) <= 1e-4 * float(ref.abs().max()), (
+                li, form)
+            assert float((d[0] - proj).abs().max()) <= 1e-6 * float(
+                proj.abs().max()), (li, form)
+            outs.append(d[0])
+        assert all(torch.equal(o, outs[-1]) for o in outs), li
+        d6 = outs[0]
         cases = {"pre": (None, 2, True), "post": (x0, 2, False),
                  "coarse": (None, 12, False)}
         for name, (x, sweeps, residual) in cases.items():
@@ -675,9 +736,10 @@ def test_cheby_and_diag_shift_at_mg_levels(mg19):
 
 
 @pytest.mark.cuda
-def test_diag_shift_projection_is_spd_project(mg19):
+def test_diag_shift_projection_is_spd_project(mg19, monkeypatch):
     """At rest most blocks of the square beam have xx == yy exactly and
-    xy != 0 (in the kernel's own sums too): the fused projection against
+    xy != 0 (in the kernel's own sums too): the fused projection, under
+    lat_diag_shift's plan, on halo tiles and in two passes, against
     ell.spd_project of the kernel's unprojected, shifted blocks on the card,
     to 1e-6 of max|ref| (the kernel repeats its float32 operations, each
     rounded alone: a copysign where torch.sign(0) = 0 would differ by
@@ -687,14 +749,18 @@ def test_diag_shift_projection_is_spd_project(mg19):
         u = torch.zeros((3,) + tuple(lvl.vert_mask.shape), device="cuda")
         args = (lvl.cell_mask, lvl.ctrl, lvl.vert_mask, lvl.dx, mat.lame_mu,
                 mat.lame_la)
-        raw = lk.sym_blocks(lk.hess_diag_shift_cf(u, *args, False))
-        a = raw.reshape(-1, 3, 3)
-        assert int(((a[:, 0, 0] == a[:, 1, 1])
-                    & (a[:, 0, 1].abs() > 1e-3)).sum()) > 0, li
-        ref = lk.sym_channels(ell.spd_project(raw, eps=1e-6, rel_floor=1e-3))
-        got = lk.hess_diag_shift_cf(u, *args, True)
-        assert float((got - ref).abs().max()) <= 1e-6 * float(
-            ref.abs().max()), li
+        for form in DIAG_FORMS:
+            _diag_form(monkeypatch, tuple(lvl.vert_mask.shape), u.device,
+                       True, form)
+            raw = lk.sym_blocks(lk.hess_diag_shift_cf(u, *args, False))
+            a = raw.reshape(-1, 3, 3)
+            assert int(((a[:, 0, 0] == a[:, 1, 1])
+                        & (a[:, 0, 1].abs() > 1e-3)).sum()) > 0, (li, form)
+            ref = lk.sym_channels(ell.spd_project(raw, eps=1e-6,
+                                                  rel_floor=1e-3))
+            got = lk.hess_diag_shift_cf(u, *args, True)
+            assert float((got - ref).abs().max()) <= 1e-6 * float(
+                ref.abs().max()), (li, form)
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
-"""The launch plans of the standalone force, hvp and energy kernels, on the CPU.
+"""The launch plans of the standalone force, hvp, diagonal and energy kernels, on the CPU.
 
-`force_plan` picks what `lat_force` runs, and `hvp_plan` what `lat_hvp`
-runs: one launch on halo tiles of the vertex lattice (one block a tile;
-`tile_axis` mirrors the kernel's own partition), or the two passes where
-its model says halo cells cost more.
+`force_plan` picks what `lat_force` runs, `hvp_plan` what `lat_hvp` runs
+and `diag_plan` what `lat_diag` and `lat_diag_shift` run: one launch on
+halo tiles of the vertex lattice (one block a tile; `tile_axis` mirrors the
+kernel's own partition), or the two passes where its model says halo cells
+cost more.
 These tests check, without a card, that every tiling the plan can pick
 covers the lattice as the kernel's vertex pass needs (every vertex in one
 tile, every cell incident to a tile's vertices among the tile's cells,
@@ -27,10 +28,12 @@ ODD = {"odd": (4, 6, 8), "x2": (2, 9, 5), "y2": (7, 2, 6), "z2": (5, 4, 2),
        "cube2": (2, 2, 2)}
 
 
-def _check_tiling(plan, shape, box_floats=4):
+def _check_tiling(plan, shape, box_floats=4, rows=lk.FORCE_ROWS,
+                  smem_floats=lk.FORCE_SMEM_FLOATS, fixed_stride=0):
     ntiles, ntx, nty, ntz, stride, box = plan
     assert ntiles == ntx * nty * ntz
-    assert lk.FORCE_ROWS * stride + box_floats * box <= lk.FORCE_SMEM_FLOATS
+    assert rows * (fixed_stride or stride) + box_floats * box <= smem_floats
+    assert not fixed_stride or stride <= fixed_stride
     owner = np.zeros(shape, np.int64)
     for it in itertools.product(range(ntx), range(nty), range(ntz)):
         axes = [lk.tile_axis(n, nt, i)
@@ -115,6 +118,58 @@ def test_hvp_plan_on_the_level_shapes(label):
             assert plan == lk.FORCE_TWO_PASS, shape
         else:
             _check_tiling(plan, shape, lk.HVP_MODEL.box_floats)
+
+
+# the distributed multigrid's sharded-level slabs (4 slabs; z + 2 ghost
+# planes) at 19k and 74k, its replicated coarsest level at 19k (8 planes a
+# slab), and the 74k halo step's slab
+SLABS = ((17, 17, 22), (9, 9, 12), (5, 5, 7), (17, 17, 70), (9, 9, 36),
+         (5, 5, 19), (5, 5, 20), (17, 17, 67))
+
+
+@pytest.mark.parametrize("kernel", ["diag", "diag_shift"])
+def test_diag_plan_on_the_launched_shapes(kernel):
+    """On an H100, lat_diag's plan (lat_diag_shift's: under its own model)
+    takes the two passes at the 74k beam, where they measured faster, and
+    one launch on halo tiles at every other shape a main path launches it
+    at; each tiling covers every vertex once, holds the cells around its
+    vertices and fits the tiles' shared memory (48 rows of corner sums, u
+    staged)."""
+    model = lk.DIAG_SHIFT_MODEL if kernel == "diag_shift" else lk.DIAG_MODEL
+    shapes = [s for levels in LEVELS.values() for s in levels] + list(SLABS)
+    for shape in shapes:
+        plan = lk.diag_plan(*shape, H100_SMS, model)
+        if shape == BEAMS["74k"]:
+            assert plan == lk.FORCE_TWO_PASS, shape
+        else:
+            _check_tiling(plan, shape, model.box_floats, model.rows,
+                          model.smem_floats, model.fixed_stride)
+            assert plan == lk.best_force_tiling(*shape, H100_SMS, model)
+    assert lk.diag_plan(*BEAMS["19k"], H100_SMS) == lk.diag_plan(
+        *BEAMS["19k"], H100_SMS, lk.DIAG_MODEL)
+
+
+def test_hess_diag6_is_the_blocks_channels_on_cpu():
+    """hess_diag6_cf (the slab paths' entry) on CPU tensors is the upper
+    triangle of hess_diag_cf's blocks, bit for bit; each call returns a
+    tensor of its own (the slabs of one shape must not alias each other);
+    nothing is launched."""
+    from fem_simulation_tpu_torch.sim.lattice import LatticeScene
+    sc = LatticeScene(meshlib.beam(3, 4, 6, dx=0.1), device="cpu")
+    rng = np.random.default_rng(4)
+    u = torch.from_numpy(0.03 * rng.standard_normal(
+        (3,) + tuple(sc.vert_mask.shape)).astype(np.float32))
+    before = dict(lk.launches)
+    d6 = lk.hess_diag6_cf(u, sc.cell_mask, 0.1, 250.0, 37.0)
+    again = lk.hess_diag6_cf(u, sc.cell_mask, 0.1, 250.0, 37.0)
+    blocks = lk.hess_diag_cf(u, sc.cell_mask, 0.1, 250.0, 37.0)
+    assert d6.shape == (6,) + tuple(sc.vert_mask.shape)
+    assert torch.equal(d6, lk.sym_channels(blocks))
+    assert torch.equal(lk.sym_blocks(d6), blocks)
+    assert torch.equal(d6, again)
+    assert d6.untyped_storage().data_ptr() != \
+        again.untyped_storage().data_ptr()
+    assert lk.launches == before
 
 
 def test_force_and_energy_take_plain_path_on_cpu():
