@@ -61,7 +61,8 @@ Phase 7  lattice quasi-static solvers and multigrid: on every level of the
          the "jacobi" corrector on the 4x4x32 cantilever. Then the first 3
          Newton iterations of quasistatic_to_tol_mg at 19k again on the CPU.
 Phase 8  the rest of exp1: the SpMV against its plain version on the cloth
-         Hessians (K = 7) of the 64x64 and 128x128 grids (pins [0, res]),
+         Hessians (K = 7, 8 lanes a row, L on each line) of the 64x64 and
+         128x128 grids (pins [0, res]),
          bit-repeat, timed beside its bound and BSR @ x; then, counters
          zeroed: ClothSim.frame (the reference 5-CG frame) for 48 frames at
          64x64, cloth.step_to_tol (tol 2.5e-4, max_newton 20) for 48 frames
@@ -74,12 +75,18 @@ Phase 8  the rest of exp1: the SpMV against its plain version on the cloth
          multigrid, max_newton 20) with n_sub equal to the CPU's; a
          HeadlessWindow loop of 8 DynamicSim frames.
 Phase 9  the learning slice. The backward kernels (ell_spmv_t, ell_outer,
-         ell_jacobi_bwd) against their plain versions, and the autograd
-         Functions against torch.autograd through spmv_plain / jacobi_plain
-         (Jacobi at 1 and 3 iterations, with and without x0), on the same
-         CUDA tensors at the fine Hessian of the 19k and 21k Scenes and every
+         ell_jacobi_bwd, which writes the whole values' gradient row in
+         its launch, from x_t and from the zero start, the off-diagonal
+         slots bit-equal to ell_outer's) against their plain versions,
+         and the autograd Functions against torch.autograd through
+         spmv_plain / jacobi_plain (Jacobi at 1 and 3 iterations, with and
+         without x0), on the same CUDA tensors at the fine Hessian of the
+         19k and 21k Scenes, the 21k Scene's exp2 coarse matrix and every
          level of the 2k one; two runs bit-identical; timed beside their
-         bounds (and BSR(A^T) @ g for ell_spmv_t). Then, counters zeroed:
+         bounds (and BSR(A^T) @ g for ell_spmv_t; ell_jacobi_bwd in each
+         form: no values' gradient, from x_t, from the zero start). Then,
+         counters zeroed (each exp2 run: jacobi_bwd = unroll launches a
+         step and no ell_outer):
          exp2 (InterpTrainer on the 16x16x72 beam, 21,097 vertices: modes P
          and p_hat, l2, unroll 4, 10 SGD and 10 Adam steps each, compare(8);
          10 steps with two coarse Jacobi iterations) and exp3 on the same
@@ -1598,9 +1605,10 @@ def cloth_frames(sc, n):
 
 
 def phase8_spmv(cloths, row, reps):
-    """(a) ell_spmv against its plain version on the cloth Hessian (K = 7)
-    at a seeded perturbed state: max|d| <= 1e-5 max|ref| as in phase 4, two
-    runs bit-identical, timed beside its bound and BSR @ x."""
+    """(a) ell_spmv against its plain version on the cloth Hessian (K = 7,
+    8 lanes a row) at a seeded perturbed state: max|d| <= 1e-5 max|ref| as
+    in phase 4, two runs bit-identical, timed beside its bound and
+    BSR @ x."""
     row["by_cloth"] = {}
     for label, sc in cloths.items():
         rng = np.random.default_rng(8)
@@ -1637,8 +1645,9 @@ def phase8_spmv(cloths, row, reps):
         b_ms, b_by = spmv_bound(full, nbr, 0, n, n)
         row["by_cloth"][label] = dict(ms=ms, device_us=us, plain_ms=plain_ms,
                                       bound_ms=b_ms, bound_by=b_by,
-                                      library_ms=lib_ms)
-        log(f"phase8 spmv cloth {label} N {n} K {k} max rel |d| "
+                                      library_ms=lib_ms, lanes=ek.lanes(k))
+        log(f"phase8 spmv cloth {label} N {n} K {k} L {ek.lanes(k)} (lanes "
+            f"a row, {256 // ek.lanes(k)} rows a block) max rel |d| "
             f"{err / scale:.3e} same bits twice  kernel {ms:.4f} ms (device "
             f"{us} us)  plain "
             f"{plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  library "
@@ -1834,12 +1843,32 @@ def outer_bound(n, k):
     return bound(n * k * 44 + 24 * n, n * k * 12.0)
 
 
-def jacobi_bwd_bound(n, k):
-    """The row pass's values, nbr and mask, diag_slot, b, x_t and gbar in;
-    lam, gb and the diagonal blocks' gradient out; 18 K + ~150 FLOPs a
-    row."""
-    return bound(n * k * 44 + 4 * n + 36 * n + 24 * n + 36 * n,
-                 n * (18.0 * k + 150.0))
+def jacobi_bwd_bound(n, k, gv=True, from_xt=True):
+    """What one ell_jacobi_bwd launch must move: diag_slot, gbar and the
+    diagonal blocks in, lam and gb out; with the values' gradient (gv) also
+    b in and the whole rows' gradient out (N K 36 B: the diagonal blocks'
+    derivative and the off-diagonal products), and, from x_t (not the zero
+    start), the whole rows' values, nbr and mask and x_t in for the
+    residual. ~60 FLOPs a row for lam, ~90 more for the diagonal
+    derivative, 9 (K - 1) for the off-diagonal products, 18 K for the
+    residual."""
+    n_bytes = 4 * n + 12 * n + 36 * n + 24 * n
+    flops = 60.0 * n
+    if gv:
+        n_bytes += 12 * n + n * k * 36
+        flops += 90.0 * n + 9.0 * (k - 1) * n
+        if from_xt:
+            n_bytes += n * k * 44 - 36 * n + 12 * n
+            flops += 18.0 * k * n
+    return bound(n_bytes, flops)
+
+
+# the forms of ell_jacobi_bwd phase 9 checks and times (values' gradient,
+# from x_t), the exp2 path's last: one coarse iteration from zero
+JACOBI_BWD_FORMS = {"no gv": (False, True),
+                    "from x_t": (True, True),
+                    "zero start": (True, False)}
+JACOBI_BWD_PATH_FORM = "zero start"
 
 
 def bsr_t_of(values, mask, tt):
@@ -1860,12 +1889,29 @@ def bsr_t_of(values, mask, tt):
     return torch.sparse_bsr_tensor(crow, e // k, blocks, size=(3 * n, 3 * n))
 
 
-def _bwd_outputs(fn, vals, op, g, b, xt):
-    """(lam, gb, gv) of one jacobi_bwd call (gv: every slot, the others
-    zero), into zeros."""
+def _bwd_outputs(fn, vals, op, g, b, xt, with_gv):
+    """(lam, gb, gv) of one jacobi_bwd call into zeros, flat (xt None: the
+    zero start; gv all zeros without the values' gradient)."""
     gb, gv = torch.zeros_like(g), torch.zeros_like(vals)
-    lam = fn(vals, op.nbr, op.mask, op.diag_slot, b, xt, g, gb, gv)
+    lam = fn(vals, op.nbr, op.mask, op.diag_slot, b, xt, g, gb,
+             gv if with_gv else None)
     return torch.cat([lam.reshape(-1), gb.reshape(-1), gv.reshape(-1)])
+
+
+def _outer_composition(out, vals, op, b, xt):
+    """The (lam, gb, gv) of `_bwd_outputs` with the off-diagonal slots of gv
+    formed as the second launch of the parent's adjoint formed them:
+    ell_outer(lam, nbr, mask, x_t, skip=diag_slot, alpha=-1) (x_t zero for
+    the zero start), the diagonal slots kept."""
+    n = b.shape[0]
+    lam = out[:3 * n].reshape(n, 3)
+    gv = out[6 * n:].reshape(vals.shape)
+    rows, ds = torch.arange(n, device=gv.device), op.diag_slot.long()
+    two = torch.zeros_like(gv)
+    two[rows, ds] = gv[rows, ds]
+    ek.outer(lam, op.nbr, op.mask, torch.zeros_like(b) if xt is None else xt,
+             skip=op.diag_slot, alpha=-1.0, out=two)
+    return torch.cat([out[:6 * n], two.reshape(-1)])
 
 
 def _grads(fn, leaves, w):
@@ -1927,10 +1973,16 @@ def phase9_kernels(uscenes, sc21, reps):
                                         -1.0)),
             "outer": (lambda: ek.outer(g, op.nbr, op.mask, v),
                       lambda: ek.outer_plain(g, op.nbr, op.mask, v)),
-            "jacobi_bwd": (
-                lambda: _bwd_outputs(ek.jacobi_bwd, vals, op, g, b, v),
-                lambda: _bwd_outputs(ek.jacobi_bwd_plain, vals, op, g, b, v)),
         }
+        # ell_jacobi_bwd in one launch: no values' gradient; the whole
+        # values' gradient row from x_t and from the zero start (x_t not read)
+        for form, (with_gv, from_xt) in JACOBI_BWD_FORMS.items():
+            xt = v if from_xt else None
+            kern[f"jacobi_bwd {form}"] = (
+                lambda xt=xt, w=with_gv: _bwd_outputs(
+                    ek.jacobi_bwd, vals, op, g, b, xt, w),
+                lambda xt=xt, w=with_gv: _bwd_outputs(
+                    ek.jacobi_bwd_plain, vals, op, g, b, xt, w))
         errs = {}
         for case, (kf, pf) in kern.items():
             got, again, ref = kf(), kf(), pf()
@@ -1938,6 +1990,13 @@ def phase9_kernels(uscenes, sc21, reps):
             err, scale = max_err(got, ref), float(ref.abs().max())
             check(torch.equal(got, again), f"{case} {label} level {li}: two "
                   "runs differ")
+            if case.startswith("jacobi_bwd") and "no gv" not in case:
+                # the off-diagonal slots: the bits of the ell_outer launch
+                # the parent's adjoint made after ell_jacobi_bwd
+                two = _outer_composition(got, vals, op, b,
+                                         None if "zero" in case else v)
+                check(torch.equal(got, two), f"{case} {label} level {li}: "
+                      "not the bits of ell_outer's off-diagonal slots")
             check(err <= 1e-5 * scale, f"{case} {label} level {li}: max|d| "
                   f"{err:.3e} > 1e-5 * {scale:.3e}")
             name = case.split()[0]
@@ -1974,17 +2033,22 @@ def phase9_kernels(uscenes, sc21, reps):
             "spmv_t": (kern["spmv_t"], "ell_spmv_t_kernel",
                        spmv_t_bound(n, k, kt, False)),
             "outer": (kern["outer"], "ell_outer_kernel", outer_bound(n, k)),
-            "jacobi_bwd": (
-                (lambda: ek.jacobi_bwd(vals, op.nbr, op.mask, op.diag_slot,
-                                       b, v, g, torch.empty_like(g),
-                                       torch.empty_like(vals)),
-                 lambda: ek.jacobi_bwd_plain(
-                     vals, op.nbr, op.mask, op.diag_slot, b, v, g,
-                     torch.empty_like(g), torch.empty_like(vals))),
-                "ell_jacobi_bwd_kernel", jacobi_bwd_bound(n, k)),
         }
+        # the forms of the one-launch adjoint: no values' gradient, with it
+        # from x_t, with it from the zero start (exp2's path)
+        for form, (with_gv, from_xt) in JACOBI_BWD_FORMS.items():
+            def bwd(fn, with_gv=with_gv, from_xt=from_xt):
+                return fn(vals, op.nbr, op.mask, op.diag_slot, b,
+                          v if from_xt else None, g, torch.empty_like(g),
+                          torch.empty_like(vals) if with_gv else None)
+            timing[f"jacobi_bwd {form}"] = (
+                (lambda bwd=bwd: bwd(ek.jacobi_bwd),
+                 lambda bwd=bwd: bwd(ek.jacobi_bwd_plain)),
+                "ell_jacobi_bwd_kernel",
+                jacobi_bwd_bound(n, k, with_gv, from_xt))
         parts = []
-        for name, ((kf, pf), kname, (b_ms, b_by)) in timing.items():
+        for case, ((kf, pf), kname, (b_ms, b_by)) in timing.items():
+            name, _, form = case.partition(" ")
             ms = cuda_ms(kf, reps)
             us = device_us(kf, 10, kname)
             plain_ms = cuda_ms(pf, 3, warmup=1)
@@ -2001,10 +2065,10 @@ def phase9_kernels(uscenes, sc21, reps):
             entry = dict(ms=ms, device_us=us, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
             rows[name]["by_level"].append(dict(beam=label, level=li, n=n,
-                                               **entry))
-            if li == 0:
+                                               form=form or None, **entry))
+            if li == 0 and form in ("", JACOBI_BWD_PATH_FORM):
                 rows[name]["by_beam"][label] = entry
-            parts.append(f"{name} {ms:.4f} ms (device {us} us, plain "
+            parts.append(f"{case} {ms:.4f} ms (device {us} us, plain "
                          f"{plain_ms:.3f}, bound {b_ms:.5f} {b_by}"
                          + (f", BSR(A^T) @ g {lib_ms:.4f}" if lib_ms else "")
                          + ")")
@@ -2069,6 +2133,11 @@ def phase9(sc21, sc2k, sc21_cpu, steps=10):
                     for k in ("jacobi", "jacobi_bwd", "outer", "spmv_t")}
             check(bool(np.isfinite(hist).all()), f"exp2 {mode} {opt}: loss "
                   "not finite")
+            # one ell_jacobi_bwd launch a cycle writes the whole values'
+            # gradient: no ell_outer on this path
+            check(used["outer"] == 0 and used["jacobi_bwd"] == cfg.unroll,
+                  f"exp2 {mode} {opt}: launches a step {used}, want "
+                  f"jacobi_bwd {cfg.unroll} and outer 0")
             w = tr.w
             check(float(w.min()) >= 0.0 and float(w.max()) <= 1.0,
                   f"exp2 {mode} {opt}: weights left [0, 1]")
@@ -2174,11 +2243,13 @@ def phase9(sc21, sc2k, sc21_cpu, steps=10):
         f"tensors {calls}")
     check(launches == calls, f"launches {launches} != those the calls on "
           f"CUDA tensors ask for {calls}")
-    for name in ("outer", "jacobi_bwd", "jacobi", "spmv"):
+    for name in ("jacobi_bwd", "jacobi", "spmv"):
         check(launches[name] > 0, f"{name} never launched on the learning "
               f"path: {launches}")
     check(launches["spmv_t"] == 0, "ell_spmv_t launched on the learning "
           f"path, whose gradient needs no A^T: {launches}")
+    check(launches["outer"] == 0, "ell_outer launched on the learning path, "
+          f"whose Jacobi adjoint writes the values' gradient: {launches}")
 
     # exp2's first two SGD steps on the card and on the CPU
     cfg = TrainInterpConfig(mode="P", loss="l2", unroll=4, lr=1e-4)
@@ -3628,7 +3699,8 @@ def main() -> int:
     # 21k beam, the shape the learning path gives them
     for name in ELL_BACKWARD:
         at_level[name] = next(e for e in rows[name]["by_level"]
-                              if (e["beam"], e["level"]) == ("21k", 1))
+                              if (e["beam"], e["level"]) == ("21k", 1)
+                              and e["form"] in (None, JACOBI_BWD_PATH_FORM))
     per_level = {"cheby": ("cheby_pre", "cheby_post", "cheby_coarse"),
                  "diag_shift": ("diag_shift", "diag_shift_unprojected",
                                 "diag_shift_ties", "diag_shift_plan"),

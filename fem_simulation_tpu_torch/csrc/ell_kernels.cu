@@ -18,19 +18,30 @@
 // The mask multiplies the gathered x as ops/ell.py:36 does, and masked slots
 // are not skipped, so a non-finite value at a padded slot propagates.
 //
-// Bound on this card: memory. A row of a hex-mesh matrix has K <= 27 slots:
-// 27 * 36 B of values + 27 * 8 B of nbr and mask, ~1.2 KB, against 27 * 21
-// flops, so the 74k-vertex beam's fine level moves ~88 MB, ~26 us at
-// 3.35 TB/s; x (12 B a vertex) is gathered from L2.
-//
 // Design: the TPU kernel streamed one stencil slot at a time across all
 // rows (full-width vector ops, because Mosaic had no wide gather). A GPU
-// gathers natively, so here one warp takes one row and lane k takes slot k
-// (K <= 32): the warp's loads of values, nbr and mask cover the row's
-// contiguous bytes, each lane gathers its neighbour's 3 floats and forms the
-// slot's 3 partial outputs, and a fixed butterfly of shuffles sums the slots.
-// The summation order is fixed, so the result is run-to-run identical. No
-// atomics, no shared memory.
+// gathers natively, so here a group of L lanes takes one row, L the
+// smallest power of two >= K (the C entry picks it from K: 8 for the
+// cloth's K = 7, 32 for a hex mesh's K = 27), and lane k takes slot k: the
+// group's loads of values, nbr and mask cover the row's contiguous bytes,
+// each lane gathers its neighbour's 3 floats and forms the slot's 3 partial
+// outputs, and a fixed butterfly of width L sums the slots. The summation
+// order is fixed, so the result is run-to-run identical; for K <= L < 32
+// it is also the whole-warp butterfly's (whose first steps add the idle
+// lanes' exact zeros), up to the sign of a zero. No atomics, no shared
+// memory.
+//
+// What bounds it on this card. At K = 27 (the hex meshes): memory. A row
+// is 27 * 36 B of values + 27 * 8 B of nbr and mask, ~1.2 KB, against
+// 27 * 18 flops, so the 74k-vertex beam's fine level moves ~88 MB, ~26 us
+// at 3.35 TB/s; x (12 B a vertex) is gathered from L2. At K = 7 (the
+// cloth, 4k-17k rows, 0.4-1.7 us of bytes): latency. A row is two
+// dependent memory trips (nbr and mask, then the gather of x); a whole
+// warp a row left 25 of its 32 lanes idle and put 8 rows in a 256-thread
+// block, so the 128x128 cloth's 2,081 blocks ran in two waves of the 1,056
+// that 132 SMs hold. Eight lanes a row put 32 rows in a block: 521 blocks,
+// one wave. (A thread a row, its slots summed in the same order, measured
+// slower: 3.6-3.9 us against 1.6-2.4 at the cloth's shapes.)
 //
 // ell_gs and ell_jacobi have no TPU kernel of their own: the JAX package
 // composes its smoothers (solvers/smoothers.py) from the SpMV above, one row
@@ -75,24 +86,39 @@
 //                   out the slot k = skip[i] of every row)
 //   ell_outer       gv[i, k] (+)= alpha * g[i] (x) (x[nbr[i, k]] mask[i, k]),
 //                   j-major as the forward reads values (optionally leaving
-//                   slot skip[i] of every row untouched)
+//                   slot skip[i] of every row untouched): the values'
+//                   gradient of the SpMV. The SpMV's lane groups, lane k
+//                   reading slot k's nbr and mask once and gathering its x
+//                   once (the first form took a thread a float: nine reads
+//                   of them a slot and two integer divisions a float).
 //   ell_jacobi_bwd  the adjoint of one Jacobi iteration
-//                   x_{t+1} = D^{-1} (b - O x_t): lam = D^{-T} gbar by the
-//                   forward's own adjugate formula, gb (+)= lam, and the
-//                   exact derivative of that formula with respect to the
-//                   diagonal block, (+)= into gv[i, diag_slot[i]].
+//                   x_{t+1} = D^{-1} (b - O x_t) in one launch: lam =
+//                   D^{-T} gbar by the forward's own adjugate formula,
+//                   gb (+)= lam, the exact derivative of that formula with
+//                   respect to the diagonal block (+)= into
+//                   gv[i, diag_slot[i]], and -lam (x) x_t into the
+//                   off-diagonal slots: the products ell_outer would form,
+//                   from the x_t[nbr] mask its lanes already hold for the
+//                   residual (from a zero start x_t is not read: the
+//                   residual is b and the products are -lam (x) 0, which
+//                   an accumulating call does not add).
 //
-// The rest of a Jacobi iteration's adjoint is ell_outer (-lam (x) x_t into
-// the off-diagonal slots) and ell_spmv_t (gbar_t = -O^T lam, the diagonal
-// slot left out). The transposed product is a gather, not a scatter: a
-// transpose table built once on the host lists, for every column j, the
-// flat entries e = i * K + k with nbr[i, k] = j in increasing e, padded
-// with -1. The ELL tables pad a row with slots that point at the row
-// itself, so for a structurally symmetric matrix every column has exactly
-// K entries and the table is (N, K). One warp takes a column, lane t the
-// entries t, t + 32, ..., a fixed butterfly sums them: no float atomics,
-// and the result repeats bit for bit. Bound: memory, as the forward (the
-// values are read once more, through the table).
+// Both write a row's values gradient through outer_row: the row's group
+// writes the row's 9 K contiguous floats, float t by lane t mod L, its
+// slot's x_t[nbr] mask by shuffle, so a warp's stores are contiguous.
+// Bound: memory, the N K 36 B of the gradient written.
+//
+// The rest of a Jacobi iteration's adjoint is ell_spmv_t (gbar_t =
+// -O^T lam, the diagonal slot left out), launched only where an earlier
+// iterate or x_0 takes a gradient. The transposed product is a gather, not
+// a scatter: a transpose table built once on the host lists, for every
+// column j, the flat entries e = i * K + k with nbr[i, k] = j in increasing
+// e, padded with -1. The ELL tables pad a row with slots that point at the
+// row itself, so for a structurally symmetric matrix every column has
+// exactly K entries and the table is (N, K). One warp takes a column, lane
+// t the entries t, t + 32, ..., a fixed butterfly sums them: no float
+// atomics, and the result repeats bit for bit. Bound: memory, as the
+// forward (the values are read once more, through the table).
 //
 // No --use_fast_math: the build keeps IEEE arithmetic.
 #include <cooperative_groups.h>
@@ -106,15 +132,23 @@ constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;
 constexpr int kMaxColors = 16;
 
+// A group of L lanes a row (L a power of two >= K), lane k slot k; a warp
+// holds 32 / L rows. The warp leaves only when all of its rows lie past r1
+// (the shuffles need every lane of the warp), and a row's group reduces
+// with a butterfly of width L.
+template <int L>
 __global__ void __launch_bounds__(kThreads)
 ell_spmv_kernel(const float* __restrict__ values, const int* __restrict__ nbr,
                 const float* __restrict__ mask, const float* __restrict__ x,
                 float* __restrict__ y, int r0, int r1, int K) {
-    const int lane = threadIdx.x & 31;
-    const int row = r0 + blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-    if (row >= r1) return;  // the row is uniform across the warp
+    constexpr int kRows = kThreads / L;
+    const int lane = threadIdx.x & (L - 1);
+    if (r0 + static_cast<int>(blockIdx.x) * kRows
+            + static_cast<int>(threadIdx.x & ~31u) / L >= r1)
+        return;  // every row of the warp lies past r1
+    const int row = r0 + blockIdx.x * kRows + threadIdx.x / L;
     float y0 = 0.f, y1 = 0.f, y2 = 0.f;
-    if (lane < K) {
+    if (row < r1 && lane < K) {
         const long long e = static_cast<long long>(row) * K + lane;
         const float m = mask[e];
         const long long c = 3LL * nbr[e];
@@ -125,16 +159,50 @@ ell_spmv_kernel(const float* __restrict__ values, const int* __restrict__ nbr,
         y2 = v[6] * x0 + v[7] * x1 + v[8] * x2;
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        y0 += __shfl_down_sync(0xffffffffu, y0, off);
-        y1 += __shfl_down_sync(0xffffffffu, y1, off);
-        y2 += __shfl_down_sync(0xffffffffu, y2, off);
+    for (int off = L / 2; off > 0; off >>= 1) {
+        y0 += __shfl_down_sync(0xffffffffu, y0, off, L);
+        y1 += __shfl_down_sync(0xffffffffu, y1, off, L);
+        y2 += __shfl_down_sync(0xffffffffu, y2, off, L);
     }
-    if (lane == 0) {
+    if (row < r1 && lane == 0) {
         float* out = y + 3LL * (row - r0);
         out[0] = y0;
         out[1] = y1;
         out[2] = y2;
+    }
+}
+
+// Row i's slots of gv (+)= alpha * g_i (x) xm_k, lane k of the row's group
+// of L lanes holding xm_k = x[nbr[i, k]] mask[i, k]; slot `skip` (-1: none)
+// is left as it is, and so is every slot of a row that is not live (whose
+// lanes still take part in the shuffles). The group writes the row's 9 K
+// contiguous floats, float t by lane t mod L with its slot's xm by
+// shuffle, so a warp's stores are contiguous. (Each lane writing its own
+// slot's 36 bytes, 9 stores a lane 36 bytes apart, measured 1.8-3.5 times
+// slower.) Each product and sum is rounded on its own (__fmul_rn,
+// __fadd_rn: never contracted into an FMA), as the plain version's
+// alpha * (g * xm) and out + p are, whether alpha is a constant here or an
+// argument.
+template <int L>
+__device__ __forceinline__ void outer_row(
+    float* gv_row, float g0, float g1, float g2, float xm0, float xm1,
+    float xm2, int K, int skip, float alpha, int accumulate, bool live,
+    int lane) {
+    const int total = 9 * K;
+    for (int t0 = 0; t0 < total; t0 += L) {  // uniform across the warp
+        const int t = t0 + lane;
+        const int slot = t / 9;
+        const int src = slot < K ? slot : K - 1;
+        const float a0 = __shfl_sync(0xffffffffu, xm0, src, L);
+        const float a1 = __shfl_sync(0xffffffffu, xm1, src, L);
+        const float a2 = __shfl_sync(0xffffffffu, xm2, src, L);
+        if (live && t < total && slot != skip) {
+            const int r = t - 9 * slot, j = r / 3, l = r - 3 * j;
+            const float xm = l == 0 ? a0 : (l == 1 ? a1 : a2);
+            const float gj = j == 0 ? g0 : (j == 1 ? g1 : g2);
+            const float p = __fmul_rn(alpha, __fmul_rn(gj, xm));
+            gv_row[t] = accumulate ? __fadd_rn(gv_row[t], p) : p;
+        }
     }
 }
 
@@ -294,40 +362,64 @@ ell_spmv_t_kernel(const float* __restrict__ values,
     }
 }
 
-// gv[e, j, l] (+)= alpha * (g[i, j] * (x[nbr[e], l] * mask[e])), e = i K + k,
-// a thread an output float, so a warp's stores are contiguous (32-bit
-// indices: the wrapper checks 9 N K < 2^31); slot skip[i] of row i is left
-// as it is.
+// gv[e, j, l] (+)= alpha * (g[i, j] * (x[nbr[e], l] * mask[e])), e = i K + k:
+// a group of L lanes a row (L a power of two >= K), lane k reads slot k's
+// nbr and mask once and gathers its x once; outer_row stores. Slot skip[i]
+// of row i is left as it is.
+template <int L>
 __global__ void __launch_bounds__(kThreads)
 ell_outer_kernel(const float* __restrict__ g, const int* __restrict__ nbr,
                  const float* __restrict__ mask, const float* __restrict__ x,
                  const int* __restrict__ skip, float alpha, int accumulate,
-                 float* __restrict__ gv, int total, int K) {
-    const int t = blockIdx.x * kThreads + threadIdx.x;
-    if (t >= total) return;
-    const int e = t / 9, r = t - 9 * e, j = r / 3, l = r - 3 * j;
-    const int i = e / K;
-    if (skip != nullptr && e - i * K == skip[i]) return;
-    const float xm = x[3 * nbr[e] + l] * mask[e];
-    const float p = alpha * (g[3 * i + j] * xm);
-    gv[t] = accumulate ? gv[t] + p : p;
+                 float* __restrict__ gv, int N, int K) {
+    constexpr int kRows = kThreads / L;
+    const int lane = threadIdx.x & (L - 1);
+    if (static_cast<int>(blockIdx.x) * kRows
+            + static_cast<int>(threadIdx.x & ~31u) / L >= N)
+        return;  // every row of the warp lies past N
+    const int i = blockIdx.x * kRows + threadIdx.x / L;
+    const bool live = i < N;
+    float xm0 = 0.f, xm1 = 0.f, xm2 = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f;
+    int sk = -1;
+    if (live) {
+        if (lane < K) {
+            const long long e = static_cast<long long>(i) * K + lane;
+            const float m = mask[e];
+            const long long c = 3LL * nbr[e];
+            xm0 = x[c] * m;
+            xm1 = x[c + 1] * m;
+            xm2 = x[c + 2] * m;
+        }
+        g0 = g[3LL * i];
+        g1 = g[3LL * i + 1];
+        g2 = g[3LL * i + 2];
+        if (skip != nullptr) sk = skip[i];
+    }
+    outer_row<L>(gv + 9LL * i * K, g0, g1, g2, xm0, xm1, xm2, K,
+                             sk, alpha, accumulate, live, lane);
 }
 
 // The adjoint of one Jacobi iteration at a row (one warp a row, lane k
 // slot k, as relax_row): lam = s C gbar with C the cofactor matrix of the
 // diagonal block D and s = det / (det^2 + eps), the transpose of the
-// forward's x = s C^T r. With gv given, the forward's residual
-// r = b - sum_{k != ds} A_k (xt[nbr_k] m_k) is recomputed and the exact
-// derivative of x = s(det) C(D)^T r with respect to D goes to the diagonal
-// slot: row p of it is
+// forward's x = s C^T r. Every lane computes lam (the same operations on the
+// same shuffled inputs, so the same bits); lane 0 stores it. With gv given,
+// the forward's residual r = b - sum_{k != ds} A_k (xt[nbr_k] m_k) is
+// recomputed (r = b from a zero start, xt null: no x_t is read) and the
+// exact derivative of x = s(det) C(D)^T r with respect to D goes to the
+// diagonal slot: row p of it is
 //   s (r_{p-1} (D_{p+1} x gbar) + r_{p+1} (gbar x D_{p+2}))
 //     + s'(det) (r . C gbar) C_p,        s' = (eps - det^2) / (det^2 + eps)^2
-// (indices mod 3; row n of C is D_{n+1} x D_{n+2}).
+// (indices mod 3; row n of C is D_{n+1} x D_{n+2}). With offdiag (gv given,
+// and xt or a storing call: the C entry sets it), the other
+// slots (+)= -(lam (x) xm_k), xm_k = xt[nbr_k] m_k already in lane k's
+// registers (zero from a zero start): what ell_outer(lam, ..., xt,
+// skip = diag_slot, alpha = -1) writes, by outer_row, in the same launch.
 __global__ void __launch_bounds__(kThreads)
 ell_jacobi_bwd_kernel(const RelaxArgs A, const float* __restrict__ xt,
                       const float* __restrict__ gbar, float* __restrict__ lam,
                       float* __restrict__ gb, float* __restrict__ gv,
-                      int accumulate, int N) {
+                      int accumulate, int offdiag, int N) {
     const unsigned full = 0xffffffffu;
     const int lane = threadIdx.x & 31;
     const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
@@ -338,14 +430,17 @@ ell_jacobi_bwd_kernel(const RelaxArgs A, const float* __restrict__ xt,
     const float gj = lane < 3 ? gbar[3LL * row + lane] : 0.f;
     float v[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+    float x0 = 0.f, x1 = 0.f, x2 = 0.f;  // xt[nbr] mask of the lane's slot
     if (lane < K) {
         const long long e = static_cast<long long>(row) * K + lane;
-        if (gv != nullptr) {  // the whole row: the residual is needed
+        if (gv != nullptr && xt != nullptr) {  // the whole row: the residual
 #pragma unroll
             for (int t = 0; t < 9; ++t) v[t] = A.values[9 * e + t];
             const float m = A.mask[e];
             const long long c = 3LL * A.nbr[e];
-            const float x0 = xt[c] * m, x1 = xt[c + 1] * m, x2 = xt[c + 2] * m;
+            x0 = xt[c] * m;
+            x1 = xt[c + 1] * m;
+            x2 = xt[c + 2] * m;
             if (lane != ds) {
                 s0 = v[0] * x0 + v[1] * x1 + v[2] * x2;
                 s1 = v[3] * x0 + v[4] * x1 + v[5] * x2;
@@ -366,9 +461,8 @@ ell_jacobi_bwd_kernel(const RelaxArgs A, const float* __restrict__ xt,
 #pragma unroll
     for (int t = 0; t < 9; ++t) d[t] = __shfl_sync(full, v[t], ds);
     const float b1 = __shfl_sync(full, bj, 1), b2 = __shfl_sync(full, bj, 2);
-    const float g1 = __shfl_sync(full, gj, 1), g2 = __shfl_sync(full, gj, 2);
-    if (lane != 0) return;
-    const float g0 = gj;
+    const float g0 = __shfl_sync(full, gj, 0), g1 = __shfl_sync(full, gj, 1),
+                g2 = __shfl_sync(full, gj, 2);
     const float a00 = d[0], a01 = d[1], a02 = d[2], a10 = d[3], a11 = d[4],
                 a12 = d[5], a20 = d[6], a21 = d[7], a22 = d[8];
     // ops/ell.py solve3x3: the cofactors, det / (det^2 + eps)
@@ -388,6 +482,10 @@ ell_jacobi_bwd_kernel(const RelaxArgs A, const float* __restrict__ xt,
     const float u1 = c10 * g0 + c11 * g1 + c12 * g2;
     const float u2 = c20 * g0 + c21 * g1 + c22 * g2;
     const float l0 = u0 * inv_det, l1 = u1 * inv_det, l2 = u2 * inv_det;
+    if (offdiag)  // uniform across the warp
+        outer_row<32>(gv + 9 * (static_cast<long long>(row) * K), l0, l1,
+                      l2, x0, x1, x2, K, ds, -1.0f, accumulate, true, lane);
+    if (lane != 0) return;
     float* lo = lam + 3LL * row;
     lo[0] = l0;
     lo[1] = l1;
@@ -431,19 +529,47 @@ int blocks_for_rows(int rows) {
     return (rows + kRowsPerBlock - 1) / kRowsPerBlock;
 }
 
+// The lanes a row of ell_spmv and ell_outer: the smallest power of two
+// >= K (1 <= K <= 32).
+int row_lanes(int K) {
+    int lanes = 1;
+    while (lanes < K) lanes <<= 1;
+    return lanes;
+}
+
+// Blocks of kThreads for `rows` rows of `lanes` lanes each.
+int blocks_for_groups(int rows, int lanes) {
+    return static_cast<int>(
+        (static_cast<long long>(rows) * lanes + kThreads - 1) / kThreads);
+}
+
 }  // namespace
 
 extern "C" {
 
-// y: (r1 - r0, 3). Requires 0 <= r0 < r1, 1 <= K <= 32 and every nbr entry
-// of rows [r0, r1) a row of x.
+// y: (r1 - r0, 3), a group of row_lanes(K) lanes a row. Requires
+// 0 <= r0 < r1, 1 <= K <= 32 and every nbr entry of rows [r0, r1) a row
+// of x.
 int ell_spmv(const float* values, const int* nbr, const float* mask,
              const float* x, float* y, int r0, int r1, int K, void* stream) {
     if (r1 <= r0 || K < 1 || K > 32)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int blocks = (r1 - r0 + kRowsPerBlock - 1) / kRowsPerBlock;
-    ell_spmv_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        values, nbr, mask, x, y, r0, r1, K);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int lanes = row_lanes(K), blocks = blocks_for_groups(r1 - r0, lanes);
+#define ELL_SPMV(L)                                                         \
+    case L:                                                                  \
+        ell_spmv_kernel<L><<<blocks, kThreads, 0, st>>>(                     \
+            values, nbr, mask, x, y, r0, r1, K);                             \
+        break
+    switch (lanes) {
+        ELL_SPMV(1);
+        ELL_SPMV(2);
+        ELL_SPMV(4);
+        ELL_SPMV(8);
+        ELL_SPMV(16);
+        ELL_SPMV(32);
+    }
+#undef ELL_SPMV
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -523,33 +649,49 @@ int ell_spmv_t(const float* values, const float* mask, const int* tt,
 
 // gv (N, K, 3, 3): slot k of row i (+)= alpha * g[i] (x) (x[nbr[i, k]]
 // mask[i, k]) (accumulate != 0: added to gv); skip (N,) int32 or null: the
-// slot of each row left untouched.
+// slot of each row left untouched. A group of row_lanes(K) lanes a row;
+// requires 1 <= K <= 32.
 int ell_outer(const float* g, const int* nbr, const float* mask,
               const float* x, const int* skip, float alpha, int accumulate,
               float* gv, int N, int K, void* stream) {
-    if (N < 1 || K < 1 || 9LL * N * K >= (1LL << 31))
+    if (N < 1 || K < 1 || K > 32)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int total = 9 * N * K;
-    ell_outer_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        g, nbr, mask, x, skip, alpha, accumulate, gv, total, K);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int lanes = row_lanes(K), blocks = blocks_for_groups(N, lanes);
+#define ELL_OUTER(L)                                                        \
+    case L:                                                                  \
+        ell_outer_kernel<L><<<blocks, kThreads, 0, st>>>(                    \
+            g, nbr, mask, x, skip, alpha, accumulate, gv, N, K);             \
+        break
+    switch (lanes) {
+        ELL_OUTER(1);
+        ELL_OUTER(2);
+        ELL_OUTER(4);
+        ELL_OUTER(8);
+        ELL_OUTER(16);
+        ELL_OUTER(32);
+    }
+#undef ELL_OUTER
     return static_cast<int>(cudaGetLastError());
 }
 
-// The adjoint of one Jacobi iteration that read xt (N, 3): lam (N, 3) =
-// D^{-T} gbar; gb (N, 3) or null (+)= lam; gv (N, K, 3, 3) or null: the
-// diagonal slots (+)= the diagonal blocks' gradient, other slots untouched
-// (accumulate != 0: add to gb and gv, else store).
+// The adjoint of one Jacobi iteration that read xt (N, 3), or the zero
+// start (xt null): lam (N, 3) = D^{-T} gbar; gb (N, 3) or null (+)= lam; gv
+// (N, K, 3, 3) or null: the diagonal slots (+)= the diagonal blocks'
+// gradient and the other slots (+)= -lam (x) (xt[nbr] mask) (accumulate
+// != 0: add to gb and gv, else store). From the zero start an accumulating
+// call leaves the other slots untouched: it would add -lam (x) 0.
 int ell_jacobi_bwd(const float* values, const int* nbr, const float* mask,
                    const int* diag_slot, const float* b, const float* xt,
                    const float* gbar, float* lam, float* gb, float* gv,
                    int accumulate, int N, int K, void* stream) {
     if (N < 1 || K < 1 || K > 32)
         return static_cast<int>(cudaErrorInvalidValue);
+    const int offdiag = gv != nullptr && (xt != nullptr || !accumulate);
     const RelaxArgs A{values, nbr, mask, diag_slot, b, K};
     ell_jacobi_bwd_kernel<<<blocks_for_rows(N), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-        A, xt, gbar, lam, gb, gv, accumulate, N);
+        A, xt, gbar, lam, gb, gv, accumulate, offdiag, N);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,10 +3,11 @@
 Port of `fem_simulation_tpu/models/train_interp.py`. The two-level cycle is
 an ordinary torch function of the per-triplet scalar weights and autograd
 differentiates it: its coarse block-Jacobi solve goes through
-`ops.ell_kernels.EllJacobiFn`, whose backward on CUDA tensors is the
-hand-written `ell_jacobi_bwd` and `ell_outer` kernels (one iteration from
-zero sends no gradient through the transposed matrix, so `ell_spmv_t` is not
-launched here).
+`ops.ell_kernels.EllJacobiFn`, whose backward on CUDA tensors is one
+hand-written `ell_jacobi_bwd` launch an iteration (lam, b's gradient and the
+whole values' gradient row; from the zero start it reads no x_t). One
+iteration from zero sends no gradient through the transposed matrix, so
+`ell_spmv_t` is not launched here, and `ell_outer` is not either.
 
 * Mode "P"     - train the residual-side transfer (restriction of the
   residual and prolongation of the coarse correction).

@@ -3,7 +3,9 @@
 `spmv` / `spmv_rows` port `fem_simulation_tpu/ops/pallas_kernels.py`
 (`spmv`, the lanes-layout Pallas kernel) in the (N, K, 3, 3) ELL layout of
 `ops/ell.py`, which a GPU can gather from directly: `ell_spmv` in
-`csrc/ell_kernels.cu`. `gs` and `jacobi` are the smoothers of
+`csrc/ell_kernels.cu`, a group of `lanes(K)` lanes a row (the smallest
+power of two >= K: 8 for the cloth's K = 7, 32 for a hex mesh's 27), lane
+k slot k. `gs` and `jacobi` are the smoothers of
 `solvers/smoothers.py` fused around the same row pass (`ell_gs`,
 `ell_jacobi`): row product, 3x3 adjugate solve and update in one kernel,
 all iterations in one call.
@@ -13,10 +15,12 @@ Functions `EllSpmvFn` and `EllJacobiFn` whenever autograd records and an
 input requires grad. Their backward runs three kernels of its own:
 `spmv_t` (`ell_spmv_t`, the transposed product, a gather through a
 transpose table built once on the host, `transpose_table`), `outer`
-(`ell_outer`, the gradient with respect to the values) and `jacobi_bwd`
-(`ell_jacobi_bwd`, the adjoint of one Jacobi iteration's 3x3 solve). A
-Jacobi iteration's adjoint is `jacobi_bwd`, then `outer` for its
-off-diagonal slots and, where the iterate before it needs a gradient,
+(`ell_outer`, the SpMV's gradient with respect to the values, in the
+SpMV's lane groups) and `jacobi_bwd` (`ell_jacobi_bwd`, the adjoint of one
+Jacobi iteration). A Jacobi iteration's adjoint is one `jacobi_bwd` launch
+(lam, b's gradient and the whole values' gradient row: the diagonal
+blocks' derivative and -lam (x) x_t in the other slots; from the zero start
+it reads no x_t) and, where the iterate before it needs a gradient,
 `spmv_t` without the diagonal slot; the forward keeps every iterate (one
 launch an iteration into its own output). `gs` has no backward and raises
 when asked for one.
@@ -47,6 +51,12 @@ launches = {"spmv": 0, "gs": 0, "jacobi": 0, "spmv_t": 0, "outer": 0,
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def lanes(k: int) -> int:
+    """The lanes a row of ell_spmv / ell_outer at ELL width k, as their C
+    entries pick it: the smallest power of two >= k."""
+    return 1 << max(int(k) - 1, 0).bit_length()
 
 
 def spmv_rows_plain(values, nbr, mask, x, r0: int, r1: int):
@@ -210,7 +220,10 @@ def jacobi_bwd_plain(values, nbr, mask, diag_slot, b, xt, gbar, gb=None,
     """The kernel's plain version: returns lam = D^{-T} gbar by the
     forward's adjugate formula; gb (+)= lam, and the diagonal slots of gv
     (+)= the exact derivative of that formula in the diagonal blocks
-    (csrc/ell_kernels.cu, ell_jacobi_bwd_kernel, has the algebra)."""
+    (csrc/ell_kernels.cu, ell_jacobi_bwd_kernel, has the algebra), then
+    the other slots (+)= -lam (x) (xt[nbr] mask) as `outer_plain` forms
+    it. xt None: the zero start (the residual is b; accumulating, the other
+    slots are left as they are, since they would take -lam (x) 0)."""
     n = values.shape[0]
     rows = torch.arange(n, device=values.device)
     ds = diag_slot.long()
@@ -227,7 +240,8 @@ def jacobi_bwd_plain(values, nbr, mask, diag_slot, b, xt, gbar, gb=None,
     if gb is not None:
         gb.copy_(gb + lam if accumulate else lam)
     if gv is not None:
-        r = b - _offdiag_rows_plain(values, nbr, mask, diag_slot, xt, 0, n)
+        r = b if xt is None else b - _offdiag_rows_plain(
+            values, nbr, mask, diag_slot, xt, 0, n)
         h = (1e-12 - det * det) / den / den * (r * u).sum(-1)
         gD = torch.stack([
             inv_det[:, None] * (
@@ -237,6 +251,9 @@ def jacobi_bwd_plain(values, nbr, mask, diag_slot, b, xt, gbar, gb=None,
                 * torch.linalg.cross(gbar, D[:, (p + 2) % 3]))
             + h[:, None] * C[:, p] for p in range(3)], dim=1)
         gv[rows, ds] = gv[rows, ds] + gD if accumulate else gD
+    if gv is not None and (xt is not None or not accumulate):
+        outer_plain(lam, nbr, mask, torch.zeros_like(b) if xt is None else xt,
+                    skip=diag_slot, alpha=-1.0, out=gv, accumulate=accumulate)
     return lam
 
 
@@ -311,18 +328,20 @@ def outer(g, nbr, mask, x, skip=None, alpha: float = 1.0, out=None,
 
 def jacobi_bwd(values, nbr, mask, diag_slot, b, xt, gbar, gb=None, gv=None,
                accumulate: bool = False):
-    """The adjoint of one Jacobi iteration that read xt: returns
-    lam = D^{-T} gbar (N, 3); gb (N, 3) or None (+)= lam; gv (N, K, 3, 3)
-    or None: its diagonal slots (+)= the diagonal blocks' gradient, the
-    others untouched (accumulate: add, else store)."""
+    """The adjoint of one Jacobi iteration that read xt (None: the zero
+    start), in one launch: returns lam = D^{-T} gbar (N, 3); gb (N, 3) or
+    None (+)= lam; gv (N, K, 3, 3) or None: its diagonal slots (+)= the
+    diagonal blocks' gradient and the others (+)= -lam (x) (xt[nbr] mask)
+    (accumulate: add, else store; from the zero start an accumulating call
+    leaves the others as they are)."""
     n, k = _check_smoother(values, nbr, mask, diag_slot, b, xt)
     _cuda.require(gbar, (n, 3), "gbar")
     if gb is not None:
         _cuda.require(gb, (n, 3), "gb")
     if gv is not None:
         _cuda.require(gv, (n, k, 3, 3), "gv")
-    tensors = (values, nbr, mask, diag_slot, b, xt, gbar) + tuple(
-        t for t in (gb, gv) if t is not None)
+    tensors = (values, nbr, mask, diag_slot, b, gbar) + tuple(
+        t for t in (xt, gb, gv) if t is not None)
     if _cuda.on_cpu(*tensors):
         return jacobi_bwd_plain(values, nbr, mask, diag_slot, b, xt, gbar,
                                 gb, gv, accumulate)
@@ -332,7 +351,8 @@ def jacobi_bwd(values, nbr, mask, diag_slot, b, xt, gbar, gb=None, gv=None,
     with torch.cuda.device(b.device):
         err = lib.ell_jacobi_bwd(
             values.data_ptr(), nbr.data_ptr(), mask.data_ptr(),
-            diag_slot.data_ptr(), b.data_ptr(), xt.data_ptr(),
+            diag_slot.data_ptr(), b.data_ptr(),
+            None if xt is None else xt.data_ptr(),
             gbar.data_ptr(), lam.data_ptr(),
             None if gb is None else gb.data_ptr(),
             None if gv is None else gv.data_ptr(), int(accumulate), n, k,
@@ -460,12 +480,12 @@ class EllJacobiFn(torch.autograd.Function):
     """`iterations` (>= 1) block-Jacobi iterations from x0 (zero for None),
     differentiable in values, b and x0. The forward keeps every iterate
     (one launch an iteration, each into its own output); the backward runs,
-    last iteration first, `jacobi_bwd` (lam, b's gradient, the diagonal
-    blocks'), `outer` (-lam (x) x_t into the off-diagonal slots) and, where
-    the iterate before needs a gradient, `spmv_t` (-O^T lam, the diagonal
-    slot left out). tt: A's transpose table (`transpose_table(nbr)`), or
-    None where no gradient reaches an iterate before the last
-    (`needs_table`)."""
+    last iteration first, one `jacobi_bwd` launch (lam, b's gradient, the
+    diagonal blocks' and -lam (x) x_t into the off-diagonal slots) and,
+    where the iterate before needs a gradient, `spmv_t` (-O^T lam, the
+    diagonal slot left out). tt: A's transpose table
+    (`transpose_table(nbr)`), or None where no gradient reaches an iterate
+    before the last (`needs_table`)."""
 
     @staticmethod
     def forward(ctx, values, b, x0, nbr, mask, diag_slot, iterations, tt):
@@ -492,15 +512,10 @@ class EllJacobiFn(torch.autograd.Function):
         bwd = jacobi_bwd_plain if cpu else jacobi_bwd
         for t in range(len(xs) - 1, -1, -1):
             first = t == len(xs) - 1
+            zero = t == 0 and ctx.zero_start
             _count_call("jacobi_bwd", g)
-            lam = bwd(values, nbr, mask, diag_slot, b, xs[t], g, gb, gv,
-                      accumulate=not first)
-            # -lam (x) x_t: nothing to add where x_t is the zero start
-            if need_v and (first or t > 0 or not ctx.zero_start):
-                _count_call("outer", g)
-                (outer_plain if cpu else outer)(
-                    lam, nbr, mask, xs[t], skip=diag_slot, alpha=-1.0,
-                    out=gv, accumulate=not first)
+            lam = bwd(values, nbr, mask, diag_slot, b, None if zero else xs[t],
+                      g, gb, gv, accumulate=not first)
             if t > 0 or need_x0:
                 _count_call("spmv_t", g)
                 g = (spmv_t_plain if cpu else spmv_t)(

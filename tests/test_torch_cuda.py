@@ -238,6 +238,134 @@ def test_spmv_kernel_matches_plain(uscene):
         assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
+def _cloth_spmv_system(res, seed):
+    """(values masked, nbr, mask, v) of a res x res cloth's frame Hessian
+    (K 7) at a seeded perturbed state, on the card."""
+    sc = tcloth.ClothScene(ClothConfig(res_x=res, res_y=res), pins=[0, res],
+                           device="cuda")
+    p = sc.params
+    rng = np.random.default_rng(seed)
+    x = p["x0"] + torch.from_numpy(0.01 * rng.standard_normal(
+        tuple(p["x0"].shape)).astype(np.float32)).cuda()
+    diag = tcloth._frame_diag(sc, p, tcloth.init_state(sc), 1.0 / sc.cfg.dt)
+    vals = tcloth._frame_hessian(sc, p, x, diag)
+    v = torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(
+        np.float32)).cuda()
+    return (vals * p["mask"][..., None, None]).contiguous(), p["nbr"], \
+        p["mask"], v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hex K 27", "cloth K 7"])
+def test_spmv_lane_groups_match_plain(uscene, case):
+    """ell_spmv's lane groups at a hex mesh's K = 27 (32 lanes a row) and
+    at the cloth's K = 7 (8 lanes, 4 rows a warp; 33x33 = 1,089 rows, so
+    the last warp is part full), over the whole range and two ragged ones:
+    within 1e-5 of max |ref| of the plain version, two runs bit-equal."""
+    if case.startswith("hex"):
+        rng = np.random.default_rng(5)
+        op = uscene.make_op(0)
+        x = uscene.x0 + torch.from_numpy(0.01 * rng.standard_normal(
+            tuple(uscene.x0.shape)).astype(np.float32)).cuda()
+        vals = tqs.assemble_fine(uscene, uscene.params, x)
+        full = (vals * op.mask[..., None, None]).contiguous()
+        nbr, mask = op.nbr, op.mask
+        v = torch.from_numpy(rng.standard_normal(
+            tuple(x.shape)).astype(np.float32)).cuda()
+    else:
+        full, nbr, mask, v = _cloth_spmv_system(33, 6)
+    n, k = full.shape[:2]
+    assert ek.lanes(k) == (32 if k > 16 else 8)
+    for r0, r1 in ((0, n), (3, n - 5), (n // 2 + 1, n)):
+        before = ek.launches["spmv"]
+        got = ek.spmv_rows(full, nbr, mask, v, r0, r1)
+        again = ek.spmv_rows(full, nbr, mask, v, r0, r1)
+        ref = ek.spmv_rows_plain(full, nbr, mask, v, r0, r1)
+        torch.cuda.synchronize()
+        assert ek.launches["spmv"] == before + 2
+        assert torch.equal(got, again)
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["x_t", "zero"])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_jacobi_bwd_offdiag_matches_plain(uscene, start, accumulate):
+    """ell_jacobi_bwd writing the whole values' gradient row (one launch)
+    on every level of the Galerkin chain: lam, gb and gv within 1e-5 of
+    max |ref| of jacobi_bwd_plain, two runs bit-equal, and its off-diagonal
+    slots bit-equal to the launch it replaces,
+    ell_outer(lam, nbr, mask, x_t, skip=diag_slot, alpha=-1) (x_t zero for
+    the zero start, which the one launch does not read); storing and
+    accumulating."""
+    rng = np.random.default_rng(19)
+    x = uscene.x0 + torch.from_numpy(0.01 * rng.standard_normal(
+        tuple(uscene.x0.shape)).astype(np.float32)).cuda()
+    chain = tqs.galerkin_chain(uscene, uscene.params,
+                               tqs.assemble_fine(uscene, uscene.params, x))
+    for li, vals in enumerate(chain):
+        op = uscene.make_op(li)
+        n = vals.shape[0]
+        b, g, xt = (torch.from_numpy(rng.standard_normal((n, 3)).astype(
+            np.float32)).cuda() for _ in range(3))
+        if start == "zero":
+            xt = torch.zeros_like(b)
+        gv0 = torch.from_numpy(rng.standard_normal(tuple(vals.shape)).astype(
+            np.float32)).cuda()
+        gb0 = torch.from_numpy(rng.standard_normal((n, 3)).astype(
+            np.float32)).cuda()
+        args = (vals, op.nbr, op.mask, op.diag_slot, b)
+
+        def merged(fn):
+            gv, gb = gv0.clone(), gb0.clone()
+            lam = fn(*args, None if start == "zero" else xt, g, gb, gv,
+                     accumulate)
+            return lam, gb, gv
+        (lam, gb, gv), again, ref = merged(ek.jacobi_bwd), \
+            merged(ek.jacobi_bwd), merged(ek.jacobi_bwd_plain)
+        rows, ds = torch.arange(n, device=b.device), op.diag_slot.long()
+        two = gv0.clone()
+        two[rows, ds] = gv[rows, ds]
+        ek.outer(lam, op.nbr, op.mask, xt, skip=op.diag_slot, alpha=-1.0,
+                 out=two, accumulate=accumulate)
+        torch.cuda.synchronize()
+        assert torch.equal(gv, two), li
+        for got, rep, want in zip((lam, gb, gv), again, ref):
+            assert torch.equal(got, rep), li
+            assert float((got - want).abs().max()) <= 1e-5 * float(
+                want.abs().max()), li
+
+
+@pytest.mark.cuda
+def test_jacobi_backward_one_launch_an_iteration(uscene):
+    """EllJacobiFn's backward launches one ell_jacobi_bwd an iteration and
+    no ell_outer: one iteration from zero (exp2's coarse solve) launches
+    exactly one jacobi_bwd and nothing else; three iterations from an x0
+    that takes a gradient three jacobi_bwd and three spmv_t."""
+    rng = np.random.default_rng(2)
+    op = uscene.make_op(1)
+    vals = tqs.galerkin_chain(uscene, uscene.params, tqs.assemble_fine(
+        uscene, uscene.params, uscene.x0))[1]
+    n = vals.shape[0]
+    b, x0, w = (torch.from_numpy(rng.standard_normal((n, 3)).astype(
+        np.float32)).cuda() for _ in range(3))
+    for its, start, want in ((1, None, (1, 0, 0)), (3, x0, (3, 0, 3))):
+        V = vals.clone().requires_grad_()
+        B = b.clone().requires_grad_()
+        X0 = None if start is None else start.clone().requires_grad_()
+        out = ek.jacobi(V, op.nbr, op.mask, op.diag_slot, B, X0, its,
+                        op.transpose_table())
+        ek.reset_launches()
+        for name in ell.cuda_calls:
+            ell.cuda_calls[name] = 0
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        assert ek.launches == ell.cuda_calls
+        assert (ek.launches["jacobi_bwd"], ek.launches["outer"],
+                ek.launches["spmv_t"]) == want
+        assert bool(torch.isfinite(V.grad).all())
+
+
 @pytest.mark.cuda
 def test_fused_pcg_kernel_matches_plain(scene):
     """fused_pcg on the card == its plain version: |k - k_plain| <= 1 (the
@@ -347,13 +475,12 @@ def test_exp2_gradient_on_the_card(uscene):
     pins = np.nonzero(cpu.params["levels"][0]["pin_mask"].numpy() > 0)[0]
     x = cpu.x0.clone()
     x[int(pins[0])] += 1e-3
-    # launches (jacobi_bwd, outer, spmv_t): mode P's first cycle builds its
-    # coarse matrix from the classic weights, so its values take no
-    # gradient (no outer); the one iteration from the zero start sends no
-    # gradient further (no spmv_t)
+    # launches (jacobi_bwd, outer, spmv_t): one jacobi_bwd an iteration
+    # writes the values' gradient too (no outer); the one iteration from
+    # the zero start sends no gradient further (no spmv_t)
     for cfg, want in (
-            (TrainInterpConfig(mode="P", loss="l2", unroll=2), (2, 1, 0)),
-            (TrainInterpConfig(mode="p_hat", loss="l2"), (1, 1, 0))):
+            (TrainInterpConfig(mode="P", loss="l2", unroll=2), (2, 0, 0)),
+            (TrainInterpConfig(mode="p_hat", loss="l2"), (1, 0, 0))):
         ek.reset_launches()
         for name in ell.cuda_calls:
             ell.cuda_calls[name] = 0

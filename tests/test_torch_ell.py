@@ -30,11 +30,12 @@ from fem_simulation_tpu.solvers import smoothers as jsm
 
 from fem_simulation_tpu_torch import hierarchy as thier
 from fem_simulation_tpu_torch import mesh as tmesh
-from fem_simulation_tpu_torch.config import SolverConfig
+from fem_simulation_tpu_torch.config import ClothConfig, SolverConfig
 from fem_simulation_tpu_torch.ops import elastic as tel
 from fem_simulation_tpu_torch.ops import ell as tell
 from fem_simulation_tpu_torch.ops import ell_kernels as tek
 from fem_simulation_tpu_torch.ops import transfer as ttr
+from fem_simulation_tpu_torch.sim import cloth as tcloth
 from fem_simulation_tpu_torch.sim import quasistatic as tqs
 from fem_simulation_tpu_torch.sim.scene import Scene, params_from_numpy
 from fem_simulation_tpu_torch.solvers import cg as tcg
@@ -135,16 +136,40 @@ def test_scene_tables_equal_jax(scenes):
                     np.testing.assert_array_equal(cd[name].numpy(), ref)
 
 
-def test_spmv_plain_matches_jax_and_pallas(scenes, state):
+@pytest.fixture(scope="module", params=["hex", "cloth"])
+def spmv_case(request, scenes, state):
+    """(values masked, nbr, mask, v, row ranges): the hex beam's fine
+    Hessian (K 27, its color ranges), or the 8x8 cloth's frame Hessian at a
+    seeded perturbed state (K 7: the lane groups' narrow rows; two row
+    ranges), tables from the port's ClothScene."""
+    if request.param == "hex":
+        _, ts = scenes
+        _, vals, v = state
+        p = ts.params["levels"][0]
+        offs = [int(c) for c in ts.level(0).color_offsets]
+        return (t(vals) * p["mask"][..., None, None], p["nbr"], p["mask"], v,
+                list(zip(offs[:-1], offs[1:])))
+    sc = tcloth.ClothScene(ClothConfig(res_x=8, res_y=8), pins=[0, 8],
+                           device="cpu")
+    p = sc.params
+    rng = np.random.default_rng(8)
+    x = p["x0"] + torch.from_numpy(0.01 * rng.standard_normal(
+        tuple(p["x0"].shape)).astype(np.float32))
+    diag = tcloth._frame_diag(sc, p, tcloth.init_state(sc), 1.0 / sc.cfg.dt)
+    vals = tcloth._frame_hessian(sc, p, x, diag)
+    assert tuple(vals.shape[:2]) == (81, 7)
+    v = rng.standard_normal(tuple(x.shape)).astype(np.float32)
+    return (vals * p["mask"][..., None, None], p["nbr"], p["mask"], v,
+            [(0, 27), (27, 81)])
+
+
+def test_spmv_plain_matches_jax_and_pallas(spmv_case):
     """spmv_plain / spmv_rows_plain (the kernel's plain version) == JAX
     ell.spmv / spmv_rows and the TPU kernel's own function
     (pallas_kernels.spmv in interpret mode), to 1e-6 of max|y|, on the full
-    range and every color range; a NaN at a masked slot propagates."""
-    js, ts = scenes
-    _, vals, v = state
-    p = ts.params["levels"][0]
-    nbr, mask = p["nbr"], p["mask"]
-    full = t(vals) * mask[..., None, None]
+    range and every row range, at K 27 and at the cloth's K 7; a NaN at a
+    masked slot propagates."""
+    full, nbr, mask, v, ranges = spmv_case
     jfull = jnp.asarray(full.numpy())
     jn, jmk, jv = jnp.asarray(nbr.numpy()), jnp.asarray(mask.numpy()), \
         jnp.asarray(v)
@@ -153,12 +178,10 @@ def test_spmv_plain_matches_jax_and_pallas(scenes, state):
     close(tell.spmv(full, nbr, mask, t(v)), ref, 1e-6, "ell.spmv")
     pallas = np.asarray(jpk.spmv(jfull, jn, jmk, jv, interpret=True))
     close(tek.spmv_plain(full, nbr, mask, t(v)), pallas, 1e-6, "pallas")
-    offs = ts.level(0).color_offsets
-    for c in range(len(offs) - 1):
+    for r0, r1 in ranges:
         # JAX's spmv_rows is the row slice of spmv
-        r0, r1 = int(offs[c]), int(offs[c + 1])
         close(tell.spmv_rows(full, nbr, mask, t(v), r0, r1), ref[r0:r1],
-              1e-6, f"color {c}")
+              1e-6, f"rows [{r0}, {r1})")
     # a non-finite value at a padded slot is multiplied, not skipped
     row, slot = np.argwhere(mask.numpy() == 0)[0]
     bad = full.clone()
@@ -167,6 +190,14 @@ def test_spmv_plain_matches_jax_and_pallas(scenes, state):
     ref = np.asarray(jell.spmv(jnp.asarray(bad.numpy()), jn, jmk, jv))
     np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
     assert np.isnan(got[row]).all()
+
+
+@pytest.mark.parametrize("k,want", [(1, 1), (2, 2), (3, 4), (7, 8), (8, 8),
+                                    (9, 16), (27, 32), (32, 32)])
+def test_spmv_lanes_fit_the_row(k, want):
+    """ell_spmv / ell_outer give a row the smallest power of two of lanes
+    >= K (8 at the cloth's K 7, 32 at a hex mesh's 27)."""
+    assert tek.lanes(k) == want
 
 
 def test_spmv_wrapper_checks_and_dispatch(scenes, state):

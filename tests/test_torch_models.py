@@ -173,6 +173,40 @@ def test_jacobi_backward_matches_autograd_of_plain(scenes, level, iterations,
         assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
+@pytest.mark.parametrize("start", ["x_t", "zero"])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_jacobi_bwd_offdiag_equals_outer_composition(scenes, start,
+                                                     accumulate):
+    """jacobi_bwd_plain, the plain version of the one-launch Jacobi adjoint,
+    gives exactly what the two calls it replaced gave: its lam, gb and
+    diagonal slots, then outer_plain(lam, nbr, mask, x_t, skip=diag_slot,
+    alpha=-1) into the other slots, storing or accumulating into gb and gv.
+    From the zero start it reads no x_t (xt None: the residual is b) and
+    equals the composition with x_t = 0."""
+    _, ts = scenes
+    op, vals, b, x0, w = _system(ts, 1, seed=11)
+    rng = np.random.default_rng(31)
+    gv0 = torch.from_numpy(rng.standard_normal(tuple(vals.shape)).astype(
+        np.float32))
+    gb0 = torch.from_numpy(rng.standard_normal(tuple(b.shape)).astype(
+        np.float32))
+    xt = x0 if start == "x_t" else torch.zeros_like(b)
+    args = (vals, op.nbr, op.mask, op.diag_slot, b)
+    rows, ds = torch.arange(vals.shape[0]), op.diag_slot.long()
+    gv_row, gb_ref = gv0.clone(), gb0.clone()
+    lam_ref = tek.jacobi_bwd_plain(*args, xt, w, gb_ref, gv_row, accumulate)
+    gv_ref = gv0.clone()
+    gv_ref[rows, ds] = gv_row[rows, ds]
+    tek.outer_plain(lam_ref, op.nbr, op.mask, xt, skip=op.diag_slot,
+                    alpha=-1.0, out=gv_ref, accumulate=accumulate)
+    for bwd in (tek.jacobi_bwd_plain, tek.jacobi_bwd):   # CPU: the plain
+        gv, gb = gv0.clone(), gb0.clone()
+        lam = bwd(*args, None if start == "zero" else xt, w, gb, gv,
+                  accumulate)
+        for got, ref in ((lam, lam_ref), (gb, gb_ref), (gv, gv_ref)):
+            np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
 @pytest.mark.parametrize("case", ["spmv", "jacobi1", "jacobi3", "jacobi2_x0"])
 def test_backward_gradcheck_float64(scenes, case):
     """torch.autograd.gradcheck of the Functions' plain backward in float64
