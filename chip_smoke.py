@@ -25,8 +25,11 @@ Phase 4  the block-ELL SpMV against its plain version on the fine-level
          Hessian of the unstructured Scene of each beam (full range and every
          color range); the fused Gauss-Seidel and Jacobi kernels against
          their plain versions on every multigrid level of each scene (1 and
-         3 iterations, with and without x0, two runs bit-identical); the
-         fused PCG solve
+         3 iterations, with and without x0, two runs bit-identical), ell_gs
+         under its plan and in every form the plan can pick (coop, cluster,
+         resident, stream; each forced through the plan cache, bit-equal to
+         each other), each form's device us in the V-cycle's call and the
+         harness's; the fused PCG solve
          against its plain version on the lattice Newton inputs of phase 1;
          then the fused_pcg entry path (one solve per beam at two
          tolerances) with its launches counted.
@@ -813,18 +816,45 @@ def phase4_spmv(uscenes, reps):
 
 
 def smoother_bound(n, k, iterations, sweeps, with_x0):
-    """Every row's values, nbr and mask once per sweep, b and x0 in, x out;
-    18 K + 60 FLOPs a row and sweep (the row product and the 3x3 solve)."""
+    """The first ell_gs form's traffic, kept for comparison (it is not a
+    floor): every row's values, nbr and mask once per sweep, b and x0 in, x
+    out; 18 K + 60 FLOPs a row and sweep (the row product and the 3x3
+    solve). ell_jacobi's bound (one sweep an iteration)."""
     return bound(iterations * sweeps * n * k * 44
                  + 12 * n * (3 if with_x0 else 2),
                  iterations * sweeps * n * (18.0 * k + 60.0))
 
 
+def gs_bound(offs, k, iterations, with_x0):
+    """The least the card must do for an ell_gs call: every row's values,
+    nbr, mask, diag_slot and b read once, x read (from x0) and written
+    once; 18 K + 60 FLOPs a row for each pass that relaxes it (the passes
+    of ek.gs_passes)."""
+    n = offs[-1]
+    rows = sum(offs[c + 1] - offs[c] for c in ek.gs_passes(offs, iterations))
+    return bound(n * (44 * k + 16) + 12 * n * (2 if with_x0 else 1),
+                 rows * (18.0 * k + 60.0))
+
+
+def gs_forms(n, k, offs, iterations):
+    """{form: blocks}: every ell_gs form the plan weighs at this level, each
+    at the blocks its model likes best (ek.gs_candidates)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    best = {}
+    for cost, form, blocks in ek.gs_candidates(n, k, offs, sms, iterations):
+        if form not in best or cost < best[form][0]:
+            best[form] = (cost, blocks)
+    return {form: blocks for form, (_, blocks) in sorted(best.items())}
+
+
 def phase4_smoothers(uscenes, reps):
     """The fused Gauss-Seidel and Jacobi kernels against their plain versions
-    on every level of each scene's Galerkin chain."""
+    on every level of each scene's Galerkin chain; ell_gs under its plan and
+    in every form the plan can pick (each forced through ek._gs_plans): two
+    runs bit-identical, the forms bit-equal to each other, each timed."""
     rows = {name: {"max_abs_err": 0.0, "by_beam": {}}
             for name in ("gs", "jacobi")}
+    rows["gs"]["by_level"] = []
     for label, sc in uscenes.items():
         rng = np.random.default_rng(11)
         x = sc.x0 + torch.from_numpy(0.01 * rng.standard_normal(
@@ -834,6 +864,7 @@ def phase4_smoothers(uscenes, reps):
         for li, vals in enumerate(chain):
             op = sc.make_op(li)
             n, k = vals.shape[0], vals.shape[1]
+            offs = [int(c) for c in op.color_offsets]
             b = torch.from_numpy(rng.standard_normal((n, 3)).astype(
                 np.float32)).to(sc.device)
             x0 = torch.from_numpy(0.1 * rng.standard_normal((n, 3)).astype(
@@ -841,29 +872,46 @@ def phase4_smoothers(uscenes, reps):
             gs_args = (vals, op.nbr, op.mask, op.diag_slot, op.color_offsets,
                        b)
             worst = 0.0
+            forms = {}
             for iters in (1, 3):
+                key = (str(b.device), n, k, tuple(offs), iters)
                 for start in (None, x0):
                     ref = ek.gs_plain(*gs_args, start, iters)
                     two = smoothers.gauss_seidel_plain(op, vals, b, iters,
                                                        x0=start)
                     scale = float(ref.abs().max())
                     got = ek.gs(*gs_args, start, iters)
-                    again = ek.gs(*gs_args, start, iters)
-                    torch.cuda.synchronize()
-                    check(bool(torch.equal(got, again)), f"gs {label} "
-                          f"level {li}: two runs differ")
-                    # the kernel sums a row's 26 off-diagonal products in
-                    # one butterfly, the plain versions in torch's
-                    # contraction order (the two-stage one the lower and
-                    # upper parts apart)
-                    for what, r in (("one-pass", ref), ("two-stage", two)):
-                        err = max_err(got, r)
-                        check(err <= 1e-5 * scale, f"gs {label} level {li} "
-                              f"iters {iters} vs {what}: max|d| {err:.3e} "
-                              f"> 1e-5 * {scale:.3e}")
-                        worst = max(worst, err / scale)
-                        rows["gs"]["max_abs_err"] = max(
-                            rows["gs"]["max_abs_err"], err)
+                    plan = ek._gs_plans[key]
+                    runs = {plan: got}
+                    for form, blocks in gs_forms(n, k, offs, iters).items():
+                        ek._gs_plans[key] = (form, blocks)
+                        runs[(form, blocks)] = ek.gs(*gs_args, start, iters)
+                        forms.setdefault(iters, {})[form] = blocks
+                    ek._gs_plans[key] = plan
+                    for (form, blocks), out in runs.items():
+                        name = f"{ek.GS_FORMS[form]} {blocks}"
+                        ek._gs_plans[key] = (form, blocks)
+                        again = ek.gs(*gs_args, start, iters)
+                        torch.cuda.synchronize()
+                        check(bool(torch.equal(out, again)), f"gs {label} "
+                              f"level {li} {name}: two runs differ")
+                        check(bool(torch.equal(out, got)), f"gs {label} "
+                              f"level {li} {name}: not bit-equal to the "
+                              f"plan's form {ek.GS_FORMS[plan[0]]}")
+                        # every form sums a row's 26 off-diagonal products in
+                        # relax_row's butterfly order, the plain versions in
+                        # torch's contraction order (the two-stage one the
+                        # lower and upper parts apart)
+                        for what, r in (("one-pass", ref),
+                                        ("two-stage", two)):
+                            err = max_err(out, r)
+                            check(err <= 1e-5 * scale, f"gs {label} level "
+                                  f"{li} {name} iters {iters} vs {what}: "
+                                  f"max|d| {err:.3e} > 1e-5 * {scale:.3e}")
+                            worst = max(worst, err / scale)
+                            rows["gs"]["max_abs_err"] = max(
+                                rows["gs"]["max_abs_err"], err)
+                    ek._gs_plans[key] = plan
             jref = smoothers.jacobi_plain(op, vals, b, 2)
             for start in (None, x0):
                 got = ek.jacobi(vals, op.nbr, op.mask, op.diag_slot, b, start,
@@ -879,17 +927,49 @@ def phase4_smoothers(uscenes, reps):
                       f"max|d| {err:.3e} > 1e-5 * {scale:.3e}")
                 rows["jacobi"]["max_abs_err"] = max(
                     rows["jacobi"]["max_abs_err"], err)
-            # 3 iterations from zero: what a V-cycle asks of gauss_seidel
+            # the V-cycle's call (3 iterations from zero) and the harness's
+            # and FAS's (1 iteration from x0), under the plan and in every
+            # form
+            calls = {3: None, 1: x0}
+            plans = {it: ek._gs_plans[(str(b.device), n, k, tuple(offs), it)]
+                     for it in calls}
+            times = {}
+            for iters, start in calls.items():
+                key = (str(b.device), n, k, tuple(offs), iters)
+                for form, blocks in forms[iters].items():
+                    ek._gs_plans[key] = (form, blocks)
+                    times[(iters, form)] = device_us(
+                        lambda: ek.gs(*gs_args, start, iters), 10, "ell_gs_")
+                ek._gs_plans[key] = plans[iters]
             ms = cuda_ms(lambda: ek.gs(*gs_args, None, 3), reps)
-            us = device_us(lambda: ek.gs(*gs_args, None, 3), 10,
-                           "ell_gs_coop_kernel")
             plain_ms = cuda_ms(
                 lambda: smoothers.gauss_seidel_plain(op, vals, b, 3), 3,
                 warmup=1)
-            b_ms, b_by = smoother_bound(n, k, 3, 2, False)
+            b_ms, b_by = gs_bound(offs, k, 3, False)
+            b1_ms = gs_bound(offs, k, 1, True)[0]
+            old_ms = smoother_bound(n, k, 3, 2, False)[0]
+            us3 = times[(3, plans[3][0])]
+            us1 = times[(1, plans[1][0])]
             log(f"phase4 gs {label:4s} level {li} N {n} K {k} max rel |d| "
-                f"{worst:.3e}  3 iterations: kernel {ms:.4f} ms (device "
-                f"{us} us)  plain {plain_ms:.3f} ms  bound {b_ms:.5f} ms ({b_by})")
+                f"{worst:.3e}  plan: 3 iterations from zero "
+                f"{ek.GS_FORMS[plans[3][0]]} {plans[3][1]} device {us3} us "
+                f"(bound {b_ms * 1e3:.2f} us, {b_by}; the first form's "
+                f"traffic {old_ms * 1e3:.2f} us), events {ms:.4f} ms; 1 "
+                f"iteration from x0 {ek.GS_FORMS[plans[1][0]]} "
+                f"{plans[1][1]} device {us1} us (bound {b1_ms * 1e3:.2f} "
+                f"us); plain {plain_ms:.3f} ms")
+            log(f"phase4 gs {label:4s} level {li} forms (device us, 3 it "
+                f"from 0 / 1 it from x0; all bit-equal): " + ", ".join(
+                    f"{ek.GS_FORMS[f]} {forms[3][f]}/{forms[1][f]} "
+                    f"{times[(3, f)]} / {times[(1, f)]}" for f in forms[3]))
+            rows["gs"]["by_level"].append(dict(
+                beam=label, level=li, n=n,
+                form=ek.GS_FORMS[plans[3][0]], blocks=plans[3][1],
+                device_us=us3, bound_ms=b_ms, bound_by=b_by,
+                form_1=ek.GS_FORMS[plans[1][0]], blocks_1=plans[1][1],
+                device_us_1=us1, bound_ms_1=b1_ms,
+                forms={ek.GS_FORMS[f]: [times[(3, f)], times[(1, f)]]
+                       for f in forms[3]}))
             jms = cuda_ms(lambda: ek.jacobi(vals, op.nbr, op.mask,
                                             op.diag_slot, b, None, 2), reps)
             jus = device_us(lambda: ek.jacobi(
@@ -904,7 +984,7 @@ def phase4_smoothers(uscenes, reps):
             if li == 0:        # the table's numbers: the fine level
                 rows["gs"]["by_beam"][label] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None, device_us=us)
+                    library_ms=None, device_us=us3)
                 rows["jacobi"]["by_beam"][label] = dict(
                     ms=jms, plain_ms=jplain, bound_ms=jb_ms, bound_by=jb_by,
                     library_ms=None, device_us=jus)
@@ -3638,6 +3718,14 @@ def main() -> int:
     counts["fused_pcg"] = phase4_pcg_path(scenes, inputs, rhs)
     uresults, ell_counts = phase5(uscenes)
     counts.update(ell_counts)
+    # ell_gs's launches on the main paths by (rows, form): phases 5, 8, 9
+    # and 10 each zero the counts first
+    gs_shapes = {}
+
+    def add_gs_shapes():
+        for key, v in ek.gs_launches.items():
+            gs_shapes[key] = gs_shapes.get(key, 0) + v
+    add_gs_shapes()
     rel6, err6 = phase6(uscenes["19k"])
     levels7 = phase7_kernels(scenes, rows, reps=20)
     results7, counts7 = phase7_path(scenes)
@@ -3647,6 +3735,7 @@ def main() -> int:
     cloths = {label: cloth_scene(res, dev) for label, res in CLOTHS.items()}
     phase8_spmv(cloths, rows["spmv"], reps=50)
     results8, counts8 = phase8(cloths, uscenes["2k"])
+    add_gs_shapes()
     for name in ELL_FORWARD:
         counts[name] += counts8[name]
     t0 = time.perf_counter()
@@ -3659,6 +3748,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s)")
     rows.update(phase9_kernels(uscenes, sc21, reps=20))
     results9, counts9 = phase9(sc21, uscenes["2k"], sc21_cpu)
+    add_gs_shapes()
     for name in ELL_FORWARD:
         counts[name] += counts9[name]
     for name in ELL_BACKWARD:
@@ -3669,12 +3759,18 @@ def main() -> int:
         scenes, uscenes, rows,
         results7["solves"]["74k quasistatic_to_tol_mg"]["newton"])
     results10.update(path10)
+    add_gs_shapes()
     for name in counts:
         counts[name] += counts10.get(name, 0)
     results11, counts11 = phase11(rows)
     for name, cname in COVER_MODES.items():
         counts[name] += counts11[cname]
 
+    log("gs launches on the main paths by (rows, form): "
+        + ", ".join(f"{n} {form} {c}"
+                    for (n, form), c in sorted(gs_shapes.items())))
+    check(sum(gs_shapes.values()) == counts["gs"], f"gs launches by shape "
+          f"{gs_shapes} do not add up to {counts['gs']}")
     summary = {label: {k: v for k, v in r.items() if k != "state8"}
                for label, r in results.items()}
     log("phase2 summary " + json.dumps(summary))
@@ -3728,6 +3824,10 @@ def main() -> int:
             out["by_cloth"] = r["by_cloth"]
         if name in ELL_BACKWARD:     # phase 9: every shape it ran at
             out["by_level"] = r["by_level"]
+        if name == "gs":             # phase 4's levels, the paths' shapes
+            out["by_level"] = r["by_level"]
+            out["by_shape"] = [{"n": n, "form": form, "launches": c}
+                               for (n, form), c in sorted(gs_shapes.items())]
         if name in per_level:        # phase 7: at the multigrid level shapes
             out["by_level"] = {
                 label: [{"level": e["level"], "shape": e["shape"],

@@ -64,16 +64,13 @@
 // (D+L)^{-1}(b - U x_bwd). solvers/smoothers.py checks the independent-set
 // property once per operator on the host.
 //
-// Bound: memory, as the SpMV: every row's values, nbr and mask are read once
-// per sweep, 2 * N * K * 44 B per iteration (53 us on the 74k beam's fine
-// level at 3.35 TB/s). Between two colors the whole device must be in
-// order: one cooperative launch runs all iterations with grid.sync()
-// between the color passes (a grid barrier costs less than the launch
-// boundary that one plain launch per color would put there: that form
-// measured slower on small levels and equal on the largest).
-// ell_jacobi reads the previous iterate from a second buffer and swaps the
-// two per iteration (one plain launch each). One warp takes a row, lane k
-// slot k, a fixed shuffle butterfly sums the slots: run-to-run identical.
+// Between two colors every row of the level must be in order, so a call is
+// one launch that orders its passes inside (a plain launch a color measured
+// slower): ell_gs's forms and what bounds them are set out at the kernels
+// below. ell_jacobi reads the previous iterate from a second buffer and
+// swaps the two per iteration (one plain launch each; bound: memory, every
+// row's values, nbr and mask once an iteration). One warp takes a row, lane
+// k slot k, a fixed shuffle butterfly sums the slots: run-to-run identical.
 //
 // The backward kernels (no TPU kernel of their own: the JAX package gets
 // these gradients from jax.grad of the SpMV and of the smoother's
@@ -206,6 +203,48 @@ __device__ __forceinline__ void outer_row(
     }
 }
 
+// A slot's 3 partial products values[e] (x[nbr[e]] mask[e]), the gathered
+// x already multiplied by the mask. Every smoother form and ell_jacobi
+// form them with this one expression, so they round alike.
+__device__ __forceinline__ void slot_product(const float* v, float x0,
+                                             float x1, float x2, float& s0,
+                                             float& s1, float& s2) {
+    s0 = v[0] * x0 + v[1] * x1 + v[2] * x2;
+    s1 = v[3] * x0 + v[4] * x1 + v[5] * x2;
+    s2 = v[6] * x0 + v[7] * x1 + v[8] * x2;
+}
+
+// The adjugate of the diagonal block d (row-major) as ops/ell.py solve3x3
+// forms it: c[3 i + j] the cofactor c_ij, inv_det = det / (det^2 + eps).
+__device__ __forceinline__ void adjugate(const float* d, float* c,
+                                         float& inv_det) {
+    const float a00 = d[0], a01 = d[1], a02 = d[2], a10 = d[3], a11 = d[4],
+                a12 = d[5], a20 = d[6], a21 = d[7], a22 = d[8];
+    c[0] = a11 * a22 - a12 * a21;
+    c[1] = a12 * a20 - a10 * a22;
+    c[2] = a10 * a21 - a11 * a20;
+    const float det = a00 * c[0] + a01 * c[1] + a02 * c[2];
+    c[3] = a02 * a21 - a01 * a22;
+    c[4] = a00 * a22 - a02 * a20;
+    c[5] = a01 * a20 - a00 * a21;
+    c[6] = a01 * a12 - a02 * a11;
+    c[7] = a02 * a10 - a00 * a12;
+    c[8] = a00 * a11 - a01 * a10;
+    inv_det = det / (det * det + 1e-12f);
+}
+
+// o = D^{-1} (b - s) from D's adjugate (ops/ell.py solve3x3).
+__device__ __forceinline__ void apply_adjugate(const float* c, float inv_det,
+                                               float b0, float b1, float b2,
+                                               float s0, float s1, float s2,
+                                               float& o0, float& o1,
+                                               float& o2) {
+    const float r0 = b0 - s0, r1 = b1 - s1, r2 = b2 - s2;
+    o0 = (c[0] * r0 + c[3] * r1 + c[6] * r2) * inv_det;
+    o1 = (c[1] * r0 + c[4] * r1 + c[7] * r2) * inv_det;
+    o2 = (c[2] * r0 + c[5] * r1 + c[8] * r2) * inv_det;
+}
+
 // One relaxed row (a whole warp calls it with a warp-uniform row): the
 // off-diagonal row product against xin, then lane 0 solves the diagonal
 // block and writes xout[row]. xin may alias xout (Gauss-Seidel in place:
@@ -234,11 +273,7 @@ __device__ __forceinline__ void relax_row(
         // colors): read it from L2, never from this SM's L1
         const float x0 = __ldcg(xin + c) * m, x1 = __ldcg(xin + c + 1) * m,
                     x2 = __ldcg(xin + c + 2) * m;
-        if (lane != ds) {
-            s0 = v[0] * x0 + v[1] * x1 + v[2] * x2;
-            s1 = v[3] * x0 + v[4] * x1 + v[5] * x2;
-            s2 = v[6] * x0 + v[7] * x1 + v[8] * x2;
-        }
+        if (lane != ds) slot_product(v, x0, x1, x2, s0, s1, s2);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -251,26 +286,11 @@ __device__ __forceinline__ void relax_row(
     for (int t = 0; t < 9; ++t) d[t] = __shfl_sync(full, v[t], ds);
     const float b1 = __shfl_sync(full, bj, 1), b2 = __shfl_sync(full, bj, 2);
     if (lane == 0) {
-        const float a00 = d[0], a01 = d[1], a02 = d[2], a10 = d[3],
-                    a11 = d[4], a12 = d[5], a20 = d[6], a21 = d[7],
-                    a22 = d[8];
-        const float r0 = bj - s0, r1 = b1 - s1, r2 = b2 - s2;
-        // ops/ell.py solve3x3: the adjugate, det / (det^2 + eps)
-        const float c00 = a11 * a22 - a12 * a21;
-        const float c01 = a12 * a20 - a10 * a22;
-        const float c02 = a10 * a21 - a11 * a20;
-        const float det = a00 * c00 + a01 * c01 + a02 * c02;
-        const float c10 = a02 * a21 - a01 * a22;
-        const float c11 = a00 * a22 - a02 * a20;
-        const float c12 = a01 * a20 - a00 * a21;
-        const float c20 = a01 * a12 - a02 * a11;
-        const float c21 = a02 * a10 - a00 * a12;
-        const float c22 = a00 * a11 - a01 * a10;
-        const float inv_det = det / (det * det + 1e-12f);
+        float c[9], inv_det;
+        adjugate(d, c, inv_det);
         float* out = xout + 3LL * row;
-        out[0] = (c00 * r0 + c10 * r1 + c20 * r2) * inv_det;
-        out[1] = (c01 * r0 + c11 * r1 + c21 * r2) * inv_det;
-        out[2] = (c02 * r0 + c12 * r1 + c22 * r2) * inv_det;
+        apply_adjugate(c, inv_det, bj, b1, b2, s0, s1, s2, out[0], out[1],
+                       out[2]);
     }
 }
 
@@ -294,34 +314,507 @@ ell_relax_rows_kernel(const RelaxArgs A, const float* xin, float* xout,
               lane);
 }
 
+// -- ell_gs: the forms of a colored symmetric Gauss-Seidel call -------------
+//
+// Every form runs the same passes: per iteration the non-empty colors last
+// to first, then first to last, but a color is not relaxed twice in a row
+// (the backward sweep ends on the first color and the forward sweep starts
+// on it; the forward sweep ends on the last color and the next backward
+// sweep starts on it). A color is an independent set and a row's own slot
+// is skipped (its padded slots are masked), so the repeated pass would read
+// the inputs the pass before it read and write the same values: m
+// non-empty colors and t iterations make t (2m - 2) + 1 passes (43 for 8
+// colors and 3 iterations, against 48), pass p relaxing the color of index
+// |m - 1 - p mod (2m - 2)| among them.
+//
+// The forms (ell_gs_plan picks one with its blocks before the launch, by a
+// cost model fitted to an H100):
+//   kGsCoop     the first form: one cooperative launch, a warp a row
+//               (relax_row), every row's values, nbr and mask read from
+//               memory in every pass, a grid barrier between passes. The
+//               plan keeps it where it models cheaper, and where no staged
+//               form fits (a color of more than ~12k rows over 132 SMs).
+//   kGsCluster  one thread-block cluster of `blocks` <= 16 blocks. Block r
+//               owns the same slice of every color, [off_c + size_c r /
+//               blocks, off_c + size_c (r + 1) / blocks), and stages its
+//               rows (values, nbr, mask, diag_slot, b) into shared memory
+//               once a call, with a full copy of x: the group that relaxes
+//               a row stores its new x into every block's copy (st.async
+//               into distributed shared memory), so a gather is a load from
+//               the block's own shared memory. Between passes each block
+//               waits on its own mbarrier for the other blocks' rows of the
+//               pass's color, not on a cluster barrier.
+//   kGsResident a cooperative launch of `blocks` blocks (at most one an SM
+//               where the rows need most of its shared memory), each
+//               staging its slices once a call as above; x stays in device
+//               memory (gathered from L2), a grid barrier between passes.
+//   kGsStream   the same launch, but a block stages only the slice of the
+//               pass it works on, double-buffered: the next pass's slice
+//               (values, nbr, mask, diag_slot and b do not depend on x) is
+//               in flight before this pass's work and barrier, so after
+//               the barrier only the x gather waits. For levels whose rows
+//               do not fit on chip (the 74k beam's fine level, 88 MB).
+// The staged forms relax a row with 8 lanes, lane l holding slots l, l + 8,
+// l + 16 and l + 24: it adds them as (s_l + s_{l+16}) + (s_{l+8} + s_{l+24})
+// and an xor butterfly of width 8 adds the lanes, which adds the pairs of
+// relax_row's 32-lane butterfly term by term, so every lane of the group
+// ends with lane 0's sums and every form gives the bits of every other (and
+// of the first form's 48 passes, up to the sign of a zero). The diagonal
+// block's adjugate is formed once a call (it does not depend on x).
+//
+// Bound: a call must read every row's values, nbr and mask once (1,188
+// bytes a row at K 27), diag_slot and b, and read and write x: 2.4 MB on the
+// 2k beam's fine level, 88 MB on the 74k beam's, 0.7 / 27 us at 3.35 TB/s.
+// The passes are a chain of dependent steps (gather, sum, solve, store,
+// barrier), so latency sets the time. On an H100 (scripts/barrier_costs.cu,
+// scripts/gs_pass_trace.py): a grid barrier costs ~1.1 us and a cluster
+// barrier 0.6-0.74 us (its release at cluster scope; a relaxed one 0.06),
+// so the first form spent ~2 us a pass; the cluster form's pass is
+// ~0.7-0.9 us (a row's relaxation from shared memory ~0.3-0.4, its
+// st.async stores ~0.13, the block barrier and the mbarrier wait
+// ~0.1-0.3), the resident form's ~1.6-2.1 (the L2 gather, the grid
+// barrier).
+constexpr int kGsCoop = 0;
+constexpr int kGsCluster = 1;
+constexpr int kGsResident = 2;
+constexpr int kGsStream = 3;
+constexpr int kGsForms = 4;
+constexpr int kGsThreads = 512;
+constexpr int kGsLanes = 8;
+constexpr int kGsGroups = kGsThreads / kGsLanes;
+// the most dynamic shared memory a staged form takes: a block's 227 KB
+// (232,448 bytes) less room for the kernels' static shared memory
+constexpr int kGsSmemCap = 230400;
+constexpr int kMaxCluster = 16;
+
 struct GsArgs {
     RelaxArgs A;
     float* x;
     int offs[kMaxColors + 1];
-    int n_colors;
-    int iterations;
+    int seq[kMaxColors];   // the non-empty colors, in order
+    int m;                 // how many there are
+    int passes;
+    int N;
+    int rows;              // rows of the shared layout (gs_layout_rows)
 };
 
-// The whole colored symmetric Gauss-Seidel in one cooperative launch:
-// per iteration the colors last to first, then first to last, a grid
-// barrier after every non-empty color (the test is uniform over the grid).
+// The color of pass p (see above).
+__device__ __forceinline__ int pass_color(const GsArgs& P, int p) {
+    if (P.m == 1) return P.seq[0];
+    const int t = (P.m - 1) - p % (2 * P.m - 2);
+    return P.seq[t < 0 ? -t : t];
+}
+
+// The first row of block r's slice of color c among `blocks` blocks.
+__host__ __device__ __forceinline__ int slice_start(const int* offs, int c,
+                                                    int r, int blocks) {
+    return offs[c] + static_cast<int>(
+        static_cast<long long>(offs[c + 1] - offs[c]) * r / blocks);
+}
+
+// The whole colored symmetric Gauss-Seidel in one cooperative launch, a
+// warp a row, a grid barrier between passes.
 __global__ void __launch_bounds__(kThreads)
 ell_gs_coop_kernel(const __grid_constant__ GsArgs P) {
     cg::grid_group grid = cg::this_grid();
     const int lane = threadIdx.x & 31;
     const int warp = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
     const int n_warps = gridDim.x * kRowsPerBlock;
-    const int nc = P.n_colors;
-    for (int it = 0; it < P.iterations; ++it) {
-        for (int pass = 0; pass < 2 * nc; ++pass) {
-            const int c = pass < nc ? nc - 1 - pass : pass - nc;
-            const int r0 = P.offs[c], r1 = P.offs[c + 1];
-            if (r1 <= r0) continue;
-            for (int row = r0 + warp; row < r1; row += n_warps)
-                relax_row(P.A.values, P.A.nbr, P.A.mask, P.A.diag_slot, P.A.b,
-                          P.x, P.x, row, P.A.K, lane);
-            grid.sync();
+    for (int p = 0; p < P.passes; ++p) {
+        const int c = pass_color(P, p);
+        const int r1 = P.offs[c + 1];
+        for (int row = P.offs[c] + warp; row < r1; row += n_warps)
+            relax_row(P.A.values, P.A.nbr, P.A.mask, P.A.diag_slot, P.A.b,
+                      P.x, P.x, row, P.A.K, lane);
+        if (p + 1 < P.passes) grid.sync();
+    }
+}
+
+// A block's rows in shared memory, local row l: values [l][K][9], mask
+// [l][K], b [l][3], nbr [l][K], diag_slot [l] and the diagonal block's
+// adjugate and inv_det [l][10] (formed once, as they do not depend on x);
+// R rows of room, gs_row_floats(K) floats a row.
+struct Tables {
+    float* vals;
+    float* mask;
+    float* bs;
+    int* nbr;
+    int* ds;
+    float* inv;
+};
+
+__host__ __device__ __forceinline__ int gs_row_floats(int K) {
+    return 11 * K + 14;
+}
+
+__device__ __forceinline__ Tables tables_at(float* base, int R, int K) {
+    Tables T;
+    T.vals = base;
+    T.mask = T.vals + 9 * K * R;
+    T.bs = T.mask + K * R;
+    T.nbr = reinterpret_cast<int*>(T.bs + 3 * R);
+    T.ds = T.nbr + K * R;
+    T.inv = reinterpret_cast<float*>(T.ds + R);
+    return T;
+}
+
+// The adjugates of local rows [0, cnt) of T, a thread a row, once their
+// values and diag_slot have landed (the caller waits and syncs before and
+// after).
+__device__ __forceinline__ void stage_adjugates(const Tables& T, int cnt,
+                                                int K) {
+    for (int l = threadIdx.x; l < cnt; l += blockDim.x)
+        adjugate(T.vals + 9 * (l * K + T.ds[l]), T.inv + 10 * l,
+                 T.inv[10 * l + 9]);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <class T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int n) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+        cp_async4(dst + i, src + i);
+}
+
+// Global rows [g0, g0 + cnt) into local rows [l0, l0 + cnt) of T
+// (asynchronous: the caller commits and waits).
+__device__ __forceinline__ void stage_rows(const Tables& T,
+                                           const RelaxArgs& A, int g0,
+                                           int l0, int cnt) {
+    const int K = A.K;
+    stage(T.vals + 9 * K * l0, A.values + 9LL * K * g0, 9 * K * cnt);
+    stage(T.mask + K * l0, A.mask + static_cast<long long>(K) * g0, K * cnt);
+    stage(T.nbr + K * l0, A.nbr + static_cast<long long>(K) * g0, K * cnt);
+    stage(T.ds + l0, A.diag_slot + g0, cnt);
+    stage(T.bs + 3 * l0, A.b + 3LL * g0, 3 * cnt);
+}
+
+// Local row l relaxed by the 8 lanes of a group (lane8 = its lane; every
+// lane of a warp that has a row calls it, `live` false for a group past
+// its rows, and ls = l where live, else a row of T that exists). Every load is made
+// whether or not its slot counts (a slot past K reads slot 0, the diagonal
+// slot its own values), so all of them can be in flight at once, and a
+// slot that does not count adds 0 as in relax_row. The last three steps of
+// relax_row's butterfly are an xor butterfly of width 8, which adds the
+// same pairs, so every lane of the group ends with lane 0's sums and
+// returns the new x in o. gather(j, x0, x1, x2) loads x of row j as the
+// staged nbr names it.
+template <class Gather>
+__device__ __forceinline__ void relax_staged(const Tables& T, int l, int ls,
+                                             bool live, int K, int lane8,
+                                             Gather gather, float& o0,
+                                             float& o1, float& o2) {
+    const unsigned full = 0xffffffffu;
+    const int ds = T.ds[ls];
+    float inv[10];
+#pragma unroll
+    for (int t = 0; t < 10; ++t) inv[t] = T.inv[10 * ls + t];
+    const float b0 = T.bs[3 * ls], b1 = T.bs[3 * ls + 1],
+                b2 = T.bs[3 * ls + 2];
+    float p0[4], p1[4], p2[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int k = lane8 + kGsLanes * j;
+        const int e = ls * K + (k < K ? k : 0);
+        const float m = T.mask[e];
+        float x0, x1, x2, q0, q1, q2;
+        gather(T.nbr[e], x0, x1, x2);
+        slot_product(T.vals + 9 * e, x0 * m, x1 * m, x2 * m, q0, q1, q2);
+        const bool use = live && k < K && k != ds;
+        p0[j] = use ? q0 : 0.f;
+        p1[j] = use ? q1 : 0.f;
+        p2[j] = use ? q2 : 0.f;
+    }
+    // relax_row's butterfly: its steps 16 and 8 here, within the lane
+    float s0 = (p0[0] + p0[2]) + (p0[1] + p0[3]);
+    float s1 = (p1[0] + p1[2]) + (p1[1] + p1[3]);
+    float s2 = (p2[0] + p2[2]) + (p2[1] + p2[3]);
+#pragma unroll
+    for (int off = kGsLanes / 2; off > 0; off >>= 1) {
+        s0 += __shfl_xor_sync(full, s0, off, kGsLanes);
+        s1 += __shfl_xor_sync(full, s1, off, kGsLanes);
+        s2 += __shfl_xor_sync(full, s2, off, kGsLanes);
+    }
+    apply_adjugate(inv, inv[9], b0, b1, b2, s0, s1, s2, o0, o1, o2);
+}
+
+// A block's slices of the colors and the passes' colors, in shared memory.
+struct GsBlock {
+    int lb[kMaxColors + 1];     // first local row of each color; lb[n] rows
+    int g0[kMaxColors];         // first global row of its slice of each
+    int other[kMaxColors];      // rows of each color other blocks own
+    int sched[2 * kMaxColors];  // the color of each pass of a period
+    int period;                 // passes a period (see pass_color)
+};
+
+// B for block r of `blocks` blocks.
+__device__ __forceinline__ void block_setup(const GsArgs& P, int n_colors,
+                                            int r, int blocks, GsBlock& B) {
+    if (threadIdx.x == 0) {
+        int l = 0;
+        for (int c = 0; c < n_colors; ++c) {
+            B.lb[c] = l;
+            B.g0[c] = slice_start(P.offs, c, r, blocks);
+            const int own = slice_start(P.offs, c, r + 1, blocks) - B.g0[c];
+            B.other[c] = P.offs[c + 1] - P.offs[c] - own;
+            l += own;
         }
+        B.lb[n_colors] = l;
+        B.period = P.m == 1 ? 1 : 2 * P.m - 2;
+        for (int i = 0; i < B.period; ++i) B.sched[i] = pass_color(P, i);
+    }
+    __syncthreads();
+}
+
+// The shared::cta address of a shared memory pointer, and its
+// shared::cluster address in the block of cluster rank `rank`.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
+    unsigned out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(out)
+                 : "r"(addr), "r"(rank));
+    return out;
+}
+
+// 16 bytes stored into another block's shared memory (raddr, 16-byte
+// aligned), completing 16 bytes of the transaction count of that block's
+// mbarrier rbar.
+__device__ __forceinline__ void st_async4(unsigned raddr, float a, float b,
+                                          float c, unsigned rbar) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+        "{%1, %2, %3, %4}, [%5];\n" ::"r"(raddr),
+        "r"(__float_as_uint(a)), "r"(__float_as_uint(b)),
+        "r"(__float_as_uint(c)), "r"(0u), "r"(rbar)
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+                 "r"(count)
+                 : "memory");
+}
+
+// This block's arrival on its mbarrier, expecting `bytes` more of
+// transactions (st_async4 from the other blocks) before the phase ends.
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+    asm volatile(
+        "{\n.reg .b64 state;\n"
+        "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::
+            "r"(bar),
+        "r"(bytes)
+        : "memory");
+}
+
+// Wait for the phase of the given parity of a local mbarrier to complete.
+// A wait that outlasts 2^26 tries (seconds) traps: the launch then fails
+// with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+    for (unsigned tries = 0;; ++tries) {
+        unsigned done;
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (tries == (1u << 26)) __trap();
+    }
+}
+
+// kGsCluster: the whole call in one cluster of gridDim.x blocks; shared
+// memory [x: 4 N floats, row j's 3 at 4 j][Tables of P.rows rows]. No
+// cluster barrier between passes (a release at cluster scope costs ~0.7 us
+// on an H100): a row's group stores its new x into every other block's
+// copy with st.async (16 bytes), each store completing 16 bytes of a
+// transaction count on that block's mbarrier, and a block starts pass p + 1
+// once its mbarrier has counted every row of pass p's color that other
+// blocks own and its own warps are past a block barrier. A block's reads of
+// pass p are done before its stores of pass p leave (they are computed
+// from them), and no block starts pass p + 1 before every block's pass p
+// stores arrived, so no store of pass p + 1 meets a read of pass p. Two
+// mbarriers, pass p on p & 1: a block is at most one pass ahead of another.
+__global__ void __launch_bounds__(kGsThreads, 1)
+ell_gs_cluster_kernel(const __grid_constant__ GsArgs P, int n_colors) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ GsBlock B;
+    __shared__ __align__(8) unsigned long long bars[2];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int r = static_cast<int>(cluster.block_rank());
+    const int nb = static_cast<int>(cluster.num_blocks());
+    const int K = P.A.K;
+    block_setup(P, n_colors, r, nb, B);
+    float* xs = smem;
+    const Tables T = tables_at(smem + 4 * P.N, P.rows, K);
+    for (int c = 0; c < n_colors; ++c)
+        stage_rows(T, P.A, B.g0[c], B.lb[c], B.lb[c + 1] - B.lb[c]);
+    for (int i = threadIdx.x; i < 3 * P.N; i += blockDim.x)
+        cp_async4(xs + 4 * (i / 3) + i % 3, P.x + i);
+    cp_async_commit();
+    if (threadIdx.x == 0) {
+        mbar_init(smem_addr(&bars[0]), 1);
+        mbar_init(smem_addr(&bars[1]), 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    stage_adjugates(T, B.lb[n_colors], K);
+    __syncthreads();
+    cluster.sync();  // every block's x staged and mbarriers set up
+    const int lane8 = threadIdx.x & (kGsLanes - 1);
+    const int group = threadIdx.x / kGsLanes;
+    // the copies of x and the mbarriers of the blocks this lane stores to
+    // (ranks lane8 and lane8 + 8), mapped once
+    unsigned xq[2], bq[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int q = lane8 + kGsLanes * h < nb ? lane8 + kGsLanes * h : r;
+        xq[h] = map_rank(smem_addr(xs), q);
+        bq[h][0] = map_rank(smem_addr(&bars[0]), q);
+        bq[h][1] = map_rank(smem_addr(&bars[1]), q);
+    }
+    int pos = 0;
+    for (int p = 0; p < P.passes; ++p) {
+        const int c = B.sched[pos];
+        pos = pos + 1 == B.period ? 0 : pos + 1;
+        const unsigned bar = smem_addr(&bars[p & 1]);
+        if (threadIdx.x == blockDim.x - 1)  // a thread that relaxes least
+            mbar_expect(bar, 16u * B.other[c]);
+        const int l1 = B.lb[c + 1];
+        for (int l0 = B.lb[c]; l0 < l1; l0 += kGsGroups) {
+            if (l0 + (group & ~3) >= l1) break;  // no row for this warp
+            const int l = l0 + group;
+            const bool live = l < l1;
+            float o0, o1, o2;
+            relax_staged(T, l, live ? l : l0, live, K, lane8,
+                         [&](int j, float& a, float& b, float& d) {
+                             const float4 v =
+                                 *reinterpret_cast<const float4*>(xs + 4 * j);
+                             a = v.x;
+                             b = v.y;
+                             d = v.z;
+                         },
+                         o0, o1, o2);
+            if (live) {
+                const int g = B.g0[c] + l - B.lb[c];
+                if (lane8 == 0)
+                    *reinterpret_cast<float4*>(xs + 4 * g) =
+                        make_float4(o0, o1, o2, 0.f);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int q = lane8 + kGsLanes * h;
+                    if (q < nb && q != r)
+                        st_async4(xq[h] + 16u * g, o0, o1, o2,
+                                  (p & 1) ? bq[h][1] : bq[h][0]);
+                }
+            }
+        }
+        __syncthreads();  // this block's rows of color c seen by its warps
+        mbar_wait(bar, (p >> 1) & 1);  // and the other blocks' rows
+    }
+    for (int c = 0; c < n_colors; ++c) {  // the block's own rows out
+        const int g = B.g0[c], cnt = B.lb[c + 1] - B.lb[c];
+        for (int i = threadIdx.x; i < 3 * cnt; i += blockDim.x)
+            P.x[3LL * g + i] = xs[4 * (g + i / 3) + i % 3];
+    }
+    cluster.sync();  // no block leaves while another may still store to it
+}
+
+// kGsResident (Stream false) and kGsStream (Stream true): a cooperative
+// launch, x in device memory. Resident: shared memory holds the Tables of
+// the block's P.rows rows; Stream: two Tables of P.rows rows (the widest
+// slice), pass p in buffer p & 1.
+template <bool Stream>
+__global__ void __launch_bounds__(kGsThreads, 1)
+ell_gs_grid_kernel(const __grid_constant__ GsArgs P, int n_colors) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ GsBlock B;
+    cg::grid_group grid = cg::this_grid();
+    const int K = P.A.K;
+    block_setup(P, n_colors, blockIdx.x, gridDim.x, B);
+    const int buffer = gs_row_floats(K) * P.rows;  // floats of one Tables
+    const int first = B.sched[0];
+    if (Stream) {
+        stage_rows(tables_at(smem, P.rows, K), P.A, B.g0[first], 0,
+                   B.lb[first + 1] - B.lb[first]);
+    } else {
+        for (int c = 0; c < n_colors; ++c)
+            stage_rows(tables_at(smem, P.rows, K), P.A, B.g0[c], B.lb[c],
+                       B.lb[c + 1] - B.lb[c]);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    stage_adjugates(tables_at(smem, P.rows, K),
+                    Stream ? B.lb[first + 1] - B.lb[first] : B.lb[n_colors],
+                    K);
+    __syncthreads();
+    const int lane8 = threadIdx.x & (kGsLanes - 1);
+    const int group = threadIdx.x / kGsLanes;
+    float* x = P.x;
+    int pos = 0;
+    for (int p = 0; p < P.passes; ++p) {
+        const int c = B.sched[pos];
+        pos = pos + 1 == B.period ? 0 : pos + 1;
+        const bool next = Stream && p + 1 < P.passes;
+        const int cn = B.sched[pos];
+        float* other = smem + ((p & 1) ? 0 : buffer);
+        if (next) {  // the next pass's slice, in flight during this pass
+            stage_rows(tables_at(other, P.rows, K), P.A, B.g0[cn], 0,
+                       B.lb[cn + 1] - B.lb[cn]);
+            cp_async_commit();
+        }
+        const Tables T =
+            tables_at(smem + ((Stream && (p & 1)) ? buffer : 0), P.rows, K);
+        const int base = Stream ? 0 : B.lb[c], cnt = B.lb[c + 1] - B.lb[c];
+        for (int i0 = 0; i0 < cnt; i0 += kGsGroups) {
+            if (i0 + (group & ~3) >= cnt) break;  // no row for this warp
+            const int i = i0 + group;
+            const bool live = i < cnt;
+            float o0, o1, o2;
+            // x changes under the kernel: gathered from L2, not L1
+            relax_staged(T, base + i, base + (live ? i : i0), live, K, lane8,
+                         [&](int j, float& a, float& b, float& d) {
+                             const float* xr = x + 3LL * j;
+                             a = __ldcg(xr);
+                             b = __ldcg(xr + 1);
+                             d = __ldcg(xr + 2);
+                         },
+                         o0, o1, o2);
+            if (live && lane8 == 0) {
+                float* out = x + 3LL * (B.g0[c] + i);
+                out[0] = o0;
+                out[1] = o1;
+                out[2] = o2;
+            }
+        }
+        if (next) {  // the next slice landed: its adjugates, before the barrier
+            cp_async_wait_all();
+            __syncthreads();
+            stage_adjugates(tables_at(other, P.rows, K),
+                            B.lb[cn + 1] - B.lb[cn], K);
+        }
+        if (p + 1 < P.passes) grid.sync();
     }
 }
 
@@ -543,6 +1036,164 @@ int blocks_for_groups(int rows, int lanes) {
         (static_cast<long long>(rows) * lanes + kThreads - 1) / kThreads);
 }
 
+// The rows of a staged form's shared layout at `blocks` blocks: the most
+// rows a block owns (cluster and resident forms) or the widest slice of
+// one color (stream). Mirrored by ops/ell_kernels.gs_layout_rows.
+int gs_layout_rows(const int* offs, int n_colors, int form, int blocks) {
+    int most = 0;
+    for (int r = 0; r < blocks; ++r) {
+        int rows = 0;
+        for (int c = 0; c < n_colors; ++c) {
+            const int cnt = slice_start(offs, c, r + 1, blocks)
+                            - slice_start(offs, c, r, blocks);
+            if (form == kGsStream) most = max(most, cnt);
+            rows += cnt;
+        }
+        if (form != kGsStream) most = max(most, rows);
+    }
+    return most;
+}
+
+// Dynamic shared memory of a form: the Tables of `rows` rows (two for the
+// stream form) and the cluster forms' x. Mirrored by gs_smem_bytes.
+long long gs_smem_bytes(int form, int N, int K, int rows) {
+    const long long tables = 1LL * gs_row_floats(K) * rows;
+    switch (form) {
+        case kGsCluster: return 4 * (4LL * N + tables);
+        case kGsResident: return 4 * tables;
+        case kGsStream: return 8 * tables;
+        default: return 0;
+    }
+}
+
+// The cost model of ell_gs_plan, in device microseconds of an H100 (fitted
+// by scripts/ell_tilings.py --fit to its --sweep of every form at the main
+// paths' levels: the plan's picks within ~5% of the fastest launch
+// measured), per
+// form: {launch, a KB staged by a block, a pass, a block a pass, a round of
+// a block's row groups a pass (the coop form: its warps' rows; the staged
+// forms: the most rows a block relaxes in a pass over kGsGroups), a KB a
+// block reads a pass}. Mirrored by ops/ell_kernels.GS_MODEL.
+constexpr double kGsModel[kGsForms][6] = {
+    {0.02696, 0.0, 0.2699, 0.00539, 0.0, 0.166},      // coop
+    {8.294, 0.02867, 0.3159, 0.01804, 0.7804, 0.0},   // cluster
+    {5.272, 0.02945, 1.553, 0.001241, 0.762, 0.0},    // resident
+    {3.806, 0.0, 1.491, 0.007088, 0.0, 0.03735},      // stream
+};
+
+// The modelled device microseconds of a call of `passes` passes in a form
+// at `blocks` blocks (the coop form: the blocks it launches for its widest
+// color, at most 8 an SM). Mirrored by ops/ell_kernels.gs_cost.
+double gs_cost(const int* offs, int n_colors, int N, int K, int passes,
+               int form, int blocks) {
+    int widest = 0;
+    for (int c = 0; c < n_colors; ++c)
+        widest = max(widest, offs[c + 1] - offs[c]);
+    const double row_kb = gs_row_floats(K) * 4.0 / 1024.0;
+    const double* m = kGsModel[form];
+    double stage_kb = 0.0, pass_kb = 0.0, rounds;
+    if (form == kGsCoop) {
+        rounds = double((widest + blocks * kRowsPerBlock - 1)
+                        / (blocks * kRowsPerBlock));
+        pass_kb = rounds * kRowsPerBlock * row_kb;
+    } else {
+        const int wide = gs_layout_rows(offs, n_colors, kGsStream, blocks);
+        rounds = double(wide) / kGsGroups;  // a block's rows a pass, in groups
+        if (form == kGsStream)
+            pass_kb = wide * row_kb;
+        else
+            stage_kb = gs_smem_bytes(form, N, K, gs_layout_rows(
+                           offs, n_colors, form, blocks)) / 1024.0;
+    }
+    const double p = passes;
+    return m[0] + m[1] * stage_kb + m[2] * p + m[3] * (p * blocks)
+           + m[4] * (p * rounds) + m[5] * (p * pass_kb);
+}
+
+// The passes of a call of `iterations` with m non-empty colors.
+int gs_passes(int m, int iterations) {
+    if (iterations < 1 || m < 1) return 0;
+    return m == 1 ? 1 : iterations * (2 * m - 2) + 1;
+}
+
+constexpr int kGsMaxDevices = 16;
+const void* const kGsKernels[kGsForms] = {
+    reinterpret_cast<const void*>(ell_gs_coop_kernel),
+    reinterpret_cast<const void*>(ell_gs_cluster_kernel),
+    reinterpret_cast<const void*>(ell_gs_grid_kernel<false>),
+    reinterpret_cast<const void*>(ell_gs_grid_kernel<true>),
+};
+
+// Lets a staged form's kernel take up to kGsSmemCap bytes of dynamic shared
+// memory (and the cluster forms clusters of up to 16 blocks), once per
+// device.
+cudaError_t gs_allow(int form) {
+    static bool allowed[kGsMaxDevices][kGsForms] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= kGsMaxDevices) return cudaErrorInvalidDevice;
+    if (form == kGsCoop || allowed[dev][form]) return cudaSuccess;
+    e = cudaFuncSetAttribute(kGsKernels[form],
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kGsSmemCap);
+    if (e == cudaSuccess && form == kGsCluster)
+        e = cudaFuncSetAttribute(
+            kGsKernels[form],
+            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    allowed[dev][form] = e == cudaSuccess;
+    return e;
+}
+
+// The launch of a cluster form: one cluster of `blocks` blocks.
+cudaLaunchConfig_t gs_cluster_config(int blocks, long long smem,
+                                     cudaStream_t st,
+                                     cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kGsThreads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
+// Whether a staged form at `blocks` blocks can be launched on the current
+// device with `smem` bytes a block: within kGsSmemCap, a cluster of at most
+// kMaxCluster blocks that the card can place (cudaOccupancyMaxActiveClusters
+// >= 1), or at most one block an SM for the cooperative forms (which must
+// all be resident). *ok false and cudaSuccess when it cannot.
+cudaError_t gs_launchable(int form, int blocks, long long smem, bool* ok) {
+    *ok = false;
+    if (smem > kGsSmemCap || blocks < 1) return cudaSuccess;
+    cudaError_t e = gs_allow(form);
+    if (e != cudaSuccess) return e;
+    if (form == kGsCluster) {
+        if (blocks > kMaxCluster) return cudaSuccess;
+        cudaLaunchAttribute attr[1];
+        const cudaLaunchConfig_t cfg =
+            gs_cluster_config(blocks, smem, nullptr, attr);
+        int clusters = 0;
+        e = cudaOccupancyMaxActiveClusters(&clusters, kGsKernels[form], &cfg);
+        *ok = e == cudaSuccess && clusters >= 1;
+        return e;
+    }
+    int dev = 0, sms = 0, per_sm = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kGsKernels[form], kGsThreads, static_cast<size_t>(smem));
+    *ok = e == cudaSuccess && per_sm >= 1 && blocks <= sms;
+    return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -575,44 +1226,120 @@ int ell_spmv(const float* values, const int* nbr, const float* mask,
 
 // Colored symmetric Gauss-Seidel, `iterations` times, in place on x (N, 3):
 // in x0, out the result. offs: n_colors + 1 row offsets of the color
-// classes (a host array, copied). One cooperative launch.
+// classes (a host array, copied). One launch, in the form and with the
+// blocks that ell_gs_plan picked (or a caller chose): kGsCoop (blocks
+// ignored), a cluster form (1 to 16 blocks) or a cooperative staged form
+// (at most one block an SM). A form that cannot be launched so (its shared
+// memory over 227 KB, a cluster the card cannot place, more blocks than
+// SMs) returns cudaErrorLaunchOutOfResources; nothing else is run instead.
 // Requires 1 <= K <= 32, 1 <= n_colors <= 16, iterations >= 0, and every
 // color an independent set of the matrix graph.
 int ell_gs(const float* values, const int* nbr, const float* mask,
            const int* diag_slot, const int* offs, int n_colors,
-           const float* b, float* x, int N, int K, int iterations,
-           void* stream) {
+           const float* b, float* x, int N, int K, int iterations, int form,
+           int blocks, void* stream) {
     if (N < 1 || K < 1 || K > 32 || n_colors < 1 || n_colors > kMaxColors
-        || iterations < 0)
+        || iterations < 0 || form < 0 || form >= kGsForms)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (iterations == 0) return 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    GsArgs P;
+    GsArgs P = {};
     P.A = RelaxArgs{values, nbr, mask, diag_slot, b, K};
     P.x = x;
+    P.N = N;
     int widest = 0;
     for (int c = 0; c <= n_colors; ++c) P.offs[c] = offs[c];
-    for (int c = 0; c < n_colors; ++c)
+    for (int c = 0; c < n_colors; ++c) {
         widest = max(widest, offs[c + 1] - offs[c]);
-    P.n_colors = n_colors;
-    P.iterations = iterations;
-    if (widest == 0) return 0;
-    int dev = 0, sms = 0, per_sm = 0;
+        if (offs[c + 1] > offs[c]) P.seq[P.m++] = c;
+    }
+    P.passes = gs_passes(P.m, iterations);
+    if (P.passes == 0) return 0;
+    cudaError_t e;
+    if (form == kGsCoop) {
+        int dev = 0, sms = 0, per_sm = 0;
+        e = cudaGetDevice(&dev);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, ell_gs_coop_kernel, kThreads, 0);
+        if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
+        if (e != cudaSuccess) return static_cast<int>(e);
+        const int want = blocks_for_rows(widest), cap = sms * per_sm;
+        void* args[] = {&P};
+        e = cudaLaunchCooperativeKernel(kGsKernels[kGsCoop],
+                                        dim3(want < cap ? want : cap),
+                                        dim3(kThreads), args, 0, st);
+    } else {
+        if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+        P.rows = gs_layout_rows(offs, n_colors, form, blocks);
+        const long long smem = gs_smem_bytes(form, N, K, P.rows);
+        bool ok = false;
+        e = gs_launchable(form, blocks, smem, &ok);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        if (!ok) return static_cast<int>(cudaErrorLaunchOutOfResources);
+        void* args[] = {&P, &n_colors};
+        if (form == kGsCluster) {
+            cudaLaunchAttribute attr[1];
+            const cudaLaunchConfig_t cfg =
+                gs_cluster_config(blocks, smem, st, attr);
+            e = cudaLaunchKernelExC(&cfg, kGsKernels[form], args);
+        } else {
+            e = cudaLaunchCooperativeKernel(
+                kGsKernels[form], dim3(blocks), dim3(kGsThreads), args,
+                static_cast<size_t>(smem), st);
+        }
+    }
+    const cudaError_t last = cudaGetLastError();
+    return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// The form and blocks ell_gs runs a call of `iterations` in on the current
+// device: plan = {form, blocks, modelled device us x 1000}, the least
+// gs_cost among the coop form, every cluster of 1 to 16 blocks and every
+// count of blocks up to the SM count of the resident and stream forms that
+// gs_launchable takes (ties: the first in that order). Mirrored by
+// ops/ell_kernels.gs_plan. Returns a CUDA error code.
+int ell_gs_plan(int N, int K, const int* offs, int n_colors, int iterations,
+                int* plan) {
+    if (N < 1 || K < 1 || K > 32 || n_colors < 1 || n_colors > kMaxColors)
+        return static_cast<int>(cudaErrorInvalidValue);
+    int dev = 0, sms = 0, m = 0, widest = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, ell_gs_coop_kernel, kThreads, 0);
-    if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int want = blocks_for_rows(widest), cap = sms * per_sm;
-    void* args[] = {&P};
-    e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(ell_gs_coop_kernel),
-        dim3(want < cap ? want : cap), dim3(kThreads), args, 0, st);
-    const cudaError_t last = cudaGetLastError();
-    return static_cast<int>(e != cudaSuccess ? e : last);
+    for (int c = 0; c < n_colors; ++c) {
+        m += offs[c + 1] > offs[c];
+        widest = max(widest, offs[c + 1] - offs[c]);
+    }
+    const int passes = gs_passes(m, iterations > 0 ? iterations : 1);
+    double best = gs_cost(offs, n_colors, N, K, passes, kGsCoop,
+                          min(blocks_for_rows(widest), 8 * sms));
+    plan[0] = kGsCoop;
+    plan[1] = 0;
+    for (int form = kGsCluster; form < kGsForms; ++form) {
+        const bool cluster = form == kGsCluster;
+        for (int blocks = 1; blocks <= (cluster ? kMaxCluster : sms);
+             ++blocks) {
+            const long long smem = gs_smem_bytes(
+                form, N, K, gs_layout_rows(offs, n_colors, form, blocks));
+            if (smem > kGsSmemCap) continue;
+            const double cost =
+                gs_cost(offs, n_colors, N, K, passes, form, blocks);
+            if (cost >= best) continue;
+            bool ok = false;
+            e = gs_launchable(form, blocks, smem, &ok);
+            if (e != cudaSuccess) return static_cast<int>(e);
+            if (!ok) continue;
+            best = cost;
+            plan[0] = form;
+            plan[1] = blocks;
+        }
+    }
+    plan[2] = static_cast<int>(best * 1000.0);
+    return 0;
 }
 
 // Block Jacobi, `iterations` times: xa (N, 3) holds x0; iteration t reads

@@ -107,7 +107,10 @@ def _declare(lib) -> None:
     lib.lat_cheby.argtypes = [P] * 13 + [I] * 8 + chain
     lib.lat_power.argtypes = [P] * 10 + [I] * 8 + chain
     lib.ell_spmv.argtypes = [P, P, P, P, P, I, I, I, P]
-    lib.ell_gs.argtypes = [P, P, P, P, ctypes.POINTER(I), I, P, P, I, I, I, P]
+    lib.ell_gs.argtypes = ([P, P, P, P, ctypes.POINTER(I), I, P, P]
+                           + [I] * 5 + [P])
+    lib.ell_gs_plan.argtypes = [I, I, ctypes.POINTER(I), I, I,
+                                ctypes.POINTER(I)]
     lib.ell_jacobi.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
     lib.ell_spmv_t.argtypes = [P] * 6 + [F, I, I, I, P]
     lib.ell_outer.argtypes = [P] * 5 + [F, I, P, I, I, P]
@@ -118,7 +121,8 @@ def _declare(lib) -> None:
                  "lat_newton_plan", "lat_level_plan", "lat_cheby",
                  "lat_power", "lat_fused_newton",
                  "lat_fused_pcg",
-                 "ell_spmv", "ell_gs", "ell_jacobi", "ell_spmv_t",
+                 "ell_spmv", "ell_gs", "ell_gs_plan", "ell_jacobi",
+                 "ell_spmv_t",
                  "ell_outer", "ell_jacobi_bwd"):
         getattr(lib, name).restype = I
 

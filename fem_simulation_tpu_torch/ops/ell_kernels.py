@@ -8,7 +8,12 @@ power of two >= K: 8 for the cloth's K = 7, 32 for a hex mesh's 27), lane
 k slot k. `gs` and `jacobi` are the smoothers of
 `solvers/smoothers.py` fused around the same row pass (`ell_gs`,
 `ell_jacobi`): row product, 3x3 adjugate solve and update in one kernel,
-all iterations in one call.
+all iterations in one call. `ell_gs` runs a call in the form its plan
+picks (`ell_gs_plan` in C, mirrored by `gs_plan`; plans cached per shape in
+`_gs_plans`): a cluster of up to 16 blocks holding the level's rows and x
+in shared memory, a cooperative launch whose blocks keep their rows in
+shared memory or stream them a pass ahead, or the first form, a warp a
+row.
 
 Gradients: `spmv` / `spmv_rows` and `jacobi` go through the autograd
 Functions `EllSpmvFn` and `EllJacobiFn` whenever autograd records and an
@@ -29,11 +34,12 @@ Dispatch: a wrapper checks its arguments' dtypes, shapes and contiguity,
 then runs its plain version (`*_plain`) only when its tensors lie on the
 CPU. For CUDA tensors it launches the kernel or raises; it never falls back.
 `launches[name]` counts kernel launches (`spmv`: one per call with a
-non-empty row range; `gs`: one cooperative launch per call with iterations
-> 0; `jacobi`: one per iteration; `spmv_t`, `outer`, `jacobi_bwd`: one per
-call); `ops.ell.cuda_calls` counts, one layer up (for the backward kernels:
-in the Functions' backward), the launches that the calls made on CUDA
-tensors ask for, so a run can check that every call launched.
+non-empty row range; `gs`: one per call with iterations > 0, taken apart by
+(rows, form) in `gs_launches`; `jacobi`: one per iteration; `spmv_t`,
+`outer`, `jacobi_bwd`: one per call); `ops.ell.cuda_calls` counts, one
+layer up (for the backward kernels: in the Functions' backward), the
+launches that the calls made on CUDA tensors ask for, so a run can check
+that every call launched.
 """
 from __future__ import annotations
 
@@ -47,10 +53,14 @@ from . import _cuda
 
 launches = {"spmv": 0, "gs": 0, "jacobi": 0, "spmv_t": 0, "outer": 0,
             "jacobi_bwd": 0}
+# ell_gs's launches by (rows, form name): launches["gs"] taken apart
+gs_launches: dict = {}
+
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    gs_launches.clear()
 
 
 def lanes(k: int) -> int:
@@ -364,6 +374,169 @@ def jacobi_bwd(values, nbr, mask, diag_slot, b, xt, gbar, gb=None, gv=None,
 
 # -- fused smoothers -----------------------------------------------------------
 
+# ell_gs's forms (csrc/ell_kernels.cu: kGsCoop ... kGsStream) and launch
+# shapes (kRowsPerBlock rows a coop block; kGsThreads threads, kGsLanes
+# lanes a row and kGsSmemCap bytes of dynamic shared memory a staged
+# block; kMaxCluster blocks a cluster)
+GS_FORMS = ("coop", "cluster", "resident", "stream")
+GS_COOP, GS_CLUSTER, GS_RESIDENT, GS_STREAM = range(4)
+GS_ROWS_PER_BLOCK = 8
+GS_GROUPS = 512 // 8
+GS_SMEM_CAP = 230400
+GS_MAX_CLUSTER = 16
+# ell_gs_plan's cost model (kGsModel), device us of an H100 per form:
+# (launch, a KB staged by a block, a pass, a block a pass, a round of a
+# block's row groups a pass, a KB a block reads a pass); fitted by
+# scripts/ell_tilings.py --fit to its --sweep of every form at the main
+# paths' levels
+GS_MODEL = (
+    (0.02696, 0.0, 0.2699, 0.00539, 0.0, 0.166),      # coop
+    (8.294, 0.02867, 0.3159, 0.01804, 0.7804, 0.0),   # cluster
+    (5.272, 0.02945, 1.553, 0.001241, 0.762, 0.0),    # resident
+    (3.806, 0.0, 1.491, 0.007088, 0.0, 0.03735),      # stream
+)
+# ell_gs_plan's picks, computed once per (device, N, K, color offsets,
+# iterations); a test or a measurement puts another (form, blocks) under
+# that key to run it
+_gs_plans: dict = {}
+
+
+def gs_passes(color_offsets, iterations: int):
+    """The colors of ell_gs's passes, in order: per iteration the non-empty
+    colors last to first, then first to last, a color never twice in a row
+    (the repeated pass would compute what the pass before it wrote)."""
+    offs = [int(c) for c in color_offsets]
+    seq = [c for c in range(len(offs) - 1) if offs[c + 1] > offs[c]]
+    m = len(seq)
+    if iterations < 1 or m == 0:
+        return []
+    if m == 1:
+        return [seq[0]]
+    period = 2 * m - 2
+    return [seq[abs(m - 1 - p % period)]
+            for p in range(iterations * period + 1)]
+
+
+def gs_slice_starts(color_offsets, blocks: int) -> np.ndarray:
+    """(colors, blocks + 1) int64: row c, r the first row of block r's slice
+    of color c among `blocks` blocks (slice_start in csrc/ell_kernels.cu),
+    its last entry the color's end."""
+    offs = np.asarray(color_offsets, dtype=np.int64)
+    size = (offs[1:] - offs[:-1])[:, None]
+    return offs[:-1, None] + size * np.arange(
+        blocks + 1, dtype=np.int64)[None, :] // blocks
+
+
+def gs_slice_rows(color_offsets, blocks: int) -> np.ndarray:
+    """(colors, blocks) int64: the rows of block r's slice of color c."""
+    return np.diff(gs_slice_starts(color_offsets, blocks), axis=1)
+
+
+def gs_layout_rows(color_offsets, form: int, blocks: int) -> int:
+    """The rows of a staged form's shared layout (gs_layout_rows): the most
+    rows a block owns, or for the stream form the widest slice."""
+    rows = gs_slice_rows(color_offsets, blocks)
+    return int(rows.max() if form == GS_STREAM else rows.sum(axis=0).max())
+
+
+def gs_smem_bytes(form: int, n: int, k: int, rows: int) -> int:
+    """Dynamic shared memory of a staged form's block (gs_smem_bytes): rows'
+    values, mask, b, nbr, diag_slot and diagonal adjugate (two buffers of
+    them for the stream form), and the cluster form's copy of x."""
+    tables = (11 * k + 14) * rows
+    return {GS_CLUSTER: 4 * (4 * n + tables), GS_RESIDENT: 4 * tables,
+            GS_STREAM: 8 * tables}.get(form, 0)
+
+
+def gs_features(color_offsets, n: int, k: int, passes: int, form: int,
+                blocks: int):
+    """The terms GS_MODEL weighs (gs_cost): 1, KB a block stages, passes,
+    passes x blocks, passes x rounds of a block's row groups (the coop form:
+    a warp a row, 8 rows a block, rounds of its grid; the staged forms: the
+    most rows a block relaxes in a pass over GS_GROUPS), passes x KB a block
+    reads a pass."""
+    offs = [int(c) for c in color_offsets]
+    widest = max(offs[c + 1] - offs[c] for c in range(len(offs) - 1))
+    row_kb = (11.0 * k + 14.0) * 4.0 / 1024.0
+    stage_kb = pass_kb = 0.0
+    if form == GS_COOP:
+        per = blocks * GS_ROWS_PER_BLOCK
+        rounds = float(-(-widest // per))
+        pass_kb = rounds * GS_ROWS_PER_BLOCK * row_kb
+    else:
+        wide = gs_layout_rows(offs, GS_STREAM, blocks)
+        rounds = float(wide) / GS_GROUPS
+        if form == GS_STREAM:
+            pass_kb = wide * row_kb
+        else:
+            stage_kb = gs_smem_bytes(form, n, k, gs_layout_rows(
+                offs, form, blocks)) / 1024.0
+    return (1.0, stage_kb, float(passes), float(passes * blocks),
+            passes * rounds, passes * pass_kb)
+
+
+def gs_cost(color_offsets, n: int, k: int, passes: int, form: int,
+            blocks: int) -> float:
+    """The modelled device us of a call of `passes` passes (gs_cost)."""
+    f = gs_features(color_offsets, n, k, passes, form, blocks)
+    m = GS_MODEL[form]
+    return (m[0] + m[1] * f[1] + m[2] * f[2] + m[3] * f[3] + m[4] * f[4]
+            + m[5] * f[5])
+
+
+def gs_coop_blocks(color_offsets, sms: int) -> int:
+    """The blocks gs_cost counts for the coop form: a warp a row of the
+    widest color, GS_ROWS_PER_BLOCK rows a block, at most 8 blocks an SM."""
+    offs = [int(c) for c in color_offsets]
+    widest = max(offs[c + 1] - offs[c] for c in range(len(offs) - 1))
+    return min(-(-widest // GS_ROWS_PER_BLOCK), 8 * sms)
+
+
+def gs_candidates(n: int, k: int, color_offsets, sms: int,
+                  iterations: int):
+    """[(modelled us, form, blocks)] of every launch ell_gs_plan weighs, in
+    its order: the coop form, clusters of 1 to 16 blocks, 1 to `sms` blocks
+    of the resident and stream forms, each within GS_SMEM_CAP."""
+    offs = [int(c) for c in color_offsets]
+    passes = len(gs_passes(offs, max(int(iterations), 1)))
+    out = [(gs_cost(offs, n, k, passes, GS_COOP, gs_coop_blocks(offs, sms)),
+            GS_COOP, 0)]
+    for form in (GS_CLUSTER, GS_RESIDENT, GS_STREAM):
+        top = GS_MAX_CLUSTER if form == GS_CLUSTER else sms
+        for blocks in range(1, top + 1):
+            rows = gs_layout_rows(offs, form, blocks)
+            if gs_smem_bytes(form, n, k, rows) <= GS_SMEM_CAP:
+                out.append((gs_cost(offs, n, k, passes, form, blocks), form,
+                            blocks))
+    return out
+
+
+def gs_plan(n: int, k: int, color_offsets, sms: int, iterations: int):
+    """(form, blocks) of a call of `iterations` as ell_gs_plan picks it on
+    a card of `sms` SMs that places every cluster of up to 16 blocks: the
+    least modelled cost, the first of a tie."""
+    best = None
+    for cost, form, blocks in gs_candidates(n, k, color_offsets, sms,
+                                            iterations):
+        if best is None or cost < best[0]:
+            best = (cost, form, blocks)
+    return best[1], best[2]
+
+
+def _gs_plan(lib, n: int, k: int, offs, iterations: int, device):
+    """ell_gs_plan's (form, blocks) for this call on this device, asked once
+    per key (see _gs_plans)."""
+    key = (str(device), n, k, tuple(offs), iterations)
+    if key not in _gs_plans:
+        plan = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            err = lib.ell_gs_plan(n, k, (ctypes.c_int * len(offs))(*offs),
+                                  len(offs) - 1, iterations, plan)
+        _cuda.check(err, "ell_gs_plan")
+        _gs_plans[key] = (plan[0], plan[1])
+    return _gs_plans[key]
+
+
 def _offdiag_rows_plain(values, nbr, mask, diag_slot, x, r0: int, r1: int):
     """Rows [r0, r1) of sum over every slot but the diagonal's of
     A_ik (x[nbr_ik] mask_ik)."""
@@ -388,16 +561,13 @@ def _relax_rows_plain(values, nbr, mask, diag_slot, b, x, r0: int, r1: int):
 def gs_plain(values, nbr, mask, diag_slot, color_offsets, b, x0=None,
              iterations: int = 1):
     """The kernel's plain version: colored symmetric Gauss-Seidel as ONE
-    in-place pass per color (colors last to first, then first to last)."""
+    in-place pass per color (colors last to first, then first to last),
+    in the kernel's passes (`gs_passes`: no color twice in a row)."""
     x = torch.zeros_like(b) if x0 is None else x0.clone()
-    nc = len(color_offsets) - 1
-    order = list(range(nc - 1, -1, -1)) + list(range(nc))
-    for _ in range(iterations):
-        for c in order:
-            r0, r1 = int(color_offsets[c]), int(color_offsets[c + 1])
-            if r1 > r0:
-                x[r0:r1] = _relax_rows_plain(values, nbr, mask, diag_slot, b,
-                                             x, r0, r1)
+    for c in gs_passes(color_offsets, iterations):
+        r0, r1 = int(color_offsets[c]), int(color_offsets[c + 1])
+        x[r0:r1] = _relax_rows_plain(values, nbr, mask, diag_slot, b, x,
+                                     r0, r1)
     return x
 
 
@@ -444,13 +614,16 @@ def gs(values, nbr, mask, diag_slot, color_offsets, b, x0=None,
     if iterations == 0:
         return x
     lib = _cuda.load()
-    stream = torch.cuda.current_stream(b.device).cuda_stream
+    form, blocks = _gs_plan(lib, n, k, offs, iterations, b.device)
     with torch.cuda.device(b.device):
         err = lib.ell_gs(values.data_ptr(), nbr.data_ptr(), mask.data_ptr(),
                          diag_slot.data_ptr(), (ctypes.c_int * (nc + 1))(*offs),
                          nc, b.data_ptr(), x.data_ptr(), n, k, iterations,
-                         stream)
+                         form, blocks,
+                         torch.cuda.current_stream(b.device).cuda_stream)
     launches["gs"] += 1
+    key = (n, GS_FORMS[form])
+    gs_launches[key] = gs_launches.get(key, 0) + 1
     _cuda.check(err, "ell_gs")
     return x
 

@@ -8,8 +8,9 @@ One GS iteration = backward sweep then forward sweep:
 x_bwd = (D+U)^{-1} (b - L x_prev), x_fwd = (D+L)^{-1} (b - U x_bwd).
 
 On CUDA tensors `gauss_seidel` and `jacobi` are one kernel call each
-(`ops/ell_kernels.py`: `ell_gs`, one cooperative launch; `ell_jacobi`, one
-launch per iteration), all iterations inside: the
+(`ops/ell_kernels.py`: `ell_gs`, one launch in the form its plan picks for
+the level; `ell_jacobi`, one launch per iteration), all iterations inside:
+the
 row product, the exact 3x3 adjugate solve and the update fused, the lower /
 upper selection made by the in-place color order, no masked copy of the
 values. On CPU tensors they run `gauss_seidel_plain` / `jacobi_plain`, the

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time ell_spmv, ell_outer and the Jacobi adjoint at every shape the paths launch them at, on one GPU.
+"""Time ell_spmv, the smoothers, ell_outer and the Jacobi adjoint at every shape the paths launch them at, on one GPU.
 
-    python3 scripts/ell_tilings.py [--root TREE] [--save OUT.pt]
+    python3 scripts/ell_tilings.py [--root TREE] [--save OUT.pt] [--only smoothers]
+    python3 scripts/ell_tilings.py --sweep OUT.json
     python3 scripts/ell_tilings.py --bits A.pt B.pt
 
 The shapes (dx 0.05, seeded inputs as `chip_smoke.py` makes them):
@@ -17,7 +18,16 @@ The shapes (dx 0.05, seeded inputs as `chip_smoke.py` makes them):
   can write the off-diagonal slots in it, else ell_jacobi_bwd and then
   ell_outer);
 - ell_outer alone at the phase 9 shapes (the 19k and 21k fine Hessians,
-  the 21k coarse matrix, both 2k levels).
+  the 21k coarse matrix, both 2k levels);
+- ell_gs and ell_jacobi on every multigrid level of the 2k (2 levels),
+  19k and 74k (3 levels) beams' Galerkin chains (phase 4's systems): ell_gs
+  in the V-cycle's call (3 iterations from zero) and in the harness's and
+  FAS's (1 iteration from x0) under the tree's own launch, with its share
+  of the least the card must do (every row's values, nbr, mask, diag_slot
+  and b read once, x read and written once); ell_jacobi 2 iterations from
+  zero; then the paths that launch them from rest (Newton-MG and FAS v3 on
+  the 2k and 19k beams, 16 dynamic frames on the 2k beam), their series
+  digested for --bits.
 
 Each output is checked against the plain version (max|d| <= 1e-5 max|ref|)
 and for two runs bit-identical; the script prints the device us of a call
@@ -26,6 +36,19 @@ call launches) and the events ms of a call. Then 48 cloth frames
 (`cloth.step_to_tol`, tol 2.5e-4) at both grids, their Newton list, max
 ||f|| and ms a frame, and exp2 (p_hat, l2, unroll 4, Adam, 10 steps) at
 21k, its ms a step.
+
+--only smoothers times ell_gs and ell_jacobi alone (no cloth, no exp2).
+--sweep OUT.json runs, at each smoother shape and call, ell_gs in every
+form the tree's plan weighs (ops/ell_kernels.gs_candidates) at a sample of
+block counts, each forced through `ell_kernels._gs_plans`, checks each
+against the plan's own output (bit-equal) and the plain version, and
+writes every device time with the plan model's estimate (the data
+GS_MODEL is fitted to).
+
+--fit A.json [B.json ...] fits GS_MODEL (ell_gs_plan's kGsModel) to such
+sweeps by non-negative least squares, form by form, and prints the table,
+each form's error and, at each shape and call, what the fitted plan picks
+against the fastest launch the sweep measured.
 
 --root TREE imports the package (and `chip_smoke.py`) of another checkout
 and times only what its wrappers run: run it on the parent and on this
@@ -38,6 +61,7 @@ from either.
 """
 import argparse
 import hashlib
+import json
 import os
 import subprocess
 import sys
@@ -50,6 +74,12 @@ ap.add_argument("--save", default=None,
                 help="write the outputs at every shape here")
 ap.add_argument("--bits", nargs=2, default=None,
                 help="two --save files: bit-equal key by key?")
+ap.add_argument("--only", choices=("all", "smoothers"), default="all",
+                help="smoothers: time ell_gs and ell_jacobi alone")
+ap.add_argument("--sweep", default=None,
+                help="time every ell_gs form; write the times here (JSON)")
+ap.add_argument("--fit", nargs="+", default=None,
+                help="--sweep files: fit GS_MODEL to them (no GPU needed)")
 ARGS = ap.parse_args()
 ROOT = os.path.abspath(ARGS.root or os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -69,6 +99,7 @@ from fem_simulation_tpu_torch.ops import ell_kernels as ek  # noqa: E402
 from fem_simulation_tpu_torch.parallel import halo as phalo  # noqa: E402
 from fem_simulation_tpu_torch.sim import cloth  # noqa: E402
 from fem_simulation_tpu_torch.sim import quasistatic as qs  # noqa: E402
+from fem_simulation_tpu_torch.sim.dynamic import DynamicSim  # noqa: E402
 from fem_simulation_tpu_torch.sim.scene import Scene  # noqa: E402
 
 TREE = "root " + ARGS.root if ARGS.root else "this tree"
@@ -92,15 +123,19 @@ def kernel_us(fn, names):
 
 
 def _short(name):
-    for k in ("ell_spmv_kernel", "ell_outer_kernel", "ell_jacobi_bwd_kernel"):
+    for k in ("ell_spmv_kernel", "ell_outer_kernel", "ell_jacobi_bwd_kernel",
+              "ell_gs_coop_kernel", "ell_gs_cluster_kernel",
+              "ell_gs_grid_kernel", "ell_relax_rows_kernel"):
         if k in name:
             return k + (name[name.index("<"):name.index(">") + 1]
                         if "<" in name else "")
     return name[:40]
 
 
-def report(kind, label, call, plain, names, saved):
-    """Check call() against plain() and itself, time it, save its output."""
+def report(kind, label, call, plain, names, saved, bound_us=None):
+    """Check call() against plain() and itself, time it, save its output;
+    with bound_us, print the device time's share of it. Returns the device
+    us of a call."""
     got, again, ref = call(), call(), plain()
     torch.cuda.synchronize()
     same = torch.equal(got, again)
@@ -110,10 +145,13 @@ def report(kind, label, call, plain, names, saved):
                         f"{err:.3e} of {scale:.3e}")
     us, parts = kernel_us(call, names)
     ms = cs.cuda_ms(call, 50)
+    share = ("" if bound_us is None or us is None
+             else f"  bound {bound_us:.2f} us ({bound_us / us:.1%})")
     print(f"{kind:8s} {TREE:16s} {label:28s} "
           f"device {us} us ({parts})  events {ms:.4f} ms  max|d| {err:.2e} "
-          f"(max|ref| {scale:.2e}) same bits {same}", flush=True)
+          f"(max|ref| {scale:.2e}) same bits {same}{share}", flush=True)
     saved[f"{kind} {label}"] = digest(got)
+    return us
 
 
 def digest(t):
@@ -233,6 +271,240 @@ def adjoint_plain(values, op, b, xt, g):
     return torch.cat([lam.reshape(-1), gb.reshape(-1), gv.reshape(-1)])
 
 
+def smoother_systems(dev, scenes):
+    """[(label, op, values, b, x0)] on every level of the Galerkin chain of
+    each beam's unstructured Scene, made as chip_smoke.py's phase 4 makes
+    them."""
+    out = []
+    for label, sc in scenes.items():
+        rng = np.random.default_rng(11)
+        x = sc.x0 + torch.from_numpy(0.01 * rng.standard_normal(
+            tuple(sc.x0.shape)).astype(np.float32)).to(dev)
+        chain = qs.galerkin_chain(sc, sc.params,
+                                  qs.assemble_fine(sc, sc.params, x))
+        for li, vals in enumerate(chain):
+            op = sc.make_op(li)
+            n = vals.shape[0]
+            b, x0 = (torch.from_numpy(scale * rng.standard_normal(
+                (n, 3)).astype(np.float32)).to(dev) for scale in (1.0, 0.1))
+            out.append((f"{label} level {li} N {n}", op, vals, b, x0))
+    return out
+
+
+def gs_pass_colors(offs, iterations):
+    """The colors a Gauss-Seidel call must relax: per iteration the
+    non-empty colors last to first, then first to last, never one twice in
+    a row (a second pass in a row would write what the first wrote)."""
+    seq = [c for c in range(len(offs) - 1) if offs[c + 1] > offs[c]]
+    m = len(seq)
+    if m == 1:
+        return seq
+    return [seq[abs(m - 1 - p % (2 * m - 2))]
+            for p in range(iterations * (2 * m - 2) + 1)]
+
+
+def gs_bound_us(offs, k, iterations, from_x0):
+    """The least an H100 can take for a Gauss-Seidel call, in us: every
+    row's values, nbr, mask, diag_slot and b read once, x read (from x0)
+    and written once; 18 K + 60 FLOPs a row relaxed (chip_smoke.bound)."""
+    n = offs[-1]
+    rows = sum(offs[c + 1] - offs[c] for c in gs_pass_colors(offs,
+                                                              iterations))
+    return cs.bound(n * (44 * k + 16) + 12 * n * (2 if from_x0 else 1),
+                    rows * (18.0 * k + 60.0))[0] * 1e3
+
+
+def gs_plan_text(op, n, k, iterations, device):
+    """The form and blocks the tree's plan gave a call, as it cached them."""
+    plans = getattr(ek, "_gs_plans", None)
+    if plans is None:
+        return "coop (one form)"
+    form, blocks = plans[(str(device), n, k, tuple(op.color_offsets),
+                          iterations)]
+    return f"{ek.GS_FORMS[form]} {blocks} blocks"
+
+
+def smoother_scenes(dev):
+    """The beams' unstructured Scenes: 2 levels on the 2k beam, 3 on the
+    others (chip_smoke.py's phase 4 and 5)."""
+    return {label: Scene(meshlib.beam(*beam, dx=cs.DX), solver=(
+        SolverConfig(n_levels=2) if label == "2k" else SolverConfig()),
+        device=dev) for label, beam in cs.BEAMS.items()}
+
+
+def smoothers(dev, saved, scenes):
+    """ell_gs in both calls and ell_jacobi on every level of each beam, then
+    the paths' series."""
+    for label, op, vals, b, x0 in smoother_systems(dev, scenes):
+        n, k = vals.shape[0], vals.shape[1]
+        offs = [int(c) for c in op.color_offsets]
+        args = (vals, op.nbr, op.mask, op.diag_slot, op.color_offsets, b)
+        for iters, start, what in ((3, None, "3 it from 0"),
+                                   (1, x0, "1 it from x0")):
+            def call(start=start, iters=iters):
+                return ek.gs(*args, start, iters)
+
+            def plain(start=start, iters=iters):
+                return ek.gs_plain(*args, start, iters)
+            b_us = gs_bound_us(offs, k, iters, start is not None)
+            report("gs", f"{label} {what}", call, plain, ("ell_gs_",),
+                   saved, b_us)
+            old = cs.smoother_bound(n, k, iters, 2, start is not None)[0]
+            print(f"gs       {TREE:16s} {label} {what}: plan "
+                  f"{gs_plan_text(op, n, k, iters, b.device)}; the first "
+                  f"form's bytes a sweep {old * 1e3:.2f} us", flush=True)
+        jargs = (vals, op.nbr, op.mask, op.diag_slot, b, None, 2)
+        report("jacobi", f"{label} 2 it from 0", lambda: ek.jacobi(*jargs),
+               lambda: ek.jacobi_plain(*jargs), ("ell_relax_rows",), saved,
+               cs.smoother_bound(n, k, 2, 1, False)[0] * 1e3)
+    series(dev, saved, scenes)
+
+
+def series(dev, saved, scenes):
+    """The smoothers' paths from rest, their series digested for --bits:
+    Newton-MG and FAS v3 on the 2k beam (30 steps, 60 cycles) and the 19k
+    beam (20 and 20), 16 dynamic frames to 1e-4 on the 2k beam."""
+    for label, steps in (("2k", (30, 60)), ("19k", (20, 20))):
+        for method, n in zip(("newton_multigrid", "fas"), steps):
+            sim = qs.QuasiStaticSim(scenes[label])
+            t0 = time.perf_counter()
+            e, fn = getattr(sim, method)(n)
+            ms = (time.perf_counter() - t0) * 1e3 / n
+            for what, t in (("energy", e), ("fn", fn), ("x", sim.x)):
+                saved[f"series {label} {method} {what}"] = digest(t)
+            print(f"series   {TREE:16s} {label} {method} {n}: ||f|| "
+                  f"{float(fn[0]):.6e} -> {float(fn[-1]):.6e}  host ms a "
+                  f"step {ms:.2f}", flush=True)
+    sim = DynamicSim(scenes["2k"])
+    ks, fns = [], []
+    for _ in range(16):
+        state, k, fn = sim.frame_to_tol()
+        ks.append(int(k))
+        fns.append(float(fn))
+    saved["series 2k dynamic newton"] = digest(torch.tensor(ks))
+    saved["series 2k dynamic fn"] = digest(torch.tensor(fns,
+                                                        dtype=torch.float64))
+    saved["series 2k dynamic x"] = digest(state.x)
+    print(f"series   {TREE:16s} 2k dynamic 16 frames newton {ks} max ||f|| "
+          f"{max(fns):.6e}", flush=True)
+
+
+def _sampled(cands):
+    """The sweep's launches among the plan's candidates: every form's
+    fewest blocks, clusters of 2-4, 8, 12 and 16 and 16, 33, 66, 99 and 132
+    blocks of the cooperative staged forms."""
+    keep, least = [], {}
+    for cost, form, blocks in cands:
+        least.setdefault(form, blocks)
+    for cost, form, blocks in cands:
+        cluster = form == ek.GS_CLUSTER
+        if (form == ek.GS_COOP or blocks == least[form]
+                or (cluster and (blocks <= 4 or blocks % 4 == 0))
+                or (not cluster and blocks in (16, 33, 66, 99, 132))):
+            keep.append((cost, form, blocks))
+    return keep
+
+
+def sweep(dev) -> int:
+    """--sweep: every sampled form at every shape and call, forced through
+    the plan cache, checked and timed; the times to ARGS.sweep."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for label, op, vals, b, x0 in smoother_systems(dev,
+                                                   smoother_scenes(dev)):
+        n, k = vals.shape[0], vals.shape[1]
+        offs = [int(c) for c in op.color_offsets]
+        args = (vals, op.nbr, op.mask, op.diag_slot, op.color_offsets, b)
+        for iters, start in ((3, None), (1, x0)):
+            key = (str(b.device), n, k, tuple(offs), iters)
+            ek._gs_plans.pop(key, None)
+            mine = ek.gs(*args, start, iters)
+            plan = ek._gs_plans[key]
+            ref = ek.gs_plain(*args, start, iters)
+            scale = float(ref.abs().max())
+            for cost, form, blocks in _sampled(ek.gs_candidates(
+                    n, k, offs, sms, iters)):
+                ek._gs_plans[key] = (form, blocks)
+                name = f"{label} {iters} it {ek.GS_FORMS[form]} {blocks}"
+                try:
+                    got = ek.gs(*args, start, iters)
+                    again = ek.gs(*args, start, iters)
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    FAILURES.append(f"sweep {name}: {e}")
+                    print(f"sweep {name}: {e}", flush=True)
+                    continue
+                same = torch.equal(got, again)
+                eq = torch.equal(got, mine)
+                err = float((got - ref).abs().max()) / scale
+                if not (same and eq and err <= 1e-5):
+                    FAILURES.append(f"sweep {name}: same bits {same}, "
+                                    f"equal to the plan's {eq}, max rel "
+                                    f"|d| {err:.3e}")
+                us = kernel_us(lambda: ek.gs(*args, start, iters),
+                               ("ell_gs_",))[0]
+                rows.append(dict(label=label, n=n, k=k, offs=offs,
+                                 iterations=iters,
+                                 form=ek.GS_FORMS[form], blocks=blocks,
+                                 us=us, model_us=cost, same=same,
+                                 equal_to_plan=eq, rel_err=err))
+                print(f"sweep {name}: device {us} us (model {cost:.1f}) "
+                      f"same bits {same} equal to the plan's "
+                      f"({ek.GS_FORMS[plan[0]]} {plan[1]}) {eq} max rel "
+                      f"|d| {err:.2e}", flush=True)
+            ek._gs_plans[key] = plan
+    with open(ARGS.sweep, "w") as fh:
+        json.dump(rows, fh, indent=0)
+    for f in FAILURES:
+        print("FAILED", f)
+    return 1 if FAILURES else 0
+
+
+def fit(paths) -> int:
+    """--fit: GS_MODEL fitted to sweep files (see the module docstring)."""
+    from scipy.optimize import nnls
+    rows = [r for path in paths for r in json.load(open(path))
+            if r["us"] is not None]
+    model = []
+    for form, name in enumerate(ek.GS_FORMS):
+        sel = [r for r in rows if r["form"] == name]
+        X = np.array([ek.gs_features(
+            r["offs"], r["n"], r["k"],
+            len(ek.gs_passes(r["offs"], r["iterations"])), form,
+            r["blocks"] or ek.gs_coop_blocks(r["offs"], 132)) for r in sel])
+        y = np.array([r["us"] for r in sel])
+        live = np.abs(X).max(axis=0) > 0
+        coef = np.zeros(X.shape[1])
+        coef[live] = nnls(X[:, live], y)[0]
+        err = X @ coef - y
+        print(f"fit {name:9s} {len(sel)} launches: rms {np.sqrt(np.mean(err ** 2)):.2f} "
+              f"us, max |err| {np.abs(err).max():.2f} us", flush=True)
+        model.append(tuple(float(f"{c:.4g}") for c in coef))
+    print("GS_MODEL = (")
+    for name, m in zip(ek.GS_FORMS, model):
+        print(f"    {m},  # {name}")
+    print(")")
+    ek.GS_MODEL = tuple(model)
+    sms = 132
+    shapes = {(r["label"], r["iterations"]): r for r in rows}
+    worst = 0.0
+    for (label, iters), r in shapes.items():
+        got = {(x["form"], x["blocks"]): x["us"] for x in rows
+               if (x["label"], x["iterations"]) == (label, iters)}
+        best = min(got.items(), key=lambda kv: kv[1])
+        form, blocks = ek.gs_plan(r["n"], r["k"], r["offs"], sms, iters)
+        key = (ek.GS_FORMS[form], blocks)
+        near = min((kv for kv in got.items() if kv[0][0] == key[0]),
+                   key=lambda kv: abs(kv[0][1] - blocks))
+        worst = max(worst, near[1] / best[1])
+        print(f"fit {label} {iters} it: plan {key[0]} {blocks} (measured "
+              f"{near[0][1]} blocks: {near[1]:.1f} us); fastest measured "
+              f"{best[0][0]} {best[0][1]} {best[1]:.1f} us", flush=True)
+    print(f"fit: the plan's picks within {worst - 1:.1%} of the fastest",
+          flush=True)
+    return 0
+
+
 def bits(a_path, b_path) -> int:
     """Whether two --save files hold bit-equal outputs, key by key: 0 where
     every key of either is in both and equal, else 1."""
@@ -255,16 +527,24 @@ def bits(a_path, b_path) -> int:
 def main() -> int:
     if ARGS.bits:
         return bits(*ARGS.bits)
+    if ARGS.fit:
+        return fit(ARGS.fit)
     dev = require_cuda()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
+    print(card, flush=True)
     _cuda.load()
     for line in _cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas", line.strip(), flush=True)
-    print(f"{TREE}: one-launch adjoint {ONE_LAUNCH}", flush=True)
+    if ARGS.sweep:
+        return sweep(dev)
     saved = {}
+    if ARGS.only == "smoothers":
+        smoothers(dev, saved, smoother_scenes(dev))
+        return finish(saved, card)
+    print(f"{TREE}: one-launch adjoint {ONE_LAUNCH}", flush=True)
     systems, scenes, sc21, chain21 = spmv_systems(dev)
     names = ("ell_spmv",)
     for label, full, nbr, mask, v, r0, r1 in systems:
@@ -309,6 +589,7 @@ def main() -> int:
         report("outer", label, call, plain, ("ell_outer",), saved)
         b_ms = cs.outer_bound(n, k)[0]
         print(f"outer    bound {label}: {b_ms * 1e3:.2f} us", flush=True)
+    smoothers(dev, saved, scenes)
     # end to end: 48 cloth frames at both grids, exp2 steps at 21k
     for label, res in cs.CLOTHS.items():
         sc = cs.cloth_scene(res, dev)
@@ -335,6 +616,11 @@ def main() -> int:
     ms = (time.perf_counter() - t0) * 1e3 / 10
     print(f"exp2     {TREE:16s} 21k p_hat adam l2 unroll 4 ms/step {ms:.2f}"
           f" loss {hist[0]:.6e} -> {hist[-1]:.6e}", flush=True)
+    return finish(saved, card)
+
+
+def finish(saved, card) -> int:
+    """Save the digests (--save), print the card and every failure."""
     if ARGS.save:
         torch.save(saved, ARGS.save)
     print(card)

@@ -6,6 +6,8 @@ mode). On a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -544,6 +546,84 @@ def test_gs_kernel_matches_plain(uscene):
         assert ell.cuda_calls["gs"] == calls + 1
         assert ek.launches["gs"] == before + 1
         assert torch.equal(got, ek.gs(*args, None, 2))
+
+
+@pytest.fixture(scope="module")
+def uscene2k():
+    _need_cuda()
+    return tscene.Scene(meshlib.beam(8, 8, 24, dx=0.05),
+                        solver=SolverConfig(n_levels=2), device="cuda")
+
+
+@pytest.mark.cuda
+def test_gs_every_form_matches_plain(uscene2k, monkeypatch):
+    """Every ell_gs form, forced through the plan cache (the coop form; each
+    staged form at the blocks the plan's model likes best for it), on both
+    levels of the 2k beam: 1 and 3 iterations from zero and from x0 within
+    1e-5 max|x| of the plain version, two runs bit-identical, every form
+    bit-equal to every other (one pass order, one sum order)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for op, vals, b, x0 in _level_systems(uscene2k):
+        n, k = vals.shape[0], vals.shape[1]
+        offs = op.color_offsets
+        args = (vals, op.nbr, op.mask, op.diag_slot, offs, b)
+        for iters in (1, 3):
+            best = {}
+            for cost, form, blocks in ek.gs_candidates(n, k, offs, sms,
+                                                       iters):
+                if form not in best or cost < best[form][0]:
+                    best[form] = (cost, blocks)
+            assert set(best) == set(range(len(ek.GS_FORMS)))
+            key = (str(b.device), n, k, tuple(offs), iters)
+            for start in (None, x0):
+                ref = ek.gs_plain(*args, start, iters)
+                outs = []
+                for form, (_, blocks) in sorted(best.items()):
+                    monkeypatch.setitem(ek._gs_plans, key, (form, blocks))
+                    got = ek.gs(*args, start, iters)
+                    again = ek.gs(*args, start, iters)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, again), ek.GS_FORMS[form]
+                    assert float((got - ref).abs().max()) \
+                        <= 1e-5 * float(ref.abs().max()), ek.GS_FORMS[form]
+                    outs.append(got)
+                assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+# (N, K, color offsets) of the main paths' multigrid levels (the 8x8x24,
+# 16x16x64 and 16x16x256 beams at dx 0.05; tests/test_torch_gs_plan.py)
+_PATH_LEVELS = {
+    "2k fine": (2025, 27, (0, 325, 625, 885, 1125, 1385, 1625, 1833, 2025)),
+    "2k level 1": (325, 27, (0, 63, 117, 159, 195, 237, 273, 301, 325)),
+    "19k fine": (18785, 27, (0, 2673, 5265, 7641, 9945, 12321, 14625,
+                             16737, 18785)),
+    "19k level 1": (2673, 27, (0, 425, 825, 1165, 1485, 1825, 2145, 2417,
+                               2673)),
+    "19k level 2": (425, 27, (0, 81, 153, 207, 255, 309, 357, 393, 425)),
+    "74k fine": (74273, 27, (0, 10449, 20817, 30105, 39321, 48609, 57825,
+                             66081, 74273)),
+    "74k level 1": (10449, 27, (0, 1625, 3225, 4525, 5805, 7105, 8385, 9425,
+                                10449)),
+    "74k level 2": (1625, 27, (0, 297, 585, 783, 975, 1173, 1365, 1497,
+                               1625)),
+}
+
+
+@pytest.mark.cuda
+def test_gs_plan_mirror_equals_ell_gs_plan():
+    """ell_gs_plan on this card picks what its mirror gs_plan picks at
+    every level of the main paths, for both calls (1 and 3 iterations):
+    every cluster the mirror counts on can be placed."""
+    _need_cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = _cuda.load()
+    for label, (n, k, offs) in _PATH_LEVELS.items():
+        for iters in (1, 3):
+            plan = (ctypes.c_int * 3)()
+            assert lib.ell_gs_plan(n, k, (ctypes.c_int * len(offs))(*offs),
+                                   len(offs) - 1, iters, plan) == 0
+            assert (plan[0], plan[1]) == ek.gs_plan(n, k, offs, sms,
+                                                    iters), (label, iters)
 
 
 @pytest.mark.cuda

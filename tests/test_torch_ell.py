@@ -403,14 +403,16 @@ def system(scenes, state):
 
 
 @pytest.mark.parametrize("case", ["jacobi", "jacobi_x0", "gauss_seidel",
-                                  "gauss_seidel_x0", "sweep_fwd",
+                                  "gauss_seidel_x0", "gs_plain",
+                                  "gs_plain_x0", "sweep_fwd",
                                   "sweep_bwd", "cg", "cg_x0",
                                   "cg_operator", "cg_operator_x0"])
 def test_smoothers_and_cg_match_jax(system, case):
     """Block Jacobi, the colored symmetric Gauss-Seidel (and one sweep of
-    it), and CG on the block-ELL operator (the SpMV wrapper's matvec) or an
-    abstract operator, from zero or from x0: to 1e-4 of max|x| (CG's
-    recurrences carry the roundoff of ~10 matvecs)."""
+    it; and the kernel's plain version, one in-place pass per color in the
+    kernel's passes), and CG on the block-ELL operator (the SpMV wrapper's
+    matvec) or an abstract operator, from zero or from x0: to 1e-4 of
+    max|x| (CG's recurrences carry the roundoff of ~10 matvecs)."""
     (jop, jv, jb), (top, tv, tb) = system
     x0 = 0.1 * np.random.default_rng(6).normal(size=tuple(tb.shape)) \
         .astype(np.float32)
@@ -430,6 +432,16 @@ def test_smoothers_and_cg_match_jax(system, case):
             lambda: jax.jit(lambda a, b, c: jsm.gauss_seidel(
                 jop, a, b, 1, x0=c))(jv, jb, jx0),
             lambda: tsm.gauss_seidel(top, tv, tb, 1, x0=tx0)),
+        "gs_plain": (
+            lambda: jax.jit(lambda a, b: jsm.gauss_seidel(jop, a, b, 3))(
+                jv, jb),
+            lambda: tek.gs_plain(tv, top.nbr, top.mask, top.diag_slot,
+                                 top.color_offsets, tb, None, 3)),
+        "gs_plain_x0": (
+            lambda: jax.jit(lambda a, b, c: jsm.gauss_seidel(
+                jop, a, b, 1, x0=c))(jv, jb, jx0),
+            lambda: tek.gs_plain(tv, top.nbr, top.mask, top.diag_slot,
+                                 top.color_offsets, tb, tx0, 1)),
         "sweep_fwd": (
             lambda: jax.jit(lambda a, b: jsm._sweep(
                 jop, a, jell.diag_blocks(a, jop.diag_slot), b,
@@ -553,6 +565,31 @@ def test_one_pass_gs_equals_two_stage(level_systems, level, case):
     np.testing.assert_array_equal(
         tek.gs(vals, op.nbr, op.mask, op.diag_slot, op.color_offsets, b, x0,
                iters).numpy(), got)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("case", ["zero_start", "x0"])
+def test_skipped_passes_change_no_bits(level_systems, level, case):
+    """gs_plain leaves out a color's pass where it would follow the same
+    color's (the sweeps' turns): with every color an independent set and a
+    row's own slot skipped, that pass would write the bits it reads. The
+    full 2 x 8 passes an iteration give the same bits, 3 iterations."""
+    op, vals, b = level_systems[level]
+    x0 = None if case == "zero_start" else 0.1 * t(
+        np.random.default_rng(10).normal(size=tuple(b.shape))
+        .astype(np.float32))
+    got = tek.gs_plain(vals, op.nbr, op.mask, op.diag_slot, op.color_offsets,
+                       b, x0, 3)
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    nc, offs = op.n_colors, op.color_offsets
+    for _ in range(3):
+        for c in list(range(nc - 1, -1, -1)) + list(range(nc)):
+            if offs[c + 1] > offs[c]:
+                x[offs[c]:offs[c + 1]] = tek._relax_rows_plain(
+                    vals, op.nbr, op.mask, op.diag_slot, b, x, offs[c],
+                    offs[c + 1])
+    assert len(tek.gs_passes(offs, 3)) == 6 * nc - 5 < 6 * nc
+    assert torch.equal(got, x)
 
 
 @pytest.mark.parametrize("level", [0, 1])
