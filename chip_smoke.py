@@ -51,6 +51,9 @@ Phase 7  lattice quasi-static solvers and multigrid: on every level of the
          Jacobi rotation of either chain meets an exact tie, which are
          counted and logged; at rest, against ell.spd_project of the
          kernel's own shifted blocks; two runs bit-identical), timed;
+         lat_cheby's calls and lat_power also in every form their plan
+         weighs at that shape (cluster, halo tiles, exchange tiles), the
+         forms bit-equal, one device op a call;
          then the path, counters zeroed before it:
          the verify recipe on the 8x8x24 beam (quasistatic_to_tol with 2
          load steps; LatticeMG(n_levels=2, dt=None, coarse_cg=8) with
@@ -61,8 +64,11 @@ Phase 7  lattice quasi-static solvers and multigrid: on every level of the
          each timed after a warm-up solve; step_to_tol_mg for 16
          excited frames on the 2k and 19k beams; frame_adaptive and
          frame_adaptive_mg on the violent kick of the 3x3x12 beam; FMG with
-         the "jacobi" corrector on the 4x4x32 cantilever. Then the first 3
-         Newton iterations of quasistatic_to_tol_mg at 19k again on the CPU.
+         the "jacobi" corrector on the 4x4x32 cantilever; the path's Newton,
+         PCG and V-cycle counts, substeps and FMG's Newton held equal to
+         those of lat_cheby's and lat_power's first forms
+         (PHASE7_FIRST_FORMS). Then the first 3 Newton iterations of
+         quasistatic_to_tol_mg at 19k again on the CPU.
 Phase 8  the rest of exp1: the SpMV against its plain version on the cloth
          Hessians (K = 7, 8 lanes a row, L on each line) of the 64x64 and
          128x128 grids (pins [0, res]),
@@ -1243,6 +1249,8 @@ def cheby_bound(lvl, sweeps, warm, residual):
 def _plan_text(plan, lanes=False):
     """A plan in words; lanes: lat_diag_shift's, whose small tiles run
     eight lanes a cell."""
+    if len(plan) == 4:                  # lat_cheby's and lat_power's
+        return f"{lk.LEVEL_FORMS[plan[0]]} {plan[1]}x{plan[2]}x{plan[3]}"
     if len(plan) == 6:                  # lat_force's form
         if plan == lk.FORCE_TWO_PASS:
             return "two passes"
@@ -1299,6 +1307,68 @@ def diag_shift_err(where, u, dargs, got, ref, tol=1e-4, phase="phase7"):
             f"{ref[(slice(None),) + i].tolist()}")
     return err, scale, dict(tie_blocks=n_tie, tie_max_abs_err=tie_err,
                             off_blocks=n_off)
+
+
+def level_forms(label, li, shape, device, calls, cases, bounds):
+    """lat_cheby's calls and lat_power at one level shape in every form the
+    plan weighs, each at the tiles its model likes best for that form,
+    forced through lk._level_plans: within 1e-4 of max|ref| of the plain
+    version, two runs bit-identical, every form bit-equal to every other
+    (one arithmetic; lat_power's dots summed by row and plane in one
+    order), one device op a call; device us and share of bound. Returns
+    {call: {form: record}}."""
+    sms = lk._sms(device.index)
+    out = {}
+    for name, (kernel, sweeps, warm, res) in calls.items():
+        kern, plain = cases[name]
+        ref = plain()
+        key = (str(device), *shape, kernel, sweeps, warm, res)
+        own = lk._level_plans[key]
+        best = {}
+        for cost, form, tiles in lk.level_candidates(shape, sms, kernel,
+                                                     sweeps, warm, res):
+            if form not in best or cost < best[form][0]:
+                best[form] = (cost, tiles)
+        outs, rec = [], {}
+        try:
+            for form, (cost, tiles) in sorted(best.items()):
+                lk._level_plans[key] = (form,) + tiles
+                got, again = kern(), kern()
+                torch.cuda.synchronize()
+                g = [got] if not isinstance(got, tuple) else list(got)
+                a = [again] if not isinstance(again, tuple) else list(again)
+                r = [ref] if not isinstance(ref, tuple) else list(ref)
+                what = f"{name} {label} level {li} {lk.LEVEL_FORMS[form]}"
+                check(all(torch.equal(x, y) for x, y in zip(g, a)),
+                      f"{what}: two runs differ")
+                err = max(max_err(x, y) for x, y in zip(g, r))
+                scale = max(float(y.abs().max()) for y in r)
+                check(err <= 1e-4 * scale, f"{what}: max|d| {err:.3e} > "
+                      f"1e-4 * {scale:.3e}")
+                ops = whole_trace(kern, 20, 1)
+                check(len(ops) <= 1 and sum(n for n, _ in ops.values()) <= 1,
+                      f"{what}: device ops per call {ops}")
+                us = (round(sum(t for _, t in ops.values()), 2) if ops
+                      else None)
+                b_us = bounds[name][0] * 1e3
+                outs.append(g)
+                rec[lk.LEVEL_FORMS[form]] = dict(
+                    tiles=list(tiles), max_abs_err=err, device_us=us,
+                    model_us=round(cost, 2),
+                    share_of_bound=None if not us else b_us / us)
+                log(f"phase7 form {name:12s} {label:4s} level {li} {shape} "
+                    f"{lk.LEVEL_FORMS[form]:8s} {tiles}: max|d| {err:.3e} "
+                    f"(max|ref| {scale:.3e}) same bits twice, device "
+                    f"{us} us (model {cost:.1f}; bound {b_us:.2f} us)")
+        finally:
+            lk._level_plans[key] = own
+        same = all(all(torch.equal(x, y) for x, y in zip(o, outs[0]))
+                   for o in outs[1:])
+        log(f"phase7 forms {name:12s} {label:4s} level {li} {shape}: "
+            f"{len(outs)} forms bit-equal {same}")
+        check(same, f"{name} {label} level {li}: the forms' bits differ")
+        out[name] = rec
+    return out
 
 
 def phase7_kernels(scenes, rows, reps):
@@ -1371,25 +1441,32 @@ def phase7_kernels(scenes, rows, reps):
                                lambda call=call: lk.cheby_smooth_cf_plain(
                                    *call))
                 bounds[name] = cheby_bound(lvl, sweeps, x is not None, res)
-            plans = {k: lk._level_plan(lib, *shape[1:], u.device, k)
-                     for k in (lk.CHEBY, lk.POWER)}
+            # lat_cheby's and lat_power's calls: (kernel, sweeps, warm,
+            # residual), each with its own plan
+            level_calls = {name: (lk.CHEBY, sweeps, x is not None, res)
+                           for name, (x, sweeps, res) in smooths.items()}
+            level_calls["power"] = (lk.POWER, 6, False, False)
+            plans = {name: lk._level_plan(lib, *shape[1:], u.device, *call)
+                     for name, call in level_calls.items()}
             plans["hvp"] = lk._hvp_plan(*shape[1:], u.device)
             for k in ("diag", "diag_shift"):
                 plans[k] = lk._diag_plan(*shape[1:], u.device,
                                          k == "diag_shift")
             entry = {"level": li, "shape": shape[1:], "dx": lvl.dx,
                      "lmax": float(lmax),
-                     "cheby_plan": list(plans[lk.CHEBY]),
+                     "cheby_plan": {name: _plan_text(plans[name])
+                                    for name in smooths},
                      "diag_plan": list(plans["diag"]),
                      "diag_shift_plan": list(plans["diag_shift"]),
                      "hvp_plan": list(plans["hvp"]),
-                     "power_plan": list(plans[lk.POWER])}
+                     "power_plan": _plan_text(plans["power"])}
             log(f"phase7 plan {label:4s} level {li} {shape[1:]} lat_cheby "
-                f"{_plan_text(plans[lk.CHEBY])}; lat_diag "
-                f"{_plan_text(plans['diag'])}; lat_diag_shift "
+                + ", ".join(f"{name} {_plan_text(plans[name])}"
+                            for name in smooths)
+                + f"; lat_diag {_plan_text(plans['diag'])}; lat_diag_shift "
                 f"{_plan_text(plans['diag_shift'], True)}; lat_hvp "
                 f"{_plan_text(plans['hvp'])}; lat_power "
-                f"{_plan_text(plans[lk.POWER])}; lmax {float(lmax):.4f}")
+                f"{_plan_text(plans['power'])}; lmax {float(lmax):.4f}")
             forms = diag_forms("phase7", f"{label} level {li}", u,
                                lvl.cell_mask, lvl.ctrl, vm, lvl.dx, rows)
             entry["diag"] = forms["diag"]
@@ -1449,6 +1526,9 @@ def phase7_kernels(scenes, rows, reps):
                     f"{'not captured' if us is None else f'{us} us'}, "
                     f"{n_got:g} ops)  plain {plain_ms:.3f} ms  bound "
                     f"{b_ms:.5f} ms ({b_by})")
+            entry["level_forms"] = level_forms(
+                label, li, shape[1:], u.device, level_calls,
+                {name: cases[name] for name in level_calls}, bounds)
             # the projection where the kernel's own sums tie (at rest)
             u0 = torch.zeros_like(u)
             raw = lk.sym_blocks(lk.hess_diag_shift_cf(u0, *dargs, False))
@@ -1632,6 +1712,41 @@ def phase7_path(scenes):
                  "fused_newton"):
         check(counts[name] > 0, f"phase7: {name} never launched")
     return results, counts
+
+
+# phase 7's path under the first forms of lat_cheby and lat_power (the
+# cooperative eight-lane kernels on the fused Newton kernel's tiles), as
+# scripts/level_tilings.py --path counted it on an H100 (PERF.md):
+# each solve's Newton and PCG counts and V-cycles (lat_cheby launches over
+# the 2 (levels - 1) + 1 a V-cycle makes), the frames' mean Newton, the
+# substeps and Newton of the kicks, FMG's Newton per level
+PHASE7_FIRST_FORMS = {
+    "19k quasistatic_to_tol": dict(newton=3, pcg=41),
+    "74k quasistatic_to_tol(load_steps=2)": dict(newton=5),
+    "19k quasistatic_to_tol_mg": dict(newton=3, pcg=7, vcycles=10),
+    "74k quasistatic_to_tol_mg": dict(newton=3, pcg=7, vcycles=10),
+    "verify": dict(newton=2),
+    "2k step_to_tol_mg": dict(newton_mean=1.25),
+    "19k step_to_tol_mg": dict(newton_mean=1.8125),
+    "kick frame_adaptive": dict(n_sub=[2, 2, 1], newton=[12, 6, 6]),
+    "kick frame_adaptive_mg": dict(n_sub=[4, 2, 1], newton=[4, 6, 6]),
+    "fmg": dict(newton=[12, 10, 10]),
+}
+
+
+def phase7_against_first_forms(results):
+    """The path's counts against PHASE7_FIRST_FORMS, each equal to them:
+    the solves' Newton, PCG and V-cycles, the frames' mean Newton, the
+    kicks' substeps and Newton, FMG's Newton per level."""
+    got = {name: dict(r) for name, r in results["solves"].items()}
+    for name in ("19k quasistatic_to_tol_mg", "74k quasistatic_to_tol_mg"):
+        got[name]["vcycles"] = got[name]["launches"]["cheby"] // 5
+    got.update({k: v for k, v in results.items() if k != "solves"})
+    for name, want in PHASE7_FIRST_FORMS.items():
+        have = {k: got[name][k] for k in want}
+        same = have == want
+        log(f"phase7 {name:36s} {have} against the first forms' {want}")
+        check(same, f"phase7 {name}: {have}, first forms {want}")
 
 
 def phase7_cpu(sc_gpu, newton=3):
@@ -2918,8 +3033,9 @@ class PathCapture:
             elif attr in ("hvp_cf", "level_matvec_cf"):
                 plan = _plan_text(lk._hvp_plan(*grid, dev))
             elif attr in level:
-                plan = _plan_text(lk._level_plan(lib, *grid, dev,
-                                                 level[attr]))
+                plan = _plan_text(lk._level_plan(
+                    lib, *grid, dev, level[attr], *_level_call(attr, args,
+                                                               kwargs)))
             elif attr in diags:
                 shift = attr == "hess_diag_shift_cf"
                 plan = _plan_text(lk._diag_plan(*grid, dev, shift), shift)
@@ -2972,6 +3088,17 @@ class PathCapture:
                         for f, e in v["forms"].items()}
                     for k, v in forms.items()}
         return len(self.calls)
+
+
+def _level_call(attr, args, kwargs):
+    """(sweeps, warm, residual) of a recorded lat_cheby call, or lat_power's
+    (iterations, False, False)."""
+    if attr == "power_lmax_cf":
+        return (kwargs.get("iters", args[10] if len(args) > 10 else 6),
+                False, False)
+    coeffs = args[10] if len(args) > 10 else kwargs["coeffs"]
+    res = kwargs.get("want_residual", args[11] if len(args) > 11 else False)
+    return (len(coeffs) + 1) // 2, args[2] is not None, bool(res)
 
 
 def _grid_of(attr, args):
@@ -3468,6 +3595,7 @@ def phase10_path(scenes, uscenes, rows, newton7):
           f"phase10 spmv launches {ek.launches['spmv']} vs calls "
           f"{ell.cuda_calls['spmv']}")
     log("phase10 kernel launches " + json.dumps(launches))
+    launches["level_by_form"] = dict(lk.level_launches)
 
     # every kernel at every shape the path gave it, against its plain
     # version; first, that the shapes the distributed solvers build are
@@ -3729,8 +3857,12 @@ def main() -> int:
     rel6, err6 = phase6(uscenes["19k"])
     levels7 = phase7_kernels(scenes, rows, reps=20)
     results7, counts7 = phase7_path(scenes)
+    phase7_against_first_forms(results7)
     for name in ("cheby", "diag_shift", "power", "hvp", "diag"):
         counts[name] = counts7[name]
+    # lat_cheby's and lat_power's launches on the main paths by (kernel,
+    # shape, form): phases 7 and 10 each zero the counts first
+    level_shapes = dict(lk.level_launches)
     rel7 = phase7_cpu(scenes["19k"])
     cloths = {label: cloth_scene(res, dev) for label, res in CLOTHS.items()}
     phase8_spmv(cloths, rows["spmv"], reps=50)
@@ -3760,6 +3892,8 @@ def main() -> int:
         results7["solves"]["74k quasistatic_to_tol_mg"]["newton"])
     results10.update(path10)
     add_gs_shapes()
+    for key, v in counts10.pop("level_by_form").items():
+        level_shapes[key] = level_shapes.get(key, 0) + v
     for name in counts:
         counts[name] += counts10.get(name, 0)
     results11, counts11 = phase11(rows)
@@ -3771,6 +3905,13 @@ def main() -> int:
                     for (n, form), c in sorted(gs_shapes.items())))
     check(sum(gs_shapes.values()) == counts["gs"], f"gs launches by shape "
           f"{gs_shapes} do not add up to {counts['gs']}")
+    log("level kernel launches on the main paths by (kernel, shape, form): "
+        + ", ".join(f"{k} {s} {f} {c}"
+                    for (k, s, f), c in sorted(level_shapes.items())))
+    for name in ("cheby", "power"):
+        n = sum(c for (k, _, _), c in level_shapes.items() if k == name)
+        check(n == counts[name], f"{name} launches by shape and form {n} "
+              f"do not add up to {counts[name]}")
     summary = {label: {k: v for k, v in r.items() if k != "state8"}
                for label, r in results.items()}
     log("phase2 summary " + json.dumps(summary))
@@ -3797,7 +3938,8 @@ def main() -> int:
         at_level[name] = next(e for e in rows[name]["by_level"]
                               if (e["beam"], e["level"]) == ("21k", 1)
                               and e["form"] in (None, JACOBI_BWD_PATH_FORM))
-    per_level = {"cheby": ("cheby_pre", "cheby_post", "cheby_coarse"),
+    per_level = {"cheby": ("cheby_pre", "cheby_post", "cheby_coarse",
+                           "cheby_plan"),
                  "diag_shift": ("diag_shift", "diag_shift_unprojected",
                                 "diag_shift_ties", "diag_shift_plan"),
                  "diag": ("diag", "diag_plan"),
@@ -3834,6 +3976,17 @@ def main() -> int:
                          **{case: e[case] for case in per_level[name]
                             if case in e}} for e in entries]
                 for label, entries in levels7.items()}
+        if name in ("cheby", "power"):  # phase 7: every form, each shape;
+                                        # the paths' launches by form
+            out["by_form"] = {
+                label: [{"level": e["level"], **{
+                    call: forms for call, forms in e["level_forms"].items()
+                    if (call == "power") == (name == "power")}}
+                    for e in entries]
+                for label, entries in levels7.items()}
+            out["by_shape"] = [{"shape": list(s), "form": f, "launches": c}
+                               for (k, s, f), c in sorted(
+                                   level_shapes.items()) if k == name]
         return out
     log(card)
     print(json.dumps({

@@ -34,9 +34,11 @@
 //   or, where the plan's model says the cells computed twice cost more
 //   than a second launch, PR 1's two passes: a thread a cell writes its 8
 //   corner contributions to a scratch and a vertex pass gathers them.
-// * lat_power replaces the same _run as the JAX LatticeMG._est_lmax applies
-//   it (sim/lattice_mg.py:469-479): every iteration of one level's power
-//   iteration on D^-1 A in one cooperative launch (see power_kernel).
+// * lat_cheby and lat_power replace the same _run as the JAX multigrid's
+//   Chebyshev smoother (LatticeMG._smooth_cheby, sim/lattice_mg.py:481-502)
+//   and power iteration (LatticeMG._est_lmax, :469-479) apply it: a whole
+//   smoothing call, or a level's whole power iteration, in one launch whose
+//   blocks keep the level's fields in shared memory (see level_kernel).
 // * lat_diag replaces _run_diag (pallas_call at :251), entry
 //   hess_diag_lattice; _diag_into at :129-164 (930 FLOP per cell and quad
 //   point, 6 symmetric channels a vertex), and with the multigrid's shift
@@ -97,6 +99,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "lattice_chain.cuh"
 
 namespace cg = cooperative_groups;
@@ -256,13 +259,12 @@ __device__ float partials_max(const float* part, int n, float* sh) {
     return block_max(m, sh);
 }
 
-// Adjugate solve of the 6-channel symmetric 3x3 block at vertex v, masked
+// Adjugate solve of the symmetric 3x3 block (a b c; b dd e; c e f), masked
 // by vm (pallas_lattice._sym_solve, ell.solve3x3 math).
-__device__ __forceinline__ void sym_solve(const float* d6, int N, int v,
-                                          const float r[3], float vm,
-                                          float z[3]) {
-    const float a = d6[v], b = d6[N + v], c = d6[2 * N + v],
-                dd = d6[3 * N + v], e = d6[4 * N + v], f = d6[5 * N + v];
+__device__ __forceinline__ void sym_solve6(float a, float b, float c,
+                                           float dd, float e, float f,
+                                           const float r[3], float vm,
+                                           float z[3]) {
     const float c00 = dd * f - e * e;
     const float c01 = e * c - b * f;
     const float c02 = b * e - dd * c;
@@ -274,6 +276,14 @@ __device__ __forceinline__ void sym_solve(const float* d6, int N, int v,
     z[0] = (c00 * r[0] + c01 * r[1] + c02 * r[2]) * inv_det * vm;
     z[1] = (c01 * r[0] + c11 * r[1] + c12 * r[2]) * inv_det * vm;
     z[2] = (c02 * r[0] + c12 * r[1] + c22 * r[2]) * inv_det * vm;
+}
+
+// The same of the 6-channel block at vertex v of d6 (6, N).
+__device__ __forceinline__ void sym_solve(const float* d6, int N, int v,
+                                          const float r[3], float vm,
+                                          float z[3]) {
+    sym_solve6(d6[v], d6[N + v], d6[2 * N + v], d6[3 * N + v], d6[4 * N + v],
+               d6[5 * N + v], r, vm, z);
 }
 
 // ---------------------------------------------------------------------------
@@ -409,8 +419,9 @@ struct Tile {
     int ix, iy, iz;
 };
 
-__device__ __forceinline__ void tile_axis(int n, int nt, int it, int halo,
-                                          int& v0, int& nv, int& c0, int& nc) {
+__host__ __device__ __forceinline__ void tile_axis(int n, int nt, int it,
+                                                   int halo, int& v0, int& nv,
+                                                   int& c0, int& nc) {
     v0 = it * n / nt;
     const int v1 = (it + 1) * n / nt;
     nv = v1 - v0;
@@ -503,29 +514,10 @@ struct HvpArgs {
     float* out;         // (3, N) H(u) p, or (H(u) p + ctrl p) vm
 };
 
-// One level's power iteration on D^-1 A (lat_power).
-struct PowerArgs {
-    ChainArgs A;
-    Tiling T;
-    const float* u;      // (3, N) the level's displacement
-    const float* cm;     // (C,) cell mask
-    const float* ctrl;   // (N,) the level's diagonal shift
-    const float* vm;     // (N,) vertex mask
-    const float* d6;     // (6, N) the smoother's blocks (xx xy xz yy yz zz)
-    const float* start;  // (N,) sin(0, 1, ..., N - 1); v0 = vm start
-    float* out;          // (1,) out: 1.1 lambda
-    float* w;            // (2, 3, N) scratch: the iterates, alternating
-    float* part;         // (2, 2, gridDim.x) scratch: partials of w.w, v.v
-    float* pbuf;         // (8, 9, N) scratch, exchange mode (rows 0-2)
-    int iters;
-    int coop;            // 1: cooperative launch; 0: one block, one tile
-};
-
 enum CellOp { kForce, kTrial, kHvp, kDiag };
 
 // What a cell pass reads besides u: the step scale of the trial pass, or
-// the previous direction and beta of the HVP pass. The power iteration's
-// HVP pass reads its direction as pprev / sb (hvp_dir_at).
+// the previous direction and beta of the HVP pass.
 struct CellIn {
     float sb;
     const float* pprev;
@@ -534,9 +526,8 @@ struct CellIn {
 };
 
 // The first term of the HVP pass's direction: z for the PCG of the fused
-// kernels (p = z + beta p_prev); other callers (the Chebyshev smoother, the
-// standalone HVP) pass the whole direction in CellIn::pprev with have_prev
-// false.
+// kernels (p = z + beta p_prev); the standalone HVP passes the whole
+// direction in CellIn::pprev with have_prev false.
 __device__ __forceinline__ const float* hvp_dir(const NewtonArgs& P,
                                                 const CellIn&) {
     return P.z;
@@ -555,19 +546,10 @@ __device__ __forceinline__ float hvp_dir_at(const Args& P, const CellIn& in,
     if (in.have_prev) a += in.beta * in.pprev[r * N + v];
     return a;
 }
-// The power iteration's: v = w / norm (pprev = w, sb = norm), in its first
-// iteration vm start (the plain version's vmask * sin(arange(N))).
-__device__ __forceinline__ float hvp_dir_at(const PowerArgs& P,
-                                            const CellIn& in, int N, int r,
-                                            int v) {
-    return in.have_prev ? in.pprev[r * N + v] / in.sb : P.vm[v] * P.start[v];
-}
-
 // Stage the fields at the vertex box around T's cells into shared memory,
 // one float4 a vertex: su holds u (kTrial: u + (xacc sb) vm) and, for kHvp,
 // sp the direction p = z (+ beta p_prev when have_prev; hvp_dir_at). Args:
-// NewtonArgs, ForceArgs for kForce, ChebyArgs, HvpArgs or PowerArgs for
-// kHvp, DiagArgs for kDiag.
+// NewtonArgs, ForceArgs for kForce, HvpArgs for kHvp, DiagArgs for kDiag.
 template <int OP, class Args>
 __device__ __forceinline__ void stage_box(const Args& P, const Tile& T,
                                           float4* su, float4* sp,
@@ -1048,8 +1030,8 @@ cudaError_t launch_fused(NewtonArgs& P, int grid, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// Lattice multigrid level operators: the Chebyshev smoother and the shifted,
-// SPD-projected vertex diagonal
+// Lattice multigrid level operators: the shifted, SPD-projected vertex
+// diagonal (the smoother and the power iteration: level_kernel, below)
 // ---------------------------------------------------------------------------
 //
 // The lattice multigrid (sim/lattice_mg.py) runs, on every level, a
@@ -1058,28 +1040,6 @@ cudaError_t launch_fused(NewtonArgs& P, int grid, cudaStream_t st) {
 // of torch ops around the two-pass lat_hvp / lat_diag, a V-cycle was ~1,400
 // ops and a linearization ~2,800 (PERF.md), the card idle ~92% of a solve.
 // Here each of the two is one launch.
-//
-// lat_cheby replaces, on that path, the HVP (_run(hvp=True), pallas_call at
-// :306) as the JAX LatticeMG._smooth_cheby applies it (sim/lattice_mg.py:
-// 481-502): all the sweeps of one smoothing call. A sweep is
-//   A x = (HVP(u; x) + ctrl x) vm,  r = b - A x,  z = D^-1 r vm (sym_solve),
-//   d = z / theta (first sweep) or a d + b z,  x = x + d;
-// the first sweep from zero skips the HVP (r = b). With a residual asked
-// for, one more HVP gives r = b - A x, what the V-cycle restricts. Bound:
-// at the level shapes the HVP chain is microseconds of the card's float32
-// rate and the fields stay in L2; what a sweep costs is its grid barrier
-// and its rounds of cells. Design: the fused Newton kernel's tiles, eight
-// lanes a cell and vertex passes, one grid barrier a sweep (x complete
-// before the next HVP: in halo mode a block computes every cell around its
-// own vertices, so no other barrier is needed; exchange mode, where the
-// plan picks it, adds its own). x alternates between two buffers, a sweep
-// reading one and writing the other, so that no block overwrites a vertex
-// another block is still staging; the last sweep writes the output. A
-// sweep has no dot product: no reductions, no partials, no data-dependent
-// branch around a barrier. A lattice that is one tile runs one block with
-// __syncthreads() as its barrier and no cooperative launch. The Chebyshev
-// coefficients (host float32, the recurrence of the plain version) travel
-// in the argument struct: no host-to-device copy.
 //
 // lat_diag_shift replaces, on the same path, hess_diag_lattice (_run_diag,
 // pallas_call at :251) together with what the JAX LatticeMG.linearize does
@@ -1093,28 +1053,6 @@ cudaError_t launch_fused(NewtonArgs& P, int grid, cudaStream_t st) {
 // into fma), with sign(0) = 0 as torch.sign has it: a block with app == aqq
 // gets no rotation.
 
-constexpr int kMaxSweeps = 32;
-
-struct ChebyArgs {
-    ChainArgs A;
-    Tiling T;
-    const float* u;     // (3, N) the level's displacement
-    const float* b;     // (3, N) right-hand side
-    const float* x0;    // (3, N) start, or null: from zero
-    const float* cm;    // (C,) cell mask
-    const float* ctrl;  // (N,) the level's diagonal shift
-    const float* vm;    // (N,) vertex mask
-    const float* d6;    // (6, N) the smoother's blocks (xx xy xz yy yz zz)
-    float* x;           // (3, N) out: the smoothed iterate
-    float* r;           // (3, N) out: b - A x, or null
-    float* xs;          // (3, N) scratch: the other iterate buffer
-    float* d;           // (3, N) scratch: the Chebyshev direction
-    float* pbuf;        // (8, 9, N) scratch, exchange mode (rows 0-2)
-    int sweeps;
-    int coop;           // 1: cooperative launch; 0: one block, one tile
-    float coef[2 * kMaxSweeps - 1];  // theta, then (a, b) of sweeps 1, 2, ...
-};
-
 struct DiagArgs {
     ChainArgs A;
     Tiling T;
@@ -1127,69 +1065,6 @@ struct DiagArgs {
     int lane_cells;     // with ctrl: a tile of at most this many cells runs
                         // eight lanes a cell
 };
-
-__global__ void __launch_bounds__(kFusedThreads, 1)
-cheby_kernel(const __grid_constant__ ChebyArgs P) {
-    cg::grid_group grid = cg::this_grid();
-    extern __shared__ float4 smem[];  // scratch rows, then the vertex boxes
-    float* sc = reinterpret_cast<float*>(smem);
-    const int N = P.A.L.N;
-    const QuadLane ql = quad_lane(P.A.G, threadIdx.x & 7);
-    const float* xr = P.x0;
-    for (int s = 0; s < P.sweeps; ++s) {
-        float* xw = (P.sweeps - 1 - s) % 2 == 0 ? P.x : P.xs;
-        // r = b - A x at vertex v (ax null: x = 0, r = b), z = D^-1 r vm,
-        // and the Chebyshev update of d and x there
-        auto update = [&](int v, const float* ax) {
-            float r[3], z[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c)
-                r[c] = ax ? P.b[c * N + v] - ax[c] : P.b[c * N + v];
-            sym_solve(P.d6, N, v, r, P.vm[v], z);
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                const float dn = s == 0 ? z[c] / P.coef[0]
-                                        : P.coef[2 * s - 1] * P.d[c * N + v]
-                                              + P.coef[2 * s] * z[c];
-                P.d[c * N + v] = dn;
-                xw[c * N + v] = xr ? xr[c * N + v] + dn : dn;
-            }
-        };
-        if (xr == nullptr) {
-            for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < N;
-                 v += gridDim.x * blockDim.x)
-                update(v, nullptr);
-        } else {
-            const CellIn along_x = {0.f, xr, 0.f, false};
-            cell_vertex_pass<kHvp>(
-                P, ql, sc, along_x, 0, grid, [&](int v, const float* tot) {
-                    const float vm = P.vm[v], ct = P.ctrl[v];
-                    float ax[3];
-#pragma unroll
-                    for (int c = 0; c < 3; ++c)
-                        ax[c] = (tot[c] + ct * xr[c * N + v]) * vm;
-                    update(v, ax);
-                });
-        }
-        if (s + 1 < P.sweeps || P.r != nullptr) {
-            if (P.coop)
-                grid.sync();
-            else
-                __syncthreads();
-        }
-        xr = xw;
-    }
-    if (P.r == nullptr) return;
-    const CellIn along_x = {0.f, xr, 0.f, false};
-    cell_vertex_pass<kHvp>(
-        P, ql, sc, along_x, 0, grid, [&](int v, const float* tot) {
-            const float vm = P.vm[v], ct = P.ctrl[v];
-#pragma unroll
-            for (int c = 0; c < 3; ++c)
-                P.r[c * N + v] =
-                    P.b[c * N + v] - (tot[c] + ct * xr[c * N + v]) * vm;
-        });
-}
 
 // One cyclic-Jacobi rotation zeroing A[p][q] of a symmetric block, with
 // the rotations accumulated in V: ops/ell.py _jacobi_rotation, operation by
@@ -1262,7 +1137,7 @@ __device__ __forceinline__ void spd_project(float a[6]) {
 }
 
 // ---------------------------------------------------------------------------
-// The standalone HVP and the multigrid's power iteration
+// The standalone HVP
 // ---------------------------------------------------------------------------
 //
 // lat_hvp, one launch: a block per halo tile of ops/lattice_kernels.
@@ -1278,19 +1153,6 @@ __device__ __forceinline__ void spd_project(float a[6]) {
 // fine levels), the two passes of PR 1 run instead, the epilogue in their
 // gather (gather_level).
 //
-// lat_power: every iteration of one level's power iteration for the
-// Chebyshev bound in one cooperative launch on lat_cheby's tiles. An
-// iteration is one kHvp cell and vertex pass along v, and at each vertex
-//   ax = (H(u) v + ctrl v) vm,  w = D^-1 ax vm (sym_solve),
-// w written, the block's partials of w.w and v.v; one grid barrier; then
-// every block sums the same partials in the same order (partials_sum2),
-// so all hold bit-identical ww, vv, lambda = sqrt(ww / max(vv, 1e-30)) and
-// norm = max(sqrt(ww), 1e-30), and the next iteration stages v = w / norm
-// as it reads. w and the partials alternate between two buffers, so no
-// block overwrites what another is still reading and one barrier an
-// iteration suffices. Block 0 writes 1.1 lambda. A lattice that is one tile
-// runs one block with __syncthreads() as its barrier.
-
 // out at vertex v from the complete sums tot of H(u) p there.
 __device__ __forceinline__ void hvp_out(const HvpArgs& P, int N, int v,
                                         const float* tot) {
@@ -1391,54 +1253,822 @@ gather_level(Lattice L, const float* __restrict__ cf,
     }
 }
 
-__global__ void __launch_bounds__(kFusedThreads, 1)
-power_kernel(const __grid_constant__ PowerArgs P) {
-    cg::grid_group grid = cg::this_grid();
-    extern __shared__ float4 smem[];  // scratch rows, then the vertex boxes
-    float* sc = reinterpret_cast<float*>(smem);
-    __shared__ float sh[66];
-    const int N = P.A.L.N;
-    const int nb = gridDim.x;
-    const QuadLane ql = quad_lane(P.A.G, threadIdx.x & 7);
-    float norm = 1.f, lam = 0.f;
-    for (int it = 0; it < P.iters; ++it) {
-        const float* wr = P.w + ((it + 1) & 1) * 3 * N;  // the last iterate
-        float* wo = P.w + (it & 1) * 3 * N;
-        float* part = P.part + (it & 1) * 2 * nb;
-        const CellIn along_v = {norm, wr, 0.f, it > 0};
-        float a_ww = 0.f, a_vv = 0.f;
-        cell_vertex_pass<kHvp>(
-            P, ql, sc, along_v, 0, grid, [&](int v, const float* tot) {
-                const float vm = P.vm[v], ct = P.ctrl[v];
-                float ax[3], z[3];
+// ---------------------------------------------------------------------------
+// The multigrid's level kernels: lat_cheby and lat_power
+// ---------------------------------------------------------------------------
+//
+// lat_cheby replaces, on the lattice multigrid's path, the HVP (_run(hvp=
+// True), pallas_call at :306) as the JAX LatticeMG._smooth_cheby applies it
+// (sim/lattice_mg.py:481-502): all the sweeps of one smoothing call. A
+// sweep is
+//   A x = (HVP(u; x) + ctrl x) vm,  r = b - A x,  z = D^-1 r vm (sym_solve),
+//   d = z / theta (first sweep) or a d + b z,  x = x + d;
+// the first sweep from zero skips the HVP (r = b). With a residual asked
+// for, one more HVP gives r = b - A x, what the V-cycle restricts. The
+// coefficients (host float32, the plain version's recurrence) travel in the
+// argument struct. lat_power replaces the same _run as the JAX
+// LatticeMG._est_lmax applies it (:469-479): every iteration of a level's
+// power iteration on D^-1 A,
+//   ax = (H(u) v + ctrl v) vm,  w = D^-1 ax vm,  lambda = |w| / |v|,
+//   v = w / max(|w|, 1e-30),
+// from v = vm sin(0, 1, ..., N - 1); 1.1 lambda of the last iteration out.
+//
+// Bound: at the level shapes the HVP chain is microseconds of the card's
+// f32 rate (~6 us at the 74k fine level) and the fields are KB to ~1 MB;
+// what a call costs is its rounds of cells and the wait for the
+// neighbours' new x between sweeps. Design: a block owns one tile of
+// vertices and keeps, for the whole call, in shared memory: u and x on the
+// vertex box around the cells it computes, the cells' mask, and b, d6,
+// ctrl, vm and the direction d at its own vertices. A sweep reads no input
+// from device memory; only the final x (and r) is written there. Eight
+// lanes a cell (512 threads, one block an SM), one quadrature point each,
+// summed in sum_points_to_corners' order: the first form's chain. The
+// forms (lat_level_plan picks one, with its tiles, per level and call):
+//   kLevelCluster  a thread-block cluster of at most 16 blocks whose tiles
+//       are z-slabs of whole planes. A block stores its two boundary
+//       planes of the new x into its neighbours' boxes with st.async, each
+//       16-byte store completing its bytes on that block's mbarrier, and
+//       waits on its own mbarrier for its halo planes: no grid or cluster
+//       barrier between sweeps. A block reads x_s while a neighbour may
+//       store x_{s+1} into its other buffer; two mbarriers, sweep s on
+//       s & 1, and a block never gets two sweeps ahead of a neighbour, so
+//       no store meets a read. One block waits on none.
+//   kLevelTiles  a cooperative launch, one block a tile: the new x at a
+//       block's own vertices to device memory (two buffers), a grid
+//       barrier, then the box's other vertices staged from there.
+//   kLevelExchange  where the first form took exchange tiles (its halo
+//       tiles, 5 vertices wide in x and y, fitting its 200 KB of scratch
+//       only at more tiles than SMs: the 74k fine level), its arithmetic:
+//       a block computes the cells whose lowest corner it owns; the
+//       partial sums of the vertices one plane above its own go to device
+//       memory by slot (which upper faces the vertex lies on), a grid
+//       barrier, and an owner adds its own partial and the lower tiles' in
+//       slot order; kLevelTiles' launch otherwise. lat_cheby runs it on the
+//       first form's tiles (its bits), lat_power on as many along x and z
+//       with y whole (its dots); there it is their only form.
+// In the cluster and tiles forms a block computes every cell around its
+// vertices (halo tiles) and a vertex adds its cells in corner order, the
+// first form's order wherever it ran halo tiles: lat_cheby keeps the first
+// form's bits in every form at every level. Three more forms were built
+// and swept at every level shape, and lost at all of them (PERF.md): a
+// thread a cell (the points in the same pair order, the first pairs'
+// partial sums in shared memory; its round is ~4x one of eight lanes), and
+// each cell once, the corner sums through device memory (all of them, or
+// the upper faces' only) and a second grid barrier a sweep.
+// lat_power's dots: a vertex's w.w and v.v (each an fma chain in component
+// order) are added, on a level of at most kSlots vertices, as the first
+// form's one block added them (vertex v in slot v; warp_sum over each 32
+// slots, then over those 16 sums: its bits), and on a larger level along y
+// in order to a row partial (x, z), the rows of a plane along x in order to
+// the plane's, and the planes by lane_ordered_sum.
+// Its tiles never split y, so a block owns whole rows: the cluster form's
+// z-slabs own whole planes and store each plane's partials into every
+// block (st.async, on the halo's mbarrier); kLevelTiles writes its rows'
+// partials to device memory, and after the grid barrier every block adds
+// each plane's rows. Every block sums the same partials in the same order:
+// one lambda, the same bits in every form and tiling.
+
+constexpr int kLevelCluster = 0;
+constexpr int kLevelTiles = 1;
+constexpr int kLevelExchange = 2;
+constexpr int kLevelForms = 3;
+constexpr int kMaxLevelCluster = 16;
+constexpr int kLevelThreads = kFusedThreads;  // eight lanes a cell
+constexpr int kLevelCellsPerRound = kLevelThreads / 8;
+// the most dynamic shared memory a block takes: 227 KB less the static
+constexpr int kLevelSmemCap = 230400;
+// floats a block keeps for each vertex it owns: b (lat_power: the vertex's
+// w.w and v.v), d6, ctrl, vm, d
+constexpr int kOwnFloats = 14;
+constexpr int kMaxSweeps = 32;
+// lat_power: the levels of at most this many vertices sum their dots by
+// vertex slots (the first form's block of kFusedThreads threads)
+constexpr int kSlots = kFusedThreads;
+
+struct LevelArgs {
+    ChainArgs A;
+    Tiling T;            // the tiles; stride and box of the largest tile
+    int own;             // vertices of the largest tile
+    const float* u;      // (3, N) the level's displacement
+    const float* cm;     // (C,) cell mask
+    const float* ctrl;   // (N,) the level's diagonal shift
+    const float* vm;     // (N,) vertex mask
+    const float* d6;     // (6, N) the smoother's blocks (xx xy xz yy yz zz)
+    const float* b;      // lat_cheby: (3, N) right-hand side
+    const float* x0;     // lat_cheby: (3, N) start, or null: from zero
+    const float* start;  // lat_power: (N,) sin(0, 1, ..., N - 1)
+    float* x;            // lat_cheby out: (3, N) the smoothed iterate
+    float* r;            // lat_cheby out: (3, N) b - A x, or null
+    float* out;          // lat_power out: (1,) 1.1 lambda
+    float4* xs;          // kLevelTiles: (2, N) the iterates, x y z 0
+    float* part;         // cooperative forms, lat_power: (2, max(Z X,
+                         // kSlots), 2) rows' or slots' partials
+    float* pbuf;         // kLevelExchange: (8, 3, N) partial sums by slot
+    int sweeps;          // lat_cheby: sweeps; lat_power: iterations
+    float coef[2 * kMaxSweeps - 1];  // theta, then (a, b) of sweeps 1, 2, ...
+};
+
+// Floats of a level kernel's shared layout: u and the two buffers of x on
+// the box (a float4 a vertex), lat_power's two buffers of the planes' or
+// slots' partials (a float4 each, level_partials), the corner sums
+// (kForceRows rows of stride) and the cell mask (stride), and kOwnFloats a
+// vertex the block owns. Mirrored by ops/lattice_kernels.level_layout.
+__host__ __device__ __forceinline__ int level_partials(bool power, int Z) {
+    return power ? (Z > kSlots ? Z : kSlots) : 0;
+}
+__host__ __device__ __forceinline__ long long level_smem_floats(
+    int box, int stride, int own, int Z, bool power) {
+    return 12LL * box + 8LL * level_partials(power, Z)
+           + (kForceRows + 1LL) * stride + 1LL * kOwnFloats * own;
+}
+
+// The cell pass of a level kernel's tile: the HVP chain of every cell of T
+// at u (su) along p (sp), eight lanes a cell, one quadrature point each
+// (tile_cells' chain and order), times det * the cell mask (scm), its 24
+// corner sums handed to put(j, cell) (j = corner * 3 + channel). Every
+// thread of the block must call it (full-warp shuffles).
+template <class Put>
+__device__ __forceinline__ void level_cells(const ChainArgs& A, const Tile& T,
+                                            const float4* su,
+                                            const float4* sp,
+                                            const float* scm, Put put) {
+    const int lane = threadIdx.x & 31;
+    const int n_ext = T.ex * T.ey * T.ez;
+    const int byn = T.ey + 1, bzn = T.ez + 1;
+    const QuadLane ql = quad_lane(A.G, threadIdx.x & 7);
+    for (int base = (threadIdx.x >> 5) * 4; base < n_ext;
+         base += (blockDim.x >> 5) * 4) {
+        const int cl_raw = base + (lane >> 3);
+        const bool valid = cl_raw < n_ext;
+        const int cl = valid ? cl_raw : n_ext - 1;  // idle lanes redo the last
+        const int t = cl / T.ez;
+        const int b0 = ((t / T.ey) * byn + t % T.ey) * bzn + cl % T.ez;
+        float F[3][3], dF[3][3];
+        zero3x3(F);
+        zero3x3(dF);
 #pragma unroll
-                for (int c = 0; c < 3; ++c) {
-                    const float vc = hvp_dir_at(P, along_v, N, c, v);
-                    ax[c] = (tot[c] + ct * vc) * vm;
-                    a_vv += vc * vc;
-                }
-                sym_solve(P.d6, N, v, ax, vm, z);
-#pragma unroll
-                for (int c = 0; c < 3; ++c) {
-                    wo[c * N + v] = z[c];
-                    a_ww += z[c] * z[c];
-                }
-            });
-        block_sum2(a_ww, a_vv, sh);
-        if (threadIdx.x == 0) {
-            part[blockIdx.x] = a_ww;
-            part[nb + blockIdx.x] = a_vv;
+        for (int i = 0; i < 8; ++i) {
+            const int bi = b0 + (((i >> 2) & 1) * byn + ((i >> 1) & 1)) * bzn
+                         + (i & 1);
+            const float4 a = su[bi], d = sp[bi];
+            const float us[3] = {a.x, a.y, a.z}, ps[3] = {d.x, d.y, d.z};
+            grad_add(us, ql.gq[i], F);
+            grad_add(ps, ql.gq[i], dF);
         }
-        if (P.coop)
-            grid.sync();
-        else
-            __syncthreads();
-        float ww, vv;
-        partials_sum2(part, part + nb, nb, sh, ww, vv);
-        lam = sqrtf(ww / fmaxf(vv, 1e-30f));
-        norm = fmaxf(sqrtf(ww), 1e-30f);
+        float M[3][3], S[3][3], out[3];
+        deformation_stress(F, A.mu, A.la, M);
+        hvp_stress(F, M, dF, A.mu, A.la, S);
+        sum_points_to_corners<3>(
+            [&](int i, float* o) { emit_corner(S, ql.gq[i], o); }, lane, out);
+        if (valid) {
+            const float w = A.det * scm[cl];
+            const int i = lane & 7;
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) put(i * 3 + ch, cl, out[ch] * w);
+        }
     }
-    if (blockIdx.x == 0 && threadIdx.x == 0) P.out[0] = lam * 1.1f;
+}
+
+// The dots' fixed order: lane l of the calling warp adds term(l),
+// term(l + 32), ... (i < n) in order, then warp_sum's shuffle tree; the sum
+// is returned to lane 0. Every lane of the warp must call it.
+template <class Term>
+__device__ __forceinline__ float lane_ordered_sum(int n, Term term) {
+    float s = 0.f;
+    for (int i = threadIdx.x & 31; i < n; i += 32) s = __fadd_rn(s, term(i));
+    return warp_sum(s);
+}
+
+// lat_cheby (kPower false) or lat_power (kPower true) in form kForm, a block
+// a tile of P.T (see above).
+template <bool kPower, int kForm>
+__global__ void __launch_bounds__(kLevelThreads, 1)
+level_kernel(const __grid_constant__ LevelArgs P) {
+    constexpr bool kCluster = kForm == kLevelCluster;
+    constexpr bool kExchange = kForm == kLevelExchange;
+    static_assert(kLevelThreads == kSlots, "a thread a slot");
+    extern __shared__ float4 smem[];
+    __shared__ float sh[2], red[2 * kSlots / 32];
+    __shared__ __align__(8) unsigned long long bars[2];
+    const Lattice& L = P.A.L;
+    const int N = L.N, Z = L.Z, XY = L.X * L.Y;
+    const int rank = blockIdx.x, nb = gridDim.x;
+    const Tile T = tile_of(L, P.T, rank);
+    const int byn = T.ey + 1, bzn = T.ez + 1;
+    const int n_box = (T.ex + 1) * byn * bzn, n_ext = T.ex * T.ey * T.ez;
+    const int n_own = T.nx * T.ny * T.nz;
+    const int stride = P.T.stride, box = P.T.box, on = P.own;
+    const int np = level_partials(kPower, Z);  // a buffer of partials
+    float4* const su = smem;
+    float4* const sx0 = smem + box;  // x, buffer j at sx0 + j * box
+    float4* const pl0 = smem + 3 * box;  // partials, j at pl0 + j * np
+    float* const sc = reinterpret_cast<float*>(smem + 3 * box + 2 * np);
+    float* const scm = sc + kForceRows * stride;
+    float* const own = scm + stride;  // own[k * on + vl], k < kOwnFloats
+    float* const od = own + 11 * on;  // d (lat_cheby)
+    // own vertex vl: its coordinates, vertex and box index
+    auto own_at = [&](int vl, int& x, int& y, int& z, int& v, int& bi) {
+        z = T.z0 + vl % T.nz;
+        const int t = vl / T.nz;
+        y = T.y0 + t % T.ny;
+        x = T.x0 + t / T.ny;
+        v = (x * L.Y + y) * Z + z;
+        bi = ((x - T.cx0) * byn + y - T.cy0) * bzn + z - T.cz0;
+    };
+    auto cell_of = [&](int cl) {  // the lattice cell of local cell cl
+        const int t = cl / T.ez;
+        return ((T.cx0 + t / T.ey) * (L.Y - 1) + T.cy0 + t % T.ey) * (Z - 1)
+               + T.cz0 + cl % T.ez;
+    };
+    // the inputs, all in flight at once (cp.async; a float4's w unused)
+    for (int bl = threadIdx.x; bl < n_box; bl += blockDim.x) {
+        const int t = bl / bzn;
+        const int v = ((T.cx0 + t / byn) * L.Y + T.cy0 + t % byn) * Z
+                      + T.cz0 + bl % bzn;
+        float* su_f = reinterpret_cast<float*>(su + bl);
+        float* sx_f = reinterpret_cast<float*>(sx0 + bl);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            cp_async4(su_f + c, P.u + c * N + v);
+            if (!kPower && P.x0 != nullptr)
+                cp_async4(sx_f + c, P.x0 + c * N + v);
+        }
+        if (kPower) {
+            const float s = P.vm[v] * P.start[v];
+            sx0[bl] = make_float4(s, s, s, 0.f);
+        }
+    }
+    for (int cl = threadIdx.x; cl < n_ext; cl += blockDim.x)
+        cp_async4(scm + cl, P.cm + cell_of(cl));
+    for (int vl = threadIdx.x; vl < n_own; vl += blockDim.x) {
+        int x, y, z, v, bi;
+        own_at(vl, x, y, z, v, bi);
+        if (!kPower) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+                cp_async4(own + c * on + vl, P.b + c * N + v);
+        }
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+            cp_async4(own + (3 + k) * on + vl, P.d6 + k * N + v);
+        cp_async4(own + 9 * on + vl, P.ctrl + v);
+        cp_async4(own + 10 * on + vl, P.vm + v);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    // kLevelCluster: the neighbours' first x buffer (h 0: the block below,
+    // 1: above) and mbarriers, mapped once
+    unsigned nbx[2] = {}, nbar[2] = {};
+    int ncz[2] = {}, nbz[2] = {};
+    const int nbrs = (rank > 0) + (rank + 1 < nb);
+    if constexpr (kCluster) {
+        if (threadIdx.x == 0) {
+            mbar_init(smem_addr(&bars[0]), 1);
+            mbar_init(smem_addr(&bars[1]), 1);
+            asm volatile("fence.mbarrier_init.release.cluster;\n" :::
+                             "memory");
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int q = h ? rank + 1 : rank - 1;
+            if (q < 0 || q >= nb) continue;
+            const Tile Q = tile_of(L, P.T, q);
+            ncz[h] = Q.cz0;
+            nbz[h] = Q.ez + 1;
+            nbx[h] = map_rank(smem_addr(sx0), q);
+            nbar[h] = map_rank(smem_addr(&bars[0]), q);
+        }
+    }
+    __syncthreads();
+    if constexpr (kCluster) cg::this_cluster().sync();
+    // one cell pass along the box's x buffer p; then tot(x, y, z, t): a
+    // vertex's complete sums, each channel's cells in corner order
+    // (tile_gather's)
+    auto cell_pass = [&](const float4* p) {
+        level_cells(P.A, T, su, p, scm, [&](int j, int cl, float a) {
+            sc[j * stride + cl] = a;
+        });
+        __syncthreads();
+        if constexpr (kExchange) {
+            // the partial sums of the plane above each own face, by slot
+            const int bx = T.x0 + T.nx < L.X ? T.nx + 1 : T.nx;
+            const int by = T.y0 + T.ny < L.Y ? T.ny + 1 : T.ny;
+            const int bz = T.z0 + T.nz < Z ? T.nz + 1 : T.nz;
+            for (int k = threadIdx.x; k < bx * by * bz; k += blockDim.x) {
+                const int lz = k % bz, t = k / bz;
+                const int ly = t % by, lx = t / by;
+                const int slot = 4 * (lx == T.nx) + 2 * (ly == T.ny)
+                                 + (lz == T.nz);
+                if (slot == 0) continue;
+                const int x = T.x0 + lx, y = T.y0 + ly, z = T.z0 + lz;
+                const int v = (x * L.Y + y) * Z + z;
+#pragma unroll
+                for (int c = 0; c < 3; ++c)
+                    P.pbuf[(slot * 3 + c) * N + v] =
+                        tile_gather<3>(T, sc, stride, c, x, y, z);
+            }
+            cg::this_grid().sync();
+        }
+    };
+    auto tot = [&](int x, int y, int z, float t[3]) {
+        t[0] = t[1] = t[2] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int lx = x - ((i >> 2) & 1) - T.cx0,
+                      ly = y - ((i >> 1) & 1) - T.cy0,
+                      lz = z - (i & 1) - T.cz0;
+            if (lx >= 0 && lx < T.ex && ly >= 0 && ly < T.ey && lz >= 0
+                && lz < T.ez) {
+                const int cl = (lx * T.ey + ly) * T.ez + lz;
+#pragma unroll
+                for (int c = 0; c < 3; ++c)
+                    t[c] += sc[(i * 3 + c) * stride + cl];
+            }
+        }
+        if constexpr (kExchange) {
+            // the lower tiles' partials (the own one is slot 0), in order
+            const bool px = x == T.x0 && T.ix > 0, py = y == T.y0 && T.iy > 0,
+                       pz = z == T.z0 && T.iz > 0;
+            const int v = (x * L.Y + y) * Z + z;
+#pragma unroll
+            for (int slot = 1; slot < 8; ++slot) {
+                if (((slot & 4) && !px) || ((slot & 2) && !py)
+                    || ((slot & 1) && !pz))
+                    continue;
+#pragma unroll
+                for (int c = 0; c < 3; ++c)
+                    t[c] += P.pbuf[(slot * 3 + c) * N + v];
+            }
+        }
+    };
+    // the new value at own vertex (x, y, z) of buffer j to the blocks whose
+    // boxes hold it: kLevelCluster its neighbours (their mbarrier bj),
+    // kLevelTiles device memory
+    auto publish = [&](int x, int y, int z, int v, const float* a, int j,
+                       int bj) {
+        if constexpr (kCluster) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const bool edge = h ? z == T.z0 + T.nz - 1 && rank + 1 < nb
+                                    : z == T.z0 && rank > 0;
+                if (edge)
+                    st_async4(nbx[h] + 16u * (j * box + (x * L.Y + y) * nbz[h]
+                                              + z - ncz[h]),
+                              a[0], a[1], a[2], nbar[h] + 8u * bj);
+            }
+        } else {
+            P.xs[j * N + v] = make_float4(a[0], a[1], a[2], 0.f);
+        }
+    };
+    // the wait for what other blocks published in sweep or iteration s
+    // (halo: the new values of buffer j at this block's box)
+    auto exchange = [&](int s, int j, bool halo) {
+        if constexpr (kCluster) {
+            __syncthreads();  // this block's own new values
+            if (nb > 1) mbar_wait(smem_addr(&bars[s & 1]), (s >> 1) & 1);
+        } else {
+            cg::this_grid().sync();
+            if (!halo) return;
+            const float4* src = P.xs + j * N;
+            for (int bl = threadIdx.x; bl < n_box; bl += blockDim.x) {
+                const int lz = bl % bzn, t = bl / bzn;
+                const int x = T.cx0 + t / byn, y = T.cy0 + t % byn,
+                          z = T.cz0 + lz;
+                if (x >= T.x0 && x < T.x0 + T.nx && y >= T.y0
+                    && y < T.y0 + T.ny && z >= T.z0 && z < T.z0 + T.nz)
+                    continue;  // its own: in shared memory already
+                cp_async16(sx0 + j * box + bl, src + (x * L.Y + y) * Z + z);
+            }
+            cp_async_commit();
+            cp_async_wait_all();
+            __syncthreads();
+        }
+    };
+    int cur = 0;
+    if constexpr (!kPower) {
+        const bool warm = P.x0 != nullptr;
+        // s == sweeps: the residual pass
+        for (int s = 0; s < P.sweeps || (s == P.sweeps && P.r != nullptr);
+             ++s) {
+            const bool resid = s == P.sweeps;
+            const int nxt = cur ^ 1;
+            const bool hvp = s > 0 || warm;
+            const bool send = !resid && (s + 1 < P.sweeps || P.r != nullptr);
+            const float4* xc = sx0 + cur * box;
+            float4* xn4 = sx0 + nxt * box;
+            if (kCluster && send && nb > 1 && threadIdx.x == 0)
+                mbar_expect(smem_addr(&bars[s & 1]), 16u * XY * nbrs);
+            if (hvp) cell_pass(xc);
+            for (int vl = threadIdx.x; vl < n_own; vl += blockDim.x) {
+                int x, y, z, v, bi;
+                own_at(vl, x, y, z, v, bi);
+                const float4 xv = xc[bi];
+                const float xr[3] = {xv.x, xv.y, xv.z};
+                const float vm = own[10 * on + vl], ct = own[9 * on + vl];
+                float r[3], t[3];
+                if (hvp) tot(x, y, z, t);
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    r[c] = own[c * on + vl];
+                    if (hvp) r[c] = r[c] - (t[c] + ct * xr[c]) * vm;
+                }
+                if (resid) {
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) P.r[c * N + v] = r[c];
+                    continue;
+                }
+                float zz[3], xn[3];
+                sym_solve6(own[3 * on + vl], own[4 * on + vl],
+                           own[5 * on + vl], own[6 * on + vl],
+                           own[7 * on + vl], own[8 * on + vl], r, vm, zz);
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    const float dn =
+                        s == 0 ? zz[c] / P.coef[0]
+                               : P.coef[2 * s - 1] * od[c * on + vl]
+                                     + P.coef[2 * s] * zz[c];
+                    od[c * on + vl] = dn;
+                    xn[c] = hvp ? xr[c] + dn : dn;
+                }
+                xn4[bi] = make_float4(xn[0], xn[1], xn[2], 0.f);
+                if (s + 1 == P.sweeps) {
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) P.x[c * N + v] = xn[c];
+                }
+                if (send) publish(x, y, z, v, xn, nxt, s & 1);
+            }
+            if (send) exchange(s, nxt, true);
+            cur = nxt;
+        }
+    } else {
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        const bool slots = N <= kSlots;
+        float lam = 0.f;
+        for (int it = 0; it < P.sweeps; ++it) {
+            const int nxt = cur ^ 1;
+            const bool more = it + 1 < P.sweeps;
+            const float4* vc4 = sx0 + cur * box;
+            float4* wn4 = sx0 + nxt * box;
+            float4* pl = pl0 + cur * np;
+            float* part = P.part + 2 * cur * (Z * L.X > kSlots ? Z * L.X
+                                                                : kSlots);
+            if (kCluster && nb > 1 && threadIdx.x == 0)
+                mbar_expect(smem_addr(&bars[it & 1]),
+                            16u * ((more ? XY * nbrs : 0)
+                                   + (slots ? N - n_own : Z - T.nz)));
+            cell_pass(vc4);
+            for (int vl = threadIdx.x; vl < n_own; vl += blockDim.x) {
+                int x, y, z, v, bi;
+                own_at(vl, x, y, z, v, bi);
+                const float4 p = vc4[bi];
+                const float vc[3] = {p.x, p.y, p.z};
+                const float vm = own[10 * on + vl], ct = own[9 * on + vl];
+                float ax[3], w[3], t[3];
+                tot(x, y, z, t);
+#pragma unroll
+                for (int c = 0; c < 3; ++c) ax[c] = (t[c] + ct * vc[c]) * vm;
+                sym_solve6(own[3 * on + vl], own[4 * on + vl],
+                           own[5 * on + vl], own[6 * on + vl],
+                           own[7 * on + vl], own[8 * on + vl], ax, vm, w);
+                own[vl] = __fmaf_rn(w[2], w[2], __fmaf_rn(
+                    w[1], w[1], __fmul_rn(w[0], w[0])));
+                own[on + vl] = __fmaf_rn(vc[2], vc[2], __fmaf_rn(
+                    vc[1], vc[1], __fmul_rn(vc[0], vc[0])));
+                wn4[bi] = make_float4(w[0], w[1], w[2], 0.f);
+                if (more) publish(x, y, z, v, w, nxt, it & 1);
+                if (!slots) continue;
+                // slot v: to every block's partials (cluster), or device
+                // memory
+                if constexpr (kCluster) {
+                    const float ww = own[vl], vv = own[on + vl];
+                    pl[v] = make_float4(ww, vv, 0.f, 0.f);
+                    for (int q = 0; q < nb; ++q) {
+                        if (q == rank) continue;
+                        st_async4(map_rank(smem_addr(&pl[v]), q), ww, vv, 0.f,
+                                  map_rank(smem_addr(&bars[it & 1]), q));
+                    }
+                } else {
+                    part[2 * v] = own[vl];
+                    part[2 * v + 1] = own[on + vl];
+                }
+            }
+            __syncthreads();
+            // larger levels: each own row's partials (tiles never split y:
+            // T.ny = Y), its vertices in y order; the cluster's z-slabs add
+            // a plane's rows in x order and publish the planes
+            for (int k = threadIdx.x; !slots && k < T.nx * T.nz;
+                 k += blockDim.x) {
+                const int ox = k / T.nz, oz = k % T.nz;
+                float ww = 0.f, vv = 0.f;
+                for (int oy = 0; oy < T.ny; ++oy) {
+                    const int vl = (ox * T.ny + oy) * T.nz + oz;
+                    ww = __fadd_rn(ww, own[vl]);
+                    vv = __fadd_rn(vv, own[on + vl]);
+                }
+                if constexpr (!kCluster) {
+                    float* row = part + 2 * ((T.z0 + oz) * L.X + T.x0 + ox);
+                    row[0] = ww;
+                    row[1] = vv;
+                } else {
+                    sc[2 * k] = ww;  // the corner sums are spent
+                    sc[2 * k + 1] = vv;
+                }
+            }
+            if (kCluster && !slots) {
+                __syncthreads();
+                for (int oz = threadIdx.x; oz < T.nz; oz += blockDim.x) {
+                    float ww = 0.f, vv = 0.f;
+                    for (int ox = 0; ox < T.nx; ++ox) {
+                        ww = __fadd_rn(ww, sc[2 * (ox * T.nz + oz)]);
+                        vv = __fadd_rn(vv, sc[2 * (ox * T.nz + oz) + 1]);
+                    }
+                    const int z = T.z0 + oz;
+                    pl[z] = make_float4(ww, vv, 0.f, 0.f);
+                    for (int q = 0; q < nb; ++q) {
+                        if (q == rank) continue;
+                        st_async4(map_rank(smem_addr(&pl[z]), q), ww, vv, 0.f,
+                                  map_rank(smem_addr(&bars[it & 1]), q));
+                    }
+                }
+            }
+            exchange(it, nxt, more);
+            if (!kCluster && slots) {  // the slots from device memory
+                for (int v = threadIdx.x; v < N; v += blockDim.x)
+                    pl[v] = make_float4(part[2 * v], part[2 * v + 1], 0.f,
+                                        0.f);
+                __syncthreads();
+            } else if (!kCluster) {
+                // every plane's partials from its rows, in x order
+                for (int z = threadIdx.x; z < Z; z += blockDim.x) {
+                    float ww = 0.f, vv = 0.f;
+                    for (int x = 0; x < L.X; ++x) {
+                        ww = __fadd_rn(ww, part[2 * (z * L.X + x)]);
+                        vv = __fadd_rn(vv, part[2 * (z * L.X + x) + 1]);
+                    }
+                    pl[z] = make_float4(ww, vv, 0.f, 0.f);
+                }
+                __syncthreads();
+            }
+            if (slots) {
+                // warp w adds slots 32 w .. 32 w + 31 (thread t holds slot
+                // t), warp 0 the 16 sums: the first form's block_sum2
+                const int v = threadIdx.x;
+                const float a = warp_sum(v < N ? pl[v].x : 0.f);
+                const float b = warp_sum(v < N ? pl[v].y : 0.f);
+                if (lane == 0) {
+                    red[warp] = a;
+                    red[kSlots / 32 + warp] = b;
+                }
+                __syncthreads();
+            }
+            if (warp == 0) {
+                float ww, vv;
+                if (slots) {
+                    const bool in = lane < kSlots / 32;
+                    ww = warp_sum(in ? red[lane] : 0.f);
+                    vv = warp_sum(in ? red[kSlots / 32 + lane] : 0.f);
+                } else {
+                    ww = lane_ordered_sum(Z, [&](int z) { return pl[z].x; });
+                    vv = lane_ordered_sum(Z, [&](int z) { return pl[z].y; });
+                }
+                if (lane == 0) {
+                    sh[0] = ww;
+                    sh[1] = vv;
+                }
+            }
+            __syncthreads();
+            const float ww = sh[0], vv = sh[1];
+            lam = sqrtf(ww / fmaxf(vv, 1e-30f));
+            if (more) {  // v = w / norm on the whole box
+                const float norm = fmaxf(sqrtf(ww), 1e-30f);
+                for (int bl = threadIdx.x; bl < n_box; bl += blockDim.x) {
+                    const float4 a = wn4[bl];
+                    wn4[bl] = make_float4(a.x / norm, a.y / norm, a.z / norm,
+                                          0.f);
+                }
+                __syncthreads();
+            }
+            cur = nxt;
+        }
+        if (rank == 0 && threadIdx.x == 0) P.out[0] = lam * 1.1f;
+    }
+    // no block leaves while another may still store to it
+    if constexpr (kCluster) cg::this_cluster().sync();
+}
+
+// A tiling's shared layout: the largest tile's vertex box, cells (stride:
+// their count made odd) and own vertices, by the most along each axis
+// (halo tiles; kLevelExchange: the cells a tile owns), and its bytes.
+struct LevelLayout {
+    int box, cells, stride, own;
+    long long bytes;
+};
+
+LevelLayout level_layout(int X, int Y, int Z, int ntx, int nty, int ntz,
+                         bool power, int halo = 1) {
+    const int n[3] = {X, Y, Z}, nt[3] = {ntx, nty, ntz};
+    int own[3] = {}, ext[3] = {};
+    for (int a = 0; a < 3; ++a) {
+        for (int it = 0; it < nt[a]; ++it) {
+            int v0, nv, c0, nc;
+            tile_axis(n[a], nt[a], it, halo, v0, nv, c0, nc);
+            own[a] = nv > own[a] ? nv : own[a];
+            ext[a] = nc > ext[a] ? nc : ext[a];
+        }
+    }
+    LevelLayout lay;
+    lay.box = (ext[0] + 1) * (ext[1] + 1) * (ext[2] + 1);
+    lay.cells = ext[0] * ext[1] * ext[2];
+    lay.stride = lay.cells | 1;
+    lay.own = own[0] * own[1] * own[2];
+    lay.bytes = 4 * level_smem_floats(lay.box, lay.stride, lay.own, Z, power);
+    return lay;
+}
+
+// The cost model of lat_level_plan, in device microseconds of an H100, per
+// modelled form (kLevelCluster, kLevelTiles): {launch, a KB of a block's
+// shared layout, a round of a block's cell pass (kLevelCellsPerRound
+// cells) an HVP, a wait between sweeps, a wait and block, a KB of x a block
+// receives a wait, a round of a block's vertex pass (kLevelThreads
+// vertices) a sweep, an HVP, the first round's share of its lanes an HVP,
+// a block's own vertices over kLevelThreads a sweep, a block's cells over a
+// round's an HVP}. Fitted by scripts/level_tilings.py --fit to its --sweep
+// of both forms at the main paths' level shapes (rms 2.1 / 3.1 us; the
+// picks within 2.7% of the fastest launch measured). Mirrored by
+// ops/lattice_kernels.LEVEL_MODEL.
+constexpr double kLevelModel[2][11] = {
+    {5.71, 0.009732, 0.08189, 1.57, 0.009467, 0.196, 0.0, 0.0, 2.143, 0.0,
+     1.595},                                                  // cluster
+    {3.01, 0.02291, 0.3062, 0.5013, 0.00286, 0.2154, 1.449, 0.5969, 2.048,
+     0.4956, 1.07},                                           // tiles
+};
+// kLevelTiles' tile counts along x and y (those its model was fitted
+// over; lat_power's never split y). Mirrored by LEVEL_XY_TILES.
+constexpr int kLevelXY[5][2] = {{1, 1}, {2, 1}, {4, 1}, {2, 2}, {4, 4}};
+
+// The modelled device us of a call of `sweeps` sweeps (lat_power:
+// iterations) with `hvps` cell passes and `waits` waits between them, in
+// `form` on tiles (ntx, nty, ntz), for lat_power or lat_cheby. Mirrored by
+// ops/lattice_kernels.level_cost.
+double level_cost(int X, int Y, int Z, int form, int ntx, int nty, int ntz,
+                  bool power, int sweeps, int hvps, int waits) {
+    const LevelLayout lay = level_layout(X, Y, Z, ntx, nty, ntz, power);
+    const int blocks = ntx * nty * ntz;
+    const double rounds = double((lay.cells + kLevelCellsPerRound - 1)
+                                 / kLevelCellsPerRound);
+    const double vrounds = double((lay.own + kLevelThreads - 1)
+                                  / kLevelThreads);
+    const int nbrs = blocks - 1 < 2 ? blocks - 1 : 2;
+    const double halo_kb = form == kLevelCluster
+                               ? 16.0 * X * Y * nbrs / 1024.0
+                               : 16.0 * (lay.box - lay.own) / 1024.0;
+    const int first = lay.cells < kLevelCellsPerRound ? lay.cells
+                                                      : kLevelCellsPerRound;
+    const double* m = kLevelModel[form];
+    return m[0] + m[1] * (lay.bytes / 1024.0) + m[2] * (hvps * rounds)
+           + m[3] * waits + m[4] * (double(waits) * blocks)
+           + m[5] * (waits * halo_kb) + m[6] * (sweeps * vrounds)
+           + m[7] * hvps
+           + m[8] * (hvps * double(first) / kLevelCellsPerRound)
+           + m[9] * (sweeps * double(lay.own) / kLevelThreads)
+           + m[10] * (hvps * double(lay.cells) / kLevelCellsPerRound);
+}
+
+// Where the first form took exchange tiles: true, where its halo tiles
+// (kTileWidth wide in x and y) fit its shared scratch (kScratchRows rows of
+// cells and 8 floats a box vertex in kSmemCap) only at more tiles than
+// `sms`, and *ntz: the exchange tiles along z, as many as the card holds
+// blocks of them (kTileWidth wide in x, and in y for lat_cheby: the first
+// form's; y whole for lat_power). Mirrored by
+// ops/lattice_kernels.level_exchange.
+bool level_exchange(int X, int Y, int Z, int sms, bool power,
+                    int* ntz_out) {
+    const int ntx = (X + kTileWidth - 1) / kTileWidth,
+              nty = (Y + kTileWidth - 1) / kTileWidth;
+    const int ex = min((X + ntx - 1) / ntx + 1, X - 1),
+              ey = min((Y + nty - 1) / nty + 1, Y - 1);
+    for (int ntz = 1; ntz <= Z && ntx * nty * ntz <= sms; ++ntz) {
+        const int ez = min((Z + ntz - 1) / ntz + 1, Z - 1);
+        if (kScratchRows * ((ex * ey * ez) | 1)
+                + 8LL * (ex + 1) * (ey + 1) * (ez + 1)
+            <= kSmemCap / 4)
+            return false;
+    }
+    *ntz_out = min(Z, sms / (ntx * (power ? 1 : nty)));
+    return true;
+}
+
+constexpr int kLevelMaxDevices = 16;
+const void* const kLevelKernels[2][kLevelForms] = {
+    {reinterpret_cast<const void*>(level_kernel<false, kLevelCluster>),
+     reinterpret_cast<const void*>(level_kernel<false, kLevelTiles>),
+     reinterpret_cast<const void*>(level_kernel<false, kLevelExchange>)},
+    {reinterpret_cast<const void*>(level_kernel<true, kLevelCluster>),
+     reinterpret_cast<const void*>(level_kernel<true, kLevelTiles>),
+     reinterpret_cast<const void*>(level_kernel<true, kLevelExchange>)},
+};
+
+// The launch of a cluster form: one cluster of `blocks` blocks.
+cudaLaunchConfig_t level_cluster_config(int blocks, long long bytes,
+                                        cudaStream_t st,
+                                        cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kLevelThreads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
+// Whether kernel (0 lat_cheby, 1 lat_power) in `form` at `blocks` blocks of
+// `bytes` of shared memory can be launched on the current device: within
+// kLevelSmemCap; a cluster of at most kMaxLevelCluster blocks that the
+// card can place (cudaOccupancyMaxActiveClusters >= 1), or a cooperative
+// grid whose blocks are all resident. Lets the kernel take its cap (and
+// clusters of up to 16 blocks) once per device. *ok false and cudaSuccess
+// when it cannot.
+cudaError_t level_launchable(int kernel, int form, int blocks,
+                             long long bytes, bool* ok) {
+    static bool allowed[kLevelMaxDevices][2][kLevelForms] = {};
+    *ok = false;
+    if (bytes > kLevelSmemCap || blocks < 1) return cudaSuccess;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= kLevelMaxDevices) return cudaErrorInvalidDevice;
+    const void* fn = kLevelKernels[kernel][form];
+    if (!allowed[dev][kernel][form]) {
+        e = cudaFuncSetAttribute(fn,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kLevelSmemCap);
+        if (e == cudaSuccess && form == kLevelCluster)
+            e = cudaFuncSetAttribute(
+                fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return e;
+        allowed[dev][kernel][form] = true;
+    }
+    if (form == kLevelCluster) {
+        if (blocks > kMaxLevelCluster) return cudaSuccess;
+        cudaLaunchAttribute attr[1];
+        const cudaLaunchConfig_t cfg =
+            level_cluster_config(blocks, bytes, nullptr, attr);
+        int clusters = 0;
+        e = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+        *ok = e == cudaSuccess && clusters >= 1;
+        return e;
+    }
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fn, kLevelThreads, static_cast<size_t>(bytes));
+    *ok = e == cudaSuccess && blocks <= sms * per_sm;
+    return e;
+}
+
+// One launch of level_kernel<kPower, form> on tiles (ntx, nty, ntz): no
+// form splits y, the cluster form takes z-slabs (ntx = 1) of at most
+// kMaxLevelCluster blocks. A launch that cannot be made so returns
+// cudaErrorLaunchOutOfResources; nothing else is run instead.
+template <bool kPower>
+cudaError_t launch_level(LevelArgs& P, int form, int ntx, int nty, int ntz,
+                         cudaStream_t st) {
+    const Lattice& L = P.A.L;
+    if (form < 0 || form >= kLevelForms || ntx < 1 || nty < 1 || ntz < 1
+        || ntx > L.X || nty > L.Y || ntz > L.Z
+        || (kPower && nty != 1)
+        || (form == kLevelCluster && ntx * nty != 1)
+        || (form == kLevelExchange && P.pbuf == nullptr))
+        return cudaErrorInvalidValue;
+    const int halo = form != kLevelExchange;
+    const LevelLayout lay =
+        level_layout(L.X, L.Y, L.Z, ntx, nty, ntz, kPower, halo);
+    const int blocks = ntx * nty * ntz;
+    P.T = Tiling{ntx, nty, ntz, lay.stride, lay.box, halo};
+    P.own = lay.own;
+    bool ok = false;
+    cudaError_t e = level_launchable(kPower, form, blocks, lay.bytes, &ok);
+    if (e != cudaSuccess) return e;
+    if (!ok) return cudaErrorLaunchOutOfResources;
+    void* args[] = {&P};
+    const void* fn = kLevelKernels[kPower][form];
+    if (form == kLevelCluster) {
+        cudaLaunchAttribute attr[1];
+        const cudaLaunchConfig_t cfg =
+            level_cluster_config(blocks, lay.bytes, st, attr);
+        e = cudaLaunchKernelExC(&cfg, fn, args);
+    } else {
+        e = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kLevelThreads),
+                                        args, static_cast<size_t>(lay.bytes),
+                                        st);
+    }
+    const cudaError_t last = cudaGetLastError();
+    return e != cudaSuccess ? e : last;
 }
 
 // ---------------------------------------------------------------------------
@@ -2128,100 +2758,135 @@ int lat_newton_plan(int X, int Y, int Z, int pcg, int mode, int* plan) {
     return have ? 0 : static_cast<int>(cudaErrorLaunchOutOfResources);
 }
 
-// The launch plan of the multigrid's level kernels on the current device,
-// plan = {grid, ntx, nty, ntz, stride, box, halo} as lat_newton_plan's.
-// kernel 0, lat_cheby, and kernel 1, lat_power: the model of one sweep or
-// iteration, its cell pass (0.9 us a round of a block's 16 warps, times the
-// tiles a block walks) and 1 (halo) or 2 (exchange) grid barriers of 2 us +
-// 0.016 us a block, none for a single tile (one block, no cooperative
-// launch). Returns a CUDA error code.
-int lat_level_plan(int X, int Y, int Z, int kernel, int* plan) {
-    if (X < 2 || Y < 2 || Z < 2 || kernel < 0 || kernel > 1)
+// The form and tiles a multigrid level kernel runs a call in on the current
+// device: kernel 0 lat_cheby (sweeps; warm: from a start; residual: b - A x
+// asked for) or 1 lat_power (sweeps = iterations); plan = {form, ntx, nty,
+// ntz, modelled device us x 1000}: where level_exchange holds,
+// kLevelExchange on its tiles (the model's us 0);
+// else the least level_cost among clusters of 1 to kMaxLevelCluster
+// z-slabs and kLevelTiles' tiles ((ntx, nty) of kLevelXY, any ntz; at most
+// one block an SM) that level_launchable takes (ties: the first in that
+// order). Mirrored by ops/lattice_kernels.level_plan. Returns a CUDA error
+// code.
+int lat_level_plan(int X, int Y, int Z, int kernel, int sweeps, int warm,
+                   int residual, int* plan) {
+    if (X < 2 || Y < 2 || Z < 2 || kernel < 0 || kernel > 1 || sweeps < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    const void* fns[] = {reinterpret_cast<const void*>(cheby_kernel),
-                         reinterpret_cast<const void*>(power_kernel)};
-    int cap = 0;
-    const cudaError_t e = fused_capacity(fns[kernel], &cap);
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const bool have = best_tiling(
-        X, Y, Z, 0, cap, 8,
-        [](long long ntiles, long long blocks, double waves, double rounds,
-           int halo) {
-            const double barriers = ntiles == 1 ? 0.0 : (halo ? 1.0 : 2.0);
-            return rounds * 0.9 * waves
-                   + barriers * (2.0 + 0.016 * double(blocks));
-        },
-        plan);
-    return have ? 0 : static_cast<int>(cudaErrorLaunchOutOfResources);
+    const bool power = kernel == 1;
+    const int hvps = power ? sweeps : sweeps - !warm + (residual != 0);
+    const int waits = power ? sweeps : sweeps - 1 + (residual != 0);
+    int ez_tiles = 0;
+    if (level_exchange(X, Y, Z, sms, power, &ez_tiles)) {
+        const int ntx = (X + kTileWidth - 1) / kTileWidth,
+                  nty = power ? 1 : (Y + kTileWidth - 1) / kTileWidth;
+        bool ok = false;
+        e = level_launchable(kernel, kLevelExchange, ntx * nty * ez_tiles,
+                             level_layout(X, Y, Z, ntx, nty, ez_tiles, power,
+                                          0).bytes,
+                             &ok);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        if (!ok) return static_cast<int>(cudaErrorLaunchOutOfResources);
+        plan[0] = kLevelExchange;
+        plan[1] = ntx;
+        plan[2] = nty;
+        plan[3] = ez_tiles;
+        plan[4] = 0;
+        return 0;
+    }
+    bool have = false;
+    double best = 0.0;
+    for (int form = 0; form < 2; ++form) {
+        const bool cluster = form == kLevelCluster;
+        for (int k = 0; k < (cluster ? 1 : 5); ++k) {
+            const int ntx = kLevelXY[k][0], nty = kLevelXY[k][1];
+            if (ntx > X || nty > Y || (power && nty > 1)) continue;
+            const int mz = cluster && Z > kMaxLevelCluster ? kMaxLevelCluster
+                                                           : Z;
+            for (int ntz = 1; ntz <= mz; ++ntz) {
+                const int blocks = ntx * nty * ntz;
+                if (!cluster && blocks > sms) break;
+                const LevelLayout lay =
+                    level_layout(X, Y, Z, ntx, nty, ntz, power);
+                if (lay.bytes > kLevelSmemCap) continue;
+                const double cost = level_cost(X, Y, Z, form, ntx, nty, ntz,
+                                               power, sweeps, hvps, waits);
+                if (have && cost >= best) continue;
+                bool ok = false;
+                e = level_launchable(kernel, form, blocks, lay.bytes, &ok);
+                if (e != cudaSuccess) return static_cast<int>(e);
+                if (!ok) continue;
+                have = true;
+                best = cost;
+                plan[0] = form;
+                plan[1] = ntx;
+                plan[2] = nty;
+                plan[3] = ntz;
+            }
+        }
+    }
+    if (!have) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    plan[4] = static_cast<int>(best * 1000.0);
+    return 0;
 }
 
 // All the sweeps of one Chebyshev smoothing call on a multigrid level (see
-// cheby_kernel): x0 null starts from zero, r null skips the residual; xs,
-// d: 3*N floats of scratch each, pbuf: 72*N (exchange mode only); coef:
-// 2 * sweeps - 1 floats (theta, then a and b of every later sweep), at most
-// kMaxSweeps sweeps. The plan from lat_level_plan(..., 0, ...): a single
-// tile runs one block without a cooperative launch. Calls that share the
-// scratch must be ordered on one stream.
+// level_kernel): x0 null starts from zero, r null skips the residual;
+// scratch: xs 8*N floats, 16-byte aligned (kLevelTiles, kLevelExchange),
+// pbuf 24*N (kLevelExchange); coef: 2 * sweeps - 1 floats
+// (theta, then a and b of every later sweep), at most kMaxSweeps sweeps.
+// form and tiles as lat_level_plan(X, Y, Z, 0, sweeps, x0 != null, r !=
+// null) picks them, or as a caller chose: a launch that cannot be made so
+// returns cudaErrorLaunchOutOfResources, and nothing else runs instead.
+// Calls that share the scratch must be ordered on one stream.
 int lat_cheby(const float* u, const float* b, const float* x0,
               const float* cm, const float* ctrl, const float* vm,
-              const float* d6, float* x, float* r, float* xs, float* d,
-              float* pbuf, const float* coef, int sweeps, int grid, int ntx,
-              int nty, int ntz, int stride, int box, int halo, int X, int Y,
-              int Z, const float* g, float det, float mu, float la,
-              void* stream) {
-    const bool one = ntx * nty * ntz == 1;
-    if (sweeps < 1 || sweeps > kMaxSweeps || grid < 1 || (one && !halo)
-        || (one && grid != 1))
+              const float* d6, float* x, float* r, float* xs, float* pbuf,
+              const float* coef, int sweeps, int form, int ntx, int nty,
+              int ntz, int X, int Y, int Z, const float* g, float det,
+              float mu, float la, void* stream) {
+    if (sweeps < 1 || sweeps > kMaxSweeps)
         return static_cast<int>(cudaErrorInvalidValue);
-    ChebyArgs P = {};
+    LevelArgs P = {};
     P.A = make_chain_args(X, Y, Z, g, det, mu, la);
-    P.T = Tiling{ntx, nty, ntz, stride, box, halo};
     P.u = u;
-    P.b = b;
-    P.x0 = x0;
     P.cm = cm;
     P.ctrl = ctrl;
     P.vm = vm;
     P.d6 = d6;
+    P.b = b;
+    P.x0 = x0;
     P.x = x;
     P.r = r;
-    P.xs = xs;
-    P.d = d;
+    P.xs = reinterpret_cast<float4*>(xs);
     P.pbuf = pbuf;
     P.sweeps = sweeps;
-    P.coop = one ? 0 : 1;
     for (int j = 0; j < 2 * sweeps - 1; ++j) P.coef[j] = coef[j];
-    const size_t smem = sizeof(float) * (kScratchRows * stride + 8 * box);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (one) {
-        cheby_kernel<<<1, kFusedThreads, smem, st>>>(P);
-        return static_cast<int>(cudaGetLastError());
-    }
-    void* args[] = {&P};
-    const cudaError_t e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(cheby_kernel), dim3(grid),
-        dim3(kFusedThreads), args, smem, st);
-    const cudaError_t last = cudaGetLastError();
-    return static_cast<int>(e != cudaSuccess ? e : last);
+    return static_cast<int>(launch_level<false>(
+        P, form, ntx, nty, ntz, static_cast<cudaStream_t>(stream)));
 }
 
-// One level's power iteration (see power_kernel): iters iterations from
-// vm start, 1.1 lambda to out[0]; w: 6*N floats of scratch, part: 4*grid,
-// pbuf: 72*N (exchange mode only). The plan from lat_level_plan(..., 1,
-// ...): a single tile runs one block without a cooperative launch. Calls
-// that share the scratch must be ordered on one stream.
+// One level's power iteration (see level_kernel): iters iterations from
+// vm start, 1.1 lambda to out[0]; scratch: xs 8*N floats, 16-byte aligned,
+// and part 4*max(Z*X, kSlots) (kLevelTiles, kLevelExchange), pbuf 24*N
+// (kLevelExchange).
+// form and tiles (nty =
+// 1) as lat_level_plan(X, Y, Z, 1, iters, 0, 0) picks them, or as a caller
+// chose;
+// a launch that cannot be made so returns cudaErrorLaunchOutOfResources.
+// Calls that share the scratch must be ordered on one stream.
 int lat_power(const float* u, const float* cm, const float* ctrl,
               const float* vm, const float* d6, const float* start,
-              float* out, float* w, float* part, float* pbuf, int iters,
-              int grid, int ntx, int nty, int ntz, int stride, int box,
-              int halo, int X, int Y, int Z, const float* g, float det,
-              float mu, float la, void* stream) {
-    const bool one = ntx * nty * ntz == 1;
-    if (iters < 1 || grid < 1 || (one && !halo) || (one && grid != 1))
-        return static_cast<int>(cudaErrorInvalidValue);
-    PowerArgs P = {};
+              float* out, float* xs, float* part, float* pbuf, int iters,
+              int form, int ntx, int nty, int ntz, int X, int Y, int Z,
+              const float* g, float det, float mu, float la, void* stream) {
+    if (iters < 1) return static_cast<int>(cudaErrorInvalidValue);
+    LevelArgs P = {};
     P.A = make_chain_args(X, Y, Z, g, det, mu, la);
-    P.T = Tiling{ntx, nty, ntz, stride, box, halo};
     P.u = u;
     P.cm = cm;
     P.ctrl = ctrl;
@@ -2229,23 +2894,12 @@ int lat_power(const float* u, const float* cm, const float* ctrl,
     P.d6 = d6;
     P.start = start;
     P.out = out;
-    P.w = w;
+    P.xs = reinterpret_cast<float4*>(xs);
     P.part = part;
     P.pbuf = pbuf;
-    P.iters = iters;
-    P.coop = one ? 0 : 1;
-    const size_t smem = sizeof(float) * (kScratchRows * stride + 8 * box);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (one) {
-        power_kernel<<<1, kFusedThreads, smem, st>>>(P);
-        return static_cast<int>(cudaGetLastError());
-    }
-    void* args[] = {&P};
-    const cudaError_t e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(power_kernel), dim3(grid),
-        dim3(kFusedThreads), args, smem, st);
-    const cudaError_t last = cudaGetLastError();
-    return static_cast<int>(e != cudaSuccess ? e : last);
+    P.sweeps = iters;
+    return static_cast<int>(launch_level<true>(
+        P, form, ntx, nty, ntz, static_cast<cudaStream_t>(stream)));
 }
 
 // One Newton iteration in one cooperative launch. p: 6*N floats, d6: 6*N,

@@ -27,7 +27,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "build")
-_SOURCES = ("lattice_chain.cuh", "lattice_kernels.cu", "ell_kernels.cu")
+_SOURCES = ("lattice_chain.cuh", "cluster.cuh", "lattice_kernels.cu",
+            "ell_kernels.cu")
 _UNITS = ("lattice_kernels.cu", "ell_kernels.cu")     # one nvcc -c each
 # IEEE division and square root stay on: never --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -103,9 +104,9 @@ def _declare(lib) -> None:
         [F] + [P] * 19 + [I] * 11 + [P, F, F, F, I, P])
     lib.lat_fused_pcg.argtypes = (
         [F] + [P] * 15 + [I] * 10 + [P, F, F, F, I, P])
-    lib.lat_level_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
-    lib.lat_cheby.argtypes = [P] * 13 + [I] * 8 + chain
-    lib.lat_power.argtypes = [P] * 10 + [I] * 8 + chain
+    lib.lat_level_plan.argtypes = [I] * 7 + [ctypes.POINTER(I)]
+    lib.lat_cheby.argtypes = [P] * 12 + [I] * 5 + chain
+    lib.lat_power.argtypes = [P] * 10 + [I] * 5 + chain
     lib.ell_spmv.argtypes = [P, P, P, P, P, I, I, I, P]
     lib.ell_gs.argtypes = ([P, P, P, P, ctypes.POINTER(I), I, P, P]
                            + [I] * 5 + [P])

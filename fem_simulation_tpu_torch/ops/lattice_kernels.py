@@ -143,6 +143,7 @@ _starts: dict = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    level_launches.clear()
 
 
 def _vertex_grid(x: torch.Tensor, cell_mask: torch.Tensor,
@@ -1055,23 +1056,221 @@ def fused_pcg(u_cf, f_cf, cell_mask, ctrl, vert_mask, dx: float, mu: float,
     return dxc, k
 
 
+# -- the multigrid's level kernels: lat_cheby and lat_power -----------------
+
 # lat_level_plan's kernels
 CHEBY, POWER = 0, 1
+# their forms (csrc/lattice_kernels.cu: kLevelCluster, kLevelTiles,
+# kLevelExchange: the first form's exchange arithmetic, where it took
+# exchange tiles) and launch shapes: kLevelThreads threads a block, eight
+# lanes a cell (kLevelCellsPerRound cells a round), one block an SM, at most
+# kLevelSmemCap bytes of dynamic shared memory, kOwnFloats shared floats for
+# each vertex a block owns; kMaxLevelCluster blocks a cluster; the tiles
+# form weighs these tile counts along x and y (kLevelXY: those its model
+# was fitted over; lat_power's never split y), with any count along z
+LEVEL_FORMS = ("cluster", "tiles", "exchange")
+LEVEL_CLUSTER, LEVEL_TILES, LEVEL_EXCHANGE = range(3)
+LEVEL_THREADS = 512
+LEVEL_CELLS_PER_ROUND = LEVEL_THREADS // 8
+LEVEL_SMEM_CAP = 230400
+LEVEL_OWN_FLOATS = 14
+# lat_power sums its dots by vertex slots on levels of at most this many
+# vertices (kSlots)
+LEVEL_SLOTS = 512
+LEVEL_MAX_CLUSTER = 16
+LEVEL_XY_TILES = ((1, 1), (2, 1), (4, 1), (2, 2), (4, 4))
+# lat_level_plan's cost model (kLevelModel), device us of an H100 per form:
+# (launch, a KB of a block's shared layout, a round of a block's cell pass
+# an HVP, a wait between sweeps, a wait and block, a KB of x a block
+# receives a wait, a round of a block's vertex pass a sweep, an HVP, the
+# first round's share of its lanes an HVP, a block's own vertices over
+# LEVEL_THREADS a sweep, a block's cells over a round's an HVP); fitted by
+# scripts/level_tilings.py --fit to its --sweep of both forms at the main
+# paths' level shapes
+LEVEL_MODEL = (
+    (5.71, 0.009732, 0.08189, 1.57, 0.009467, 0.196, 0.0, 0.0, 2.143, 0.0,
+     1.595),
+    (3.01, 0.02291, 0.3062, 0.5013, 0.00286, 0.2154, 1.449, 0.5969, 2.048,
+     0.4956, 1.07),
+)
+# lat_cheby and lat_power launches by (kernel, (X, Y, Z), form name)
+level_launches: dict = {}
 
 
-def _level_plan(lib, X, Y, Z, device, kernel: int):
-    """(grid, ntx, nty, ntz, stride, box, halo) that `lat_level_plan`'s cost
-    model gives lat_cheby (kernel CHEBY) or lat_power (POWER) on this
-    lattice and device, asked once per (device, X, Y, Z, kernel). A test or
-    a measurement puts another plan under that key to run it."""
-    key = (str(device), X, Y, Z, kernel)
+@functools.lru_cache(maxsize=None)
+def level_layout(shape, tiles, halo: bool = True, power: bool = False):
+    """(box, cells, stride, own, bytes) of a level kernel's shared layout on
+    the tiles `tiles` (ntx, nty, ntz) of the lattice `shape` (mirror of
+    level_layout in csrc/lattice_kernels.cu): the largest tile's vertex
+    box, cells (stride: their count made odd) and own vertices, by the most
+    along each axis (halo tiles, or the cells a tile owns); the bytes of u
+    and x's two buffers on the box, lat_power's planes' or slots'
+    partials, the corner sums and cell mask, and the own vertices'
+    fields."""
+    own, ext = 1, []
+    for n, nt in zip(shape, tiles):
+        own *= max(tile_axis(n, nt, it)[1] for it in range(nt))
+        ext.append(_cell_extent(n, nt) if halo else max(
+            min((it + 1) * n // nt - 1, n - 2) - it * n // nt + 1
+            for it in range(nt)))
+    box = (ext[0] + 1) * (ext[1] + 1) * (ext[2] + 1)
+    cells = ext[0] * ext[1] * ext[2]
+    stride = cells | 1
+    floats = (12 * box + (8 * max(shape[2], LEVEL_SLOTS) if power else 0)
+              + (FORCE_ROWS + 1) * stride + LEVEL_OWN_FLOATS * own)
+    return box, cells, stride, own, 4 * floats
+
+
+def level_calls(kernel: int, sweeps: int, warm: bool = False,
+                residual: bool = False):
+    """(hvps, waits) of a call: the cell passes it runs and the waits for
+    other blocks' values between them (lat_power: every iteration, for its
+    dots)."""
+    if kernel == POWER:
+        return sweeps, sweeps
+    return sweeps - (not warm) + bool(residual), sweeps - 1 + bool(residual)
+
+
+def level_features(shape, form: int, tiles, sweeps: int, hvps: int,
+                   waits: int, power: bool = False):
+    """The terms LEVEL_MODEL weighs (level_cost): 1, KB of a block's shared
+    layout, hvps x rounds of a block's cell pass, waits, waits x blocks,
+    waits x KB of x a block receives (the cluster: its halo planes; the
+    tiles form: its box's vertices other blocks own), sweeps x rounds of a
+    block's vertex pass, hvps, hvps x the first round's share of its lanes
+    (the warps a round keeps busy), sweeps x a block's own vertices over
+    LEVEL_THREADS, hvps x a block's cells over a round's."""
+    box, cells, _, own, nbytes = level_layout(shape, tiles, True, power)
+    blocks = tiles[0] * tiles[1] * tiles[2]
+    rounds = float(-(-cells // LEVEL_CELLS_PER_ROUND))
+    vrounds = float(-(-own // LEVEL_THREADS))
+    halo_kb = (16.0 * shape[0] * shape[1] * min(blocks - 1, 2) / 1024.0
+               if form == LEVEL_CLUSTER else 16.0 * (box - own) / 1024.0)
+    return (1.0, nbytes / 1024.0, hvps * rounds, float(waits),
+            float(waits) * blocks, waits * halo_kb, sweeps * vrounds,
+            float(hvps),
+            hvps * min(cells, LEVEL_CELLS_PER_ROUND) / LEVEL_CELLS_PER_ROUND,
+            sweeps * own / LEVEL_THREADS,
+            hvps * cells / LEVEL_CELLS_PER_ROUND)
+
+
+def level_cost(shape, form: int, tiles, sweeps: int, hvps: int,
+               waits: int, power: bool = False) -> float:
+    """The modelled device us of a call (level_cost in csrc)."""
+    f = level_features(shape, form, tiles, sweeps, hvps, waits, power)
+    m = LEVEL_MODEL[form]
+    return (m[0] + m[1] * f[1] + m[2] * f[2] + m[3] * f[3] + m[4] * f[4]
+            + m[5] * f[5] + m[6] * f[6] + m[7] * f[7] + m[8] * f[8]
+            + m[9] * f[9] + m[10] * f[10])
+
+
+def level_exchange(shape, sms: int, kernel: int = CHEBY):
+    """The exchange form's tiles (ntx, nty, ntz) where the first form took
+    exchange tiles, else None (mirror of level_exchange in csrc): its halo
+    tiles, NEWTON_TILE_WIDTH wide in x and y, fit its shared scratch
+    (NEWTON_SCRATCH_ROWS rows of cells and 8 floats a box vertex in
+    NEWTON_SMEM_FLOATS) only at more tiles than `sms`. NEWTON_TILE_WIDTH
+    wide in x, and in y for lat_cheby (the first form's tiles: its bits),
+    y whole for lat_power (its dots add whole rows); as many along z as the
+    card holds blocks."""
+    X, Y, Z = shape
+    ntx = -(-X // NEWTON_TILE_WIDTH)
+    nty = -(-Y // NEWTON_TILE_WIDTH)
+    ex = min(-(-X // ntx) + 1, X - 1)
+    ey = min(-(-Y // nty) + 1, Y - 1)
+    for ntz in range(1, Z + 1):
+        if ntx * nty * ntz > sms:
+            break
+        ez = min(-(-Z // ntz) + 1, Z - 1)
+        if (NEWTON_SCRATCH_ROWS * ((ex * ey * ez) | 1)
+                + 8 * (ex + 1) * (ey + 1) * (ez + 1) <= NEWTON_SMEM_FLOATS):
+            return None
+    if kernel == POWER:
+        nty = 1
+    return ntx, nty, min(Z, sms // (ntx * nty))
+
+
+def level_candidates(shape, sms: int, kernel: int, sweeps: int,
+                     warm: bool = False, residual: bool = False):
+    """[(modelled us, form, tiles)] of every launch lat_level_plan weighs,
+    in its order: clusters of 1 to LEVEL_MAX_CLUSTER z-slabs, then the
+    tiles form's tiles ((ntx, nty) of LEVEL_XY_TILES, lat_power's nty 1:
+    its dots add whole rows along y; at most one block an SM of `sms`),
+    each within LEVEL_SMEM_CAP; where level_exchange holds, only the
+    exchange form on its tiles (unmodelled: cost 0)."""
+    X, Y, Z = shape
+    tiles = level_exchange(shape, sms, kernel)
+    if tiles is not None:
+        return [(0.0, LEVEL_EXCHANGE, tiles)]
+    hvps, waits = level_calls(kernel, sweeps, warm, residual)
+    power = kernel == POWER
+    out = []
+    for form in (LEVEL_CLUSTER, LEVEL_TILES):
+        cluster = form == LEVEL_CLUSTER
+        for ntx, nty in ((1, 1),) if cluster else LEVEL_XY_TILES:
+            if ntx > X or nty > Y or (power and nty > 1):
+                continue
+            for ntz in range(1, (min(Z, LEVEL_MAX_CLUSTER) if cluster
+                                 else Z) + 1):
+                tiles = (ntx, nty, ntz)
+                if not cluster and ntx * nty * ntz > sms:
+                    break
+                if level_layout(shape, tiles, True, power)[4] \
+                        > LEVEL_SMEM_CAP:
+                    continue
+                out.append((level_cost(shape, form, tiles, sweeps, hvps,
+                                       waits, power), form, tiles))
+    return out
+
+
+def level_plan(shape, sms: int, kernel: int, sweeps: int,
+               warm: bool = False, residual: bool = False):
+    """(form, ntx, nty, ntz) of a call as lat_level_plan picks it on a card
+    of `sms` SMs that places every cluster of up to 16 blocks: the least
+    modelled cost, the first of a tie."""
+    best = None
+    for cost, form, tiles in level_candidates(shape, sms, kernel, sweeps,
+                                              warm, residual):
+        if best is None or cost < best[0]:
+            best = (cost, form, tiles)
+    if best is None:
+        raise ValueError(f"no level kernel launch fits the lattice {shape}")
+    return (best[1],) + best[2]
+
+
+def _level_plan(lib, X, Y, Z, device, kernel: int, sweeps: int,
+                warm: bool = False, residual: bool = False):
+    """(form, ntx, nty, ntz) that lat_level_plan picks for this call on this
+    device, asked once per (device, X, Y, Z, kernel, sweeps, warm,
+    residual). A test or a measurement puts another plan under that key to
+    run it."""
+    key = (str(device), X, Y, Z, kernel, sweeps, bool(warm), bool(residual))
     if key not in _level_plans:
-        plan = (ctypes.c_int * 7)()
+        plan = (ctypes.c_int * 5)()
         with torch.cuda.device(device):
-            _cuda.check(lib.lat_level_plan(X, Y, Z, int(kernel), plan),
+            _cuda.check(lib.lat_level_plan(X, Y, Z, int(kernel), int(sweeps),
+                                           int(bool(warm)),
+                                           int(bool(residual)), plan),
                         "lat_level_plan")
-        _level_plans[key] = tuple(plan)
+        _level_plans[key] = tuple(plan[:4])
     return _level_plans[key]
+
+
+def _level_scratch(dev, stream: int, X, Y, Z):
+    """Pointers (xs, part, pbuf) to the level kernels' scratch of this
+    device, stream and lattice, kept: the cooperative forms' two iterate
+    buffers (a float4 a vertex, 8 N floats), lat_power's rows' or slots'
+    partials (4 max(Z X, LEVEL_SLOTS)), the exchange form's partial sums
+    by slot (24 N)."""
+    n, rows = X * Y * Z, max(Z * X, LEVEL_SLOTS)
+    base = _kept_scratch((str(dev), stream, "level", X, Y, Z),
+                         32 * n + 4 * rows, 0)[0]
+    return base, base + 32 * n, base + 32 * n + 16 * rows
+
+
+def _count_level(kernel: str, shape, form: int) -> None:
+    key = (kernel, tuple(shape), LEVEL_FORMS[form])
+    level_launches[key] = level_launches.get(key, 0) + 1
 
 
 def cheby_smooth_cf(u_cf, b_cf, x_cf, d6, ctrl, vert_mask, cell_mask,
@@ -1082,10 +1281,10 @@ def cheby_smooth_cf(u_cf, b_cf, x_cf, d6, ctrl, vert_mask, cell_mask,
     preconditioner D (d6, the 6-channel blocks of hess_diag_shift_cf), from
     x_cf (None: from zero), with coeffs = cheby_coeffs(lmax, degree).
     u_cf, b_cf, x_cf: (3, X, Y, Z); d6: (6, X, Y, Z); ctrl, vert_mask:
-    (X, Y, Z). Returns x_cf, or (x_cf, b - A x) with want_residual.
-    Allocates its outputs only: the second iterate buffer, the direction and
-    (exchange tiles) the partial sums are kept per device, stream and
-    lattice."""
+    (X, Y, Z). Returns x_cf, or (x_cf, b - A x) with want_residual. In the
+    form and on the tiles lat_level_plan picks for the call; allocates its
+    outputs only (the tiles form's scratch is kept per device, stream and
+    lattice)."""
     _cuda.refuse_grad("lattice_kernels.cheby_smooth_cf", u_cf, b_cf, x_cf,
                       d6, ctrl, vert_mask, cell_mask)
     if _cuda.on_cpu(u_cf, b_cf, d6, ctrl, vert_mask, cell_mask,
@@ -1107,11 +1306,10 @@ def cheby_smooth_cf(u_cf, b_cf, x_cf, d6, ctrl, vert_mask, cell_mask,
                          f"coefficients)")
     lib = _cuda.load()
     dev = u_cf.device
-    plan = _level_plan(lib, X, Y, Z, dev, CHEBY)
+    plan = _level_plan(lib, X, Y, Z, dev, CHEBY, sweeps, x_cf is not None,
+                       want_residual)
     tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
-    n = X * Y * Z
-    xs = _kept_scratch((str(dev), tail[-1], "cheby", X, Y, Z, plan),
-                       (6 if plan[6] else 78) * n, 0)[0]
+    xs, _, pbuf = _level_scratch(dev, tail[-1], X, Y, Z)
     x_out = torch.empty_like(u_cf)
     r_out = torch.empty_like(u_cf) if want_residual else None
     coef = (ctypes.c_float * len(coeffs))(*coeffs)
@@ -1121,9 +1319,9 @@ def cheby_smooth_cf(u_cf, b_cf, x_cf, d6, ctrl, vert_mask, cell_mask,
             None if x_cf is None else x_cf.data_ptr(), cell_mask.data_ptr(),
             ctrl.data_ptr(), vert_mask.data_ptr(), d6.data_ptr(),
             x_out.data_ptr(), None if r_out is None else r_out.data_ptr(),
-            xs, xs + 12 * n, None if plan[6] else xs + 24 * n, coef, sweeps,
-            *plan, *tail)
+            xs, pbuf, coef, sweeps, *plan, *tail)
     launches["cheby"] += 1
+    _count_level("cheby", (X, Y, Z), plan[0])
     _cuda.check(err, "lat_cheby")
     return (x_out, r_out) if want_residual else x_out
 
@@ -1163,8 +1361,9 @@ def power_lmax_cf(u_cf, d6, ctrl, vert_mask, cell_mask, dx: float, mu: float,
     on D^-1 A (A = level_matvec_cf at u_cf, D the 6-channel blocks d6) from
     vm sin(arange(n)), times 1.1, written to out[slot] (out: a contiguous
     float32 vector on the fields' device; None: a new one of 1) and
-    returned as that 0-d view. One cooperative launch; its iterates and
-    partials are kept per device, stream, lattice and plan."""
+    returned as that 0-d view. One launch, in the form lat_level_plan
+    picks; the tiles form's scratch is kept per device, stream and
+    lattice."""
     if out is None:
         out = torch.empty((1,), dtype=torch.float32, device=u_cf.device)
     if not 0 <= slot < out.numel():
@@ -1184,19 +1383,18 @@ def power_lmax_cf(u_cf, d6, ctrl, vert_mask, cell_mask, dx: float, mu: float,
         raise ValueError(f"iters {iters}: lat_power takes at least one")
     lib = _cuda.load()
     dev = u_cf.device
-    plan = _level_plan(lib, X, Y, Z, dev, POWER)
+    plan = _level_plan(lib, X, Y, Z, dev, POWER, int(iters))
     tail = _chain_tail(X, Y, Z, dx, mu, la, dev)
     n = X * Y * Z
     start = _start(n, dev)
-    w = _kept_scratch((str(dev), tail[-1], "power", X, Y, Z, plan),
-                      6 * n + 4 * plan[0] + (0 if plan[6] else 72 * n), 0)[0]
+    xs, part, pbuf = _level_scratch(dev, tail[-1], X, Y, Z)
     with torch.cuda.device(dev):
         err = lib.lat_power(
             u_cf.data_ptr(), cell_mask.data_ptr(), ctrl.data_ptr(),
             vert_mask.data_ptr(), d6.data_ptr(), start.data_ptr(),
-            out.data_ptr() + 4 * slot, w, w + 24 * n,
-            None if plan[6] else w + 24 * n + 16 * plan[0], int(iters),
-            *plan, *tail)
+            out.data_ptr() + 4 * slot, xs, part, pbuf, int(iters), *plan,
+            *tail)
     launches["power"] += 1
+    _count_level("power", (X, Y, Z), plan[0])
     _cuda.check(err, "lat_power")
     return out[slot]

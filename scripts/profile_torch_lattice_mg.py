@@ -50,8 +50,10 @@ BEAMS = {"2k": (8, 8, 24), "19k": (16, 16, 64), "74k": (16, 16, 256)}
 DX = 0.05
 TOL = 1e-4
 # device kernels of the lattice operators, by a substring of their names
-KERNELS = ("cheby_kernel", "diag_tiles_kernel", "power_kernel",
-           "hvp_serial_kernel", "hvp_tiles_kernel", "hvp_cells",
+# (level_kernel: lat_cheby and lat_power; cheby_kernel and power_kernel:
+# their first forms, in a tree given by --root)
+KERNELS = ("level_kernel", "cheby_kernel", "diag_tiles_kernel",
+           "power_kernel", "hvp_serial_kernel", "hvp_tiles_kernel", "hvp_cells",
            "diag_cells", "gather", "force", "energy_kernel")
 
 

@@ -1052,6 +1052,111 @@ def test_cheby_rejects_too_many_sweeps(scene):
                            scene.cell_mask, DX, MU, LA, coeffs)
 
 
+@pytest.fixture(scope="module")
+def mg2k():
+    """The 3-level hierarchy of the 2k beam (8x8x24 cells at dx 0.05:
+    9x9x25, 5x5x13 and 3x3x7 vertices) on the card, quasi-static."""
+    _need_cuda()
+    sc = tlat.LatticeScene(meshlib.beam(8, 8, 24, dx=0.05), device="cuda")
+    return tmg.LatticeMG(sc, n_levels=3, dt=None)
+
+
+# the level shapes of LatticeMG(n_levels=3) on the 2k, 19k and 74k beams
+_MG_LEVELS = ((9, 9, 25), (5, 5, 13), (3, 3, 7), (17, 17, 65), (9, 9, 33),
+              (5, 5, 17), (17, 17, 257), (9, 9, 129), (5, 5, 65))
+# lat_cheby's calls (sweeps, warm, residual) and lat_power's
+_LEVEL_CALLS = {"pre": (lk.CHEBY, 2, False, True),
+                "post": (lk.CHEBY, 2, True, False),
+                "coarse": (lk.CHEBY, 12, False, False),
+                "power": (lk.POWER, 6, False, False)}
+
+
+def _flat(out):
+    return torch.cat([t.reshape(-1) for t in out]) if isinstance(
+        out, tuple) else out.reshape(-1)
+
+
+@pytest.mark.cuda
+def test_level_kernels_every_form(mg2k, mg19, monkeypatch):
+    """lat_cheby's three calls (with the level's Chebyshev bound, the power
+    iteration's times 1.2) and lat_power in every form the plan weighs
+    (each at the tiles its model likes best, forced through the plan
+    cache) at the 2k beam's three levels and the 19k fine level (tiles
+    only: 16 blocks do not hold it): within 1e-4 max|ref| of the plain
+    version (another summation order), two runs bit-identical, every form
+    bit-equal to every other (one arithmetic; the dots summed by plane in
+    one order), one count a call under its form."""
+    mat = mg2k.scene.material
+    mu, la = mat.lame_mu, mat.lame_la
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for li, lvl in enumerate(list(mg2k.levels) + [mg19.levels[0]]):
+        u, b, x0, ctrl = _level_inputs(lvl, 80 + li)
+        shape = tuple(lvl.vert_mask.shape)
+        vm, cm = lvl.vert_mask, lvl.cell_mask
+        d6 = lk.hess_diag_shift_cf(u, cm, ctrl, vm, lvl.dx, mu, la)
+        pargs = (u, d6, ctrl, vm, cm, lvl.dx, mu, la)
+        # the level's Chebyshev bound as LatticeMG takes it
+        lmax = np.float32(lk.power_lmax_cf_plain(*pargs).item()) \
+            * np.float32(1.2)
+        for name, (kernel, sweeps, warm, res) in _LEVEL_CALLS.items():
+            if kernel == lk.POWER:
+                def kern():
+                    return lk.power_lmax_cf(*pargs)
+
+                def plain():
+                    return lk.power_lmax_cf_plain(*pargs)
+            else:
+                call = (u, b, x0 if warm else None, d6, ctrl, vm, cm, lvl.dx,
+                        mu, la, lk.cheby_coeffs(lmax, sweeps), res)
+
+                def kern(call=call):
+                    return lk.cheby_smooth_cf(*call)
+
+                def plain(call=call):
+                    return lk.cheby_smooth_cf_plain(*call)
+            ref = _flat(plain())
+            best = {}
+            for cost, form, tiles in lk.level_candidates(shape, sms, kernel,
+                                                         sweeps, warm, res):
+                if form not in best or cost < best[form][0]:
+                    best[form] = (cost, tiles)
+            key = (str(u.device), *shape, kernel, sweeps, warm, res)
+            outs = []
+            for form, (_, tiles) in sorted(best.items()):
+                monkeypatch.setitem(lk._level_plans, key, (form,) + tiles)
+                count = ("cheby" if kernel == lk.CHEBY else "power", shape,
+                         lk.LEVEL_FORMS[form])
+                before = lk.level_launches.get(count, 0)
+                got, again = _flat(kern()), _flat(kern())
+                torch.cuda.synchronize()
+                what = (shape, name, lk.LEVEL_FORMS[form], tiles)
+                assert lk.level_launches[count] == before + 2, what
+                assert torch.equal(got, again), what
+                assert float((got - ref).abs().max()) <= 1e-4 * float(
+                    ref.abs().max()), what
+                outs.append(got)
+            assert all(torch.equal(o, outs[0]) for o in outs[1:]), (shape,
+                                                                   name)
+
+
+@pytest.mark.cuda
+def test_level_plan_mirror_equals_lat_level_plan():
+    """lat_level_plan on this card picks what its mirror level_plan picks
+    for every call at every level of the main paths' hierarchies: every
+    cluster the mirror counts on can be placed."""
+    _need_cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = _cuda.load()
+    for shape in _MG_LEVELS:
+        for name, (kernel, sweeps, warm, res) in _LEVEL_CALLS.items():
+            plan = (ctypes.c_int * 5)()
+            assert lib.lat_level_plan(*shape, kernel, sweeps, int(warm),
+                                      int(res), plan) == 0
+            assert tuple(plan[:4]) == lk.level_plan(shape, sms, kernel,
+                                                    sweeps, warm, res), (
+                shape, name)
+
+
 @pytest.mark.cuda
 def test_cloth_frames_on_card_match_cpu():
     """Cloth frames on the card: the reference 5-CG frame and step_to_tol

@@ -490,7 +490,7 @@ def test_failed_ell_kernel_build_raises(tmp_path, monkeypatch):
     """A block-ELL kernel source that does not build (or no nvcc at all)
     fails the kernel library's build: an error, never a silent fallback."""
     from fem_simulation_tpu_torch.ops import _cuda
-    for name in ("lattice_chain.cuh", "lattice_kernels.cu"):
+    for name in _cuda._SOURCES:     # the other sources as they are
         shutil.copy(os.path.join(_cuda._CSRC, name), tmp_path)
     (tmp_path / "ell_kernels.cu").write_text("#error broken\n")
     monkeypatch.setattr(_cuda, "_CSRC", str(tmp_path))

@@ -22,6 +22,18 @@ from fem_simulation_tpu_torch import mesh as meshlib
 from fem_simulation_tpu_torch.ops import lattice_kernels as lk
 from fem_simulation_tpu_torch.ops import stencil
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread a test process: the tests run in several processes
+    at once, and torch's default of a thread a core each makes them contend
+    for the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 H100_SMS = 132
 BEAMS = {"2k": (9, 9, 25), "19k": (17, 17, 65), "74k": (17, 17, 257)}
 ODD = {"odd": (4, 6, 8), "x2": (2, 9, 5), "y2": (7, 2, 6), "z2": (5, 4, 2),

@@ -22,6 +22,18 @@ from fem_simulation_tpu_torch.ops import _cuda
 from fem_simulation_tpu_torch.ops import ell_kernels as ek
 from fem_simulation_tpu_torch.sim.scene import Scene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread a test process: the tests run in several processes
+    at once, and torch's default of a thread a core each makes them contend
+    for the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 H100_SMS = 132
 H100_SMEM = 232448           # the shared memory a block may opt in to
 # (N, K, color offsets) of every level of the unstructured Scenes of the

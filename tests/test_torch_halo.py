@@ -31,6 +31,18 @@ from fem_simulation_tpu_torch.parallel import halo
 from fem_simulation_tpu_torch.sim import dynamic
 from fem_simulation_tpu_torch.sim.scene import Scene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread a test process: the tests run in several processes
+    at once, and torch's default of a thread a core each makes them contend
+    for the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SLABS = (2, 4)
 BEAM, NEWTON_BEAM = (4, 4, 32), (3, 3, 24)
 

@@ -27,6 +27,18 @@ from fem_simulation_tpu_torch.ops import lattice_kernels as lk
 from fem_simulation_tpu_torch.sim.lattice import LatticeScene
 from fem_simulation_tpu_torch.solvers import cg
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread a test process: the tests run in several processes
+    at once, and torch's default of a thread a core each makes them contend
+    for the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MU, LA = 250.0, 37.0
 MAT = MaterialConfig(lame_mu=MU, lame_la=LA)
 INV_DT = 1.0 / 0.033
@@ -305,9 +317,10 @@ def test_failed_kernel_build_raises(tmp_path, monkeypatch):
     """A kernel source that does not build (or no nvcc at all) is an error,
     never a silent fallback."""
     from fem_simulation_tpu_torch.ops import _cuda
+    for name in _cuda._SOURCES:     # the other sources as they are
+        shutil.copy(os.path.join(_cuda._CSRC, name), tmp_path)
     (tmp_path / "lattice_chain.cuh").write_text("#error broken\n")
     (tmp_path / "lattice_kernels.cu").write_text('#include "lattice_chain.cuh"\n')
-    shutil.copy(os.path.join(_cuda._CSRC, "ell_kernels.cu"), tmp_path)
     monkeypatch.setattr(_cuda, "_CSRC", str(tmp_path))
     monkeypatch.setattr(_cuda, "_BUILD", str(tmp_path / "build"))
     monkeypatch.setattr(_cuda, "_lib", None)

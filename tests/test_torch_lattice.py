@@ -19,6 +19,18 @@ from fem_simulation_tpu.sim import lattice as jlat
 
 from fem_simulation_tpu_torch.sim import lattice as tlat
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread a test process: the tests run in several processes
+    at once, and torch's default of a thread a core each makes them contend
+    for the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 8
 

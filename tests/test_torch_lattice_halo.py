@@ -28,6 +28,18 @@ from fem_simulation_tpu_torch.parallel import dist, make_device_mesh
 from fem_simulation_tpu_torch.parallel import lattice_halo as lh
 from fem_simulation_tpu_torch.sim import lattice as tl
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread a test process: the tests run in several processes
+    at once, and torch's default of a thread a core each makes them contend
+    for the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BEAM = (4, 4, 33)
 DX = 0.1
 MU, LA = 250.0, 0.0

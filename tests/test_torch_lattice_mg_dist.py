@@ -26,6 +26,18 @@ from fem_simulation_tpu_torch.parallel import lattice_mg_dist as mgd
 from fem_simulation_tpu_torch.sim import lattice as tl
 from fem_simulation_tpu_torch.sim import lattice_mg as tmg
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread a test process: the tests run in several processes
+    at once, and torch's default of a thread a core each makes them contend
+    for the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BEAM = (3, 3, 24)
 CASES = ((2, 3), (4, 3), (4, 2))      # (slabs, levels)
 
@@ -68,6 +80,24 @@ def scene():
     return tl.LatticeScene(meshlib.beam(*BEAM, dx=0.1), device="cpu")
 
 
+@pytest.fixture(scope="module")
+def dist_solves(scene):
+    """solve(D, levels): the port's distributed quasi-static solve from rest
+    on D slabs, each case run once in the module: (x, k, fn, its
+    DistLatticeMG, the shift exchanges the solve made)."""
+    done = {}
+
+    def solve(D, nl):
+        if (D, nl) not in done:
+            grid = make_device_mesh(D, dp=1, device="cpu")
+            run, place = mgd.make_dist_mg_quasistatic(scene, grid, n_levels=nl)
+            dist.reset_counts()
+            x, k, fn = run(place(scene.x0))
+            done[(D, nl)] = (x, k, fn, run.mg, dist.counts["shift"])
+        return done[(D, nl)]
+    return solve
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_level_specs_and_even_z_hierarchy_equal_jax(jax_ref, scene, case):
     D, nl = case
@@ -89,17 +119,13 @@ def test_level_specs_and_even_z_hierarchy_equal_jax(jax_ref, scene, case):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_dist_mg_quasistatic_matches_whole(scene, case):
+def test_dist_mg_quasistatic_matches_whole(scene, dist_solves, case):
     """The solve on D slabs against the port's LatticeMG with the same
     z_multiple on the whole lattice."""
     D, nl = case
-    grid = make_device_mesh(D, dp=1, device="cpu")
-    solve, place = mgd.make_dist_mg_quasistatic(scene, grid, n_levels=nl)
-    dist.reset_counts()
-    x, k, fn = solve(place(scene.x0))
+    x, k, fn, mg, shifts = dist_solves(D, nl)
     assert fn <= 1e-4
-    mg = solve.mg
-    assert mg.calls["matvec"] > 0 and dist.counts["shift"] > 0
+    assert mg.calls["matvec"] > 0 and shifts > 0
     plain = tmg.LatticeMG(scene, n_levels=nl, dt=None, z_multiple=D)
     x1, k1, fn1 = tmg.quasistatic_to_tol_mg(scene, plain, scene.x0, tol=1e-4,
                                             max_newton=50)
@@ -108,11 +134,9 @@ def test_dist_mg_quasistatic_matches_whole(scene, case):
     np.testing.assert_allclose(x.numpy(), x1.numpy(), atol=1e-4)
 
 
-def test_dist_mg_quasistatic_matches_jax(jax_ref, scene):
-    grid = make_device_mesh(4, dp=1, device="cpu")
-    solve, place = mgd.make_dist_mg_quasistatic(scene, grid, n_levels=3)
-    assert solve.mg.level_specs[-1] == ()
-    x, k, fn = solve(place(scene.x0))
+def test_dist_mg_quasistatic_matches_jax(jax_ref, dist_solves):
+    x, k, fn, mg, _ = dist_solves(4, 3)
+    assert mg.level_specs[-1] == ()
     ref = jax_ref["quasistatic"]
     assert fn <= 1e-4 and k == ref["k"]
     assert_fn_close(fn, ref["f"])
@@ -202,15 +226,14 @@ def test_slab_field_halo_and_dot_equal_block_lists(monkeypatch, D):
 
 
 @pytest.mark.parametrize("D", (2, 4))
-def test_dist_mg_grouping_invariant(monkeypatch, scene, D):
+def test_dist_mg_grouping_invariant(monkeypatch, scene, dist_solves, D):
     """One slab a device group gives the one-group solve bit for bit."""
     from fem_simulation_tpu_torch.parallel import slab_field
     grid = make_device_mesh(D, dp=1, device="cpu")
-    solve, place = mgd.make_dist_mg_quasistatic(scene, grid, n_levels=3)
-    assert len(solve.mg.layout.groups) == 1
-    x, k, fn = solve(place(scene.x0))
+    x, k, fn, mg, _ = dist_solves(D, 3)
+    assert len(mg.layout.groups) == 1
     monkeypatch.setattr(slab_field, "slab_groups", _one_slab_a_group)
-    solve1, _ = mgd.make_dist_mg_quasistatic(scene, grid, n_levels=3)
+    solve1, place = mgd.make_dist_mg_quasistatic(scene, grid, n_levels=3)
     assert len(solve1.mg.layout.groups) == D
     x1, k1, fn1 = solve1(place(scene.x0))
     assert torch.equal(x1, x) and k1 == k and fn1 == fn

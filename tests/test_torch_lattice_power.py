@@ -24,6 +24,18 @@ from fem_simulation_tpu_torch.ops import lattice_kernels as lk
 from fem_simulation_tpu_torch.sim import lattice as tl
 from fem_simulation_tpu_torch.sim import lattice_mg as tmg
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread a test process: the tests run in several processes
+    at once, and torch's default of a thread a core each makes them contend
+    for the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # quasi-static (the hierarchy's pin-only ctrl) and with the inertia term of
 # dt 0.033 added per level at linearization
 INV_DTS = {"quasi-static": None, "inertia": 1.0 / 0.033}
