@@ -29,7 +29,11 @@ Phase 4  the block-ELL SpMV against its plain version on the fine-level
          under its plan and in every form the plan can pick (coop, cluster,
          resident, stream; each forced through the plan cache, bit-equal to
          each other), each form's device us in the V-cycle's call and the
-         harness's; the fused PCG solve
+         harness's; ell_jacobi in the paths' call (1 iteration) in both its
+         forms, from zero (which gathers nothing) and from x0, each against
+         both plain versions, with NaNs at a live and at a padded slot
+         propagated as theirs, timed beside its bound and (from zero) the
+         library's gather and batched solve; the fused PCG solve
          against its plain version on the lattice Newton inputs of phase 1;
          then the fused_pcg entry path (one solve per beam at two
          tolerances) with its launches counted.
@@ -93,7 +97,8 @@ Phase 9  the learning slice. The backward kernels (ell_spmv_t, ell_outer,
          19k and 21k Scenes, the 21k Scene's exp2 coarse matrix and every
          level of the 2k one; two runs bit-identical; timed beside their
          bounds (and BSR(A^T) @ g for ell_spmv_t; ell_jacobi_bwd in each
-         form: no values' gradient, from x_t, from the zero start). Then,
+         form: no values' gradient, from x_t, from the zero start); and
+         ell_jacobi's forms as in phase 4 at the exp2 coarse matrix. Then,
          counters zeroed (each exp2 run: jacobi_bwd = unroll launches a
          step and no ell_outer):
          exp2 (InterpTrainer on the 16x16x72 beam, 21,097 vertices: modes P
@@ -163,7 +168,8 @@ Phase 11 the low-fill path (ops/boxes.py) on the JAX tests' demo-scale shell,
          within 1e-3 relative + 5e-6) and along the trajectory (x within
          1e-4; every frame at ||f||_inf <= 1.01e-4).
 
-Launch counters are zeroed just before each main path and read just after.
+Launch counters are zeroed just before each main path and read just after
+(ell_gs's and ell_jacobi's also by rows and form).
 Every failure raises and exits non-zero. The last two lines are the kernel
 table as JSON and the result line {"ok": true, "device": {...}}.
 """
@@ -825,10 +831,132 @@ def smoother_bound(n, k, iterations, sweeps, with_x0):
     """The first ell_gs form's traffic, kept for comparison (it is not a
     floor): every row's values, nbr and mask once per sweep, b and x0 in, x
     out; 18 K + 60 FLOPs a row and sweep (the row product and the 3x3
-    solve). ell_jacobi's bound (one sweep an iteration)."""
+    solve)."""
     return bound(iterations * sweeps * n * k * 44
                  + 12 * n * (3 if with_x0 else 2),
                  iterations * sweeps * n * (18.0 * k + 60.0))
+
+
+def jacobi_bound(n, k, iterations=1, zero_start=True):
+    """What `iterations` ell_jacobi launches must move, launch by launch
+    (each reads its input iterate, which the one before wrote): every row's
+    values (36 K B: the propagation of non-finite values needs them all),
+    diag_slot and b in and x out; from x (every iteration but a zero
+    start's first) also nbr and mask and x read once. 18 K + 60 FLOPs a row
+    and iteration."""
+    gathers = iterations - (1 if zero_start and iterations else 0)
+    return bound(iterations * n * (36 * k + 28) + gathers * n * (8 * k + 12),
+                 iterations * n * (18.0 * k + 60.0))
+
+
+def with_nans(op, vals):
+    """vals with a NaN at one live off-diagonal slot of one row and at one
+    padded slot of another (a padded slot's values are read and multiply a
+    masked zero, so the NaN propagates, as in the JAX smoother)."""
+    mask, ds = op.mask.cpu().numpy(), op.diag_slot.cpu().numpy()
+    slots = np.arange(mask.shape[1])[None, :]
+    live = np.argwhere((mask > 0) & (slots != ds[:, None]))
+    padded = np.argwhere(mask == 0)
+    r1, k1 = live[len(live) // 3]
+    r2, k2 = next(p for p in padded if p[0] != r1)
+    out = vals.clone()
+    out[int(r1), int(k1), 2, 1] = float("nan")
+    out[int(r2), int(k2), 1, 1] = float("nan")
+    return out
+
+
+# ell_jacobi's forms of the paths' calls: one iteration from x0 = None (FAS
+# v1-v3's and exp2's coarse solve) and from a given x0
+JACOBI_CALLS = (("zero start", False), ("from x", True))
+
+
+def jacobi_forms(phase, label, li, op, vals, b, x0, reps):
+    """ell_jacobi's two forms in the paths' call (1 iteration) at one level:
+    each against ek.jacobi_plain and smoothers.jacobi_plain (max|d| <= 1e-5
+    max|ref|), with NaNs at a live and at a padded slot propagated to the
+    plain versions' NaN entries and no others, two runs bit-identical;
+    device us a launch, events ms, plain ms, the bound and, for the zero
+    start, the library's two calls (the diagonal blocks gathered, then
+    torch.linalg.solve_ex: the same x = D^-1 b). Returns ({form: entry},
+    the largest max|d| against a plain version)."""
+    n, k = vals.shape[:2]
+    rows_i = torch.arange(n, device=b.device)
+    ds = op.diag_slot.long()
+    sms = torch.cuda.get_device_properties(b.device).multi_processor_count
+    out, rel, abs_err = {}, {}, 0.0
+    for form, from_x in JACOBI_CALLS:
+        start = x0 if from_x else None
+        worst = 0.0
+        for v in (vals, with_nans(op, vals)):
+            a = (v, op.nbr, op.mask, op.diag_slot, b)
+            got, again = ek.jacobi(*a, start, 1), ek.jacobi(*a, start, 1)
+            refs = (ek.jacobi_plain(*a, start, 1),
+                    smoothers.jacobi_plain(op, v, b, 1, x0=start))
+            torch.cuda.synchronize()
+            nan = torch.isnan(refs[0])
+            check(bool(nan.any()) == (v is not vals), f"jacobi {form} "
+                  f"{label} level {li}: NaN rows {int(nan.any(1).sum())}")
+            check(torch.equal(torch.isnan(again), torch.isnan(got))
+                  and torch.equal(got[~nan], again[~nan]),
+                  f"jacobi {form} {label} level {li}: two runs differ")
+            for ref in refs:
+                check(torch.equal(torch.isnan(got), torch.isnan(ref)),
+                      f"jacobi {form} {label} level {li}: NaN entries "
+                      "differ from the plain version's")
+                scale = float(ref[~nan].abs().max())
+                err = float((got - ref)[~nan].abs().max())
+                check(err <= 1e-5 * scale, f"jacobi {form} {label} level "
+                      f"{li}: max|d| {err:.3e} > 1e-5 * {scale:.3e}")
+                worst = max(worst, err / scale)
+                abs_err = max(abs_err, err)
+        args = (vals, op.nbr, op.mask, op.diag_slot, b, start, 1)
+        us = device_us(lambda: ek.jacobi(*args), 10, "ell_jacobi_kernel")
+        ms = cuda_ms(lambda: ek.jacobi(*args), reps)
+        plain_ms = cuda_ms(lambda: ek.jacobi_plain(*args), 3, warmup=1)
+        b_ms, b_by = jacobi_bound(n, k, 1, not from_x)
+        lib_ms = None
+        if not from_x:
+            def library():
+                return torch.linalg.solve_ex(vals[rows_i, ds],
+                                             b.unsqueeze(-1))[0]
+            ref = ek.jacobi_plain(*args)
+            lib_err = max_err(library().squeeze(-1), ref)
+            check(lib_err <= 1e-4 * float(ref.abs().max()), f"library "
+                  f"solve {label} level {li}: max|d| {lib_err:.3e}")
+            lib_ms = cuda_ms(library, reps)
+        out[form] = dict(ms=ms, device_us=us, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        rel[form] = worst
+    log(f"{phase} jacobi {label:4s} level {li} N {n} 1 iteration (the "
+        f"paths' call; lanes {ek.jacobi_lanes(n, sms)}): " + "  ".join(
+            f"{form} device {e['device_us']} us (bound "
+            f"{e['bound_ms'] * 1e3:.2f} us, {e['bound_by']}"
+            + (f"; library gather + solve_ex {e['library_ms'] * 1e3:.2f} us"
+               if e["library_ms"] is not None else "")
+            + f"), events {e['ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
+            f"max rel |d| {rel[form]:.2e}"
+            for form, e in out.items())
+        + "; NaN at a live and a padded slot propagated; same bits twice")
+    return out, abs_err
+
+
+# ell_jacobi's launches on the main paths by (rows, form), added up by
+# log_jacobi_shapes where phases 5, 8 and 9 read their counters
+JACOBI_PATH_SHAPES = {}
+
+
+def log_jacobi_shapes(phase):
+    """Log ell_jacobi's launches by (rows, form) since the counts were
+    zeroed (they must add up to launches["jacobi"]) and add them to
+    JACOBI_PATH_SHAPES."""
+    log(f"{phase} jacobi launches by (rows, form): "
+        + ", ".join(f"{n} {form} {c}"
+                    for (n, form), c in sorted(ek.jacobi_launches.items())))
+    check(sum(ek.jacobi_launches.values()) == ek.launches["jacobi"],
+          f"{phase}: jacobi launches by shape {ek.jacobi_launches} do not "
+          f"add up to {ek.launches['jacobi']}")
+    for key, c in ek.jacobi_launches.items():
+        JACOBI_PATH_SHAPES[key] = JACOBI_PATH_SHAPES.get(key, 0) + c
 
 
 def gs_bound(offs, k, iterations, with_x0):
@@ -858,9 +986,8 @@ def phase4_smoothers(uscenes, reps):
     on every level of each scene's Galerkin chain; ell_gs under its plan and
     in every form the plan can pick (each forced through ek._gs_plans): two
     runs bit-identical, the forms bit-equal to each other, each timed."""
-    rows = {name: {"max_abs_err": 0.0, "by_beam": {}}
+    rows = {name: {"max_abs_err": 0.0, "by_beam": {}, "by_level": []}
             for name in ("gs", "jacobi")}
-    rows["gs"]["by_level"] = []
     for label, sc in uscenes.items():
         rng = np.random.default_rng(11)
         x = sc.x0 + torch.from_numpy(0.01 * rng.standard_normal(
@@ -980,13 +1107,20 @@ def phase4_smoothers(uscenes, reps):
                                             op.diag_slot, b, None, 2), reps)
             jus = device_us(lambda: ek.jacobi(
                 vals, op.nbr, op.mask, op.diag_slot, b, None, 2), 10,
-                "ell_relax_rows_kernel", per_call=2)
+                "ell_jacobi_kernel", per_call=2)
             jplain = cuda_ms(lambda: smoothers.jacobi_plain(op, vals, b, 2),
                              3, warmup=1)
-            jb_ms, jb_by = smoother_bound(n, k, 2, 1, False)
-            log(f"phase4 jacobi {label:4s} level {li} N {n} 2 iterations: "
-                f"kernel {jms:.4f} ms (device {jus} us)  plain "
+            jb_ms, jb_by = jacobi_bound(n, k, 2, True)
+            log(f"phase4 jacobi {label:4s} level {li} N {n} 2 iterations "
+                f"from zero: kernel {jms:.4f} ms (device {jus} us)  plain "
                 f"{jplain:.3f} ms  bound {jb_ms:.5f} ms ({jb_by})")
+            forms1, err1 = jacobi_forms("phase4", label, li, op, vals, b, x0,
+                                        reps)
+            rows["jacobi"]["by_level"] += [
+                dict(beam=label, level=li, n=n, form=form, **e)
+                for form, e in forms1.items()]
+            rows["jacobi"]["max_abs_err"] = max(
+                rows["jacobi"]["max_abs_err"], err1)
             if li == 0:        # the table's numbers: the fine level
                 rows["gs"]["by_beam"][label] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1164,6 +1298,7 @@ def phase5(uscenes):
     launches, calls = dict(ek.launches), dict(ell.cuda_calls)
     log(f"phase5 kernel launches {launches}, asked for by the SpMV and "
         f"smoother calls on CUDA tensors {calls} (jacobi: one per iteration)")
+    log_jacobi_shapes("phase5")
     check(launches == calls, f"launches {launches} != those the calls on "
           f"CUDA tensors ask for {calls}")
     check(all(launches[n] > 0 for n in ELL_FORWARD),
@@ -2013,6 +2148,7 @@ def phase8(cloths, uscene2k):
     launches, calls = dict(ek.launches), dict(ell.cuda_calls)
     log(f"phase8 kernel launches {launches}, asked for by the calls on CUDA "
         f"tensors {calls}")
+    log_jacobi_shapes("phase8")
     check(launches == calls, f"launches {launches} != those the calls on "
           f"CUDA tensors ask for {calls}")
     check(all(launches[n] > 0 for n in ELL_FORWARD),
@@ -2137,6 +2273,7 @@ def phase9_kernels(uscenes, sc21, reps):
     fp32 FMA contraction), two runs bit-identical; timed."""
     rows = {name: {"max_abs_err": 0.0, "by_beam": {}, "by_level": []}
             for name in ELL_BACKWARD}
+    jacobi_rows, jacobi_err = [], 0.0
     cases = [("19k", uscenes["19k"], 0), ("21k", sc21, 0), ("21k", sc21, 1)
              ] + [("2k", uscenes["2k"], li)
                   for li in range(uscenes["2k"].n_levels)]
@@ -2159,6 +2296,11 @@ def phase9_kernels(uscenes, sc21, reps):
         g, v, b, x0 = (torch.from_numpy(s * rng.standard_normal(
             (n, 3)).astype(np.float32)).to(sc.device)
             for s in (1.0, 1.0, 1.0, 0.1))
+        if (label, li) == ("21k", 1):  # exp2's coarse solve: its forward
+            forms1, jacobi_err = jacobi_forms("phase9", label, li, op, vals,
+                                              b, x0, reps)
+            jacobi_rows = [dict(beam=label, level=li, n=n, form=form, **e)
+                           for form, e in forms1.items()]
         kern = {
             "spmv_t": (lambda: ek.spmv_t(vals, op.mask, tt, g),
                        lambda: ek.spmv_t_plain(vals, op.mask, tt, g)),
@@ -2272,7 +2414,7 @@ def phase9_kernels(uscenes, sc21, reps):
             + f"; Functions vs autograd of plain {fn_err:.2e}; same bits "
             "twice")
         log(f"phase9 time     {label:4s} level {li}: " + "  ".join(parts))
-    return rows
+    return rows, jacobi_rows, jacobi_err
 
 
 def exp2_steps(tr, steps, seed=0):
@@ -2436,6 +2578,7 @@ def phase9(sc21, sc2k, sc21_cpu, steps=10):
     launches, calls = dict(ek.launches), dict(ell.cuda_calls)
     log(f"phase9 kernel launches {launches}, asked for by the calls on CUDA "
         f"tensors {calls}")
+    log_jacobi_shapes("phase9")
     check(launches == calls, f"launches {launches} != those the calls on "
           f"CUDA tensors ask for {calls}")
     for name in ("jacobi_bwd", "jacobi", "spmv"):
@@ -3878,7 +4021,11 @@ def main() -> int:
         + " / ".join(str(lv.n_verts) for lv in sc21.hier.levels)
         + f" K {sc21.level(0).K} (card and CPU built in "
         f"{time.perf_counter() - t0:.1f} s)")
-    rows.update(phase9_kernels(uscenes, sc21, reps=20))
+    rows9, jacobi9, jacobi9_err = phase9_kernels(uscenes, sc21, reps=20)
+    rows.update(rows9)
+    rows["jacobi"]["by_level"] += jacobi9
+    rows["jacobi"]["max_abs_err"] = max(rows["jacobi"]["max_abs_err"],
+                                        jacobi9_err)
     results9, counts9 = phase9(sc21, uscenes["2k"], sc21_cpu)
     add_gs_shapes()
     for name in ELL_FORWARD:
@@ -3905,6 +4052,12 @@ def main() -> int:
                     for (n, form), c in sorted(gs_shapes.items())))
     check(sum(gs_shapes.values()) == counts["gs"], f"gs launches by shape "
           f"{gs_shapes} do not add up to {counts['gs']}")
+    log("jacobi launches on the main paths by (rows, form): "
+        + ", ".join(f"{n} {form} {c}" for (n, form), c in sorted(
+            JACOBI_PATH_SHAPES.items())))
+    check(sum(JACOBI_PATH_SHAPES.values()) == counts["jacobi"], f"jacobi "
+          f"launches by shape {JACOBI_PATH_SHAPES} do not add up to "
+          f"{counts['jacobi']}")
     log("level kernel launches on the main paths by (kernel, shape, form): "
         + ", ".join(f"{k} {s} {f} {c}"
                     for (k, s, f), c in sorted(level_shapes.items())))
@@ -3938,6 +4091,11 @@ def main() -> int:
         at_level[name] = next(e for e in rows[name]["by_level"]
                               if (e["beam"], e["level"]) == ("21k", 1)
                               and e["form"] in (None, JACOBI_BWD_PATH_FORM))
+    # ell_jacobi's there too: exp2's coarse solve, one iteration from zero,
+    # the most launched of its paths' calls
+    at_level["jacobi"] = next(e for e in rows["jacobi"]["by_level"]
+                              if (e["beam"], e["level"], e["form"])
+                              == ("21k", 1, "zero start"))
     per_level = {"cheby": ("cheby_pre", "cheby_post", "cheby_coarse",
                            "cheby_plan"),
                  "diag_shift": ("diag_shift", "diag_shift_unprojected",
@@ -3966,6 +4124,12 @@ def main() -> int:
             out["by_cloth"] = r["by_cloth"]
         if name in ELL_BACKWARD:     # phase 9: every shape it ran at
             out["by_level"] = r["by_level"]
+        if name == "jacobi":         # phase 4's levels and phase 9's exp2
+                                     # coarse matrix, each form; the paths'
+            out["by_level"] = r["by_level"]
+            out["by_shape"] = [{"n": n, "form": form, "launches": c}
+                               for (n, form), c in sorted(
+                                   JACOBI_PATH_SHAPES.items())]
         if name == "gs":             # phase 4's levels, the paths' shapes
             out["by_level"] = r["by_level"]
             out["by_shape"] = [{"n": n, "form": form, "launches": c}

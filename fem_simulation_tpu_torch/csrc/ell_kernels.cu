@@ -69,8 +69,10 @@
 // slower): ell_gs's forms and what bounds them are set out at the kernels
 // below. ell_jacobi reads the previous iterate from a second buffer and
 // swaps the two per iteration (one plain launch each; bound: memory, every
-// row's values, nbr and mask once an iteration). One warp takes a row, lane
-// k slot k, a fixed shuffle butterfly sums the slots: run-to-run identical.
+// row's values once an iteration, and nbr and mask from x): a group of 8,
+// 16 or 32 lanes a row, the first iteration from zero in a form that
+// gathers nothing (ell_jacobi_kernel below). A fixed butterfly sums the
+// slots: run-to-run identical.
 //
 // The backward kernels (no TPU kernel of their own: the JAX package gets
 // these gradients from jax.grad of the SpMV and of the smoother's
@@ -100,10 +102,12 @@
 //                   residual is b and the products are -lam (x) 0, which
 //                   an accumulating call does not add).
 //
-// Both write a row's values gradient through outer_row: the row's group
-// writes the row's 9 K contiguous floats, float t by lane t mod L, its
-// slot's x_t[nbr] mask by shuffle, so a warp's stores are contiguous.
-// Bound: memory, the N K 36 B of the gradient written.
+// ell_outer writes a row's values gradient through outer_row: the row's
+// group writes the row's 9 K contiguous floats, float t by lane t mod L,
+// its slot's x_t[nbr] mask by shuffle, so a warp's stores are contiguous.
+// ell_jacobi_bwd writes a block's rows' gradient, one contiguous span, with
+// 16-byte stores from a copy in shared memory. Bound: memory, the N K 36 B
+// of the gradient written.
 //
 // The rest of a Jacobi iteration's adjoint is ell_spmv_t (gbar_t =
 // -O^T lam, the diagonal slot left out), launched only where an earlier
@@ -247,9 +251,9 @@ __device__ __forceinline__ void apply_adjugate(const float* c, float inv_det,
     o2 = (c[2] * r0 + c[5] * r1 + c[8] * r2) * inv_det;
 }
 
-// One relaxed row (a whole warp calls it with a warp-uniform row): the
-// off-diagonal row product against xin, then lane 0 solves the diagonal
-// block and writes xout[row]. xin may alias xout (Gauss-Seidel in place:
+// One relaxed row (a whole warp calls it with a warp-uniform row; ell_gs's
+// first form): the off-diagonal row product against xin, then lane 0 solves
+// the diagonal block and writes xout[row]. xin may alias xout (in place:
 // rows of one color never read each other). The pass is bound by latency,
 // not bytes (a color of the 74k level is ~9k rows for ~8k resident warps),
 // so every load that does not depend on another is started up front: a lane
@@ -305,15 +309,105 @@ struct RelaxArgs {
     int K;
 };
 
-// Rows [r0, r1) relaxed against xin into xout, one warp per row.
+// -- ell_jacobi: one block-Jacobi iteration a launch -------------------------
+//
+// A group of G lanes takes a row (G = 8, 16 or 32; 256 / G rows a block),
+// lane l holding slots l, l + G, ... (32 / G of them), so all of a row's
+// loads are in flight at once. jacobi_lanes picks G per launch: the most
+// lanes whose grid still fits one wave (32 up to 8,448 rows on 132 SMs,
+// 16 up to 16,896, else 8), since a lane's slots are a serial chain that
+// only more rows in flight hide (on an H100 the first iteration from zero
+// took 1.99 / 1.42 us at 325 rows with 8 / 32 lanes, 3.79 / 3.53 at 10,449
+// with 8 / 16, whose 32 lanes take two waves: 3.72; scripts/jacobi_lanes.py
+// times each count). The group adds its slots in relax_row's butterfly
+// order (lane_sum, then an xor butterfly of width G), so every lane ends with
+// relax_row's lane-0 sums whatever G, and every lane solves the row with
+// the adjugate (no lane-0 tail: 256 / G rows solve at once); lanes 0-2
+// store. Two forms:
+//   from x      x gathered through nbr and mask (later iterations, and any
+//               call from a given x0);
+//   zero start  the first iteration from x0 = 0: nbr and mask are not read
+//               and nothing is gathered, but every slot's product with the
+//               zero x is still formed (slot_product; the build keeps IEEE
+//               arithmetic, so v * 0 is not folded), so a non-finite value
+//               at any slot, live or padded, propagates as the JAX
+//               smoother's spmv(values * offdiag, ..., 0) does, and the
+//               finite bits are the from-x form's on a zero x.
+// Bound: memory. A row is 36 K bytes of values (which the propagation of
+// non-finite values requires), diag_slot and b in and x out (~1,000 B at K
+// 27); from x also nbr and mask (8 K) and the gather of x.
+
+// A lane's S = 32 / G slot partials p[j] (slot l + G j) added in the order
+// relax_row's butterfly adds them within the lane (its steps 16 and 8).
+template <int S>
+__device__ __forceinline__ float lane_sum(const float* p) {
+    if (S == 4) return (p[0] + p[2]) + (p[1] + p[3]);
+    if (S == 2) return p[0] + p[1];
+    return p[0];
+}
+
+template <int G, bool Zero>
 __global__ void __launch_bounds__(kThreads)
-ell_relax_rows_kernel(const RelaxArgs A, const float* xin, float* xout,
-                      int r0, int r1) {
-    const int lane = threadIdx.x & 31;
-    const int row = r0 + blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-    if (row >= r1) return;
-    relax_row(A.values, A.nbr, A.mask, A.diag_slot, A.b, xin, xout, row, A.K,
-              lane);
+ell_jacobi_kernel(const RelaxArgs A, const float* __restrict__ xin,
+                  float* __restrict__ xout, int N) {
+    constexpr int kRows = kThreads / G, S = 32 / G;
+    const unsigned full = 0xffffffffu;
+    const int lane = threadIdx.x & (G - 1);
+    const int first = blockIdx.x * kRows;
+    if (first + static_cast<int>(threadIdx.x & ~31u) / G >= N)
+        return;  // every row of the warp lies past N
+    const int row = first + static_cast<int>(threadIdx.x) / G;
+    const bool live = row < N;
+    const int rs = live ? row : N - 1;  // a row that exists, for the loads
+    const int K = A.K;
+    const int ds = A.diag_slot[rs];
+    const float b0 = A.b[3LL * rs], b1 = A.b[3LL * rs + 1],
+                b2 = A.b[3LL * rs + 2];
+    float v[S][9], p0[S], p1[S], p2[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+        const int k = lane + G * j;
+        // a slot past K reads slot 0 and adds 0, as relax_row's idle lanes
+        const long long e = static_cast<long long>(rs) * K + (k < K ? k : 0);
+#pragma unroll
+        for (int t = 0; t < 9; ++t) v[j][t] = A.values[9 * e + t];
+        float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+        if (!Zero) {
+            const float m = A.mask[e];
+            const long long c = 3LL * A.nbr[e];
+            x0 = xin[c] * m;
+            x1 = xin[c + 1] * m;
+            x2 = xin[c + 2] * m;
+        }
+        float q0, q1, q2;
+        slot_product(v[j], x0, x1, x2, q0, q1, q2);
+        const bool use = k < K && k != ds;
+        p0[j] = use ? q0 : 0.f;
+        p1[j] = use ? q1 : 0.f;
+        p2[j] = use ? q2 : 0.f;
+    }
+    float s0 = lane_sum<S>(p0), s1 = lane_sum<S>(p1), s2 = lane_sum<S>(p2);
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+        s0 += __shfl_xor_sync(full, s0, off, G);
+        s1 += __shfl_xor_sync(full, s1, off, G);
+        s2 += __shfl_xor_sync(full, s2, off, G);
+    }
+    // the diagonal block from the lane that holds slot ds
+    const int jd = ds / G;
+    float d[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+        float w = v[0][t];
+#pragma unroll
+        for (int j = 1; j < S; ++j) w = jd == j ? v[j][t] : w;
+        d[t] = __shfl_sync(full, w, ds & (G - 1), G);
+    }
+    float c[9], inv_det, o0, o1, o2;
+    adjugate(d, c, inv_det);
+    apply_adjugate(c, inv_det, b0, b1, b2, s0, s1, s2, o0, o1, o2);
+    if (live && lane < 3)
+        xout[3LL * row + lane] = lane == 0 ? o0 : (lane == 1 ? o1 : o2);
 }
 
 // -- ell_gs: the forms of a colored symmetric Gauss-Seidel call -------------
@@ -816,130 +910,267 @@ ell_outer_kernel(const float* __restrict__ g, const int* __restrict__ nbr,
                              sk, alpha, accumulate, live, lane);
 }
 
-// The adjoint of one Jacobi iteration at a row (one warp a row, lane k
-// slot k, as relax_row): lam = s C gbar with C the cofactor matrix of the
-// diagonal block D and s = det / (det^2 + eps), the transpose of the
-// forward's x = s C^T r. Every lane computes lam (the same operations on the
-// same shuffled inputs, so the same bits); lane 0 stores it. With gv given,
-// the forward's residual r = b - sum_{k != ds} A_k (xt[nbr_k] m_k) is
-// recomputed (r = b from a zero start, xt null: no x_t is read) and the
-// exact derivative of x = s(det) C(D)^T r with respect to D goes to the
-// diagonal slot: row p of it is
+// The adjoint of one Jacobi iteration x_{t+1} = D^{-1} (b - O x_t) at a row:
+// lam = s C gbar with C the cofactor matrix of the diagonal block D and
+// s = det / (det^2 + eps), the transpose of the forward's x = s C^T r. With
+// gv given, the forward's residual r = b - sum_{k != ds} A_k (xt[nbr_k] m_k)
+// is recomputed (r = b from the zero start: no x_t is read) and the exact
+// derivative of x = s(det) C(D)^T r with respect to D goes to the diagonal
+// slot: row p of it is
 //   s (r_{p-1} (D_{p+1} x gbar) + r_{p+1} (gbar x D_{p+2}))
 //     + s'(det) (r . C gbar) C_p,        s' = (eps - det^2) / (det^2 + eps)^2
-// (indices mod 3; row n of C is D_{n+1} x D_{n+2}). With offdiag (gv given,
-// and xt or a storing call: the C entry sets it), the other
-// slots (+)= -(lam (x) xm_k), xm_k = xt[nbr_k] m_k already in lane k's
-// registers (zero from a zero start): what ell_outer(lam, ..., xt,
-// skip = diag_slot, alpha = -1) writes, by outer_row, in the same launch.
+// (indices mod 3; row n of C is D_{n+1} x D_{n+2}); the other slots take
+// -(lam (x) xm_k), xm_k = xt[nbr_k] m_k (zero from the zero start): what
+// ell_outer(lam, ..., xt, skip = diag_slot, alpha = -1) writes.
+//
+// Forms (kBwd*): no values' gradient (lam and gb only: the diagonal block,
+// diag_slot and gbar read); from x_t (the row's values, nbr and mask read
+// and x_t gathered, for the residual and the products); the zero start
+// (only the diagonal block of the values read, nothing gathered).
+//
+// Design: the forward's row groups, G = jacobi_lanes(N, sms) lanes a row
+// (8 without the values' gradient) and 256 / G rows a block. Every lane
+// computes lam in the first form's roundings (fms, dot3 below; the
+// residual from x_t is the forward's row pass, lane_sum and the xor
+// butterfly), lanes 0-2 store one component each, and lane p < 3 forms row
+// p of the diagonal derivative, each entry rounded as the first form
+// rounded it. The
+// values' gradient is the bytes that bound the kernel (N K 36 B against
+// ~150 + 18 K FLOPs a row), and a block's rows own one contiguous span of
+// it, so the group writes its row's 9 K floats into a copy of the block's
+// span in shared memory (its own slots' products from the xm in its
+// registers, the derivative at the diagonal slot), and after one block
+// barrier the block stores the span with 16-byte stores (a head and a tail
+// of single floats where the span does not start or end on 16 bytes);
+// accumulating, it reads, adds and writes the same span. Each float is
+// rounded as outer_row rounds it: -(lam_j xm_l) by __fmul_rn, a sum by
+// __fadd_rn. From the zero start an accumulating call adds only the 9
+// floats of the diagonal slot (the others would take -lam (x) 0), single
+// stores by lanes 0-2.
+constexpr int kBwdNoGv = 0;
+constexpr int kBwdFromXt = 1;
+constexpr int kBwdZero = 2;
+
+// The adjoint's arithmetic with every rounding pinned to the one the first
+// form's build made (recovered from its outputs and its SASS on an H100):
+// written as plain expressions, the compiler contracts a b - c d and
+// a b + c d into an FMA on either product, by how many uses each product
+// has after common subexpressions are merged, so another layout of the same
+// expressions (a row of the derivative a lane) rounds differently.
+// x1 y1 - x2 y2 with the first product fused.
+__device__ __forceinline__ float fms(float x1, float y1, float x2,
+                                     float y2) {
+    return __fmaf_rn(x1, y1, -__fmul_rn(x2, y2));
+}
+
+// a0 b0 + a1 b1 + a2 b2 as the compiler orders it: a1 b1 rounded, then
+// a0 b0 and a2 b2 fused in turn.
+__device__ __forceinline__ float dot3(float a0, float b0, float a1, float b1,
+                                      float a2, float b2) {
+    return __fmaf_rn(a2, b2, __fmaf_rn(a0, b0, __fmul_rn(a1, b1)));
+}
+
+// The floats of shared memory a block of G lanes a row takes in the span
+// forms: the span of its 256 / G rows and 3 floats of room to give it the
+// alignment of gv's.
+int bwd_span_floats(int K, int G) {
+    return kThreads / G * 9 * K + 3;
+}
+
+template <int G, int Form>
 __global__ void __launch_bounds__(kThreads)
 ell_jacobi_bwd_kernel(const RelaxArgs A, const float* __restrict__ xt,
                       const float* __restrict__ gbar, float* __restrict__ lam,
                       float* __restrict__ gb, float* __restrict__ gv,
-                      int accumulate, int offdiag, int N) {
+                      int accumulate, int N) {
+    constexpr int kRows = kThreads / G, S = 32 / G;
+    extern __shared__ __align__(16) float span[];
     const unsigned full = 0xffffffffu;
-    const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-    if (row >= N) return;
+    const int lane = threadIdx.x & (G - 1);
+    const int first = blockIdx.x * kRows;
+    const int row = first + static_cast<int>(threadIdx.x) / G;
+    const bool live = row < N;
+    const int rs = live ? row : N - 1;  // a row that exists, for the loads
     const int K = A.K;
-    const int ds = A.diag_slot[row];
-    const float bj = lane < 3 ? A.b[3LL * row + lane] : 0.f;
-    const float gj = lane < 3 ? gbar[3LL * row + lane] : 0.f;
-    float v[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    const int ds = A.diag_slot[rs];
+    const float g0 = gbar[3LL * rs], g1 = gbar[3LL * rs + 1],
+                g2 = gbar[3LL * rs + 2];
+    float d[9];
+    const float* dv = A.values + 9 * (static_cast<long long>(rs) * K + ds);
+#pragma unroll
+    for (int t = 0; t < 9; ++t) d[t] = dv[t];
+    float bj[3] = {0.f, 0.f, 0.f};
+    if (Form != kBwdNoGv) {
+        bj[0] = A.b[3LL * rs];
+        bj[1] = A.b[3LL * rs + 1];
+        bj[2] = A.b[3LL * rs + 2];
+    }
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    float x0 = 0.f, x1 = 0.f, x2 = 0.f;  // xt[nbr] mask of the lane's slot
-    if (lane < K) {
-        const long long e = static_cast<long long>(row) * K + lane;
-        if (gv != nullptr && xt != nullptr) {  // the whole row: the residual
+    float xm[S][3];  // xt[nbr] mask of the lane's slots (zero start: 0)
+#pragma unroll
+    for (int j = 0; j < S; ++j) xm[j][0] = xm[j][1] = xm[j][2] = 0.f;
+    if (Form == kBwdFromXt) {  // the whole row: the residual
+        float p0[S], p1[S], p2[S];
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+            const int k = lane + G * j;
+            const long long e =
+                static_cast<long long>(rs) * K + (k < K ? k : 0);
+            float v[9];
 #pragma unroll
             for (int t = 0; t < 9; ++t) v[t] = A.values[9 * e + t];
             const float m = A.mask[e];
             const long long c = 3LL * A.nbr[e];
-            x0 = xt[c] * m;
-            x1 = xt[c + 1] * m;
-            x2 = xt[c + 2] * m;
-            if (lane != ds) {
-                s0 = v[0] * x0 + v[1] * x1 + v[2] * x2;
-                s1 = v[3] * x0 + v[4] * x1 + v[5] * x2;
-                s2 = v[6] * x0 + v[7] * x1 + v[8] * x2;
-            }
-        } else if (lane == ds) {
+            xm[j][0] = xt[c] * m;
+            xm[j][1] = xt[c + 1] * m;
+            xm[j][2] = xt[c + 2] * m;
+            float q0, q1, q2;
+            slot_product(v, xm[j][0], xm[j][1], xm[j][2], q0, q1, q2);
+            const bool use = k < K && k != ds;
+            p0[j] = use ? q0 : 0.f;
+            p1[j] = use ? q1 : 0.f;
+            p2[j] = use ? q2 : 0.f;
+        }
+        s0 = lane_sum<S>(p0);
+        s1 = lane_sum<S>(p1);
+        s2 = lane_sum<S>(p2);
 #pragma unroll
-            for (int t = 0; t < 9; ++t) v[t] = A.values[9 * e + t];
+        for (int off = G / 2; off > 0; off >>= 1) {
+            s0 += __shfl_xor_sync(full, s0, off, G);
+            s1 += __shfl_xor_sync(full, s1, off, G);
+            s2 += __shfl_xor_sync(full, s2, off, G);
         }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        s0 += __shfl_down_sync(full, s0, off);
-        s1 += __shfl_down_sync(full, s1, off);
-        s2 += __shfl_down_sync(full, s2, off);
-    }
-    float d[9];
-#pragma unroll
-    for (int t = 0; t < 9; ++t) d[t] = __shfl_sync(full, v[t], ds);
-    const float b1 = __shfl_sync(full, bj, 1), b2 = __shfl_sync(full, bj, 2);
-    const float g0 = __shfl_sync(full, gj, 0), g1 = __shfl_sync(full, gj, 1),
-                g2 = __shfl_sync(full, gj, 2);
     const float a00 = d[0], a01 = d[1], a02 = d[2], a10 = d[3], a11 = d[4],
                 a12 = d[5], a20 = d[6], a21 = d[7], a22 = d[8];
     // ops/ell.py solve3x3: the cofactors, det / (det^2 + eps)
-    const float c00 = a11 * a22 - a12 * a21;
-    const float c01 = a12 * a20 - a10 * a22;
-    const float c02 = a10 * a21 - a11 * a20;
-    const float det = a00 * c00 + a01 * c01 + a02 * c02;
-    const float c10 = a02 * a21 - a01 * a22;
-    const float c11 = a00 * a22 - a02 * a20;
-    const float c12 = a01 * a20 - a00 * a21;
-    const float c20 = a01 * a12 - a02 * a11;
-    const float c21 = a02 * a10 - a00 * a12;
-    const float c22 = a00 * a11 - a01 * a10;
-    const float den = det * det + 1e-12f;
-    const float inv_det = det / den;
-    const float u0 = c00 * g0 + c01 * g1 + c02 * g2;
-    const float u1 = c10 * g0 + c11 * g1 + c12 * g2;
-    const float u2 = c20 * g0 + c21 * g1 + c22 * g2;
-    const float l0 = u0 * inv_det, l1 = u1 * inv_det, l2 = u2 * inv_det;
-    if (offdiag)  // uniform across the warp
-        outer_row<32>(gv + 9 * (static_cast<long long>(row) * K), l0, l1,
-                      l2, x0, x1, x2, K, ds, -1.0f, accumulate, true, lane);
-    if (lane != 0) return;
-    float* lo = lam + 3LL * row;
-    lo[0] = l0;
-    lo[1] = l1;
-    lo[2] = l2;
-    if (gb != nullptr) {
-        float* o = gb + 3LL * row;
-        o[0] = accumulate ? o[0] + l0 : l0;
-        o[1] = accumulate ? o[1] + l1 : l1;
-        o[2] = accumulate ? o[2] + l2 : l2;
+    const float c00 = fms(a11, a22, a12, a21);
+    const float c01 = fms(a12, a20, a10, a22);
+    const float c02 = fms(a10, a21, a11, a20);
+    const float det = dot3(a00, c00, a01, c01, a02, c02);
+    const float c10 = fms(a02, a21, a01, a22);
+    const float c11 = fms(a00, a22, a02, a20);
+    const float c12 = fms(a01, a20, a00, a21);
+    const float c20 = fms(a01, a12, a02, a11);
+    const float c21 = fms(a02, a10, a00, a12);
+    const float c22 = fms(a00, a11, a01, a10);
+    const float den = __fmaf_rn(det, det, 1e-12f);
+    const float inv_det = __fdiv_rn(det, den);
+    const float u0 = dot3(c00, g0, c01, g1, c02, g2);
+    const float u1 = dot3(c10, g0, c11, g1, c12, g2);
+    const float u2 = dot3(c20, g0, c21, g1, c22, g2);
+    const float l0 = __fmul_rn(u0, inv_det), l1 = __fmul_rn(u1, inv_det),
+                l2 = __fmul_rn(u2, inv_det);
+    const float lc = lane == 0 ? l0 : (lane == 1 ? l1 : l2);
+    if (live && lane < 3) {
+        lam[3LL * row + lane] = lc;
+        if (gb != nullptr) {
+            float* o = gb + 3LL * row + lane;
+            *o = accumulate ? *o + lc : lc;
+        }
     }
-    if (gv == nullptr) return;
-    const float r[3] = {bj - s0, b1 - s1, b2 - s2};
-    const float h = (1e-12f - det * det) / den / den
-                    * (r[0] * u0 + r[1] * u1 + r[2] * u2);
-    const float D[3][3] = {{a00, a01, a02}, {a10, a11, a12}, {a20, a21, a22}};
-    const float C[3][3] = {{c00, c01, c02}, {c10, c11, c12}, {c20, c21, c22}};
-    const float G[3] = {g0, g1, g2};
-    float* o = gv + 9 * (static_cast<long long>(row) * K + ds);
+    if (Form == kBwdNoGv) return;
+    const float r[3] = {bj[0] - s0, bj[1] - s1, bj[2] - s2};
+    const float h = __fmul_rn(
+        __fdiv_rn(__fdiv_rn(__fmaf_rn(-det, det, 1e-12f), den), den),
+        dot3(r[0], u0, r[1], u1, r[2], u2));
+    // row p = lane (< 3) of the diagonal blocks' gradient:
+    // r_{p-1} (D_{p+1} x g) + r_{p+1} (g x D_{p+2}), then s and s' terms,
+    // entry (p, q) rounded as the first form rounded it: the P x g
+    // component's difference fused on its second product in row 2 and
+    // unfused in rows 0 and 1; the g x Q component's fused on its first
+    // product in row 1 and unfused in rows 0 and 2; r_{p-1} (.) fused over
+    // r_{p+1} (.); s (.) fused over s' (.) C_pq in columns 0 and 1, the
+    // other way round in column 2
+    const int p = lane < 3 ? lane : 0;
+    const int pn = p == 2 ? 0 : p + 1, pm = p == 0 ? 2 : p - 1;
+    const float P[3] = {pn == 0 ? a00 : (pn == 1 ? a10 : a20),
+                        pn == 0 ? a01 : (pn == 1 ? a11 : a21),
+                        pn == 0 ? a02 : (pn == 1 ? a12 : a22)};
+    const float Q[3] = {pm == 0 ? a00 : (pm == 1 ? a10 : a20),
+                        pm == 0 ? a01 : (pm == 1 ? a11 : a21),
+                        pm == 0 ? a02 : (pm == 1 ? a12 : a22)};
+    const float Cp[3] = {p == 0 ? c00 : (p == 1 ? c10 : c20),
+                         p == 0 ? c01 : (p == 1 ? c11 : c21),
+                         p == 0 ? c02 : (p == 1 ? c12 : c22)};
+    const float G3[3] = {g0, g1, g2};
+    const float rm = pm == 0 ? r[0] : (pm == 1 ? r[1] : r[2]);
+    const float rp = pn == 0 ? r[0] : (pn == 1 ? r[1] : r[2]);
+    float w[3];
 #pragma unroll
-    for (int p = 0; p < 3; ++p) {
-        const float* P = D[(p + 1) % 3];   // D_{p+1}
-        const float* Q = D[(p + 2) % 3];   // D_{p+2}
-        const float rm = r[(p + 2) % 3], rp = r[(p + 1) % 3];
-        // r_{p-1} (D_{p+1} x g) + r_{p+1} (g x D_{p+2})
-        const float q0 = rm * (P[1] * G[2] - P[2] * G[1])
-                         + rp * (G[1] * Q[2] - G[2] * Q[1]);
-        const float q1 = rm * (P[2] * G[0] - P[0] * G[2])
-                         + rp * (G[2] * Q[0] - G[0] * Q[2]);
-        const float q2 = rm * (P[0] * G[1] - P[1] * G[0])
-                         + rp * (G[0] * Q[1] - G[1] * Q[0]);
-        const float w0 = inv_det * q0 + h * C[p][0];
-        const float w1 = inv_det * q1 + h * C[p][1];
-        const float w2 = inv_det * q2 + h * C[p][2];
-        o[3 * p] = accumulate ? o[3 * p] + w0 : w0;
-        o[3 * p + 1] = accumulate ? o[3 * p + 1] + w1 : w1;
-        o[3 * p + 2] = accumulate ? o[3 * p + 2] + w2 : w2;
+    for (int q = 0; q < 3; ++q) {
+        const int i1 = (q + 1) % 3, i2 = (q + 2) % 3;
+        // (P x g)_q = P_i1 g_i2 - P_i2 g_i1, (g x Q)_q = g_i1 Q_i2 - g_i2 Q_i1
+        const float pa = __fmul_rn(P[i1], G3[i2]);
+        const float A = p == 2
+                            ? __fmaf_rn(-P[i2], G3[i1], pa)
+                            : __fsub_rn(pa, __fmul_rn(P[i2], G3[i1]));
+        const float B = p == 1 ? fms(G3[i1], Q[i2], G3[i2], Q[i1])
+                               : __fsub_rn(__fmul_rn(G3[i1], Q[i2]),
+                                           __fmul_rn(G3[i2], Q[i1]));
+        const float qv = __fmaf_rn(rm, A, __fmul_rn(rp, B));
+        w[q] = q < 2 ? __fmaf_rn(inv_det, qv, __fmul_rn(h, Cp[q]))
+                     : __fmaf_rn(h, Cp[q], __fmul_rn(inv_det, qv));
     }
+    const float w0 = w[0], w1 = w[1], w2 = w[2];
+    if (Form == kBwdZero && accumulate) {  // the diagonal slot alone
+        if (live && lane < 3) {
+            float* o = gv + 9 * (static_cast<long long>(row) * K + ds)
+                       + 3 * lane;
+            o[0] = o[0] + w0;
+            o[1] = o[1] + w1;
+            o[2] = o[2] + w2;
+        }
+        return;
+    }
+    // the block's span of gv: rows [first, first + R), 9 K floats a row;
+    // span[pad + i] holds float i, pad giving it gv's alignment mod 16 bytes
+    const int W = 9 * K;
+    const int R = min(kRows, N - first);
+    float* dst = gv + 9LL * K * first;
+    const int pad = static_cast<int>(reinterpret_cast<size_t>(dst) >> 2) & 3;
+    if (live) {
+        float* mine = span + pad + (static_cast<int>(threadIdx.x) / G) * W;
+        if (lane < 3) {
+            mine[9 * ds + 3 * lane] = w0;
+            mine[9 * ds + 3 * lane + 1] = w1;
+            mine[9 * ds + 3 * lane + 2] = w2;
+        }
+        const float L3[3] = {l0, l1, l2};
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+            const int k = lane + G * j;
+            if (k < K && k != ds) {
+#pragma unroll
+                for (int a = 0; a < 3; ++a)
+#pragma unroll
+                    for (int q = 0; q < 3; ++q)
+                        mine[9 * k + 3 * a + q] =
+                            __fmul_rn(-1.0f, __fmul_rn(L3[a], xm[j][q]));
+            }
+        }
+    }
+    __syncthreads();
+    const int nf = R * W;
+    const int head = min((4 - pad) & 3, nf);
+    for (int i = threadIdx.x; i < head; i += kThreads)
+        dst[i] = accumulate ? __fadd_rn(dst[i], span[pad + i]) : span[pad + i];
+    const int n4 = (nf - head) >> 2;
+    float4* d4 = reinterpret_cast<float4*>(dst + head);
+    const float4* s4 = reinterpret_cast<const float4*>(span + pad + head);
+    for (int i = threadIdx.x; i < n4; i += kThreads) {
+        float4 o = s4[i];
+        if (accumulate) {
+            const float4 a = d4[i];
+            o.x = __fadd_rn(a.x, o.x);
+            o.y = __fadd_rn(a.y, o.y);
+            o.z = __fadd_rn(a.z, o.z);
+            o.w = __fadd_rn(a.w, o.w);
+        }
+        d4[i] = o;
+    }
+    for (int i = head + 4 * n4 + threadIdx.x; i < nf; i += kThreads)
+        dst[i] = accumulate ? __fadd_rn(dst[i], span[pad + i]) : span[pad + i];
 }
 
 int blocks_for_rows(int rows) {
@@ -1118,6 +1349,63 @@ cudaError_t gs_launchable(int form, int blocks, long long smem, bool* ok) {
     return e;
 }
 
+// The lanes a row of ell_jacobi and ell_jacobi_bwd at N rows on a card of
+// `sms` SMs: the most of 32 and 16 whose launch (256 / G rows a block)
+// fits one wave at 8 blocks an SM, else 8. Mirrored by
+// ops/ell_kernels.jacobi_lanes.
+int jacobi_lanes(int N, int sms) {
+    for (int G = 32; G > 8; G >>= 1)
+        if (blocks_for_groups(N, G) <= 8 * sms) return G;
+    return 8;
+}
+
+// The SMs of the current device, asked once per device.
+cudaError_t device_sms(int* sms) {
+    static int known[kGsMaxDevices] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= kGsMaxDevices) return cudaErrorInvalidDevice;
+    if (known[dev] == 0)
+        e = cudaDeviceGetAttribute(&known[dev],
+                                   cudaDevAttrMultiProcessorCount, dev);
+    *sms = known[dev];
+    return e;
+}
+
+// One ell_jacobi_bwd launch at G lanes a row in its form.
+template <int G>
+void jacobi_bwd_launch(const RelaxArgs& A, const float* xt, const float* gbar,
+                       float* lam, float* gb, float* gv, int accumulate, int N,
+                       cudaStream_t st) {
+    const int blocks = blocks_for_groups(N, G);
+    const size_t smem = 4 * static_cast<size_t>(bwd_span_floats(A.K, G));
+    if (gv == nullptr)
+        ell_jacobi_bwd_kernel<G, kBwdNoGv><<<blocks, kThreads, 0, st>>>(
+            A, xt, gbar, lam, gb, gv, accumulate, N);
+    else if (xt != nullptr)
+        ell_jacobi_bwd_kernel<G, kBwdFromXt><<<blocks, kThreads, smem, st>>>(
+            A, xt, gbar, lam, gb, gv, accumulate, N);
+    else
+        ell_jacobi_bwd_kernel<G, kBwdZero><<<blocks, kThreads,
+                                             accumulate ? 0 : smem, st>>>(
+            A, xt, gbar, lam, gb, gv, accumulate, N);
+}
+
+// One ell_jacobi iteration at G lanes a row, in the zero-start form or
+// from xin.
+template <int G>
+void jacobi_launch(const RelaxArgs& A, bool zero, const float* xin,
+                   float* xout, int N, cudaStream_t st) {
+    const int blocks = blocks_for_groups(N, G);
+    if (zero)
+        ell_jacobi_kernel<G, true><<<blocks, kThreads, 0, st>>>(
+            A, nullptr, xout, N);
+    else
+        ell_jacobi_kernel<G, false><<<blocks, kThreads, 0, st>>>(
+            A, xin, xout, N);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1266,19 +1554,31 @@ int ell_gs_plan(int N, int K, const int* offs, int n_colors, int iterations,
     return 0;
 }
 
-// Block Jacobi, `iterations` times: xa (N, 3) holds x0; iteration t reads
-// one buffer and writes the other, so the result is in xa for an even
-// count and in xb for an odd one.
+// Block Jacobi, `iterations` times: xa (N, 3) holds x0 (zero_start != 0:
+// x0 is zero and xa is not read); iteration t reads one buffer and writes
+// the other, so the result is in xa for an even count and in xb for an
+// odd one. One launch an iteration, the first in the zero-start form when
+// zero_start is set; jacobi_lanes(N, sms) lanes a row.
 int ell_jacobi(const float* values, const int* nbr, const float* mask,
                const int* diag_slot, const float* b, float* xa, float* xb,
-               int N, int K, int iterations, void* stream) {
+               int N, int K, int iterations, int zero_start, void* stream) {
     if (N < 1 || K < 1 || K > 32 || iterations < 0)
         return static_cast<int>(cudaErrorInvalidValue);
+    int sms = 0;
+    const cudaError_t e = device_sms(&sms);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int lanes = jacobi_lanes(N, sms);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const RelaxArgs A{values, nbr, mask, diag_slot, b, K};
     for (int it = 0; it < iterations; ++it) {
-        ell_relax_rows_kernel<<<blocks_for_rows(N), kThreads, 0, st>>>(
-            A, it % 2 ? xb : xa, it % 2 ? xa : xb, 0, N);
+        const bool zero = zero_start && it == 0;
+        float* in = it % 2 ? xb : xa;
+        float* out = it % 2 ? xa : xb;
+        switch (lanes) {
+            case 8: jacobi_launch<8>(A, zero, in, out, N, st); break;
+            case 16: jacobi_launch<16>(A, zero, in, out, N, st); break;
+            default: jacobi_launch<32>(A, zero, in, out, N, st); break;
+        }
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -1338,11 +1638,24 @@ int ell_jacobi_bwd(const float* values, const int* nbr, const float* mask,
                    int accumulate, int N, int K, void* stream) {
     if (N < 1 || K < 1 || K > 32)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int offdiag = gv != nullptr && (xt != nullptr || !accumulate);
+    int sms = 0;
+    const cudaError_t e = device_sms(&sms);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
     const RelaxArgs A{values, nbr, mask, diag_slot, b, K};
-    ell_jacobi_bwd_kernel<<<blocks_for_rows(N), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        A, xt, gbar, lam, gb, gv, accumulate, offdiag, N);
+    // without the values' gradient a row's lanes all do the same work: the
+    // fewest of them (8 lanes measured 1.58-1.63 us at 2,025-2,997 rows on
+    // an H100, 32 lanes 1.76-2.25)
+    switch (gv == nullptr ? 8 : jacobi_lanes(N, sms)) {
+        case 32:
+            jacobi_bwd_launch<32>(A, xt, gbar, lam, gb, gv, accumulate, N, st);
+            break;
+        case 16:
+            jacobi_bwd_launch<16>(A, xt, gbar, lam, gb, gv, accumulate, N, st);
+            break;
+        default:
+            jacobi_bwd_launch<8>(A, xt, gbar, lam, gb, gv, accumulate, N, st);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -112,7 +112,7 @@ def _declare(lib) -> None:
                            + [I] * 5 + [P])
     lib.ell_gs_plan.argtypes = [I, I, ctypes.POINTER(I), I, I,
                                 ctypes.POINTER(I)]
-    lib.ell_jacobi.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+    lib.ell_jacobi.argtypes = [P] * 7 + [I] * 4 + [P]
     lib.ell_spmv_t.argtypes = [P] * 6 + [F, I, I, I, P]
     lib.ell_outer.argtypes = [P] * 5 + [F, I, P, I, I, P]
     lib.ell_jacobi_bwd.argtypes = [P] * 10 + [I, I, I, P]

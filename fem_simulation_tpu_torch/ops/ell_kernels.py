@@ -30,13 +30,24 @@ it reads no x_t) and, where the iterate before it needs a gradient,
 launch an iteration into its own output). `gs` has no backward and raises
 when asked for one.
 
+`ell_jacobi` gives a row a group of `jacobi_lanes(N, sms)` lanes (the most
+of 32, 16 and 8 whose grid fits one wave) and runs an iteration in one of
+two forms (`JACOBI_FORMS`): the first iteration from x0 = None in the
+zero-start form, which reads no nbr or mask and gathers no x (but still
+forms every slot's product with the zero x, so a non-finite value
+propagates), every other in the form that gathers x; with or without
+autograd. `ell_jacobi_bwd` takes the same row
+groups (8 lanes without the values' gradient) and writes a block's rows'
+values gradient, one contiguous span, with 16-byte stores.
+
 Dispatch: a wrapper checks its arguments' dtypes, shapes and contiguity,
 then runs its plain version (`*_plain`) only when its tensors lie on the
 CPU. For CUDA tensors it launches the kernel or raises; it never falls back.
 `launches[name]` counts kernel launches (`spmv`: one per call with a
 non-empty row range; `gs`: one per call with iterations > 0, taken apart by
-(rows, form) in `gs_launches`; `jacobi`: one per iteration; `spmv_t`,
-`outer`, `jacobi_bwd`: one per call); `ops.ell.cuda_calls` counts, one
+(rows, form) in `gs_launches`; `jacobi`: one per iteration, taken apart by
+(rows, form) in `jacobi_launches`; `spmv_t`, `outer`, `jacobi_bwd`: one
+per call); `ops.ell.cuda_calls` counts, one
 layer up (for the backward kernels: in the Functions' backward), the
 launches that the calls made on CUDA tensors ask for, so a run can check
 that every call launched.
@@ -55,12 +66,15 @@ launches = {"spmv": 0, "gs": 0, "jacobi": 0, "spmv_t": 0, "outer": 0,
             "jacobi_bwd": 0}
 # ell_gs's launches by (rows, form name): launches["gs"] taken apart
 gs_launches: dict = {}
+# ell_jacobi's launches by (rows, form name): launches["jacobi"] taken apart
+jacobi_launches: dict = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
     gs_launches.clear()
+    jacobi_launches.clear()
 
 
 def lanes(k: int) -> int:
@@ -628,24 +642,53 @@ def gs(values, nbr, mask, diag_slot, color_offsets, b, x0=None,
     return x
 
 
-def _jacobi_step(values, nbr, mask, diag_slot, b, x):
-    """One Jacobi iteration from x into a new tensor: plain on the CPU, else
-    one launch."""
-    if _cuda.on_cpu(values, b, x):
-        return _relax_rows_plain(values, nbr, mask, diag_slot, b, x, 0,
-                                 values.shape[0])
-    out = torch.empty_like(x)
+# ell_jacobi's forms (csrc/ell_kernels.cu, ell_jacobi_kernel): an
+# iteration that gathers x, and the first from x0 = 0, which gathers nothing
+JACOBI_FORMS = ("from x", "zero start")
+
+
+def jacobi_lanes(n: int, sms: int) -> int:
+    """The lanes a row of ell_jacobi and ell_jacobi_bwd at n rows on a card
+    of `sms` SMs, as their C entries pick them (jacobi_lanes): the most of
+    32 and 16 whose grid (256 / lanes rows a block) fits one wave at 8
+    blocks an SM, else 8 (`scripts/jacobi_lanes.py` times each count)."""
+    for lanes in (32, 16):
+        if -(-n * lanes // 256) <= 8 * sms:
+            return lanes
+    return 8
+
+
+def _jacobi_launch(values, nbr, mask, diag_slot, b, xa, xb,
+                   iterations: int, zero_start: bool) -> None:
+    """`iterations` ell_jacobi launches from xa (not read from the zero
+    start), the result in xb for an odd count and in xa for an even one;
+    counted by (rows, form)."""
+    n, k = int(values.shape[0]), int(values.shape[1])
     lib = _cuda.load()
     stream = torch.cuda.current_stream(b.device).cuda_stream
     with torch.cuda.device(b.device):
-        # one iteration reads xa and writes xb: x is not written
         err = lib.ell_jacobi(values.data_ptr(), nbr.data_ptr(),
                              mask.data_ptr(), diag_slot.data_ptr(),
-                             b.data_ptr(), x.data_ptr(), out.data_ptr(),
-                             int(values.shape[0]), int(values.shape[1]), 1,
-                             stream)
-    launches["jacobi"] += 1
+                             b.data_ptr(), xa.data_ptr(), xb.data_ptr(), n, k,
+                             iterations, int(zero_start), stream)
+    launches["jacobi"] += iterations       # one launch per iteration
+    for it in range(iterations):
+        key = (n, JACOBI_FORMS[int(zero_start and it == 0)])
+        jacobi_launches[key] = jacobi_launches.get(key, 0) + 1
     _cuda.check(err, "ell_jacobi")
+
+
+def _jacobi_step(values, nbr, mask, diag_slot, b, x):
+    """One Jacobi iteration from x (None: the zero start) into a new tensor:
+    plain on the CPU, else one launch."""
+    if _cuda.on_cpu(values, b, *(() if x is None else (x,))):
+        return _relax_rows_plain(values, nbr, mask, diag_slot, b,
+                                 torch.zeros_like(b) if x is None else x, 0,
+                                 values.shape[0])
+    out = torch.empty_like(b)
+    # one iteration reads xa and writes xb: x is not written
+    _jacobi_launch(values, nbr, mask, diag_slot, b,
+                   out if x is None else x, out, 1, x is None)
     return out
 
 
@@ -666,11 +709,10 @@ class EllJacobiFn(torch.autograd.Function):
             raise ValueError(f"{iterations} Jacobi iterations from x0 "
                              f"{'None' if x0 is None else 'given'}: the "
                              "gradient needs A's transpose table tt")
-        xs = [torch.zeros_like(b) if x0 is None else x0]
+        xs = [x0]                  # None: the zero start
         for _ in range(iterations):
             xs.append(_jacobi_step(values, nbr, mask, diag_slot, b, xs[-1]))
         ctx.save_for_backward(values, b, nbr, mask, diag_slot, tt, *xs[:-1])
-        ctx.zero_start = x0 is None
         return xs[-1]
 
     @staticmethod
@@ -685,10 +727,10 @@ class EllJacobiFn(torch.autograd.Function):
         bwd = jacobi_bwd_plain if cpu else jacobi_bwd
         for t in range(len(xs) - 1, -1, -1):
             first = t == len(xs) - 1
-            zero = t == 0 and ctx.zero_start
             _count_call("jacobi_bwd", g)
-            lam = bwd(values, nbr, mask, diag_slot, b, None if zero else xs[t],
-                      g, gb, gv, accumulate=not first)
+            # xs[0] is None from the zero start: no x_t is read
+            lam = bwd(values, nbr, mask, diag_slot, b, xs[t], g, gb, gv,
+                      accumulate=not first)
             if t > 0 or need_x0:
                 _count_call("spmv_t", g)
                 g = (spmv_t_plain if cpu else spmv_t)(
@@ -710,7 +752,7 @@ def jacobi(values, nbr, mask, diag_slot, b, x0=None, iterations: int = 2,
     and x0 (`EllJacobiFn`; tt: A's transpose table, required when the
     gradient runs through A^T, `needs_table`)."""
     tensors = (values, nbr, mask, diag_slot, b) + (() if x0 is None else (x0,))
-    n, k = _check_smoother(values, nbr, mask, diag_slot, b, x0)
+    _check_smoother(values, nbr, mask, diag_slot, b, x0)
     iterations = int(iterations)
     if iterations < 0:
         raise ValueError(f"iterations {iterations} < 0")
@@ -723,15 +765,9 @@ def jacobi(values, nbr, mask, diag_slot, b, x0=None, iterations: int = 2,
                                  iterations, tt)
     if _cuda.on_cpu(*tensors):
         return jacobi_plain(values, nbr, mask, diag_slot, b, x0, iterations)
-    xa = torch.zeros_like(b) if x0 is None else x0.clone()
+    # from the zero start xa is only written (at the second iteration)
+    xa = torch.empty_like(b) if x0 is None else x0.clone()
     xb = torch.empty_like(xa)
-    lib = _cuda.load()
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    with torch.cuda.device(b.device):
-        err = lib.ell_jacobi(values.data_ptr(), nbr.data_ptr(),
-                             mask.data_ptr(), diag_slot.data_ptr(),
-                             b.data_ptr(), xa.data_ptr(), xb.data_ptr(), n, k,
-                             iterations, stream)
-    launches["jacobi"] += iterations       # one launch per iteration
-    _cuda.check(err, "ell_jacobi")
+    _jacobi_launch(values, nbr, mask, diag_slot, b, xa, xb, iterations,
+                   x0 is None)
     return xb if iterations % 2 else xa

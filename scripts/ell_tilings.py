@@ -11,12 +11,6 @@ The shapes (dx 0.05, seeded inputs as `chip_smoke.py` makes them):
   and of the 21k exp2 beam with its exp2 coarse matrix (phase 9); and the
   owned-row ranges of the unstructured halo SpMV (`parallel/halo.py`) on
   the 19k beam's 4 slabs (phase 10);
-- the Jacobi adjoint of one iteration at the exp2 coarse matrix (21k level
-  1, N 2,997), with the values' gradient, from the zero start (exp2's
-  path) and from a seeded x_t: lam, gb and gv, as the tree's
-  `EllJacobiFn` asks for them (one ell_jacobi_bwd launch where the tree
-  can write the off-diagonal slots in it, else ell_jacobi_bwd and then
-  ell_outer);
 - ell_outer alone at the phase 9 shapes (the 19k and 21k fine Hessians,
   the 21k coarse matrix, both 2k levels);
 - ell_gs and ell_jacobi on every multigrid level of the 2k (2 levels),
@@ -25,9 +19,26 @@ The shapes (dx 0.05, seeded inputs as `chip_smoke.py` makes them):
   FAS's (1 iteration from x0) under the tree's own launch, with its share
   of the least the card must do (every row's values, nbr, mask, diag_slot
   and b read once, x read and written once); ell_jacobi 2 iterations from
-  zero; then the paths that launch them from rest (Newton-MG and FAS v3 on
-  the 2k and 19k beams, 16 dynamic frames on the 2k beam), their series
-  digested for --bits.
+  zero (phase 4's call), and in the paths' call, 1 iteration from zero
+  (FAS v1-v3's and exp2's coarse solve) and from x0, at the level-1
+  shapes (325, 2,673 and 10,449 rows) and exp2's coarse matrix (21k level
+  1, 2,997 rows), each with its share of the bound (`jacobi_bound_us`)
+  and, on a tree that has `ell_kernels.jacobi_lanes`, the lanes a row its
+  C entry picks (`scripts/jacobi_lanes.py` times the other counts);
+- ell_jacobi_bwd in its three forms (no values' gradient, from x_t, the
+  zero start; storing, as the paths call it) at exp2's coarse matrix and
+  the phase 9 shapes (the 19k and 21k fine Hessians, both 2k levels),
+  beside `chip_smoke.jacobi_bwd_bound`;
+- then the paths that launch them from rest (Newton-MG, FAS v1, v2 and v3
+  on the 2k and 19k beams, 16 dynamic frames on the 2k beam) and exp2's
+  first 10 clamped-SGD steps at 21k (P, l2, unroll 4, torch's
+  deterministic algorithms on: run twice, the loss and gradient series must
+  repeat their bits). These series do not repeat their bits from process
+  to process at 19k and 21k (in either tree: the assembly's and the
+  gradient's library calls), so --against TREE holds them to another
+  tree's kernels in the same process instead: every ell_jacobi and
+  ell_jacobi_bwd launch they make is run again through TREE's C entries on
+  the same inputs, and must give the same bits (up to the sign of a zero).
 
 Each output is checked against the plain version (max|d| <= 1e-5 max|ref|)
 and for two runs bit-identical; the script prints the device us of a call
@@ -37,7 +48,8 @@ call launches) and the events ms of a call. Then 48 cloth frames
 ||f|| and ms a frame, and exp2 (p_hat, l2, unroll 4, Adam, 10 steps) at
 21k, its ms a step.
 
---only smoothers times ell_gs and ell_jacobi alone (no cloth, no exp2).
+--only smoothers times ell_gs, ell_jacobi and ell_jacobi_bwd alone and
+runs the series (no cloth, no SpMV, no ell_outer).
 --sweep OUT.json runs, at each smoother shape and call, ell_gs in every
 form the tree's plan weighs (ops/ell_kernels.gs_candidates) at a sample of
 block counts, each forced through `ell_kernels._gs_plans`, checks each
@@ -61,11 +73,16 @@ from either.
 """
 import argparse
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 import time
+
+# cuBLAS repeats its bits under torch's deterministic algorithms only with
+# a fixed workspace (the exp2 series); set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ap = argparse.ArgumentParser()
 ap.add_argument("--root", default=None,
@@ -80,6 +97,9 @@ ap.add_argument("--sweep", default=None,
                 help="time every ell_gs form; write the times here (JSON)")
 ap.add_argument("--fit", nargs="+", default=None,
                 help="--sweep files: fit GS_MODEL to them (no GPU needed)")
+ap.add_argument("--against", default=None,
+                help="another checkout: hold the series' Jacobi launches "
+                     "to its kernels in this process")
 ARGS = ap.parse_args()
 ROOT = os.path.abspath(ARGS.root or os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -125,7 +145,8 @@ def kernel_us(fn, names):
 def _short(name):
     for k in ("ell_spmv_kernel", "ell_outer_kernel", "ell_jacobi_bwd_kernel",
               "ell_gs_coop_kernel", "ell_gs_cluster_kernel",
-              "ell_gs_grid_kernel", "ell_relax_rows_kernel"):
+              "ell_gs_grid_kernel", "ell_relax_rows_kernel",
+              "ell_jacobi_kernel"):
         if k in name:
             return k + (name[name.index("<"):name.index(">") + 1]
                         if "<" in name else "")
@@ -229,48 +250,6 @@ def spmv_systems(dev):
     return out, scenes, sc21, chain21
 
 
-def _writes_whole_row():
-    """Whether the tree's Jacobi adjoint writes the off-diagonal slots of
-    the values' gradient itself (in ell_jacobi_bwd's launch), as its plain
-    version shows on a one-row CPU system."""
-    values = torch.eye(3).expand(1, 2, 3, 3).contiguous()
-    nbr = torch.zeros((1, 2), dtype=torch.int32)
-    one = torch.ones((1, 3))
-    gv = torch.zeros_like(values)
-    ek.jacobi_bwd_plain(values, nbr, torch.ones((1, 2)),
-                        torch.zeros(1, dtype=torch.int32), one, one, one,
-                        None, gv)
-    return bool(gv[0, 1].abs().sum() > 0)
-
-
-ONE_LAUNCH = _writes_whole_row()
-
-
-def adjoint(values, op, b, xt, g):
-    """(lam, gb, gv) of one Jacobi iteration's adjoint with the values'
-    gradient, as the tree's EllJacobiFn runs it (xt None: the zero start)."""
-    gb, gv = torch.zeros_like(g), torch.zeros_like(values)
-    args = (values, op.nbr, op.mask, op.diag_slot, b)
-    if ONE_LAUNCH:
-        lam = ek.jacobi_bwd(*args, xt, g, gb, gv)
-    else:
-        x = torch.zeros_like(b) if xt is None else xt
-        lam = ek.jacobi_bwd(*args, x, g, gb, gv)
-        ek.outer(lam, op.nbr, op.mask, x, skip=op.diag_slot, alpha=-1.0,
-                 out=gv)
-    return torch.cat([lam.reshape(-1), gb.reshape(-1), gv.reshape(-1)])
-
-
-def adjoint_plain(values, op, b, xt, g):
-    gb, gv = torch.zeros_like(g), torch.zeros_like(values)
-    x = torch.zeros_like(b) if xt is None else xt
-    lam = ek.jacobi_bwd_plain(values, op.nbr, op.mask, op.diag_slot, b, x, g,
-                              gb, gv)
-    ek.outer_plain(lam, op.nbr, op.mask, x, skip=op.diag_slot, alpha=-1.0,
-                   out=gv)
-    return torch.cat([lam.reshape(-1), gb.reshape(-1), gv.reshape(-1)])
-
-
 def smoother_systems(dev, scenes):
     """[(label, op, values, b, x0)] on every level of the Galerkin chain of
     each beam's unstructured Scene, made as chip_smoke.py's phase 4 makes
@@ -324,6 +303,70 @@ def gs_plan_text(op, n, k, iterations, device):
     return f"{ek.GS_FORMS[form]} {blocks} blocks"
 
 
+# the kernels of ell_jacobi in either tree: the first form's warp a row,
+# the lane groups
+JACOBI_NAMES = ("ell_relax_rows_kernel", "ell_jacobi_kernel")
+
+
+def jacobi_bound_us(n, k, zero_start):
+    """The least an H100 can take for one ell_jacobi iteration, in us:
+    every row's values, diag_slot and b read and x written; from x also nbr
+    and mask and x read (chip_smoke.jacobi_bound)."""
+    n_bytes = n * (36 * k + 28) + (0 if zero_start else n * (8 * k + 12))
+    return cs.bound(n_bytes, n * (18.0 * k + 60.0))[0] * 1e3
+
+
+def jacobi_path_calls(dev, saved, systems):
+    """ell_jacobi's paths' call (1 iteration from zero and from x0) at each
+    (label, op, values, b, x0): checked and timed beside its bound."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, op, vals, b, x0 in systems:
+        n, k = vals.shape[:2]
+        for start, what in ((None, "1 it from 0"), (x0, "1 it from x0")):
+            jargs = (vals, op.nbr, op.mask, op.diag_slot, b, start, 1)
+            report("jacobi", f"{label} {what}", lambda: ek.jacobi(*jargs),
+                   lambda: ek.jacobi_plain(*jargs), JACOBI_NAMES, saved,
+                   jacobi_bound_us(n, k, start is None))
+        if hasattr(ek, "jacobi_lanes"):
+            print(f"jacobi   {TREE:16s} {label}: "
+                  f"{ek.jacobi_lanes(n, sms)} lanes a row", flush=True)
+
+
+def jacobi_bwd_calls(dev, saved, cases):
+    """ell_jacobi_bwd's three forms, storing, at each (label, op, values):
+    lam, gb and gv against jacobi_bwd_plain, timed beside the bound."""
+    for label, op, vals in cases:
+        n, k = vals.shape[:2]
+        rng = np.random.default_rng(24)
+        g, b, xt = (torch.from_numpy(rng.standard_normal((n, 3)).astype(
+            np.float32)).to(dev) for _ in range(3))
+        for form, gv_on, x in (("no gv", False, xt), ("from x_t", True, xt),
+                               ("zero start", True, None)):
+            def run(fn, gv_on=gv_on, x=x):
+                gb = torch.zeros_like(g)
+                gv = torch.zeros_like(vals) if gv_on else None
+                lam = fn(vals, op.nbr, op.mask, op.diag_slot, b, x, g, gb, gv)
+                return torch.cat([t.reshape(-1) for t in (lam, gb, gv)
+                                  if t is not None])
+            report("jacobi_bwd", f"{label} {form}",
+                   lambda run=run: run(ek.jacobi_bwd),
+                   lambda run=run: run(ek.jacobi_bwd_plain),
+                   ("ell_jacobi_bwd_kernel",), saved,
+                   cs.jacobi_bwd_bound(n, k, gv_on, x is not None)[0] * 1e3)
+
+
+def exp21_system(dev):
+    """The 21k exp2 Scene and its chain at a seeded state (phase 9's): the
+    fine Hessian and the exp2 cycle's coarse matrix."""
+    sc21 = Scene(meshlib.beam(*cs.EXP_BEAM, dx=cs.DX),
+                 solver=SolverConfig(n_levels=2), device=dev)
+    rng = np.random.default_rng(19)
+    x = sc21.x0 + torch.from_numpy(0.01 * rng.standard_normal(
+        tuple(sc21.x0.shape)).astype(np.float32)).to(dev)
+    return sc21, [qs.assemble_fine(sc21, sc21.params, x),
+                  cs.exp2_coarse_values(sc21, x)]
+
+
 def smoother_scenes(dev):
     """The beams' unstructured Scenes: 2 levels on the 2k beam, 3 on the
     others (chip_smoke.py's phase 4 and 5)."""
@@ -332,10 +375,12 @@ def smoother_scenes(dev):
         device=dev) for label, beam in cs.BEAMS.items()}
 
 
-def smoothers(dev, saved, scenes):
-    """ell_gs in both calls and ell_jacobi on every level of each beam, then
-    the paths' series."""
-    for label, op, vals, b, x0 in smoother_systems(dev, scenes):
+def smoothers(dev, saved, scenes, sc21, chain21):
+    """ell_gs in both calls and ell_jacobi on every level of each beam,
+    ell_jacobi's paths' call at the level-1 shapes and exp2's coarse
+    matrix, ell_jacobi_bwd's forms, then the paths' series."""
+    systems = smoother_systems(dev, scenes)
+    for label, op, vals, b, x0 in systems:
         n, k = vals.shape[0], vals.shape[1]
         offs = [int(c) for c in op.color_offsets]
         args = (vals, op.nbr, op.mask, op.diag_slot, op.color_offsets, b)
@@ -355,24 +400,53 @@ def smoothers(dev, saved, scenes):
                   f"form's bytes a sweep {old * 1e3:.2f} us", flush=True)
         jargs = (vals, op.nbr, op.mask, op.diag_slot, b, None, 2)
         report("jacobi", f"{label} 2 it from 0", lambda: ek.jacobi(*jargs),
-               lambda: ek.jacobi_plain(*jargs), ("ell_relax_rows",), saved,
-               cs.smoother_bound(n, k, 2, 1, False)[0] * 1e3)
-    series(dev, saved, scenes)
+               lambda: ek.jacobi_plain(*jargs), JACOBI_NAMES, saved,
+               jacobi_bound_us(n, k, True) + jacobi_bound_us(n, k, False))
+    op21 = sc21.make_op(1)
+    rng = np.random.default_rng(23)
+    n21 = chain21[1].shape[0]
+    b21, x21 = (torch.from_numpy(s * rng.standard_normal((n21, 3)).astype(
+        np.float32)).to(dev) for s in (1.0, 0.1))
+    coarse = [sys_ for sys_ in systems if " level 1 " in sys_[0]]
+    jacobi_path_calls(dev, saved, coarse + [
+        (f"21k level 1 N {n21}", op21, chain21[1], b21, x21)])
+    bwd_cases = [(f"21k level 1 N {n21}", op21, chain21[1]),
+                 ("19k level 0", scenes["19k"].make_op(0), None),
+                 ("21k level 0", sc21.make_op(0), chain21[0]),
+                 ("2k level 0", scenes["2k"].make_op(0), None),
+                 ("2k level 1", scenes["2k"].make_op(1), None)]
+    by_label = {label.rsplit(" N ", 1)[0]: vals
+                for label, _, vals, _, _ in systems}
+    jacobi_bwd_calls(dev, saved, [
+        (label, op, vals if vals is not None else by_label[label])
+        for label, op, vals in bwd_cases])
+    against = Against(ARGS.against) if ARGS.against else None
+    if against:
+        against.install()
+    series(scenes)
+    if against:
+        against.report("the series (Newton-MG, FAS v1-v3, dynamic frames)")
+    exp2_series(sc21)
+    if against:
+        against.report("exp2's 10 steps, twice")
+        against.restore()
 
 
-def series(dev, saved, scenes):
-    """The smoothers' paths from rest, their series digested for --bits:
-    Newton-MG and FAS v3 on the 2k beam (30 steps, 60 cycles) and the 19k
-    beam (20 and 20), 16 dynamic frames to 1e-4 on the 2k beam."""
+def series(scenes):
+    """The smoothers' paths from rest: Newton-MG and FAS v3, v1 and v2 on
+    the 2k beam (30 steps, 60 cycles) and the 19k beam (20 and 20), 16
+    dynamic frames to 1e-4 on the 2k beam; their ||f|| printed."""
     for label, steps in (("2k", (30, 60)), ("19k", (20, 20))):
-        for method, n in zip(("newton_multigrid", "fas"), steps):
+        for method, n, kw in (("newton_multigrid", steps[0], {}),
+                              ("fas", steps[1], {}),
+                              ("fas", steps[1], {"variant": 1}),
+                              ("fas", steps[1], {"variant": 2})):
             sim = qs.QuasiStaticSim(scenes[label])
             t0 = time.perf_counter()
-            e, fn = getattr(sim, method)(n)
+            e, fn = getattr(sim, method)(n, **kw)
             ms = (time.perf_counter() - t0) * 1e3 / n
-            for what, t in (("energy", e), ("fn", fn), ("x", sim.x)):
-                saved[f"series {label} {method} {what}"] = digest(t)
-            print(f"series   {TREE:16s} {label} {method} {n}: ||f|| "
+            name = method + "".join(f" v{v}" for v in kw.values())
+            print(f"series   {TREE:16s} {label} {name} {n}: ||f|| "
                   f"{float(fn[0]):.6e} -> {float(fn[-1]):.6e}  host ms a "
                   f"step {ms:.2f}", flush=True)
     sim = DynamicSim(scenes["2k"])
@@ -381,12 +455,114 @@ def series(dev, saved, scenes):
         state, k, fn = sim.frame_to_tol()
         ks.append(int(k))
         fns.append(float(fn))
-    saved["series 2k dynamic newton"] = digest(torch.tensor(ks))
-    saved["series 2k dynamic fn"] = digest(torch.tensor(fns,
-                                                        dtype=torch.float64))
-    saved["series 2k dynamic x"] = digest(state.x)
     print(f"series   {TREE:16s} 2k dynamic 16 frames newton {ks} max ||f|| "
           f"{max(fns):.6e}", flush=True)
+
+
+class Against:
+    """While installed, every ell_jacobi and ell_jacobi_bwd launch of this
+    process's wrappers is run again, on copies of the same inputs, through
+    the C entries of another tree's kernel library, and the outputs are
+    compared bit for bit (after + 0.0: a zero's sign does not count)."""
+
+    def __init__(self, tree):
+        spec = importlib.util.spec_from_file_location(
+            "against_cuda", os.path.join(os.path.abspath(tree),
+                                         "fem_simulation_tpu_torch", "ops",
+                                         "_cuda.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        self.lib = mod.load()
+        self.launches = {"jacobi": 0, "jacobi_bwd": 0}
+        self.differ = []
+
+    def _same(self, what, mine, theirs):
+        if not torch.equal(mine + 0.0, theirs + 0.0):
+            self.differ.append(what)
+
+    def install(self):
+        self.originals = launch, bwd = ek._jacobi_launch, ek.jacobi_bwd
+
+        def jacobi_launch(values, nbr, mask, diag_slot, b, xa, xb,
+                          iterations, zero_start):
+            x0 = torch.zeros_like(b) if zero_start else xa.clone()
+            launch(values, nbr, mask, diag_slot, b, xa, xb, iterations,
+                   zero_start)
+            n, k = values.shape[:2]
+            ya, yb = x0, torch.empty_like(b)
+            args = [t.data_ptr() for t in (values, nbr, mask, diag_slot, b,
+                                           ya, yb)] + [n, k, iterations]
+            if len(self.lib.ell_jacobi.argtypes) > 11:  # the zero-start flag
+                args.append(int(zero_start))
+            _cuda.check(self.lib.ell_jacobi(
+                *args, torch.cuda.current_stream().cuda_stream), "against")
+            odd = iterations % 2
+            self.launches["jacobi"] += iterations
+            self._same(f"jacobi N {n}", xb if odd else xa, yb if odd else ya)
+
+        def jacobi_bwd(values, nbr, mask, diag_slot, b, xt, gbar, gb=None,
+                       gv=None, accumulate=False):
+            def start(t):
+                if t is None:
+                    return None
+                return t.clone() if accumulate else torch.empty_like(t)
+            gb2, gv2 = start(gb), start(gv)
+            lam = bwd(values, nbr, mask, diag_slot, b, xt, gbar, gb, gv,
+                      accumulate)
+            lam2 = torch.empty_like(lam)
+            ptr = [None if t is None else t.data_ptr()
+                   for t in (values, nbr, mask, diag_slot, b, xt, gbar, lam2,
+                             gb2, gv2)]
+            _cuda.check(self.lib.ell_jacobi_bwd(
+                *ptr, int(accumulate), values.shape[0], values.shape[1],
+                torch.cuda.current_stream().cuda_stream), "against")
+            self.launches["jacobi_bwd"] += 1
+            what = f"jacobi_bwd N {values.shape[0]}"
+            for mine, theirs in ((lam, lam2), (gb, gb2), (gv, gv2)):
+                if mine is not None:
+                    self._same(what, mine, theirs)
+            return lam
+        ek._jacobi_launch, ek.jacobi_bwd = jacobi_launch, jacobi_bwd
+
+    def restore(self):
+        ek._jacobi_launch, ek.jacobi_bwd = self.originals
+
+    def report(self, what):
+        torch.cuda.synchronize()
+        print(f"against  {TREE:16s} {what}: {self.launches['jacobi']} "
+              f"ell_jacobi and {self.launches['jacobi_bwd']} ell_jacobi_bwd "
+              f"launches held to {ARGS.against}'s kernels on the same "
+              f"inputs: {len(self.differ)} differ "
+              f"{sorted(set(self.differ))[:5]}", flush=True)
+        if self.differ:
+            FAILURES.append(f"against {what}: {len(self.differ)} launches "
+                            "differ")
+        self.launches = {"jacobi": 0, "jacobi_bwd": 0}
+        self.differ = []
+
+
+def exp2_series(sc21, steps=10):
+    """exp2's first `steps` clamped-SGD steps at 21k (P, l2, unroll 4, lr
+    1e-4: chip_smoke.exp2_steps), each step's loss and gradient digested,
+    under torch's deterministic algorithms (the gradient's index_add_ adds
+    with atomics otherwise); run twice to show the series repeats."""
+    cfg = TrainInterpConfig(mode="P", loss="l2", unroll=4, lr=1e-4)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = [cs.exp2_steps(ti.InterpTrainer(sc21, cfg), steps)
+                for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    losses = [torch.tensor([loss for loss, _ in r], dtype=torch.float64)
+              for r in runs]
+    grads = [torch.stack([g for _, g in r]) for r in runs]
+    repeat = torch.equal(losses[0], losses[1]) and torch.equal(*grads)
+    if not repeat:
+        FAILURES.append("exp2 series: two runs differ")
+    print(f"series   {TREE:16s} 21k exp2 P {steps} SGD steps: loss "
+          f"{float(losses[0][0]):.9e} -> {float(losses[0][-1]):.9e}, max "
+          f"|grad| {float(grads[0].abs().max()):.6e}; same bits twice "
+          f"{repeat}", flush=True)
 
 
 def _sampled(cands):
@@ -542,9 +718,8 @@ def main() -> int:
         return sweep(dev)
     saved = {}
     if ARGS.only == "smoothers":
-        smoothers(dev, saved, smoother_scenes(dev))
+        smoothers(dev, saved, smoother_scenes(dev), *exp21_system(dev))
         return finish(saved, card)
-    print(f"{TREE}: one-launch adjoint {ONE_LAUNCH}", flush=True)
     systems, scenes, sc21, chain21 = spmv_systems(dev)
     names = ("ell_spmv",)
     for label, full, nbr, mask, v, r0, r1 in systems:
@@ -555,22 +730,7 @@ def main() -> int:
         report("spmv", f"{label} N {r1 - r0} K {k}", call,
                lambda: ek.spmv_rows_plain(full, nbr, mask, v, r0, r1), names,
                saved)
-    # the Jacobi adjoint at exp2's coarse matrix, and ell_outer alone
-    bwd_names = ("ell_jacobi_bwd", "ell_outer")
-    op21 = sc21.make_op(1)
-    rng = np.random.default_rng(24)
-    n = chain21[1].shape[0]
-    g, b, xt = (torch.from_numpy(rng.standard_normal((n, 3)).astype(
-        np.float32)).to(dev) for _ in range(3))
-    for form, x in (("zero start", None), ("from x_t", xt)):
-        label = f"21k level 1 {form}"
-
-        def call(x=x):
-            return adjoint(chain21[1], op21, b, x, g)
-
-        def plain(x=x):
-            return adjoint_plain(chain21[1], op21, b, x, g)
-        report("adjoint", label, call, plain, bwd_names, saved)
+    # ell_outer alone
     cases = [("19k", scenes["19k"], 0), ("21k", sc21, 0), ("21k", sc21, 1),
              ("2k", scenes["2k"], 0), ("2k", scenes["2k"], 1)]
     for beam, sc, li in cases:
@@ -589,7 +749,7 @@ def main() -> int:
         report("outer", label, call, plain, ("ell_outer",), saved)
         b_ms = cs.outer_bound(n, k)[0]
         print(f"outer    bound {label}: {b_ms * 1e3:.2f} us", flush=True)
-    smoothers(dev, saved, scenes)
+    smoothers(dev, saved, scenes, sc21, chain21)
     # end to end: 48 cloth frames at both grids, exp2 steps at 21k
     for label, res in cs.CLOTHS.items():
         sc = cs.cloth_scene(res, dev)

@@ -646,6 +646,95 @@ def test_jacobi_kernel_matches_plain(uscene):
                     <= 1e-5 * float(ref.abs().max())
 
 
+def _with_nans(op, vals):
+    """vals with a NaN at one live off-diagonal slot of one row and at one
+    padded slot of another."""
+    mask, ds = op.mask.cpu().numpy(), op.diag_slot.cpu().numpy()
+    slots = np.arange(mask.shape[1])[None, :]
+    live = np.argwhere((mask > 0) & (slots != ds[:, None]))
+    padded = np.argwhere(mask == 0)
+    r1, k1 = live[len(live) // 3]
+    r2, k2 = next(p for p in padded if p[0] != r1)
+    out = vals.clone()
+    out[int(r1), int(k1), 2, 1] = float("nan")
+    out[int(r2), int(k2), 1, 1] = float("nan")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["finite", "nan"])
+def test_jacobi_forms_match_plain(uscene, values):
+    """Each ell_jacobi form (the zero start, 1 iteration from x0 = None;
+    from x, 1 iteration from x0) on every level against jacobi_plain:
+    the same NaN rows (a NaN at a live and at a padded slot), elsewhere
+    within 1e-5 of max |ref|, two runs bit-identical; launches counted by
+    (rows, form), at the lanes ell_kernels.jacobi_lanes mirrors."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for op, vals, b, x0 in _level_systems(uscene):
+        if values == "nan":
+            vals = _with_nans(op, vals)
+        n, k = vals.shape[:2]
+        args = (vals, op.nbr, op.mask, op.diag_slot, b)
+        for start, form in ((None, "zero start"), (x0, "from x")):
+            ek.reset_launches()
+            got, again = (ek.jacobi(*args, start, 1) for _ in range(2))
+            torch.cuda.synchronize()
+            assert ek.jacobi_launches == {(n, form): 2}
+            lanes = ek.jacobi_lanes(n, sms)
+            _, names = _kernels_per_call(lambda: ek.jacobi(*args, start, 1))
+            jac = [name for name in names if "ell_jacobi_kernel" in name]
+            want = f"ell_jacobi_kernel<{lanes}, {str(start is None).lower()}>"
+            assert len(jac) == 1 and want in jac[0], names
+            ref = ek.jacobi_plain(*args, start, 1)
+            nan = torch.isnan(ref)
+            assert torch.equal(torch.isnan(got), nan), form
+            assert bool(nan.any()) == (values == "nan"), form
+            assert torch.equal(got, again) or values == "nan", form
+            assert torch.equal(got[~nan], again[~nan]), form
+            scale = float(ref[~nan].abs().max())
+            assert float((got - ref)[~nan].abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["no gv", "from x_t", "zero start"])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_jacobi_bwd_forms_match_plain(uscene, form, accumulate):
+    """ell_jacobi_bwd in each form (no values' gradient; from x_t; the zero
+    start) on every level against jacobi_bwd_plain, within 1e-5 of max
+    |ref|, two runs bit-equal; the values' gradient also into a view that
+    starts 4 bytes past 16-byte alignment (the span's single-float head and
+    tail), bit-equal to the aligned one."""
+    rng = np.random.default_rng(29)
+    for op, vals, b, _ in _level_systems(uscene):
+        n = vals.shape[0]
+        g, xt = (torch.from_numpy(rng.standard_normal((n, 3)).astype(
+            np.float32)).cuda() for _ in range(2))
+        gv0 = torch.from_numpy(rng.standard_normal(tuple(vals.shape)).astype(
+            np.float32)).cuda()
+        gb0 = torch.from_numpy(rng.standard_normal((n, 3)).astype(
+            np.float32)).cuda()
+        start = None if form == "zero start" else xt
+
+        def run(fn, shifted=False):
+            gb = gb0.clone()
+            gv = None
+            if form != "no gv":
+                store = torch.empty(gv0.numel() + 1, device=gv0.device)
+                gv = (store[1:] if shifted else store[:-1]).view(gv0.shape)
+                gv.copy_(gv0)
+            lam = fn(vals, op.nbr, op.mask, op.diag_slot, b, start, g, gb, gv,
+                     accumulate)
+            return torch.cat([t.reshape(-1) for t in (lam, gb, gv)
+                              if t is not None])
+        got, again, shifted = run(ek.jacobi_bwd), run(ek.jacobi_bwd), run(
+            ek.jacobi_bwd, True)
+        ref = run(ek.jacobi_bwd_plain)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, shifted)
+        assert float((got - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("plan_mode", [0, 1, 2])
 def test_fused_newton_kernel_matches_plain(scene, plan_mode, monkeypatch):
