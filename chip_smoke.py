@@ -96,8 +96,14 @@ Phase 9  the learning slice. The backward kernels (ell_spmv_t, ell_outer,
          without x0), on the same CUDA tensors at the fine Hessian of the
          19k and 21k Scenes, the 21k Scene's exp2 coarse matrix and every
          level of the 2k one; two runs bit-identical; timed beside their
-         bounds (and BSR(A^T) @ g for ell_spmv_t; ell_jacobi_bwd in each
-         form: no values' gradient, from x_t, from the zero start); and
+         bounds (ell_jacobi_bwd in each form: no values' gradient, from
+         x_t, from the zero start). ell_spmv_t also at the cloth's frame
+         Hessians (K 7, phase 8's inputs) and the 74k Scene's fine
+         Hessian, each shape in both its calls (A^T g; -A^T g with the
+         diagonal slot left out, as the Jacobi adjoint calls it) in the
+         form and lanes its plan picks (held to the plan's mirror), each
+         call's device us and share of the bound beside BSR(A^T) @ g's
+         events ms and device us; and
          ell_jacobi's forms as in phase 4 at the exp2 coarse matrix. Then,
          counters zeroed (each exp2 run: jacobi_bwd = unroll launches a
          step and no ell_outer):
@@ -173,6 +179,7 @@ Launch counters are zeroed just before each main path and read just after
 Every failure raises and exits non-zero. The last two lines are the kernel
 table as JSON and the result line {"ok": true, "device": {...}}.
 """
+import ctypes
 import json
 import subprocess
 import sys
@@ -1934,6 +1941,20 @@ def cloth_frames(sc, n):
     return st, ks, fns
 
 
+def cloth_hessian(sc):
+    """(the frame Hessian masked, a vector) of a cloth scene at a seeded
+    perturbed state (rng 8): phase 8's and phase 9's K = 7 inputs."""
+    rng = np.random.default_rng(8)
+    p = sc.params
+    x = p["x0"] + torch.from_numpy(0.01 * rng.standard_normal(
+        tuple(p["x0"].shape)).astype(np.float32)).to(sc.device)
+    vals = cloth._frame_hessian(sc, p, x, cloth._frame_diag(
+        sc, p, cloth.init_state(sc), 1.0 / sc.cfg.dt))
+    v = torch.from_numpy(rng.standard_normal(
+        tuple(x.shape)).astype(np.float32)).to(sc.device)
+    return (vals * p["mask"][..., None, None]).contiguous(), v
+
+
 def phase8_spmv(cloths, row, reps):
     """(a) ell_spmv against its plain version on the cloth Hessian (K = 7,
     8 lanes a row) at a seeded perturbed state: max|d| <= 1e-5 max|ref| as
@@ -1941,18 +1962,8 @@ def phase8_spmv(cloths, row, reps):
     BSR @ x."""
     row["by_cloth"] = {}
     for label, sc in cloths.items():
-        rng = np.random.default_rng(8)
-        p = sc.params
-        x = p["x0"] + torch.from_numpy(0.01 * rng.standard_normal(
-            tuple(p["x0"].shape)).astype(np.float32)).to(sc.device)
-        st = cloth.init_state(sc)
-        inv_dt = 1.0 / sc.cfg.dt
-        vals = cloth._frame_hessian(sc, p, x,
-                                    cloth._frame_diag(sc, p, st, inv_dt))
-        full = (vals * p["mask"][..., None, None]).contiguous()
-        v = torch.from_numpy(rng.standard_normal(
-            tuple(x.shape)).astype(np.float32)).to(sc.device)
-        nbr, mask = p["nbr"], p["mask"]
+        full, v = cloth_hessian(sc)
+        nbr, mask = sc.params["nbr"], sc.params["mask"]
         got = ek.spmv(full, nbr, mask, v)
         again = ek.spmv(full, nbr, mask, v)
         ref = ek.spmv_plain(full, nbr, mask, v)
@@ -2263,20 +2274,106 @@ def exp2_coarse_values(sc, x):
                                             with_fix_diag=True)
 
 
-def phase9_kernels(uscenes, sc21, reps):
+# ell_spmv_t's two calls: A^T g, and the Jacobi adjoint's -A^T g with each
+# row's diagonal slot left out
+SPMV_T_CALLS = (("plain", False, 1.0), ("diag out", True, -1.0))
+
+
+def spmv_t_shape(rows, label, li, vals, mask, tt, diag, g, reps):
+    """ell_spmv_t in both calls against spmv_t_plain on the same CUDA
+    tensors, max|d| <= 1e-5 max|ref| (another summation order), two runs
+    bit-identical, launched in the form and lanes its plan picks (the C
+    plan equal to its mirror ek.spmv_t_plan); each call timed (events ms,
+    device us by the profiler, its share of spmv_t_bound, the plain
+    version) beside BSR(A^T) @ g (events ms and device us). Returns the
+    max rel |d| by call and the log's parts."""
+    n, k = vals.shape[:2]
+    kt = tt.shape[1]
+    sms = torch.cuda.get_device_properties(vals.device).multi_processor_count
+    At, gl = bsr_t_of(vals, mask, tt), g.reshape(-1)
+    lib_ref = ek.spmv_t_plain(vals, mask, tt, g)
+    lib_err = max_err((At @ gl).reshape(-1, 3), lib_ref)
+    check(lib_err <= 1e-4 * float(lib_ref.abs().max()),
+          f"BSR(A^T) @ g {label} level {li}: max|d| {lib_err:.3e}")
+    lib_ms = cuda_ms(lambda: At @ gl, reps)
+    lib_us = _ops_us(lambda: At @ gl, 1)[0]
+    errs, parts = {}, []
+    for call, with_skip, alpha in SPMV_T_CALLS:
+        skip = diag if with_skip else None
+
+        def kf():
+            return ek.spmv_t(vals, mask, tt, g, skip, alpha)
+
+        def pf():
+            return ek.spmv_t_plain(vals, mask, tt, g, skip, alpha)
+        got, again, ref = kf(), kf(), pf()
+        torch.cuda.synchronize()
+        err, scale = max_err(got, ref), float(ref.abs().max())
+        check(torch.equal(got, again), f"spmv_t {call} {label} level {li}: "
+              "two runs differ")
+        check(err <= 1e-5 * scale, f"spmv_t {call} {label} level {li}: "
+              f"max|d| {err:.3e} > 1e-5 * {scale:.3e}")
+        rows["spmv_t"]["max_abs_err"] = max(rows["spmv_t"]["max_abs_err"],
+                                            err)
+        errs[f"spmv_t {call}"] = err / scale
+        c_plan = (ctypes.c_int * 2)()
+        _cuda.check(_cuda.load().ell_spmv_t_plan(n, kt, c_plan),
+                    "ell_spmv_t_plan")
+        form, lanes = c_plan[0], c_plan[1]
+        check((form, lanes) == ek.spmv_t_plan(n, kt, sms), f"spmv_t "
+              f"{label} level {li}: ell_spmv_t_plan {(form, lanes)} is not "
+              f"its mirror's {ek.spmv_t_plan(n, kt, sms)}")
+        plan = f"{ek.SPMV_T_FORMS[form]} {lanes}"
+        ms = cuda_ms(kf, reps)
+        us = device_us(kf, 10, "ell_spmv_t_kernel")
+        plain_ms = cuda_ms(pf, 3, warmup=1)
+        b_ms, b_by = spmv_t_bound(n, k, kt, with_skip)
+        entry = dict(ms=ms, device_us=us, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, plan=plan, library_ms=lib_ms,
+                     library_device_us=lib_us)
+        rows["spmv_t"]["by_level"].append(dict(
+            beam=label, level=li, n=n, form=None if call == "plain" else call,
+            **entry))
+        if li == 0 and call == "plain":
+            rows["spmv_t"]["by_beam"][label] = entry
+        share = f"{b_ms * 1e3 / us:.0%}" if us else "n.m."
+        parts.append(f"spmv_t {call} ({plan} lanes) {ms:.4f} ms (device "
+                     f"{us} us, {share} of bound {b_ms:.5f} {b_by}, plain "
+                     f"{plain_ms:.3f})")
+    parts.append(f"BSR(A^T) @ g {lib_ms:.4f} ms (device {lib_us} us)")
+    return errs, parts
+
+
+def phase9_kernels(uscenes, sc21, cloths, reps):
     """ell_spmv_t, ell_outer and ell_jacobi_bwd against their plain versions
     on the same CUDA tensors, and the Functions' gradients against
     torch.autograd through spmv_plain / jacobi_plain (1 and 3 iterations,
     with and without x0), at the fine Hessian of the 19k and 21k Scenes,
     the 21k Scene's exp2 coarse matrix (the learning path's shape) and every
     level of the 2k one: max|d| <= 1e-5 max|ref| (another summation order;
-    fp32 FMA contraction), two runs bit-identical; timed."""
+    fp32 FMA contraction), two runs bit-identical; timed. ell_spmv_t also
+    at the cloth's frame Hessians (K 7, phase 8's inputs) and the 74k
+    Scene's fine Hessian (spmv_t_shape)."""
     rows = {name: {"max_abs_err": 0.0, "by_beam": {}, "by_level": []}
             for name in ELL_BACKWARD}
     jacobi_rows, jacobi_err = [], 0.0
+    for label, sc in cloths.items():   # ell_spmv_t alone at K 7
+        full, _ = cloth_hessian(sc)
+        g = torch.from_numpy(np.random.default_rng(23).standard_normal(
+            (full.shape[0], 3)).astype(np.float32)).to(full.device)
+        tt = ek.transpose_table(sc.params["nbr"])
+        errs, parts = spmv_t_shape(rows, f"cloth {label}", 0, full,
+                                   sc.params["mask"], tt,
+                                   sc.params["diag_slot"], g, reps)
+        log(f"phase9 backward cloth {label} N {full.shape[0]} K "
+            f"{full.shape[1]} Kt {tt.shape[1]} max rel |d| "
+            + " ".join(f"{c} {e:.2e}" for c, e in errs.items())
+            + "; same bits twice")
+        log(f"phase9 time     cloth {label}: " + "  ".join(parts))
     cases = [("19k", uscenes["19k"], 0), ("21k", sc21, 0), ("21k", sc21, 1)
              ] + [("2k", uscenes["2k"], li)
-                  for li in range(uscenes["2k"].n_levels)]
+                  for li in range(uscenes["2k"].n_levels)] + [
+        ("74k", uscenes["74k"], 0)]
     chains = {}
     for label, sc, li in cases:
         if label not in chains:
@@ -2285,8 +2382,8 @@ def phase9_kernels(uscenes, sc21, reps):
                 tuple(sc.x0.shape)).astype(np.float32)).to(sc.device)
             fine = qs.assemble_fine(sc, sc.params, x)
             chains[label] = (qs.galerkin_chain(sc, sc.params, fine)
-                             if label == "2k" else
-                             [fine, exp2_coarse_values(sc, x)])
+                             if label == "2k" else [fine] if label == "74k"
+                             else [fine, exp2_coarse_values(sc, x)])
         vals = chains[label][li]
         op = sc.make_op(li)
         n, k = vals.shape[:2]
@@ -2296,18 +2393,22 @@ def phase9_kernels(uscenes, sc21, reps):
         g, v, b, x0 = (torch.from_numpy(s * rng.standard_normal(
             (n, 3)).astype(np.float32)).to(sc.device)
             for s in (1.0, 1.0, 1.0, 0.1))
+        errs, t_parts = spmv_t_shape(rows, label, li, vals, op.mask, tt,
+                                     op.diag_slot, g, reps)
+        if label == "74k":             # ell_spmv_t alone
+            log(f"phase9 backward {label:4s} level {li} N {n} K {k} Kt {kt} "
+                f"max rel |d| " + " ".join(f"{c} {e:.2e}"
+                                           for c, e in errs.items())
+                + "; same bits twice")
+            log(f"phase9 time     {label:4s} level {li}: "
+                + "  ".join(t_parts))
+            continue
         if (label, li) == ("21k", 1):  # exp2's coarse solve: its forward
             forms1, jacobi_err = jacobi_forms("phase9", label, li, op, vals,
                                               b, x0, reps)
             jacobi_rows = [dict(beam=label, level=li, n=n, form=form, **e)
                            for form, e in forms1.items()]
         kern = {
-            "spmv_t": (lambda: ek.spmv_t(vals, op.mask, tt, g),
-                       lambda: ek.spmv_t_plain(vals, op.mask, tt, g)),
-            "spmv_t diag out": (
-                lambda: ek.spmv_t(vals, op.mask, tt, g, op.diag_slot, -1.0),
-                lambda: ek.spmv_t_plain(vals, op.mask, tt, g, op.diag_slot,
-                                        -1.0)),
             "outer": (lambda: ek.outer(g, op.nbr, op.mask, v),
                       lambda: ek.outer_plain(g, op.nbr, op.mask, v)),
         }
@@ -2320,7 +2421,6 @@ def phase9_kernels(uscenes, sc21, reps):
                     ek.jacobi_bwd, vals, op, g, b, xt, w),
                 lambda xt=xt, w=with_gv: _bwd_outputs(
                     ek.jacobi_bwd_plain, vals, op, g, b, xt, w))
-        errs = {}
         for case, (kf, pf) in kern.items():
             got, again, ref = kf(), kf(), pf()
             torch.cuda.synchronize()
@@ -2365,10 +2465,8 @@ def phase9_kernels(uscenes, sc21, reps):
                       "version")
                 fn_err = max(fn_err, e)
         # times: the kernel (events; device us by the profiler), the plain
-        # version, the bound, and A^T @ g by BSR for the transposed product
+        # version and the bound (ell_spmv_t's: spmv_t_shape)
         timing = {
-            "spmv_t": (kern["spmv_t"], "ell_spmv_t_kernel",
-                       spmv_t_bound(n, k, kt, False)),
             "outer": (kern["outer"], "ell_outer_kernel", outer_bound(n, k)),
         }
         # the forms of the one-launch adjoint: no values' gradient, with it
@@ -2383,32 +2481,20 @@ def phase9_kernels(uscenes, sc21, reps):
                  lambda bwd=bwd: bwd(ek.jacobi_bwd_plain)),
                 "ell_jacobi_bwd_kernel",
                 jacobi_bwd_bound(n, k, with_gv, from_xt))
-        parts = []
+        parts = list(t_parts)
         for case, ((kf, pf), kname, (b_ms, b_by)) in timing.items():
             name, _, form = case.partition(" ")
             ms = cuda_ms(kf, reps)
             us = device_us(kf, 10, kname)
             plain_ms = cuda_ms(pf, 3, warmup=1)
-            lib_ms = None
-            if name == "spmv_t":
-                At = bsr_t_of(vals, op.mask, tt)
-                gl = g.reshape(-1)
-                lib_err = max_err((At @ gl).reshape(-1, 3),
-                                  ek.spmv_t_plain(vals, op.mask, tt, g))
-                check(lib_err <= 1e-4 * float(ek.spmv_t_plain(
-                    vals, op.mask, tt, g).abs().max()),
-                      f"BSR(A^T) @ g {label}: max|d| {lib_err:.3e}")
-                lib_ms = cuda_ms(lambda: At @ gl, reps)
             entry = dict(ms=ms, device_us=us, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
             rows[name]["by_level"].append(dict(beam=label, level=li, n=n,
                                                form=form or None, **entry))
             if li == 0 and form in ("", JACOBI_BWD_PATH_FORM):
                 rows[name]["by_beam"][label] = entry
             parts.append(f"{case} {ms:.4f} ms (device {us} us, plain "
-                         f"{plain_ms:.3f}, bound {b_ms:.5f} {b_by}"
-                         + (f", BSR(A^T) @ g {lib_ms:.4f}" if lib_ms else "")
-                         + ")")
+                         f"{plain_ms:.3f}, bound {b_ms:.5f} {b_by})")
         log(f"phase9 backward {label:4s} level {li} N {n} K {k} Kt {kt} max "
             f"rel |d| " + " ".join(f"{c} {e:.2e}" for c, e in errs.items())
             + f"; Functions vs autograd of plain {fn_err:.2e}; same bits "
@@ -2584,8 +2670,9 @@ def phase9(sc21, sc2k, sc21_cpu, steps=10):
     for name in ("jacobi_bwd", "jacobi", "spmv"):
         check(launches[name] > 0, f"{name} never launched on the learning "
               f"path: {launches}")
-    check(launches["spmv_t"] == 0, "ell_spmv_t launched on the learning "
-          f"path, whose gradient needs no A^T: {launches}")
+    check(launches["spmv_t"] == 0 and not ek.spmv_t_launches, "ell_spmv_t "
+          "launched on the learning path, whose gradient needs no A^T: "
+          f"{launches}, by (rows, form) {ek.spmv_t_launches}")
     check(launches["outer"] == 0, "ell_outer launched on the learning path, "
           f"whose Jacobi adjoint writes the values' gradient: {launches}")
 
@@ -4021,7 +4108,8 @@ def main() -> int:
         + " / ".join(str(lv.n_verts) for lv in sc21.hier.levels)
         + f" K {sc21.level(0).K} (card and CPU built in "
         f"{time.perf_counter() - t0:.1f} s)")
-    rows9, jacobi9, jacobi9_err = phase9_kernels(uscenes, sc21, reps=20)
+    rows9, jacobi9, jacobi9_err = phase9_kernels(uscenes, sc21, cloths,
+                                                 reps=20)
     rows.update(rows9)
     rows["jacobi"]["by_level"] += jacobi9
     rows["jacobi"]["max_abs_err"] = max(rows["jacobi"]["max_abs_err"],

@@ -82,7 +82,7 @@
 //
 //   ell_spmv_t      gx[j] = alpha * sum over (i, k) with nbr[i, k] = j of
 //                   mask[i, k] * values[i, k]^T g[i]   (optionally leaving
-//                   out the slot k = skip[i] of every row)
+//                   out the slot k = skip[i] of every row; below)
 //   ell_outer       gv[i, k] (+)= alpha * g[i] (x) (x[nbr[i, k]] mask[i, k]),
 //                   j-major as the forward reads values (optionally leaving
 //                   slot skip[i] of every row untouched): the values'
@@ -109,17 +109,51 @@
 // 16-byte stores from a copy in shared memory. Bound: memory, the N K 36 B
 // of the gradient written.
 //
-// The rest of a Jacobi iteration's adjoint is ell_spmv_t (gbar_t =
-// -O^T lam, the diagonal slot left out), launched only where an earlier
-// iterate or x_0 takes a gradient. The transposed product is a gather, not
-// a scatter: a transpose table built once on the host lists, for every
-// column j, the flat entries e = i * K + k with nbr[i, k] = j in increasing
-// e, padded with -1. The ELL tables pad a row with slots that point at the
-// row itself, so for a structurally symmetric matrix every column has
-// exactly K entries and the table is (N, K). One warp takes a column, lane
-// t the entries t, t + 32, ..., a fixed butterfly sums them: no float
-// atomics, and the result repeats bit for bit. Bound: memory, as the
-// forward (the values are read once more, through the table).
+// ell_spmv_t replaces no Pallas kernel of its own: the JAX package gets
+// A^T g from jax.vjp / jax.grad through the SpMV of ops/ell.py:29 (x's
+// gradient of spmv; in the smoother of solvers/smoothers.py:48 the rest of
+// a Jacobi iteration's adjoint, gbar_t = -O^T lam, the diagonal slot left
+// out, where an earlier iterate or x_0 takes a gradient). The transposed
+// product is a gather, not a scatter: a transpose table built once on the
+// host lists, for every column j, the flat entries e = i * K + k with
+// nbr[i, k] = j in increasing e, padded with -1. The ELL tables pad a row
+// with slots that point at the row itself, so for a structurally symmetric
+// matrix every column has exactly K entries and the table is (N, K): Kt 7
+// on the cloth, 27 on the hex meshes. A fixed butterfly sums a column's
+// entries: no float atomics, and the result repeats bit for bit, the first
+// form's bits (its term's contraction pinned, its sum order kept).
+//
+// What bounds it on this card. The bytes are the values and mask read once
+// through the table (40 B an entry): 6.8 / 7.6 us at the 19k / 21k fine
+// Hessians, whose 18-20 MB of values stay in L2 from call to call, ~27 us
+// at the 74k one (72 MB, more than the 50 MB L2). But a column's entries
+// lie in K different rows, ~1 KB apart, and the first form (a warp a
+// column, each lane reading its entry's 9 floats one at a time after the
+// table, an integer division and skip) asked for every entry's two 32 B
+// sectors nine times, one sector a lane per load: 50% of the bound at the
+// fine Hessians, 46% at 74k; and at K 7 it left 25 of a warp's 32 lanes
+// idle (two waves at the 128x128 cloth). The forms (the C entry launches
+// the one spmv_t_plan picks, at its lanes, from a sweep of both at every
+// shape, scripts/spmv_t_forms.py):
+//   lanes    a group of P or P / 2 lanes a column (P the smallest power of
+//            two >= Kt: 8 at K 7, 32 at K 27), each lane one or two whole
+//            entries; e / K a multiply (K a template constant at 7 and
+//            27) and, once e is known, every load of the entry issued at
+//            once, skip a select on the term: two memory trips an entry.
+//            The cloth: 8 lanes (4 where the grid would hold two blocks
+//            an SM).
+//   staged   the same groups, the column's entries' values first copied
+//            into shared memory, float f of the column's 9 P by lane f mod
+//            L, so a load instruction covers consecutive floats of a few
+//            entries (a sector or two each) instead of one sector an
+//            entry; lane t then reads its entries there (a stride of 9
+//            floats, odd, and the columns' spans offset by L banks: no bank
+//            conflicts). The hex meshes: 16 lanes (two entries a lane:
+//            twice the columns in flight), 32 where the grid would not
+//            fill the SMs.
+//   strided  the first form, kept as it was written, for Kt > 32 (which no
+//            table of the repo has): a warp a column, lane t the entries t,
+//            t + 32, ...
 //
 // No --use_fast_math: the build keeps IEEE arithmetic.
 #include <cooperative_groups.h>
@@ -836,43 +870,6 @@ ell_gs_grid_kernel(const __grid_constant__ GsArgs P, int n_colors) {
     }
 }
 
-// gx[col] = alpha * sum of mask[e] values[e]^T g[e / K] over the entries e
-// of the column's transpose-table row (-1: padding), one warp a column.
-__global__ void __launch_bounds__(kThreads)
-ell_spmv_t_kernel(const float* __restrict__ values,
-                  const float* __restrict__ mask, const int* __restrict__ tt,
-                  const int* __restrict__ skip, const float* __restrict__ g,
-                  float* __restrict__ gx, float alpha, int N, int K, int Kt) {
-    const int lane = threadIdx.x & 31;
-    const int col = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-    if (col >= N) return;  // the column is uniform across the warp
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    for (int t = lane; t < Kt; t += 32) {
-        const int e = tt[static_cast<long long>(col) * Kt + t];
-        if (e < 0) continue;
-        const int i = e / K;
-        if (skip != nullptr && e - i * K == skip[i]) continue;
-        const float m = mask[e];
-        const float* v = values + 9LL * e;
-        const float g0 = g[3LL * i], g1 = g[3LL * i + 1], g2 = g[3LL * i + 2];
-        s0 += (v[0] * g0 + v[3] * g1 + v[6] * g2) * m;
-        s1 += (v[1] * g0 + v[4] * g1 + v[7] * g2) * m;
-        s2 += (v[2] * g0 + v[5] * g1 + v[8] * g2) * m;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        s0 += __shfl_down_sync(0xffffffffu, s0, off);
-        s1 += __shfl_down_sync(0xffffffffu, s1, off);
-        s2 += __shfl_down_sync(0xffffffffu, s2, off);
-    }
-    if (lane == 0) {
-        float* out = gx + 3LL * col;
-        out[0] = alpha * s0;
-        out[1] = alpha * s1;
-        out[2] = alpha * s2;
-    }
-}
-
 // gv[e, j, l] (+)= alpha * (g[i, j] * (x[nbr[e], l] * mask[e])), e = i K + k:
 // a group of L lanes a row (L a power of two >= K), lane k reads slot k's
 // nbr and mask once and gathers its x once; outer_row stores. Slot skip[i]
@@ -1173,6 +1170,178 @@ ell_jacobi_bwd_kernel(const RelaxArgs A, const float* __restrict__ xt,
         dst[i] = accumulate ? __fadd_rn(dst[i], span[pad + i]) : span[pad + i];
 }
 
+// -- ell_spmv_t: the transposed product --------------------------------------
+//
+// gx[col] = alpha * sum of mask[e] values[e]^T g[e / K] over the entries e
+// of the column's transpose-table row (-1: padding), slot skip[e / K] of
+// each row left out. The forms (the note at the top says what bounds each):
+constexpr int kSpmvTLanes = 0;    // a lane group a column, whole entries
+constexpr int kSpmvTStaged = 1;   // the same, the values staged by spans
+constexpr int kSpmvTStrided = 2;  // the first form: a warp a column
+
+// Component c of an entry's term, (v[c] g0 + v[c + 3] g1 + v[c + 6] g2) m,
+// rounded as the first form's build rounded (v[0] g0 + v[3] g1 + v[6] g2) m.
+__device__ __forceinline__ float spmv_t_term(const float* v, int c, float g0,
+                                             float g1, float g2, float m) {
+    return __fmul_rn(dot3(v[c], g0, v[c + 3], g1, v[c + 6], g2), m);
+}
+
+// The floats of a staged column's span: 9 P floats and room to offset the
+// spans of a warp's 32 / L columns by L banks each, so that lane t reading
+// float 9 (t + L j) + c of its column's span and the copy's stores are free
+// of bank conflicts (9 is odd).
+__host__ __device__ constexpr int spmv_t_span(int L, int P) {
+    return 9 * P + (((L - 9 * P) % 32) + 32) % 32;
+}
+
+// Form kSpmvTStrided is the first form as it was written: a warp a column,
+// lane t the entries t, t + 32, ... (any Kt). The others take a group of L
+// lanes a column, lane t the S entries t + L j (S = 1 or 2, P = L S the
+// smallest power of two >= Kt, at most 32): the lane adds its terms in
+// lane_sum's order,
+// which is the first log2 S steps of a width-P butterfly, and the group
+// sums with a butterfly of width L; for Kt <= P < 32 the whole-warp
+// butterfly's first steps add exact zeros, so every L gives its bits. The
+// warp leaves only when all of its columns lie past N (the shuffles need
+// every lane). Once the table gives e, every load of the entry (mask, g,
+// skip and its values) is issued at once: a padded entry reads entry 0 and
+// adds 0, and skip is a select on the term. KC > 0: K as a constant (e / K
+// a multiply).
+template <int Form, int L, int S, int KC>
+__global__ void __launch_bounds__(kThreads)
+ell_spmv_t_kernel(const float* __restrict__ values,
+                  const float* __restrict__ mask, const int* __restrict__ tt,
+                  const int* __restrict__ skip, const float* __restrict__ g,
+                  float* __restrict__ gx, float alpha, int N, int Kn, int Kt) {
+    const unsigned full = 0xffffffffu;
+    if constexpr (Form == kSpmvTStrided) {
+        const int K = Kn;
+        const int lane = threadIdx.x & 31;
+        const int col = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+        if (col >= N) return;  // the column is uniform across the warp
+        float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+        for (int t = lane; t < Kt; t += 32) {
+            const int e = tt[static_cast<long long>(col) * Kt + t];
+            if (e < 0) continue;
+            const int i = e / K;
+            if (skip != nullptr && e - i * K == skip[i]) continue;
+            const float m = mask[e];
+            const float* v = values + 9LL * e;
+            const float g0 = g[3LL * i], g1 = g[3LL * i + 1],
+                        g2 = g[3LL * i + 2];
+            s0 += (v[0] * g0 + v[3] * g1 + v[6] * g2) * m;
+            s1 += (v[1] * g0 + v[4] * g1 + v[7] * g2) * m;
+            s2 += (v[2] * g0 + v[5] * g1 + v[8] * g2) * m;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            s0 += __shfl_down_sync(full, s0, off);
+            s1 += __shfl_down_sync(full, s1, off);
+            s2 += __shfl_down_sync(full, s2, off);
+        }
+        if (lane == 0) {
+            float* out = gx + 3LL * col;
+            out[0] = alpha * s0;
+            out[1] = alpha * s1;
+            out[2] = alpha * s2;
+        }
+    } else {
+        constexpr int kCols = kThreads / L, P = L * S;
+        constexpr bool kStaged = Form == kSpmvTStaged;
+        constexpr int kSpan = spmv_t_span(L, P);
+        // the staged form: a column's table row and the span of its
+        // entries' values
+        __shared__ int rows_of[kStaged ? kCols * (P + 1) : 1];
+        __shared__ float stage[kStaged ? kCols * kSpan : 1];
+        const unsigned K = KC > 0 ? KC : Kn;
+        const int lane = threadIdx.x & (L - 1);
+        const int first = blockIdx.x * kCols;
+        if (first + static_cast<int>(threadIdx.x & ~31u) / L >= N)
+            return;  // every column of the warp lies past N
+        const int group = static_cast<int>(threadIdx.x) / L;
+        const int col = first + group;
+        // the entries' table slots, then every load but the values' (the
+        // staged form's copy orders them after its warp barriers)
+        int e[S], sk[S];
+        unsigned es[S], row[S];
+        float m[S], g0[S], g1[S], g2[S];
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+            const int k = lane + L * j;
+            e[j] = col < N && k < Kt
+                       ? tt[static_cast<long long>(col) * Kt + k]
+                       : -1;
+            es[j] = e[j] < 0 ? 0u : static_cast<unsigned>(e[j]);
+            row[j] = es[j] / K;
+        }
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+            m[j] = mask[es[j]];
+            g0[j] = g[3LL * row[j]];
+            g1[j] = g[3LL * row[j] + 1];
+            g2[j] = g[3LL * row[j] + 2];
+            sk[j] = skip != nullptr ? skip[row[j]] : -1;
+        }
+        float v[S][9];
+        if constexpr (kStaged) {
+            // float f of the column's 9 P by lane f mod L: one load
+            // instruction covers consecutive floats of a few entries
+            int* ent = rows_of + group * (P + 1);
+            float* span = stage + group * kSpan;
+#pragma unroll
+            for (int j = 0; j < S; ++j) ent[lane + L * j] = e[j];
+            __syncwarp();
+            float w[9 * S];
+#pragma unroll
+            for (int r = 0; r < 9 * S; ++r) {
+                const int f = r * L + lane, q = f / 9;
+                const int eq = ent[q];
+                w[r] = eq >= 0 ? values[9LL * eq + (f - 9 * q)] : 0.f;
+            }
+#pragma unroll
+            for (int r = 0; r < 9 * S; ++r) span[r * L + lane] = w[r];
+            __syncwarp();
+#pragma unroll
+            for (int j = 0; j < S; ++j)
+#pragma unroll
+                for (int c = 0; c < 9; ++c)
+                    v[j][c] = span[9 * (lane + L * j) + c];
+        } else {
+#pragma unroll
+            for (int j = 0; j < S; ++j) {
+                const float* q = values + 9LL * es[j];
+#pragma unroll
+                for (int c = 0; c < 9; ++c) v[j][c] = q[c];
+            }
+        }
+        float p0[S], p1[S], p2[S];
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+            const bool use =
+                e[j] >= 0 && static_cast<int>(es[j] - row[j] * K) != sk[j];
+            p0[j] = use ? spmv_t_term(v[j], 0, g0[j], g1[j], g2[j], m[j])
+                        : 0.f;
+            p1[j] = use ? spmv_t_term(v[j], 1, g0[j], g1[j], g2[j], m[j])
+                        : 0.f;
+            p2[j] = use ? spmv_t_term(v[j], 2, g0[j], g1[j], g2[j], m[j])
+                        : 0.f;
+        }
+        float s0 = lane_sum<S>(p0), s1 = lane_sum<S>(p1), s2 = lane_sum<S>(p2);
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1) {
+            s0 += __shfl_down_sync(full, s0, off, L);
+            s1 += __shfl_down_sync(full, s1, off, L);
+            s2 += __shfl_down_sync(full, s2, off, L);
+        }
+        if (col < N && lane == 0) {
+            float* out = gx + 3LL * col;
+            out[0] = __fmul_rn(alpha, s0);
+            out[1] = __fmul_rn(alpha, s1);
+            out[2] = __fmul_rn(alpha, s2);
+        }
+    }
+}
+
 int blocks_for_rows(int rows) {
     return (rows + kRowsPerBlock - 1) / kRowsPerBlock;
 }
@@ -1371,6 +1540,66 @@ cudaError_t device_sms(int* sms) {
                                    cudaDevAttrMultiProcessorCount, dev);
     *sms = known[dev];
     return e;
+}
+
+// ell_spmv_t's form at P = row_lanes(Kt) <= 32 lanes a column: the staged
+// form at P = 32 (the hex meshes' 27), the lanes form on narrower tables
+// (the cloth's 7 on 8).
+__host__ __device__ constexpr int spmv_t_form(int P) {
+    return P == 32 ? kSpmvTStaged : kSpmvTLanes;
+}
+
+// Whether ell_spmv_t takes P / 2 lanes a column (two entries a lane) at N
+// columns on a card of `sms` SMs rather than P: where the grid on P lanes
+// would hold a block an SM in the staged form (2,025 to 74,273 columns of
+// 27), two in the lanes form (16,641 columns of 7).
+bool spmv_t_half(int N, int P, int sms) {
+    return P >= 2 && blocks_for_groups(N, P) >=
+                         (spmv_t_form(P) == kSpmvTStaged ? 1 : 2) * sms;
+}
+
+// ell_spmv_t's form and lanes a column at N columns of Kt entries on a
+// card of `sms` SMs: plan = {form, lanes}, measured on an H100
+// (scripts/spmv_t_forms.py forces each form and lane count). Kt > 32: the
+// strided form at 32; else spmv_t_form and spmv_t_half. Mirrored by
+// ops/ell_kernels.spmv_t_plan.
+void spmv_t_plan(int N, int Kt, int sms, int* plan) {
+    const int P = row_lanes(Kt);
+    plan[0] = Kt > 32 ? kSpmvTStrided : spmv_t_form(P);
+    plan[1] = Kt > 32 ? 32 : (spmv_t_half(N, P, sms) ? P / 2 : P);
+}
+
+struct SpmvTArgs {
+    const float* values;
+    const float* mask;
+    const int* tt;
+    const int* skip;
+    const float* g;
+    float* gx;
+    float alpha;
+    int N, K, Kt;
+};
+
+// One ell_spmv_t launch in the form of P lanes at L lanes and S entries a
+// lane, K a constant where it is KC.
+template <int P, int L, int S, int KC>
+void spmv_t_launch(const SpmvTArgs& a, cudaStream_t st) {
+    constexpr int Form = spmv_t_form(P);
+    auto kernel = KC > 0 && a.K == KC ? ell_spmv_t_kernel<Form, L, S, KC>
+                                      : ell_spmv_t_kernel<Form, L, S, 0>;
+    kernel<<<blocks_for_groups(a.N, L), kThreads, 0, st>>>(
+        a.values, a.mask, a.tt, a.skip, a.g, a.gx, a.alpha, a.N, a.K, a.Kt);
+}
+
+// The launch at P = row_lanes(Kt) lanes (an entry a lane) or P / 2 (two),
+// as `lanes` says; K a constant at the widths of the hex meshes (27 of 32)
+// and of the cloth (7 of 8).
+template <int P>
+void spmv_t_at(int lanes, const SpmvTArgs& a, cudaStream_t st) {
+    constexpr int KC = P == 32 ? 27 : (P == 8 ? 7 : 0);
+    if constexpr (P >= 2)
+        if (lanes == P / 2) return spmv_t_launch<P, P / 2, 2, KC>(a, st);
+    spmv_t_launch<P, P, 1, KC>(a, st);
 }
 
 // One ell_jacobi_bwd launch at G lanes a row in its form.
@@ -1586,16 +1815,46 @@ int ell_jacobi(const float* values, const int* nbr, const float* mask,
 // gx (N, 3) = alpha * (values^T-gather of g), through the transpose table
 // tt (N, Kt) int32 of flat entries (-1 padded); skip (N,) int32 or null: the
 // slot of each row to leave out (the diagonal, for the Jacobi adjoint).
-// Requires N >= 1, 1 <= K, Kt >= 1 and every table entry < N * K.
+// One launch in the form and at the lanes a column spmv_t_plan picks.
+// Requires N >= 1, K >= 1, Kt >= 1 and every table entry < N * K.
 int ell_spmv_t(const float* values, const float* mask, const int* tt,
                const int* skip, const float* g, float* gx, float alpha, int N,
                int K, int Kt, void* stream) {
     if (N < 1 || K < 1 || Kt < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    ell_spmv_t_kernel<<<blocks_for_rows(N), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        values, mask, tt, skip, g, gx, alpha, N, K, Kt);
+    int sms = 0;
+    const cudaError_t e = device_sms(&sms);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int plan[2];
+    spmv_t_plan(N, Kt, sms, plan);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const SpmvTArgs a{values, mask, tt, skip, g, gx, alpha, N, K, Kt};
+    switch (Kt > 32 ? 0 : row_lanes(Kt)) {
+        case 0:
+            ell_spmv_t_kernel<kSpmvTStrided, 32, 1, 0>
+                <<<blocks_for_rows(N), kThreads, 0, st>>>(
+                    values, mask, tt, skip, g, gx, alpha, N, K, Kt);
+            break;
+        case 1: spmv_t_at<1>(plan[1], a, st); break;
+        case 2: spmv_t_at<2>(plan[1], a, st); break;
+        case 4: spmv_t_at<4>(plan[1], a, st); break;
+        case 8: spmv_t_at<8>(plan[1], a, st); break;
+        case 16: spmv_t_at<16>(plan[1], a, st); break;
+        default: spmv_t_at<32>(plan[1], a, st); break;
+    }
     return static_cast<int>(cudaGetLastError());
+}
+
+// ell_spmv_t's form and lanes a column for N columns of Kt entries on the
+// current device (spmv_t_plan, what ell_spmv_t launches): plan = {form,
+// lanes}. Returns a CUDA error code.
+int ell_spmv_t_plan(int N, int Kt, int* plan) {
+    if (N < 1 || Kt < 1) return static_cast<int>(cudaErrorInvalidValue);
+    int sms = 0;
+    const cudaError_t e = device_sms(&sms);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    spmv_t_plan(N, Kt, sms, plan);
+    return 0;
 }
 
 // gv (N, K, 3, 3): slot k of row i (+)= alpha * g[i] (x) (x[nbr[i, k]]

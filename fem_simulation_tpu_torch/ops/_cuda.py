@@ -114,6 +114,7 @@ def _declare(lib) -> None:
                                 ctypes.POINTER(I)]
     lib.ell_jacobi.argtypes = [P] * 7 + [I] * 4 + [P]
     lib.ell_spmv_t.argtypes = [P] * 6 + [F, I, I, I, P]
+    lib.ell_spmv_t_plan.argtypes = [I, I, ctypes.POINTER(I)]
     lib.ell_outer.argtypes = [P] * 5 + [F, I, P, I, I, P]
     lib.ell_jacobi_bwd.argtypes = [P] * 10 + [I, I, I, P]
     lib.lat_error_string.argtypes = [I]
@@ -123,7 +124,7 @@ def _declare(lib) -> None:
                  "lat_power", "lat_fused_newton",
                  "lat_fused_pcg",
                  "ell_spmv", "ell_gs", "ell_gs_plan", "ell_jacobi",
-                 "ell_spmv_t",
+                 "ell_spmv_t", "ell_spmv_t_plan",
                  "ell_outer", "ell_jacobi_bwd"):
         getattr(lib, name).restype = I
 

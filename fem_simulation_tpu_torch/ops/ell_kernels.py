@@ -19,7 +19,9 @@ Gradients: `spmv` / `spmv_rows` and `jacobi` go through the autograd
 Functions `EllSpmvFn` and `EllJacobiFn` whenever autograd records and an
 input requires grad. Their backward runs three kernels of its own:
 `spmv_t` (`ell_spmv_t`, the transposed product, a gather through a
-transpose table built once on the host, `transpose_table`), `outer`
+transpose table built once on the host, `transpose_table`, in the form
+and at the lanes its C entry picks, mirrored by `spmv_t_plan`;
+`SPMV_T_FORMS`), `outer`
 (`ell_outer`, the SpMV's gradient with respect to the values, in the
 SpMV's lane groups) and `jacobi_bwd` (`ell_jacobi_bwd`, the adjoint of one
 Jacobi iteration). A Jacobi iteration's adjoint is one `jacobi_bwd` launch
@@ -46,8 +48,9 @@ CPU. For CUDA tensors it launches the kernel or raises; it never falls back.
 `launches[name]` counts kernel launches (`spmv`: one per call with a
 non-empty row range; `gs`: one per call with iterations > 0, taken apart by
 (rows, form) in `gs_launches`; `jacobi`: one per iteration, taken apart by
-(rows, form) in `jacobi_launches`; `spmv_t`, `outer`, `jacobi_bwd`: one
-per call); `ops.ell.cuda_calls` counts, one
+(rows, form) in `jacobi_launches`; `spmv_t`: one per call, taken apart by
+(rows, form) in `spmv_t_launches`; `outer`, `jacobi_bwd`: one per call);
+`ops.ell.cuda_calls` counts, one
 layer up (for the backward kernels: in the Functions' backward), the
 launches that the calls made on CUDA tensors ask for, so a run can check
 that every call launched.
@@ -68,6 +71,8 @@ launches = {"spmv": 0, "gs": 0, "jacobi": 0, "spmv_t": 0, "outer": 0,
 gs_launches: dict = {}
 # ell_jacobi's launches by (rows, form name): launches["jacobi"] taken apart
 jacobi_launches: dict = {}
+# ell_spmv_t's launches by (rows, form name): launches["spmv_t"] taken apart
+spmv_t_launches: dict = {}
 
 
 def reset_launches() -> None:
@@ -75,6 +80,7 @@ def reset_launches() -> None:
         launches[name] = 0
     gs_launches.clear()
     jacobi_launches.clear()
+    spmv_t_launches.clear()
 
 
 def lanes(k: int) -> int:
@@ -281,10 +287,37 @@ def jacobi_bwd_plain(values, nbr, mask, diag_slot, b, xt, gbar, gb=None,
     return lam
 
 
+# ell_spmv_t's forms (csrc/ell_kernels.cu, kSpmvT*): a group of lanes a
+# column, each lane one or two whole entries, reading its entries' values
+# itself ("lanes") or from spans the group staged in shared memory
+# ("staged"); the first form, a warp a column, lane t the entries t,
+# t + 32, ... ("strided", any Kt)
+SPMV_T_FORMS = ("lanes", "staged", "strided")
+SPMV_T_LANES, SPMV_T_STAGED, SPMV_T_STRIDED = range(3)
+
+
+def spmv_t_plan(n: int, kt: int, sms: int):
+    """(form, lanes a column) of ell_spmv_t at n columns of kt entries on a
+    card of `sms` SMs, as its C entry picks them (spmv_t_plan; from
+    `scripts/spmv_t_forms.py` on an H100): kt > 32 the strided form at 32
+    lanes; p = lanes(kt) = 32 (the hex meshes' 27) the staged form, on
+    p / 2 lanes where the grid on p lanes would hold a block an SM;
+    narrower tables (the cloth's 7 on 8) the lanes form, on p / 2 lanes
+    where the grid on p lanes would hold two blocks an SM."""
+    if kt > 32:
+        return SPMV_T_STRIDED, 32
+    p = lanes(kt)
+    blocks = -(-n * p // 256)
+    if p == 32:
+        return SPMV_T_STAGED, p // 2 if blocks >= sms else p
+    return SPMV_T_LANES, p // 2 if p >= 2 and blocks >= 2 * sms else p
+
+
 def spmv_t(values, mask, tt, g, skip=None, alpha: float = 1.0):
     """gx (N, 3) = alpha * A^T g through A's transpose table tt (N, Kt)
     int32 (`transpose_table`); skip (N,) int32 or None: the slot of each
-    row to leave out."""
+    row to leave out. One launch, in the form and at the lanes its C entry
+    picks, counted by (rows, form) as the mirror `spmv_t_plan` names it."""
     if values.dim() != 4 or tuple(values.shape[2:]) != (3, 3):
         raise ValueError(f"values: expected (N, K, 3, 3), got {tuple(values.shape)}")
     n, k = int(values.shape[0]), int(values.shape[1])
@@ -299,6 +332,7 @@ def spmv_t(values, mask, tt, g, skip=None, alpha: float = 1.0):
     tensors = (values, mask, tt, g) + (() if skip is None else (skip,))
     if _cuda.on_cpu(*tensors):
         return spmv_t_plain(values, mask, tt, g, skip, alpha)
+    kt = int(tt.shape[1])
     gx = torch.empty((n, 3), dtype=torch.float32, device=g.device)
     lib = _cuda.load()
     stream = torch.cuda.current_stream(g.device).cuda_stream
@@ -307,8 +341,11 @@ def spmv_t(values, mask, tt, g, skip=None, alpha: float = 1.0):
                              tt.data_ptr(),
                              None if skip is None else skip.data_ptr(),
                              g.data_ptr(), gx.data_ptr(), float(alpha), n, k,
-                             int(tt.shape[1]), stream)
+                             kt, stream)
     launches["spmv_t"] += 1
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    key = (n, SPMV_T_FORMS[spmv_t_plan(n, kt, sms)[0]])
+    spmv_t_launches[key] = spmv_t_launches.get(key, 0) + 1
     _cuda.check(err, "ell_spmv_t")
     return gx
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time ell_spmv, the smoothers, ell_outer and the Jacobi adjoint at every shape the paths launch them at, on one GPU.
+"""Time ell_spmv, the smoothers, ell_outer, the Jacobi adjoint and ell_spmv_t at every shape the paths launch them at, on one GPU.
 
-    python3 scripts/ell_tilings.py [--root TREE] [--save OUT.pt] [--only smoothers]
+    python3 scripts/ell_tilings.py [--root TREE] [--save OUT.pt] [--only smoothers|backward]
     python3 scripts/ell_tilings.py --sweep OUT.json
     python3 scripts/ell_tilings.py --bits A.pt B.pt
 
@@ -29,6 +29,15 @@ The shapes (dx 0.05, seeded inputs as `chip_smoke.py` makes them):
   zero start; storing, as the paths call it) at exp2's coarse matrix and
   the phase 9 shapes (the 19k and 21k fine Hessians, both 2k levels),
   beside `chip_smoke.jacobi_bwd_bound`;
+- ell_spmv_t (`--only backward`) in both its calls, A^T g and, as the
+  Jacobi adjoint calls it, -A^T g with each row's diagonal slot left out,
+  at every shape a user's gradient gives it: the cloth's frame Hessians
+  (K 7, phase 8's inputs), the fine Hessian of the 2k, 19k and 74k beams and the 2k beam's
+  level 1, the 21k exp2 beam's fine Hessian and its exp2 coarse matrix
+  (phase 9's state), beside `chip_smoke.spmv_t_bound`, the form and lanes
+  its plan picks (on a tree that has `ell_kernels.spmv_t_plan`) and the
+  device us of the library call BSR(A^T) @ g on the same matrix (each
+  form and lane count at these shapes: `scripts/spmv_t_forms.py`);
 - then the paths that launch them from rest (Newton-MG, FAS v1, v2 and v3
   on the 2k and 19k beams, 16 dynamic frames on the 2k beam) and exp2's
   first 10 clamped-SGD steps at 21k (P, l2, unroll 4, torch's
@@ -49,7 +58,8 @@ call launches) and the events ms of a call. Then 48 cloth frames
 21k, its ms a step.
 
 --only smoothers times ell_gs, ell_jacobi and ell_jacobi_bwd alone and
-runs the series (no cloth, no SpMV, no ell_outer).
+runs the series (no cloth, no SpMV, no ell_outer); --only backward times
+ell_spmv_t alone.
 --sweep OUT.json runs, at each smoother shape and call, ell_gs in every
 form the tree's plan weighs (ops/ell_kernels.gs_candidates) at a sample of
 block counts, each forced through `ell_kernels._gs_plans`, checks each
@@ -91,8 +101,10 @@ ap.add_argument("--save", default=None,
                 help="write the outputs at every shape here")
 ap.add_argument("--bits", nargs=2, default=None,
                 help="two --save files: bit-equal key by key?")
-ap.add_argument("--only", choices=("all", "smoothers"), default="all",
-                help="smoothers: time ell_gs and ell_jacobi alone")
+ap.add_argument("--only", choices=("all", "smoothers", "backward"),
+                default="all",
+                help="smoothers: time ell_gs and ell_jacobi alone; "
+                     "backward: ell_spmv_t alone")
 ap.add_argument("--sweep", default=None,
                 help="time every ell_gs form; write the times here (JSON)")
 ap.add_argument("--fit", nargs="+", default=None,
@@ -143,7 +155,8 @@ def kernel_us(fn, names):
 
 
 def _short(name):
-    for k in ("ell_spmv_kernel", "ell_outer_kernel", "ell_jacobi_bwd_kernel",
+    for k in ("ell_spmv_kernel", "ell_spmv_t_kernel", "ell_outer_kernel",
+              "ell_jacobi_bwd_kernel",
               "ell_gs_coop_kernel", "ell_gs_cluster_kernel",
               "ell_gs_grid_kernel", "ell_relax_rows_kernel",
               "ell_jacobi_kernel"):
@@ -565,6 +578,77 @@ def exp2_series(sc21, steps=10):
           f"{repeat}", flush=True)
 
 
+def spmv_t_systems(dev):
+    """[(label, values, mask, tt, diag_slot)] at ell_spmv_t's shapes (see
+    the module docstring), the beams' states seeded as chip_smoke.py's
+    phase 9 seeds them."""
+    out = []
+    for label, res in cs.CLOTHS.items():
+        sc = cs.cloth_scene(res, dev)
+        rng = np.random.default_rng(8)
+        p = sc.params
+        x = p["x0"] + torch.from_numpy(0.01 * rng.standard_normal(
+            tuple(p["x0"].shape)).astype(np.float32)).to(dev)
+        vals = cloth._frame_hessian(sc, p, x, cloth._frame_diag(
+            sc, p, cloth.init_state(sc), 1.0 / sc.cfg.dt))
+        out.append((f"cloth {label}", (vals * p["mask"][..., None, None])
+                    .contiguous(), p["mask"], ek.transpose_table(p["nbr"]),
+                    p["diag_slot"]))
+    scenes = smoother_scenes(dev)
+    for label, sc in scenes.items():
+        rng = np.random.default_rng(19)
+        x = sc.x0 + torch.from_numpy(0.01 * rng.standard_normal(
+            tuple(sc.x0.shape)).astype(np.float32)).to(dev)
+        fine = qs.assemble_fine(sc, sc.params, x)
+        chain = (qs.galerkin_chain(sc, sc.params, fine) if label == "2k"
+                 else [fine])
+        for li, vals in enumerate(chain):
+            op = sc.make_op(li)
+            out.append((f"{label} level {li}", vals, op.mask,
+                        op.transpose_table(), op.diag_slot))
+    sc21, chain21 = exp21_system(dev)
+    for li, vals in enumerate(chain21):
+        op = sc21.make_op(li)
+        out.append((f"21k level {li}", vals, op.mask, op.transpose_table(),
+                    op.diag_slot))
+    return out
+
+
+# ell_spmv_t's two calls: A^T g, and the Jacobi adjoint's -A^T g with each
+# row's diagonal slot left out
+SPMV_T_CALLS = (("plain", False, 1.0), ("diag out", True, -1.0))
+
+
+def backward(dev, saved):
+    """--only backward: ell_spmv_t in both calls at every shape, checked,
+    timed beside its bound, its plan and BSR(A^T) @ g."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, vals, mask, tt, diag in spmv_t_systems(dev):
+        n, k = vals.shape[:2]
+        kt = int(tt.shape[1])
+        g = torch.from_numpy(np.random.default_rng(23).standard_normal(
+            (n, 3)).astype(np.float32)).to(dev)
+        for call, with_skip, alpha in SPMV_T_CALLS:
+            skip = diag if with_skip else None
+            report("spmv_t", f"{label} N {n} Kt {kt} {call}",
+                   lambda: ek.spmv_t(vals, mask, tt, g, skip, alpha),
+                   lambda: ek.spmv_t_plain(vals, mask, tt, g, skip, alpha),
+                   ("ell_spmv_t",), saved,
+                   cs.spmv_t_bound(n, k, kt, with_skip)[0] * 1e3)
+        plan = "one form"
+        if hasattr(ek, "spmv_t_plan"):
+            form, lanes = ek.spmv_t_plan(n, kt, sms)
+            plan = f"{ek.SPMV_T_FORMS[form]} {lanes} lanes"
+        At, gl = cs.bsr_t_of(vals, mask, tt), g.reshape(-1)
+        lib = At @ gl
+        ref = ek.spmv_t_plain(vals, mask, tt, g)
+        err = float((lib.reshape(-1, 3) - ref).abs().max())
+        print(f"spmv_t   {TREE:16s} {label} N {n} K {k} Kt {kt}: plan {plan}; "
+              f"library BSR(A^T) @ g device {cs._ops_us(lambda: At @ gl, 1)[0]} us "
+              f"events {cs.cuda_ms(lambda: At @ gl, 50):.4f} ms (max|d| "
+              f"{err:.2e} of {float(ref.abs().max()):.2e})", flush=True)
+
+
 def _sampled(cands):
     """The sweep's launches among the plan's candidates: every form's
     fewest blocks, clusters of 2-4, 8, 12 and 16 and 16, 33, 66, 99 and 132
@@ -717,6 +801,9 @@ def main() -> int:
     if ARGS.sweep:
         return sweep(dev)
     saved = {}
+    if ARGS.only == "backward":
+        backward(dev, saved)
+        return finish(saved, card)
     if ARGS.only == "smoothers":
         smoothers(dev, saved, smoother_scenes(dev), *exp21_system(dev))
         return finish(saved, card)

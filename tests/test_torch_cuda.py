@@ -468,6 +468,157 @@ def _bwd(fn, vals, op, g, v):
     return lam, gb, gv[rows, op.diag_slot.long()]
 
 
+def _hex_spmv_t_system(sc, level):
+    """(values, mask, tt, the diagonal slots) of a beam scene's fine Hessian
+    at a seeded state (level 0) or its Galerkin level 1, on the card."""
+    rng = np.random.default_rng(5)
+    x = sc.x0 + torch.from_numpy(0.01 * rng.standard_normal(
+        tuple(sc.x0.shape)).astype(np.float32)).cuda()
+    chain = tqs.galerkin_chain(sc, sc.params,
+                               tqs.assemble_fine(sc, sc.params, x))
+    op = sc.make_op(level)
+    return chain[level], op.mask, op.transpose_table(), op.diag_slot
+
+
+def _cloth_spmv_t_system(res):
+    """(values, mask, tt, the diagonal slots) of a res x res cloth's frame
+    Hessian (K 7; its diagonal slot the live one pointing at its own row)."""
+    vals, nbr, mask, _ = _cloth_spmv_system(res, 6)
+    own = (nbr == torch.arange(nbr.shape[0], device=nbr.device)[:, None]
+           ) & (mask > 0)
+    return vals, mask, ek.transpose_table(nbr), \
+        own.int().argmax(dim=1).int().contiguous()
+
+
+def _circulant_spmv_t_system(n, k):
+    """(values, mask, tt, skip) of a seeded table whose row i's slot s
+    points at (i + s) mod n: every column has k entries (Kt = k), a fifth
+    of them masked out; skip a random slot of each row."""
+    rng = np.random.default_rng(n + k)
+    nbr = (np.arange(n)[:, None] + np.arange(k)[None, :]) % n
+    mask = (rng.random((n, k)) < 0.8).astype(np.float32)
+    vals = rng.standard_normal((n, k, 3, 3)).astype(np.float32)
+    sk = rng.integers(0, k, size=n).astype(np.int32)
+    vals, mask, sk, nbr = (torch.from_numpy(a).cuda() for a in (
+        vals, mask, sk, nbr.astype(np.int32)))
+    return vals, mask, ek.transpose_table(nbr), sk
+
+
+def _spmv_t_kernels(fn):
+    """The ell_spmv_t kernels fn() launches, traced again (up to twice)
+    while none shows: a short trace can lose its events."""
+    for _ in range(3):
+        names = [s for s in _kernels_per_call(fn)[1]
+                 if "ell_spmv_t_kernel" in s]
+        if names:
+            return names
+    return []
+
+
+# every (form, lanes, K constant or not) ell_spmv_t's plan picks on a card
+# of 132 SMs, each reached by its shape: the hex meshes' K 27 (staged, 32
+# lanes below 1,049 columns, 16 from there), the cloth's K 7 (lanes form, 8
+# lanes below 8,417 columns, 4 from there), the other widths (K a runtime
+# value) on P = lanes(K) lanes and on P / 2
+_SPMV_T_CASES = {
+    "hex 225 K 27": lambda u, u2: _hex_spmv_t_system(u, 0),
+    "hex 325 K 27": lambda u, u2: _hex_spmv_t_system(u2, 1),
+    "hex 2025 K 27": lambda u, u2: _hex_spmv_t_system(u2, 0),
+    "cloth 1156 K 7": lambda u, u2: _cloth_spmv_t_system(33),
+    "cloth 16641 K 7": lambda u, u2: _cloth_spmv_t_system(128),
+    **{f"circulant {n} K {k}": (lambda u, u2, n=n, k=k:
+                                _circulant_spmv_t_system(n, k))
+       for n, k in ((300, 1), (300, 2), (34000, 2), (300, 3), (17000, 3),
+                    (500, 5), (9000, 5), (300, 12), (5000, 12), (500, 20),
+                    (2000, 20), (500, 27), (2000, 27))},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_SPMV_T_CASES))
+@pytest.mark.parametrize("skip", [False, True])
+def test_spmv_t_plans_match_plain(uscene, uscene2k, case, skip):
+    """ell_spmv_t at a shape whose plan picks each of its launches, with
+    and without a slot of each row left out (alpha -1): within 1e-5 of
+    max |ref| of spmv_t_plain, two runs bit-equal, the kernel of the
+    mirror's form and lanes launched (K a template constant at the hex
+    meshes' 27 and the cloth's 7) and each launch counted by (rows, form)."""
+    vals, mask, tt, sk = _SPMV_T_CASES[case](uscene, uscene2k)
+    n, k = vals.shape[:2]
+    kt = int(tt.shape[1])
+    assert kt == k
+    sk, alpha = (sk, -1.0) if skip else (None, 1.0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    form, lanes = ek.spmv_t_plan(n, kt, sms)
+    p = ek.lanes(kt)
+    kc = k if (p, k) in ((32, 27), (8, 7)) else 0
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (n, 3)).astype(np.float32)).cuda()
+    ek.reset_launches()
+    got, again = (ek.spmv_t(vals, mask, tt, g, sk, alpha) for _ in range(2))
+    ref = ek.spmv_t_plain(vals, mask, tt, g, sk, alpha)
+    torch.cuda.synchronize()
+    assert ek.spmv_t_launches == {(n, ek.SPMV_T_FORMS[form]): 2}
+    assert torch.equal(got, again)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    names = _spmv_t_kernels(lambda: ek.spmv_t(vals, mask, tt, g, sk, alpha))
+    want = f"ell_spmv_t_kernel<{form}, {lanes}, {p // lanes}, {kc}>"
+    assert names and all(want in s for s in names), (want, names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", [False, True])
+def test_spmv_t_wide_column_matches_plain(skip):
+    """A transpose table wider than a warp (column 0: every row's first
+    slot, 40 entries; the others -1 padded): the plan's strided form within
+    1e-5 of max |ref| of spmv_t_plain, two runs bit-equal, counted as
+    such."""
+    _need_cuda()
+    n, k = 40, 4
+    rng = np.random.default_rng(3)
+    nbr = rng.integers(1, n, size=(n, k)).astype(np.int32)
+    nbr[:, 0] = 0
+    mask = (rng.random((n, k)) < 0.8).astype(np.float32)
+    vals = rng.standard_normal((n, k, 3, 3)).astype(np.float32)
+    sk = rng.integers(0, k, size=n).astype(np.int32)
+    g = rng.standard_normal((n, 3)).astype(np.float32)
+    vals, mask, g, sk, nbr = (torch.from_numpy(a).cuda()
+                              for a in (vals, mask, g, sk, nbr))
+    tt = ek.transpose_table(nbr)
+    assert tt.shape == (n, n) and int((tt < 0).sum()) > 0
+    args = (vals, mask, tt, g) + ((sk, -1.0) if skip else ())
+    ek.reset_launches()
+    got, again = ek.spmv_t(*args), ek.spmv_t(*args)
+    ref = ek.spmv_t_plain(*args)
+    torch.cuda.synchronize()
+    assert ek.spmv_t_launches == {(n, "strided"): 2}
+    assert torch.equal(got, again)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    names = _spmv_t_kernels(lambda: ek.spmv_t(*args))
+    assert names and all("ell_spmv_t_kernel<2, 32, 1, 0>" in s
+                         for s in names), names
+
+
+# (N, Kt) of ell_spmv_t's shapes: the cloth's frame Hessians, the 2k
+# beam's two levels, the 19k, 21k and 74k fine Hessians, the 21k exp2
+# coarse matrix, a table wider than a warp
+_SPMV_T_SHAPES = ((4225, 7), (16641, 7), (2025, 27), (325, 27), (18785, 27),
+                  (21097, 27), (2997, 27), (74273, 27), (40, 40))
+
+
+@pytest.mark.cuda
+def test_spmv_t_plan_mirror_equals_ell_spmv_t_plan():
+    """ell_spmv_t_plan on this card picks what its mirror spmv_t_plan picks
+    at every shape the paths' gradients give ell_spmv_t."""
+    _need_cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = _cuda.load()
+    for n, kt in _SPMV_T_SHAPES:
+        plan = (ctypes.c_int * 2)()
+        assert lib.ell_spmv_t_plan(n, kt, plan) == 0
+        assert (plan[0], plan[1]) == ek.spmv_t_plan(n, kt, sms), (n, kt)
+
+
 @pytest.mark.cuda
 def test_exp2_gradient_on_the_card(uscene):
     """exp2's loss gradient on the card goes through the backward kernels,
