@@ -141,7 +141,16 @@ Phase 10 distribution, on 4 z-slabs sharing the card (a DeviceGrid of 4
          (8 frames) on the 16x16x64 Scene against the whole mesh; the dp
          batch of 8 scenes of the 8x8x24 beam (identical entries equal to
          one dynamic.step) and the batched_scenes driver (10 frames);
-         entry.dryrun_multichip(4). While they run, the arguments of every
+         entry.dryrun_multichip(4); and the Newton state placed in the
+         fine level's slabs (DistLatticeMG.place, the reference's
+         _state_sharding: the scene's vertex z extent divides the slabs)
+         on the 16x16x63 and 16x16x255 beams (18,496 and 73,984
+         vertices, z padded 64 -> 80 and 256 -> 272): a quasi-static
+         solve from rest on each, one of the 16x16x63 beam from a
+         perturbed start (its line search runs lat_energy on the slabs)
+         and 16 frames of make_dist_mg_step, the residual, energy, outer
+         PCG and V-cycles all on slab fields (no split, no join). While
+         they run, the arguments of every
          kernel wrapper they call are copied once for each shape (every
          sharded level's slabs, the replicated coarsest level, the dry
          run's thin slabs, the halo rows of ell_spmv); after the counters
@@ -156,7 +165,15 @@ Phase 10 distribution, on 4 z-slabs sharing the card (a DeviceGrid of 4
          reference's own: x within 1e-4 at every frame, and every frame
          whose Newton count or ||f|| differs taken apart (the reference's
          code on the distributed run's input gives the distributed run's
-         norms: one ulp of x can move ||f|| by as much as tol).
+         norms: one ulp of x can move ||f|| by as much as tol). The
+         placed runs against the same code on the whole state from the
+         same input and along the trajectory, a V-cycle's and an outer
+         matvec's crossings (split 0, join 0 placed; 1 and 1 whole),
+         device ops and ms a V-cycle, a warm solve and a frame placed and
+         whole, lat_force and lat_energy at the placed slab shapes timed
+         beside their plain versions, and the host seconds of
+         build_hierarchy at 74k with the native topology builder and
+         with numpy (bit-equal).
 
 Phase 11 the low-fill path (ops/boxes.py) on the JAX tests' demo-scale shell,
          mesh.shell(64, 64, 64, thickness=2) at dx 0.05 (65^3 vertices,
@@ -181,6 +198,7 @@ table as JSON and the result line {"ok": true, "device": {...}}.
 """
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -262,6 +280,13 @@ EXP_BEAM = (16, 16, 72)       # the exp2 / exp3 drivers' beam: 21,097 vertices
 SLABS10 = 4                   # phase 10: z-slabs, all on the one card
 FRAMES10 = 16
 NEWTON_FRAMES10 = 8
+# phase 10's placed state: beams whose vertex z extent divides SLABS10
+# (18,496 and 73,984 vertices), and the perturbed start of a 16x16x63
+# solve whose line search runs lat_energy on the slabs (seeded noise of
+# this fraction of dx at every vertex: a first full step from it grows
+# the residual)
+PLACED10 = {"16x16x63": (16, 16, 63), "16x16x255": (16, 16, 255)}
+PERTURB10 = (0.2,)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # f32 FLOPs of the energy chain per cell (8 quad points: deformation 147,
@@ -310,6 +335,95 @@ def device_ops(fn, reps: int):
                                                 - e.time_range.start)
     return {name: (len(v) / reps, float(np.mean(v)))
             for name, v in spans.items()}
+
+
+def host_trace(fn, reps: int):
+    """What one call of fn() costs the host and the card, from reps calls
+    after a warm one: host ms (wall clock to a synchronize), with Python's
+    garbage collector on and off; the collections it ran a call by
+    generation, their ms, and the objects it tracks; the caching
+    allocator's allocations, cudaMallocs (new segments) and retries a
+    call; device busy ms (the kernels' spans summed) and device ops a call
+    (torch.profiler); {kernel: device us}, {host op: self ms} (the
+    profiler's CPU events) and {Python function: own ms} (cProfile), each
+    a call, for largest_differences."""
+    import cProfile
+    import gc
+    import pstats
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = {"n": [0, 0, 0], "ms": 0.0, "t": 0.0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            seen["t"] = time.perf_counter()
+        else:
+            seen["n"][info["generation"]] += 1
+            seen["ms"] += (time.perf_counter() - seen["t"]) * 1e3
+
+    def host_ms():
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    keys = {"allocations": "allocation.all.allocated",
+            "cuda_mallocs": "segment.all.allocated",
+            "alloc_retries": "num_alloc_retries"}
+    m0 = torch.cuda.memory_stats()
+    gc.callbacks.append(on_gc)
+    try:
+        out = {"host_ms": host_ms()}
+    finally:
+        gc.callbacks.remove(on_gc)
+    m1 = torch.cuda.memory_stats()
+    out.update(gc_collections=[n / reps for n in seen["n"]],
+               gc_ms=seen["ms"] / reps, gc_tracked=len(gc.get_objects()))
+    out.update({k: (m1.get(v, 0) - m0.get(v, 0)) / reps
+                for k, v in keys.items()})
+    out["reserved_mib"] = m1.get("reserved_bytes.all.current", 0) / 2 ** 20
+    out["inactive_split_blocks"] = m1.get("inactive_split.all.current", 0)
+    gc.disable()
+    try:
+        out["host_ms_gc_off"] = host_ms()
+    finally:
+        gc.enable()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels, n = {}, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + (
+                ev.time_range.end - ev.time_range.start) / reps
+            n += 1
+    host_ops = {e.key: e.self_cpu_time_total / reps / 1e3
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and e.self_cpu_time_total > 0}
+    out.update(busy_ms=sum(kernels.values()) / 1e3, device_ops=n / reps)
+    pr = cProfile.Profile()
+    pr.enable()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    pr.disable()
+    funcs = {f"{os.path.basename(f)}:{line}({name})": tt / reps * 1e3
+             for (f, line, name), (_, _, tt, _, _)
+             in pstats.Stats(pr).stats.items()}
+    return out, dict(kernels=kernels, host_ops=host_ops, python=funcs)
+
+
+def largest_differences(a: dict, b: dict, n: int):
+    """The n keys whose values differ most between a and b: [key, a - b,
+    a, b], largest |a - b| first."""
+    keys = sorted(set(a) | set(b), key=lambda k: -abs(a.get(k, 0.0)
+                                                       - b.get(k, 0.0)))
+    return [[k[:100], a.get(k, 0.0) - b.get(k, 0.0), a.get(k, 0.0),
+             b.get(k, 0.0)] for k in keys[:n]]
 
 
 def whole_trace(fn, reps: int, launches: int):
@@ -3445,6 +3559,388 @@ def phase10_operators(sc, rows, reps):
     return out
 
 
+def placed_solve(solve, place, x0):
+    """solve(place(x0)) timed by CUDA events, the DistLatticeMG's
+    crossings and the lattice launches it made: (x whole, k, fn, ms,
+    crossings, launches, the placed x)."""
+    mg = solve.mg
+    xp = place(x0)
+    check(isinstance(xp, pslab.SlabField), "phase10 placed: the state was "
+          "not placed")
+    cross0, before = dict(mg.crossings), dict(lk.launches)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    x, k, fn = solve(xp)
+    end.record()
+    torch.cuda.synchronize()
+    check(isinstance(x, pslab.SlabField), "phase10 placed: the solve "
+          "returned a whole x")
+    cross = crossings_since(mg, cross0)
+    launches = {n: lk.launches[n] - before[n] for n in lk.launches}
+    return (solve.unplace(x), k, fn, start.elapsed_time(end), cross,
+            launches, x)
+
+
+def perturbed(sc, frac, seed):
+    """The rest positions plus seeded noise of frac * dx at every vertex."""
+    rng = np.random.default_rng(seed)
+    return sc.x0 + torch.from_numpy((frac * DX * rng.standard_normal(
+        sc.x0.shape)).astype(np.float32)).to(sc.device) * \
+        sc.vert_mask[..., None]
+
+
+def phase10_placed_path(pscenes, psolves, pstep):
+    """The placed distributed multigrid's main path, inside phase 10's
+    counted window: a quasi-static solve from rest on each PLACED10 beam,
+    solves of the 16x16x63 beam from perturbed starts (their line search
+    runs lat_energy on the slabs), and FRAMES10 frames of the placed
+    dynamic step at 16x16x63; every field placed once and kept in slabs.
+    Returns the runs (x whole) for the checks after the counters."""
+    out = {"solves": {}, "perturbed": {}}
+    for label, (solve, place) in psolves.items():
+        r = placed_solve(solve, place, pscenes[label].x0)
+        check(r[2] <= TOL, f"phase10 placed {label}: ||f|| {r[2]:.3e}")
+        check(r[4]["split"] == r[4]["join"] == 0, f"phase10 placed {label}"
+              f": crossings {r[4]}")
+        check(r[5]["force"] > 0 and r[5]["hvp"] > 0 and r[5]["diag"] > 0,
+              f"phase10 placed {label}: launches {r[5]}")
+        out["solves"][label] = r[:6]
+        log(f"phase10 placed quasistatic {label}: newton {r[1]} ||f|| "
+            f"{r[2]:.3e} ms {r[3]:.1f} (CUDA events, under the path "
+            "capture) crossings " + " ".join(f"{n} {v}" for n, v in
+                                             r[4].items())
+            + "; launches " + " ".join(
+                f"{n} {r[5][n]}" for n in ("force", "hvp", "diag", "energy",
+                                           "cheby", "power", "diag_shift")))
+    sc63 = pscenes["16x16x63"]
+    solve, place = psolves["16x16x63"]
+    for i, frac in enumerate(PERTURB10):
+        x0 = perturbed(sc63, frac, 100 + i)
+        r = placed_solve(solve, place, x0)
+        check(r[2] <= TOL, f"phase10 placed perturbed {frac}: ||f|| "
+              f"{r[2]:.3e}")
+        out["perturbed"][frac] = (x0,) + r[:6]
+        log(f"phase10 placed quasistatic 16x16x63 from rest + {frac} dx "
+            f"noise: newton {r[1]} ||f|| {r[2]:.3e} ms {r[3]:.1f}; "
+            f"lat_energy launches {r[5]['energy']}, lat_force "
+            f"{r[5]['force']}")
+    energy = sum(r[6]["energy"] for r in out["perturbed"].values())
+    check(energy > 0, "phase10 placed: no line search ran lat_energy on "
+          "the slabs")
+    step, place = pstep
+    st = place(sc63.init_state())
+    ks, fns, states = [], [], [st]
+    mg = step.mg
+    cross0, before = dict(mg.crossings), dict(lk.launches)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FRAMES10):
+        st, k, fn = step(st)
+        ks.append(k)
+        fns.append(fn)
+        states.append(st)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / FRAMES10
+    c = crossings_since(mg, cross0)
+    check(all(isinstance(s_.x, pslab.SlabField) for s_ in states),
+          "phase10 placed step: a state came back whole")
+    check(c["split"] == c["join"] == c["place"] == c["unplace"] == 0,
+          f"phase10 placed step crossings {c}")
+    check(max(fns) <= TOL, "phase10 placed step missed tol")
+    out["frames"] = dict(ms=ms, crossings=c, launches={
+        n: lk.launches[n] - before[n] for n in lk.launches})
+    # each frame's input and x brought back whole for the checks
+    whole = [step.unplace(s_) for s_ in states]
+    out["frames"]["runs"] = (ks, fns, [w.x for w in whole[1:]], whole[:-1])
+    log(f"phase10 placed step 16x16x63 {FRAMES10} frames: newton {ks} "
+        f"max||f|| {max(fns):.3e} ms/frame {ms:.2f} (CUDA events, under "
+        "the path capture) crossings " + " ".join(f"{n} {v}"
+                                                  for n, v in c.items()))
+    by_beam = {label: dict(r[5]) for label, r in out["solves"].items()}
+    for r in out["perturbed"].values():
+        for n, v in r[6].items():
+            by_beam["16x16x63"][n] += v
+    for n, v in out["frames"]["launches"].items():
+        by_beam["16x16x63"][n] += v
+    out["launches_by_beam"] = by_beam
+    return out
+
+
+def placed_vcycle(mg, sc, placed: bool):
+    """(ops, right-hand side) of one linearization at a seeded state of
+    sc, placed in slabs or whole."""
+    x = perturbed(sc, 0.1, 7)
+    if placed:
+        xp = mg.place(x)
+        ops, _ = mg.newton_ops(xp)
+        return ops, mg.state_ops(xp).dyn_force(xp, xp, 0.0, 1.0)
+    ops, _ = mg.newton_ops(mg.pad(x))
+    return ops, mg.pad_cf(sc.dyn_force(x, x, 0.0))
+
+
+def phase10_placed_checks(pscenes, psolves, pstep, got, rows, card):
+    """After the counters: each placed run against the whole-state
+    DistLatticeMG from the same input (equal Newton, ||f|| within 1e-3
+    relative + 5e-6, x within 1e-4; the frames one by one and along the
+    trajectory from rest); a V-cycle's and an outer matvec's crossings,
+    placed (split 0, join 0) and whole; device ops and CUDA-event ms of a
+    V-cycle, a warm solve and a frame, placed and whole; lat_force and
+    lat_energy at the slab shapes against their plain versions, timed."""
+    res = {"card": card}
+    for label, (solve, place) in psolves.items():
+        sc = pscenes[label]
+        x, k, fn, ms, cross, launches = got["solves"][label]
+        xw, kw, fw = solve(sc.x0)
+        check(torch.is_tensor(xw), "phase10 whole run came back placed")
+        d = check_policy(f"phase10 placed quasistatic {label}", [k], [fn],
+                         [x], [kw], [fw], [xw])
+        res[label] = dict(newton=k, fn=fn, ms_path=ms, crossings=cross,
+                          launches={n: v for n, v in launches.items() if v},
+                          newton_whole=kw, fn_whole=fw, max_d_fn=d[0],
+                          max_d_x=d[1])
+        log(f"phase10 placed quasistatic {label} vs whole state: newton "
+            f"{k} / {kw}, ||f|| {fn:.6e} / {fw:.6e}, max|d x| {d[1]:.3e}")
+    solve, _ = psolves["16x16x63"]
+    res["perturbed"] = {}
+    for frac, (x0, x, k, fn, ms, cross, launches) in got["perturbed"].items():
+        xw, kw, fw = solve(x0)
+        d = check_policy(f"phase10 placed perturbed {frac}", [k], [fn], [x],
+                         [kw], [fw], [xw])
+        res["perturbed"][str(frac)] = dict(
+            newton=k, newton_whole=kw, fn=fn, fn_whole=fw, max_d_x=d[1],
+            energy_launches=launches["energy"])
+        log(f"phase10 placed perturbed {frac} dx vs whole state: newton {k}"
+            f" / {kw}, ||f|| {fn:.6e} / {fw:.6e}, max|d x| {d[1]:.3e}")
+
+    # the frames: each from the placed run's own input, then the whole
+    # state's trajectory from rest
+    step, place_s = pstep
+    sc63 = pscenes["16x16x63"]
+    fr = got["frames"]["runs"]
+
+    def whole_frame(st, _v):
+        st1, k, fn = step(st)
+        return k, fn, st1.x
+    dmg = check_policy("phase10 placed step", *fr[:3], *reference_frames(
+        whole_frame, [(st, None) for st in fr[3]]))
+    ref = ([], [], [], [])
+    st = sc63.init_state()
+    for _ in range(FRAMES10):
+        ref[3].append(st)
+        st, k, fn = step(st)
+        for lst, v in zip(ref, (k, fn, st.x)):
+            lst.append(v)
+
+    def norm_at(code, st, j):
+        return tmg.step_to_tol_mg(sc63, step.mg, place_s(st) if code == "got"
+                                  else st, tol=TOL, max_newton=j)[2]
+    tx, apart = trajectory_policy("phase10 placed step trajectory vs whole "
+                                  "state", fr, ref, norm_at)
+    res["frames"] = dict(newton=fr[0], newton_whole=ref[0],
+                         fn_max=max(fr[1]), ms_path=got["frames"]["ms"],
+                         crossings=got["frames"]["crossings"],
+                         max_d_fn=dmg[0], max_d_x=dmg[1],
+                         trajectory=dict(max_d_x=tx, taken_apart=apart))
+    log(f"phase10 placed step 16x16x63 vs whole state: frame by frame "
+        f"max|d fn| {dmg[0]:.3e} max|d x| {dmg[1]:.3e}; trajectory from "
+        f"rest newton {fr[0]} vs {ref[0]}, max|d x| {tx:.3e}, {len(apart)} "
+        "frames taken apart")
+
+    # a V-cycle and an outer matvec: crossings, device ops, ms; the times
+    # placed, whole, whole, placed (the host sets them and drifts)
+    res["vcycle"], res["warm_ms"] = {}, {}
+    order = ("placed", "whole", "whole", "placed")
+    for label, (solve, place) in psolves.items():
+        mg, sc = solve.mg, pscenes[label]
+        g = sum(1 for li in range(mg.n_levels - 1)
+                if mg.sharded(li) and not mg.sharded(li + 1))
+        entry_, calls = {}, {}
+        for how in ("placed", "whole"):
+            ops, b = placed_vcycle(mg, sc, how == "placed")
+            calls[how] = (ops, b)
+            before = dict(mg.crossings)
+            mg.vcycle(ops, b)
+            cv = crossings_since(mg, before)
+            before = dict(mg.crossings)
+            ops[0].matvec(b)
+            cm = crossings_since(mg, before)
+            n = 0 if how == "placed" else 1
+            check(cv == dict(split=n, join=n, gather=g, scatter=g, place=0,
+                             unplace=0) and cm == dict(
+                      split=n, join=n, gather=0, scatter=0, place=0,
+                      unplace=0),
+                  f"phase10 {how} {label}: a V-cycle crossed {cv}, an outer"
+                  f" matvec {cm}")
+            n_ops = round(sum(v for v, _ in whole_trace(
+                lambda: mg.vcycle(ops, b), 3, 1).values()))
+            n_mv = round(sum(v for v, _ in whole_trace(
+                lambda: ops[0].matvec(b), 3, 1).values()))
+            entry_[how] = dict(vcycle_crossings=cv, matvec_crossings=cm,
+                               vcycle_ops=n_ops, matvec_ops=n_mv,
+                               vcycle_ms=[], matvec_ms=[])
+        for how in order:
+            ops, b = calls[how]
+            entry_[how]["vcycle_ms"].append(
+                cuda_ms(lambda: mg.vcycle(ops, b), 5))
+            entry_[how]["matvec_ms"].append(
+                cuda_ms(lambda: ops[0].matvec(b), 10))
+        for how, e in entry_.items():
+            cv, cm = e["vcycle_crossings"], e["matvec_crossings"]
+            log(f"phase10 {how} {label} a V-cycle: crossings " + " ".join(
+                f"{k_} {v}" for k_, v in cv.items()) + f"; "
+                f"{e['vcycle_ops']} device ops, " + " / ".join(
+                    f"{v:.3f}" for v in e["vcycle_ms"]) + " ms; an outer "
+                f"matvec: split {cm['split']} join {cm['join']}, "
+                f"{e['matvec_ops']} device ops, " + " / ".join(
+                    f"{v:.3f}" for v in e["matvec_ms"]) + " ms (CUDA "
+                f"events, placed / whole / whole / placed) [{card}]")
+        # what differs between the two: one traced turn of each, after the
+        # timed ones, on the host and the card
+        tr, by = {}, {}
+        for how in ("placed", "whole"):
+            ops, b = calls[how]
+            tr[how], by[how] = host_trace(lambda: mg.vcycle(ops, b), 5)
+            entry_[how]["trace"] = tr[how]
+            t = tr[how]
+            log(f"phase10 {how} {label} a V-cycle traced: host "
+                f"{t['host_ms']:.2f} ms ({t['host_ms_gc_off']:.2f} with the "
+                f"garbage collector off; collections a call "
+                + "/".join(f"{v:g}" for v in t["gc_collections"])
+                + f", {t['gc_ms']:.2f} ms, {t['gc_tracked']} objects "
+                f"tracked); device busy {t['busy_ms']:.3f} ms, "
+                f"{t['device_ops']:g} device ops; allocator a call "
+                f"{t['allocations']:g} allocations, {t['cuda_mallocs']:g} "
+                f"cudaMallocs, {t['alloc_retries']:g} retries, "
+                f"{t['reserved_mib']:.0f} MiB reserved, "
+                f"{t['inactive_split_blocks']} inactive split blocks "
+                f"[{card}]")
+        entry_["differences"] = {
+            what: largest_differences(by["placed"][what], by["whole"][what],
+                                      6)
+            for what in ("kernels", "host_ops", "python")}
+        for what, unit in (("kernels", "us"), ("host_ops", "ms"),
+                           ("python", "ms")):
+            for k_, d_, a_, b_ in entry_["differences"][what]:
+                log(f"phase10 {label} V-cycle placed - whole, {what}: "
+                    f"{d_:+.3f} {unit} (placed {a_:.3f}, whole {b_:.3f}) "
+                    f"{k_}")
+        res["vcycle"][label] = entry_
+        warm = {"placed": [], "whole": []}
+        solve(place(sc.x0))
+        solve(sc.x0)
+        for how in order:
+            warm[how].append(cuda_ms(
+                (lambda: solve(place(sc.x0))) if how == "placed"
+                else (lambda: solve(sc.x0)), 1, warmup=0))
+        res["warm_ms"][label] = warm
+        log(f"phase10 warm quasistatic {label}: placed " + " / ".join(
+            f"{v:.1f}" for v in warm["placed"]) + " ms, whole state "
+            + " / ".join(f"{v:.1f}" for v in warm["whole"]) + " ms (CUDA "
+            f"events, place included; placed, whole, whole, placed) "
+            f"[{card}]")
+
+    def frames(placed):
+        st = place_s(sc63.init_state()) if placed else sc63.init_state()
+        for _ in range(FRAMES10):
+            st, _, _ = step(st)
+    ms_f = {"placed": [], "whole": []}
+    for how in order:
+        ms_f[how].append(cuda_ms(lambda: frames(how == "placed"), 1,
+                                 warmup=0) / FRAMES10)
+    st0 = place_s(sc63.init_state())
+    ops_f = {"placed": round(sum(v for v, _ in whole_trace(
+        lambda: step(st0), 1, 1).values())),
+        "whole": round(sum(v for v, _ in whole_trace(
+            lambda: step(sc63.init_state()), 1, 1).values()))}
+    res["frame_ms"], res["frame_ops"] = ms_f, ops_f
+    log("phase10 warm frames 16x16x63: placed " + " / ".join(
+        f"{v:.2f}" for v in ms_f["placed"]) + " ms a frame, whole state "
+        + " / ".join(f"{v:.2f}" for v in ms_f["whole"]) + f" (CUDA events, "
+        f"{FRAMES10} frames from rest; placed, whole, whole, placed); the "
+        f"first frame's device ops placed {ops_f['placed']}, whole "
+        f"{ops_f['whole']} [{card}]")
+
+    # lat_force and lat_energy at the slab shapes the placed path gave them
+    res["slab_kernels"] = {}
+    for label, (solve, place) in psolves.items():
+        mg, sc = solve.mg, pscenes[label]
+        so = mg.state_ops(mg.place(sc.x0))
+        u = so._elastic(mg.place(perturbed(sc, 0.1, 9)))
+        ub, cm = u.slabs()[0], so.cells[0]
+        ul = ub.permute(1, 2, 3, 0).contiguous()
+        slab_sc = type("Slab", (), {"vert_mask": ub[0], "cell_mask": cm})
+        bounds = lattice_bounds(slab_sc, 1)
+        cases = {"force": (lambda: lk.force_cf(ub, cm, DX, MU, LA),
+                           lambda: lk.force_cf_plain(ub, cm, DX, MU, LA)),
+                 "energy": (lambda: lk.elastic_energy_lattice(
+                     ul, cm, DX, MU, LA),
+                     lambda: lk.elastic_energy_lattice_plain(
+                     ul, cm, DX, MU, LA))}
+        launches = got["launches_by_beam"][label]
+        for name, (kern, plain) in cases.items():
+            a, b = kern(), plain()
+            err, scale = max_err(a, b), float(b.abs().max())
+            check(err <= (1e-5 if name == "force" else 1e-4) * scale,
+                  f"phase10 placed {name} slab {label}: max|d| {err:.3e}")
+            ms_k = cuda_ms(kern, 20)
+            ms_p = cuda_ms(plain, 3, warmup=1)
+            b_ms, b_by = bounds[name]
+            n_l = launches[name]
+            e = dict(beam=label, shape=list(ub.shape[1:]), ms=ms_k,
+                     plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+                     max_abs_err=err, launches=n_l)
+            rows[name].setdefault("by_placed_slab", []).append(e)
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            res["slab_kernels"][f"{name} {label}"] = e
+            log(f"phase10 placed {name} slab {label} {tuple(ub.shape[1:])}:"
+                f" kernel {ms_k:.4f} ms plain {ms_p:.4f} ms bound "
+                f"{b_ms:.5f} ms ({b_by}) max|d| {err:.3e}; launches on the "
+                f"placed path {n_l} [{card}]")
+    return res
+
+
+def hierarchy_build_times():
+    """Host seconds of build_hierarchy (3 levels) on the 74k beam with the
+    native topology builder and with the numpy path, bit-equal; the
+    machine named."""
+    import platform
+    from fem_simulation_tpu_torch import hierarchy as hl
+    from fem_simulation_tpu_torch import native
+    cpu = platform.processor() or platform.machine()
+    try:
+        with open("/proc/cpuinfo") as fh:
+            cpu = next((ln.split(":", 1)[1].strip() for ln in fh
+                        if ln.startswith("model name")), cpu)
+    except OSError:
+        pass
+    native.load()
+    m = meshlib.beam(*BEAMS["74k"], dx=DX)
+    out = {"machine": f"{platform.node()}: {cpu}, {os.cpu_count()} logical "
+                      "CPUs", "library_build_s": native.build_seconds}
+    hs = {}
+    for how, flag in (("native", True), ("numpy", False)):
+        t0 = time.perf_counter()
+        hs[how] = hl.build_hierarchy(m, 3, use_native=flag)
+        out[how + "_s"] = time.perf_counter() - t0
+    same = all(np.array_equal(getattr(a, f), getattr(b, f))
+               for a, b in zip(hs["native"].levels, hs["numpy"].levels)
+               for f in ("nbr", "nbr_mask", "hex_slot", "diag_slot",
+                         "contrib_idx")) and all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        for a, b in zip(hs["native"].transfers, hs["numpy"].transfers)
+        for f in ("g_src", "g_dst", "g_w", "p_w", "r_w"))
+    check(same, "phase10 build_hierarchy: native and numpy differ")
+    out["bit_equal"] = same
+    log(f"phase10 build_hierarchy 74k (3 levels), host: native "
+        f"{out['native_s']:.2f} s, numpy {out['numpy_s']:.2f} s, bit-equal "
+        f"{same} (the library's g++ build at first use "
+        f"{native.build_seconds:.2f} s) on {out['machine']}")
+    return out
+
+
 def crossings_since(mg, before):
     """A DistLatticeMG's whole-field crossings since `before`."""
     return {k: mg.crossings[k] - before[k] for k in before}
@@ -3525,7 +4021,8 @@ def phase10_mg_slabs(scenes, grid, solves, step_mg, place, ms_frame,
         b = mg.pad_cf(sc.dyn_force(sc.x0, sc.x0, 0.0))
         g = sum(1 for li in range(mg.n_levels - 1)
                 if mg.sharded(li) and not mg.sharded(li + 1))
-        want = dict(split=1, join=1, gather=g, scatter=g)
+        want = dict(split=1, join=1, gather=g, scatter=g, place=0,
+                    unplace=0)
         nu, sweeps = mg.nu, mg.coarse_sweeps
         got = {}
         for nu_, sw in ((nu, sweeps), (1, 12), (3, 6)):
@@ -3646,6 +4143,27 @@ def phase10_path(scenes, uscenes, rows, newton7):
     solve74, place74 = pmgd.make_dist_mg_quasistatic(sc74, grid, n_levels=3,
                                                      tol=TOL, max_newton=100)
     step_mg, place = pmgd.make_dist_mg_step(sc19, grid, n_levels=3)
+    # the placed state's beams (their vertex z extents divide the slabs)
+    pscenes = {label: tlat.LatticeScene(meshlib.beam(*b, dx=DX),
+                                        device=sc19.device)
+               for label, b in PLACED10.items()}
+    psolves = {label: pmgd.make_dist_mg_quasistatic(
+        psc, grid, n_levels=3, tol=TOL, max_newton=100)
+        for label, psc in pscenes.items()}
+    pstep = pmgd.make_dist_mg_step(pscenes["16x16x63"], grid, n_levels=3)
+    for label, (solve_p, _) in psolves.items():
+        mg_p = solve_p.mg
+        check(mg_p.placed and all(mg_p.sharded(li)
+                                  for li in range(mg_p.n_levels)),
+              f"phase10 placed {label}: placed {mg_p.placed}, levels "
+              f"{mg_p.level_specs}")
+        log(f"phase10 placed {label}: scene lattice {pscenes[label].shape} "
+            f"({int(pscenes[label].vert_mask.sum())} vertices), levels "
+            + " ".join(str(tuple(lv.vert_mask.shape)) for lv in mg_p.levels)
+            + f", the state in {SLABS10} slabs of "
+            f"{mg_p.pad_shape[2] // SLABS10} planes (the scene's "
+            f"{pscenes[label].shape[2]} would split in "
+            f"{pscenes[label].shape[2] // SLABS10})")
     part = phalo.partition_slabs(usc19.hier.levels[0], SLABS10)
     nstep = phalo.make_dist_newton_step(usc19, part, grid, tol=TOL)
     matvec, scatter, gather = phalo.make_dist_matvec(part, grid)
@@ -3818,6 +4336,10 @@ def phase10_path(scenes, uscenes, rows, newton7):
 
     # 5. the dry run of the six programs on 4 slabs
     lines = entry.dryrun_multichip(SLABS10)
+
+    # 6. the placed state: the distributed multigrid's Newton state, its
+    # residual, energy and outer PCG in slabs
+    placed = phase10_placed_path(pscenes, psolves, pstep)
     torch.cuda.synchronize()
     cap.stop()
     launches = {**dict(lk.launches), **dict(ek.launches)}
@@ -3836,7 +4358,15 @@ def phase10_path(scenes, uscenes, rows, newton7):
     want = {a: {slab74} for a in ("force_cf", "hvp_cf")}
     want["hess_diag6_cf"] = {slab74}
     want["level_matvec_cf"] = set()
-    for mg in (solve.mg, step_mg.mg, solve74.mg):
+    # the placed residual's lat_force at both beams' fine slabs, the line
+    # search's lat_energy at the 16x16x63 beam's (channel-last)
+    for psolve_, _ in psolves.values():
+        X, Y, Z = psolve_.mg.pad_shape
+        want["force_cf"].add((X, Y, Z // SLABS10 + 2))
+    X, Y, Z = psolves["16x16x63"][0].mg.pad_shape
+    want["elastic_energy_lattice"] = {(X, Y, Z // SLABS10 + 2)}
+    for mg in (solve.mg, step_mg.mg, solve74.mg, pstep[0].mg,
+               *(ps.mg for ps, _ in psolves.values())):
         for li, lvl in enumerate(mg.levels):
             X, Y, Z = lvl.vert_mask.shape
             if mg.sharded(li):
@@ -4025,7 +4555,10 @@ def phase10_path(scenes, uscenes, rows, newton7):
     res["batched"] = dict(ms_per_batched_frame=ms_b,
                           fn_max=float(fns_b.max()))
     res["dryrun"] = lines
+    res["placed"] = phase10_placed_checks(pscenes, psolves, pstep, placed,
+                                          rows, card_line())
     log(f"phase10 references in {time.perf_counter() - t0:.1f} s")
+    res["hierarchy_build"] = hierarchy_build_times()
     return res, launches
 
 

@@ -107,12 +107,14 @@ def dryrun_multichip(n_devices: int, device=None) -> list:
 
     mg_step, place = mgd.make_dist_mg_step(lscene, line, n_levels=2)
     st, k, fn = mg_step(place(lscene.init_state()))
+    st = mg_step.unplace(st)
     if not (bool(torch.isfinite(st.x).all()) and fn <= 1e-4):
         raise RuntimeError(f"distributed GMG step: fn {fn}")
     say(f"dryrun dist GMG step ok: newton={k}, fn={fn:.3e}")
 
     solve, place = mgd.make_dist_mg_quasistatic(lscene, line, n_levels=2)
     xq, k, fn = solve(place(lscene.x0))
+    xq = solve.unplace(xq)
     if not (bool(torch.isfinite(xq).all()) and fn <= 1e-4):
         raise RuntimeError(f"distributed GMG quasistatic: fn {fn}")
     say(f"dryrun dist GMG quasistatic ok: newton={k}, fn={fn:.3e}")

@@ -1,8 +1,11 @@
 """Multigrid hierarchy + static sparsity topology (host-side, init-only).
 
-The port's own copy of `fem_simulation_tpu/hierarchy.py`, numpy only: the
-JAX package's optional C++ helper (`native`) is left out, its output equals
-the numpy path kept here. Redesign of the reference's ``Object.__init__``
+The port's own copy of `fem_simulation_tpu/hierarchy.py`. The hex-pair
+stencil, the hex -> ELL slot map and the Galerkin plan's expansion run in
+the host library of `native.py` (csrc/topology.cpp) by default, as the
+JAX package's do in its own; `use_native=False` takes the numpy path, the
+plain version, whose bits the library's output equals. A library that
+fails to build or load raises. Redesign of the reference's ``Object.__init__``
 preprocessing (object.py:116-697):
 
 * 8-coloring by lattice parity (reference cpu_function.py:15-20, object.py:147-158)
@@ -29,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import numpy as np
 
+from . import native
 from .mesh import HexMesh, CORNER_OFFSETS
 
 
@@ -100,8 +104,10 @@ def _slot_of(nbr: np.ndarray, rows: np.ndarray, cols: np.ndarray,
 
 
 def build_level_topology(x0: np.ndarray, ijk: np.ndarray, hexes: np.ndarray,
-                         dx: float) -> LevelTopology:
-    """Color-sort vertices and build the block-ELL sparsity of the FEM matrix."""
+                         dx: float, use_native: bool = True) -> LevelTopology:
+    """Color-sort vertices and build the block-ELL sparsity of the FEM matrix
+    (the pair stencil and the slot map by native.py unless use_native is
+    False)."""
     perm, offsets = color_sort(ijk)           # perm[new] = old
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.size)          # inv[old] = new
@@ -113,9 +119,12 @@ def build_level_topology(x0: np.ndarray, ijk: np.ndarray, hexes: np.ndarray,
     h = hexes.shape[0]
 
     # All vertex-pair couplings within each hex (the matrix stencil).
-    rows = np.repeat(hexes, 8, axis=1).reshape(-1)        # (H*64,) r = hex[a]
-    cols = np.tile(hexes, (1, 8)).reshape(-1)             # (H*64,) c = hex[b]
-    pairs = np.unique(np.stack([rows, cols], axis=1), axis=0)
+    if use_native:
+        pairs = native.hex_pairs_unique(hexes)
+    else:
+        rows = np.repeat(hexes, 8, axis=1).reshape(-1)    # (H*64,) r = hex[a]
+        cols = np.tile(hexes, (1, 8)).reshape(-1)         # (H*64,) c = hex[b]
+        pairs = np.unique(np.stack([rows, cols], axis=1), axis=0)
     r, c = pairs[:, 0].astype(np.int64), pairs[:, 1].astype(np.int64)
 
     deg = np.bincount(r, minlength=n)
@@ -132,11 +141,14 @@ def build_level_topology(x0: np.ndarray, ijk: np.ndarray, hexes: np.ndarray,
 
     # hex -> ELL slot map for Hessian scatter: entry (h, a, b) goes to
     # flat index row*K + slot where row = hexes[h,a], col = hexes[h,b].
-    flat_r = rows.astype(np.int64)
-    # Per-row first-match: nbr rows are ascending on the real prefix and
-    # the diagonal always exists, so argmax== finds the right slot.
-    s = _slot_of(nbr, flat_r, cols)
-    hex_slot = (flat_r * K + s).reshape(h, 8, 8).astype(np.int32)
+    if use_native:
+        hex_slot = native.hex_slot_map(hexes, nbr, deg.astype(np.int32))
+    else:
+        flat_r = rows.astype(np.int64)
+        # Per-row first-match: nbr rows are ascending on the real prefix
+        # and the diagonal always exists, so argmax== finds the right slot.
+        s = _slot_of(nbr, flat_r, cols)
+        hex_slot = (flat_r * K + s).reshape(h, 8, 8).astype(np.int32)
 
     # Invert hex_slot: group element blocks by destination ELL entry.
     flat = hex_slot.reshape(-1).astype(np.int64)        # (H*64,)
@@ -297,7 +309,10 @@ def _prolongation_triplets(fine: LevelTopology, coarse: LevelTopology):
     return rows, cols, ws
 
 
-def build_transfer(fine: LevelTopology, coarse: LevelTopology) -> Transfer:
+def build_transfer(fine: LevelTopology, coarse: LevelTopology,
+                   use_native: bool = True) -> Transfer:
+    """The transfer operators between two levels and their Galerkin plan
+    (expanded by native.py unless use_native is False)."""
     rows, cols, ws = _prolongation_triplets(fine, coarse)
     nf, nc = fine.n_verts, coarse.n_verts
 
@@ -349,25 +364,35 @@ def build_transfer(fine: LevelTopology, coarse: LevelTopology) -> Transfer:
     src_flat = fi * fine.K + fk
 
     # Expand: for each fine entry e=(i,j), all (a,b) contributor slot pairs
-    # with nonzero weight product. One (E*64,) f32 weight array, then gather
-    # only the selected entries (zero weights are padding).
-    wi = p_w[fi].astype(np.float32)    # (E, 8)
-    wj = p_w[fj].astype(np.float32)
-    W = (wi[:, :, None] * wj[:, None, :]).reshape(-1)   # (E*64,)
-    sel = np.nonzero(W > 0)[0]
-    e = sel >> 6
-    a = (sel >> 3) & 7
-    b = sel & 7
-    g_src = src_flat[e]
-    g_w = W[sel]
-    gI = p_idx[fi[e], a].astype(np.int64)
-    gJ = p_idx[fj[e], b].astype(np.int64)
-    # Destination flat coarse ELL entry: slot of column J within row I.
-    cnbr = coarse.nbr
-    s = _slot_of(cnbr, gI, gJ)
-    ok = cnbr[gI, s] == gJ
-    assert ok.all(), "Galerkin destination must exist in the coarse stencil"
-    g_dst = (gI * coarse.K + s).astype(np.int64)
+    # with nonzero weight product.
+    if use_native:
+        cdeg = coarse.nbr_mask.sum(axis=1).astype(np.int32)
+        g_src, g_dst, g_w = native.galerkin_plan(
+            fi.astype(np.int32), fj.astype(np.int32),
+            src_flat.astype(np.int32), p_idx, p_w, coarse.nbr, cdeg,
+            coarse.K)
+        g_src, g_dst = g_src.astype(np.int64), g_dst.astype(np.int64)
+    else:
+        # One (E*64,) f32 weight array, then gather only the selected
+        # entries (zero weights are padding).
+        wi = p_w[fi].astype(np.float32)    # (E, 8)
+        wj = p_w[fj].astype(np.float32)
+        W = (wi[:, :, None] * wj[:, None, :]).reshape(-1)   # (E*64,)
+        sel = np.nonzero(W > 0)[0]
+        e = sel >> 6
+        a = (sel >> 3) & 7
+        b = sel & 7
+        g_src = src_flat[e]
+        g_w = W[sel]
+        gI = p_idx[fi[e], a].astype(np.int64)
+        gJ = p_idx[fj[e], b].astype(np.int64)
+        # Destination flat coarse ELL entry: slot of column J within row I.
+        cnbr = coarse.nbr
+        s = _slot_of(cnbr, gI, gJ)
+        ok = cnbr[gI, s] == gJ
+        assert ok.all(), \
+            "Galerkin destination must exist in the coarse stencil"
+        g_dst = (gI * coarse.K + s).astype(np.int64)
 
     # Sort the plan by destination for a cache-friendlier scatter.
     po = np.argsort(g_dst, kind="stable")
@@ -425,12 +450,14 @@ def coarsen(level: LevelTopology) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 def build_hierarchy(mesh: HexMesh, n_levels: int | None = None,
-                    max_levels: int = 3, pad_to: int = 1) -> Hierarchy:
+                    max_levels: int = 3, pad_to: int = 1,
+                    use_native: bool = True) -> Hierarchy:
     if n_levels is None:
         n_levels = min(derive_n_levels(mesh), max_levels)
     n_levels = max(1, n_levels)
 
-    lvl0 = build_level_topology(mesh.x, mesh.ijk, mesh.hexes, mesh.dx)
+    lvl0 = build_level_topology(mesh.x, mesh.ijk, mesh.hexes, mesh.dx,
+                                use_native)
     # Recover the mesh->canonical permutation for I/O.
     perm, _ = color_sort(mesh.ijk)
     idx2mesh = perm.astype(np.int32)
@@ -441,8 +468,9 @@ def build_hierarchy(mesh: HexMesh, n_levels: int | None = None,
     transfers = []
     for _ in range(n_levels - 1):
         x0, ijk, hexes = coarsen(levels[-1])
-        nxt = build_level_topology(x0, ijk, hexes, levels[-1].dx * 2.0)
-        transfers.append(build_transfer(levels[-1], nxt))
+        nxt = build_level_topology(x0, ijk, hexes, levels[-1].dx * 2.0,
+                                   use_native)
+        transfers.append(build_transfer(levels[-1], nxt, use_native))
         levels.append(nxt)
 
     if pad_to > 1:

@@ -1,16 +1,19 @@
 """Mesh ingestion: OBJ loading, voxelization into hex meshes, surface extraction.
 
-The port's own copy of `fem_simulation_tpu/mesh.py` (numpy only; the port
-imports nothing of the JAX package). Voxelization is a vectorized numpy
-ray-parity test (host-side, init-only), and the hex corner convention is
-local corner index = 4*di + 2*dj + dk for offset (di,dj,dk) in {0,1}^3
-(matching the trilinear shape-function table layout). The JAX package's
-optional C++ inside test is left out: its output equals the numpy path.
+The port's own copy of `fem_simulation_tpu/mesh.py` (the port imports
+nothing of the JAX package). Voxelization is a ray-parity inside test
+(host-side, init-only): the host library of native.py by default, a
+vectorized numpy path with the same output as its plain version. The hex
+corner convention is local corner index = 4*di + 2*dj + dk for offset
+(di,dj,dk) in {0,1}^3 (matching the trilinear shape-function table
+layout).
 """
 from __future__ import annotations
 
 import dataclasses
 import numpy as np
+
+from . import native
 
 # Local corner offsets, index = 4*di + 2*dj + dk.
 CORNER_OFFSETS = np.array(
@@ -99,13 +102,18 @@ def load_obj(path: str) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _points_inside(points: np.ndarray, verts: np.ndarray, tris: np.ndarray,
-                   chunk: int = 4096) -> np.ndarray:
+                   chunk: int = 4096, use_native: bool = True) -> np.ndarray:
     """Ray-parity inside test for many points against a triangle mesh.
 
     Casts a ray along +x from each point and counts crossings (watertight-ish;
     equivalent in spirit to pyvista's enclosed-point selection used by
-    pv.voxelize), vectorized over (points x tris) in chunks.
+    pv.voxelize). The host library of native.py (csrc/topology.cpp
+    points_inside_parity) by default; use_native=False takes the numpy path
+    below, vectorized over (points x tris) in chunks, whose cell set the
+    library's equals (same ray, same epsilons).
     """
+    if use_native and points.shape[0] > 0 and tris.shape[0] > 0:
+        return native.points_inside(points, verts, tris)
     v0 = verts[tris[:, 0]]
     v1 = verts[tris[:, 1]]
     v2 = verts[tris[:, 2]]

@@ -188,9 +188,16 @@ def spd_shift3x3(A, rel_floor: float = 1e-3, eps: float = 1e-6):
 
 
 def inf_norm(x: torch.Tensor) -> torch.Tensor:
-    """max |component| as a 0-d tensor (NaN propagates, as jnp.max does)."""
+    """max |component| as a 0-d tensor (NaN propagates, as jnp.max does);
+    of a field in z-slabs (parallel.slab_field.SlabField), its pmax."""
+    if not torch.is_tensor(x):
+        return x.inf_norm()
     return torch.max(torch.abs(x))
 
 
 def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b) as a 0-d tensor; of two fields in z-slabs, the psum of
+    their slabs' partials (SlabField.dot)."""
+    if not torch.is_tensor(a):
+        return a.dot(b)
     return torch.sum(a * b)

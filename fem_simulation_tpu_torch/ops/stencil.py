@@ -1,10 +1,12 @@
 """Structured-lattice StVK operators in plain torch.
 
-Port of `fem_simulation_tpu/ops/stencil.py:32-48, 68-74, 101-247`. The
-elastic operators are the plain versions the CUDA kernels
-(`ops/lattice_kernels.py`) are held against, and what the kernel wrappers
-run on CPU tensors; the multigrid transfers (`prolong_lat`, `restrict_lat`)
-are plain torch on every device.
+Port of `fem_simulation_tpu/ops/stencil.py`. The elastic operators are
+the plain versions the CUDA kernels (`ops/lattice_kernels.py`) are held
+against, and what the kernel wrappers run on CPU tensors; the multigrid
+transfers (`prolong_lat`, `restrict_lat`) and the 27-point stencil SpMV of
+a lattice-embedded block-ELL matrix (`values_to_lattice`, `spmv_stencil`,
+the reference's gather-free SpMV, which has no Pallas kernel) are plain
+torch on every device.
 
 Layout: vertex fields (X, Y, Z, 3) on the bounding lattice; cell mask
 (X-1, Y-1, Z-1), 1.0 on real cells. The elastic operators take an optional
@@ -25,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device_or_cuda
 from .elastic import shape_func_grad
 
 _CORNERS = [(i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1)]
@@ -61,6 +64,51 @@ def field_to_lattice(x: torch.Tensor, lat: torch.Tensor, shape) -> torch.Tensor:
 def field_from_lattice(x_lat: torch.Tensor, lat: torch.Tensor) -> torch.Tensor:
     lat = lat.long()
     return x_lat[lat[:, 0], lat[:, 1], lat[:, 2]]
+
+
+def values_to_lattice(values, nbr, mask, lvl, lat_map, device=None):
+    """Block-ELL values (N, K, 3, 3) scattered into the stencil tensor
+    (27, X, Y, Z, 3, 3): slot (i, k) of a real entry goes to offset
+    o = 9 (dx + 1) + 3 (dy + 1) + (dz + 1) of its neighbour at row i's
+    lattice vertex. Built on the host; on `device`, else values' device
+    when values is a tensor, else the GPU (device_or_cuda)."""
+    shape, lat, _, _ = lat_map
+    if device is None and torch.is_tensor(values):
+        device = values.device
+    else:
+        device = device_or_cuda(device)
+
+    def host(a):
+        return a.detach().cpu().numpy() if torch.is_tensor(a) \
+            else np.asarray(a)
+    v, nb, mk = host(values), host(nbr), host(mask) > 0
+    vals_lat = np.zeros((27,) + tuple(shape) + (3, 3), dtype=np.float32)
+    ii, kk = np.nonzero(mk)
+    jj = nb[ii, kk]
+    off = lvl.ijk[jj] - lvl.ijk[ii] + 1         # in {0,1,2}^3
+    o = off[:, 0] * 9 + off[:, 1] * 3 + off[:, 2]
+    p = lat[ii]
+    vals_lat[o, p[:, 0], p[:, 1], p[:, 2]] = v[ii, kk]
+    return torch.from_numpy(vals_lat).to(device)
+
+
+def spmv_stencil(vals_lat: torch.Tensor, x_lat: torch.Tensor) -> torch.Tensor:
+    """y = A x on the lattice: 27 shifted 3x3 multiply-accumulates, no
+    gather, in float32 with no tensor-core arithmetic. vals_lat
+    (27, X, Y, Z, 3, 3), x_lat (X, Y, Z, 3) -> (X, Y, Z, 3)."""
+    X, Y, Z, _ = x_lat.shape
+    xp = torch.zeros((X + 2, Y + 2, Z + 2, 3), dtype=x_lat.dtype,
+                     device=x_lat.device)
+    xp[1:-1, 1:-1, 1:-1] = x_lat
+    y = torch.zeros_like(x_lat)
+    o = 0
+    for di in (0, 1, 2):
+        for dj in (0, 1, 2):
+            for dk in (0, 1, 2):
+                xs = xp[di:di + X, dj:dj + Y, dk:dk + Z]
+                y = y + torch.sum(vals_lat[o] * xs[..., None, :], -1)
+                o += 1
+    return y
 
 
 def g_table(dx: float) -> np.ndarray:

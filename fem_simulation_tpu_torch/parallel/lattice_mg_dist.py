@@ -33,13 +33,35 @@ Sharded levels, by kernel:
               into a replicated level one gather of the coarse field, out
               of one a scatter of each slab's coarse planes.
 
-What still crosses whole, counted in `crossings`: the outer solver's
-Newton and PCG vectors stay whole on the scene's device, so a V-cycle
-splits its right-hand side once and joins its correction once, and the
-outer PCG's matvec splits and joins once a call; `linearize` splits the
-fine positions once; a sharded coarsest level with coarse_cg > 0 runs
-today's whole-field PCG there (its reduction order), a join on entry, a
-split on exit, a join of its blocks and a split and join a matvec.
+The Newton state. `_state_sharding` is the reference's rule: the state
+goes in z-slabs when the scene's unpadded vertex z extent divides the slab
+count (and the fine level is sharded), else it stays whole on the scene's
+device, the counterpart of the reference's replicated inputs. `place`
+commits a placed state once into the fine level's own slab layout:
+channel-first and zero-padded to the level-0 grid, (s, 3, X, Y, Zp / D) a
+vector field's group tensor, (s, X, Y, Zp / D) a scalar's, so that its
+slab boundaries are the level's and no plane moves between slabs inside a
+solve (the scene's Z and the padded Zp never split alike: 24 and 32 on the
+3x3x23 beam). The padded planes hold no cell and no vertex: their force,
+energy and residual are 0 and their update is masked. The Newton solvers
+then run on the slabs (`SlabState`): the residual is `lat_force` on each
+extended slab, folded, plus the slab's gravity, control and inertia
+terms; its ||f||_inf a pmax; the energy of the line search and the rescue
+`lat_energy` on each slab over its own cells plus the slab's other terms,
+one psum in slab order; the outer PCG's vectors are slab fields, its dots
+psums (solvers/cg.pcg_operator through ops/ell.vdot), its matvec the
+slab matvec, the V-cycle's right-hand side and correction slab fields.
+`unplace` brings a placed state back whole.
+
+What still crosses whole, counted in `crossings`: `place` and `unplace`,
+one a field ("place", "unplace"); on a whole state, a V-cycle splits its
+right-hand side once and joins its correction once, the outer PCG's
+matvec splits and joins once a call and `linearize` splits the fine
+positions once (a placed state crosses none of these); into and out of a
+replicated level, a gather and a scatter a V-cycle; a sharded coarsest
+level with coarse_cg > 0 runs the whole-field PCG there (its reduction
+order), a join on entry, a split on exit, a join of its blocks and a split
+and join a matvec.
 
 The reference's `use_pallas` and `min_lane_cells` (its TPU lane gate) are
 not ported: every level runs the CUDA kernels.
@@ -55,8 +77,16 @@ from ..sim.lattice import LatState, LatticeScene
 from ..sim.lattice_mg import (LatticeMG, LevelFields, _pad_cf,
                               quasistatic_to_tol_mg, step_to_tol_mg)
 from ..solvers import cg as cgmod
+from . import dist
 from .dist import DeviceGrid, canonical_device
 from .slab_field import SlabField, SlabLayout
+
+
+def _state_sharding(grid: DeviceGrid, axis: str, z: int) -> bool:
+    """The reference's rule for the input state: in z-slabs when the
+    scene's unpadded vertex z extent divides the slab count, else whole
+    (the reference's replicated inputs)."""
+    return z % grid.shape[axis] == 0
 
 
 def _cell_slabs(cell_mask, n_sp: int, devices):
@@ -85,11 +115,17 @@ class DistLatticeMG(LatticeMG):
     than `min_planes_per_dev` vertex planes a slab are replicated.
     `level_specs[li]` is (None, None, axis) for a sharded level and () for
     a replicated one, as the reference's PartitionSpecs read. z_multiple
-    defaults to the slab count, so every level's z extent splits evenly.
+    defaults to the slab count, so every level's z extent splits evenly;
+    where it is 1 (one slab) the levels keep odd z extents, whose
+    transfers are not the slab ones, and every level is replicated.
+
+    `placed`: whether `place` puts a state in slabs (_state_sharding and a
+    sharded fine level).
 
     `calls` counts the sharded operator calls (each launches its kernel on
     every slab), `crossings` the whole fields split into slabs, joined from
-    them, gathered into a replicated level and scattered out of one."""
+    them, gathered into a replicated level and scattered out of one, and
+    the fields placed and brought back whole (place, unplace)."""
 
     def __init__(self, scene: LatticeScene, grid: DeviceGrid,
                  axis: str = "sp", min_planes_per_dev: int = 4, **kw):
@@ -111,7 +147,10 @@ class DistLatticeMG(LatticeMG):
         self._v0 = {}
         for li, lvl in enumerate(self.levels):
             z = lvl.vert_mask.shape[2]
-            sharded = z >= min_planes_per_dev * n_sp and z % n_sp == 0
+            # the slab transfers halve z exactly: an odd-z hierarchy
+            # (z_multiple 1, one slab's default) shards no level
+            sharded = (kw["z_multiple"] > 1 and z % n_sp == 0
+                       and z >= min_planes_per_dev * n_sp)
             self.level_specs.append((None, None, axis) if sharded else ())
             if not sharded:
                 continue
@@ -131,10 +170,49 @@ class DistLatticeMG(LatticeMG):
             self._v0[li] = self.layout.split(
                 (vm * start.reshape(shape)).expand((3,) + shape).contiguous())
         self.calls = {"matvec": 0, "diag": 0, "smooth": 0, "power": 0}
-        self.crossings = {"split": 0, "join": 0, "gather": 0, "scatter": 0}
+        self.crossings = {"split": 0, "join": 0, "gather": 0, "scatter": 0,
+                          "place": 0, "unplace": 0}
+        self.placed = (_state_sharding(grid, axis, scene.vert_mask.shape[2])
+                       and self.sharded(0))
+        self._slab_state = SlabState(self) if self.placed else None
 
     def sharded(self, li: int) -> bool:
         return li in self._cells
+
+    # -- the Newton state ----------------------------------------------------
+    def place(self, a):
+        """A LatState, or positions (X, Y, Z, 3), where the solver keeps
+        them: each field in the fine level's slabs (channel-first, padded)
+        where `placed`, else whole on the scene's device. A placed field
+        stays as it is."""
+        if isinstance(a, LatState):
+            return LatState(*(self.place(f) for f in a))
+        if isinstance(a, SlabField):
+            return a
+        a = a.to(self.home)
+        if not self.placed:
+            return a
+        self.crossings["place"] += 1
+        return self.layout.split(self.pad_cf(a) if a.dim() == 4
+                                 else self.pad(a))
+
+    def unplace(self, a):
+        """A placed LatState or field brought back whole on the scene's
+        device, channel-last on the scene lattice; a whole one as it is."""
+        if isinstance(a, LatState):
+            return LatState(*(self.unplace(f) for f in a))
+        if not isinstance(a, SlabField):
+            return a
+        self.crossings["unplace"] += 1
+        w = a.join(self.home)
+        return self.unpad_cf(w) if w.dim() == 4 else \
+            self.unpad(w).contiguous()
+
+    def state_ops(self, x):
+        """The Newton solvers' operations: SlabState for a placed state."""
+        if isinstance(x, SlabField):
+            return self._slab_state
+        return super().state_ops(x)
 
     # -- whole fields into slabs and back (counted) --------------------------
     def _split(self, a) -> SlabField:
@@ -335,8 +413,87 @@ class DistLatticeMG(LatticeMG):
         return self._join(self._up(li, xc))
 
 
-def _place(st, device):
-    return type(st)(*(a.to(device) for a in st))
+class SlabState:
+    """The Newton solvers' operations on a placed state
+    (sim/lattice_mg.WholeState for a whole one): the scene's fields in the
+    fine level's slabs, split once here, and the residual and energies on
+    the slabs. Each vector field is (s, 3, X, Y, z) a group, each scalar
+    field (s, X, Y, z)."""
+
+    def __init__(self, mg: DistLatticeMG):
+        scene = mg.scene
+        self.scene, self.layout = scene, mg.layout
+        self.x0 = mg.layout.split(mg.pad_cf(scene.x0))
+        self.pin = mg.layout.split(mg.pad(scene.pin_mask))
+        self.pin_pos = mg.layout.split(mg.pad_cf(scene.pin_pos))
+        fl = mg.fields[0]
+        # level 0's mass and vertex mask are the scene's, padded
+        self.mass, self.vmask3 = fl.mass, fl.vert_mask
+        self.cells = mg._cells[0]
+        self.dx = mg.levels[0].dx
+
+    @staticmethod
+    def pad(x):
+        return x
+
+    pad_cf = unpad_cf = pad
+
+    def _elastic(self, x):
+        """The displacement from the scene's rest positions, each slab
+        extended by its ghost planes."""
+        return (x - self.x0).extend()
+
+    def dyn_force(self, x, x_tilde, inv_dt, gravity_scale):
+        """scene.dyn_force on the slabs (no drag, as the multigrid steps
+        take it): lat_force on each extended slab, folded, then the slab's
+        gravity, control and inertia terms, masked."""
+        mat = self.scene.material
+        u = self._elastic(x)
+        f = self.layout.stack([
+            lk.force_cf(ub, cm, self.dx, mat.lame_mu, mat.lame_la)
+            for ub, cm in zip(u.slabs(), self.cells)]).fold()
+
+        def body(f, x, xt, pin, pp, mass, vm):
+            f[:, 1] += mass * mat.gravity * gravity_scale
+            f = f + mat.control_mag * pin[:, None] * (pp - x)
+            f = f - (mass * inv_dt * inv_dt)[:, None] * (x - xt)
+            return f * vm[:, None]
+        return SlabField.apply(body, f, x, x_tilde, self.pin, self.pin_pos,
+                               self.mass, self.vmask3)
+
+    def _energy(self, x, gravity_scale, x_tilde=None, inv_dt=0.0):
+        """scene.total_energy (plus the inertia term where x_tilde is
+        given) on the slabs: lat_energy on each extended slab over its own
+        cells (each cell on one slab) plus the slab's other terms, summed
+        in slab order (one psum)."""
+        mat = self.scene.material
+        u = self._elastic(x)
+        e_el = [lk.elastic_energy_lattice(ub.permute(1, 2, 3, 0).contiguous(),
+                                          cm, self.dx, mat.lame_mu,
+                                          mat.lame_la)
+                for ub, cm in zip(u.slabs(), self.cells)]
+
+        def rest(x, pin, pp, mass, vm, xt):
+            def slab_sum(a):
+                return torch.sum(a.reshape(a.shape[0], -1), 1)
+            vm3 = vm[:, None]
+            e = -slab_sum(mass * mat.gravity * gravity_scale * x[:, 1])
+            d = (x - pp) * vm3
+            e = e + 0.5 * mat.control_mag * slab_sum(pin[:, None] * d * d)
+            if xt is not None:
+                di = (x - xt) * vm3
+                e = e + 0.5 * inv_dt * inv_dt * slab_sum(
+                    mass[:, None] * di * di)
+            return e
+        other = SlabField.apply(rest, x, self.pin, self.pin_pos, self.mass,
+                                self.vmask3, x_tilde).slabs()
+        return dist.psum([a + b for a, b in zip(e_el, other)])
+
+    def total_energy(self, x, gravity_scale):
+        return self._energy(x, gravity_scale)
+
+    def ie_energy(self, x, x_tilde, inv_dt, gravity_scale):
+        return self._energy(x, gravity_scale, x_tilde, inv_dt)
 
 
 def make_dist_mg_step(scene: LatticeScene, grid: DeviceGrid,
@@ -345,8 +502,11 @@ def make_dist_mg_step(scene: LatticeScene, grid: DeviceGrid,
                       dyn: DynamicsConfig = DynamicsConfig(), **mg_kw):
     """The distributed dynamic step: (step, place), step(state) -> (state,
     newton_iters, f_inf) the multigrid-preconditioned implicit-Euler frame
-    (step_to_tol_mg) on a DistLatticeMG, place(state) the state on the
-    scene's device. The hierarchy is `step.mg`."""
+    (step_to_tol_mg) on a DistLatticeMG, the state returned in the
+    placement it was given; place(state) the state where the solver keeps
+    it (DistLatticeMG.place: in slabs where `mg.placed`, else whole on the
+    scene's device). The hierarchy is `step.mg`; `step.unplace(state)`
+    brings a placed state back whole."""
     mg = DistLatticeMG(scene, grid, axis=axis, n_levels=n_levels,
                        dt=dyn.dt, **mg_kw)
 
@@ -354,10 +514,9 @@ def make_dist_mg_step(scene: LatticeScene, grid: DeviceGrid,
         return step_to_tol_mg(scene, mg, st, dyn=dyn, tol=tol,
                               max_newton=max_newton)
 
-    def place(st: LatState) -> LatState:
-        return _place(st, mg.home)
     step.mg = mg
-    return step, place
+    step.unplace = mg.unplace
+    return step, mg.place
 
 
 def make_dist_mg_quasistatic(scene: LatticeScene, grid: DeviceGrid,
@@ -366,7 +525,10 @@ def make_dist_mg_quasistatic(scene: LatticeScene, grid: DeviceGrid,
                              **mg_kw):
     """The distributed quasi-static solve: (solve, place), solve(x) -> (x,
     newton_iters, f_inf) by quasistatic_to_tol_mg on a DistLatticeMG built
-    with dt=None, x (X, Y, Z, 3). The hierarchy is `solve.mg`."""
+    with dt=None, x returned in the placement it was given; place(x) the
+    positions (X, Y, Z, 3) where the solver keeps them (in slabs where
+    `mg.placed`). The hierarchy is `solve.mg`; `solve.unplace(x)` brings
+    placed positions back whole."""
     mg = DistLatticeMG(scene, grid, axis=axis, n_levels=n_levels, dt=None,
                        **mg_kw)
 
@@ -374,7 +536,6 @@ def make_dist_mg_quasistatic(scene: LatticeScene, grid: DeviceGrid,
         return quasistatic_to_tol_mg(scene, mg, x, tol=tol,
                                      max_newton=max_newton)
 
-    def place(x):
-        return x.to(mg.home)
     solve.mg = mg
-    return solve, place
+    solve.unplace = mg.unplace
+    return solve, mg.place

@@ -93,6 +93,19 @@ class SlabField:
         self.layout = layout
         self.parts = parts
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """The first group's device: where reductions land."""
+        return self.parts[0].device
+
+    def zeros_like(self) -> "SlabField":
+        return SlabField(self.layout, [torch.zeros_like(p)
+                                       for p in self.parts])
+
     def slabs(self):
         """Each slab's block, in slab order: views into the group tensors."""
         return [p[i] for p in self.parts for i in range(p.shape[0])]
@@ -147,6 +160,12 @@ class SlabField:
         return dist.psum([torch.sum(a[i] * b[i])
                           for a, b in zip(self.parts, other.parts)
                           for i in range(a.shape[0])])
+
+    def inf_norm(self) -> torch.Tensor:
+        """max |entry| as a 0-d tensor on the first group's device: a pmax
+        of the groups' maxima, bit-equal to the whole field's (NaN
+        propagates)."""
+        return dist.pmax([torch.max(torch.abs(p)) for p in self.parts])
 
     # -- the plane halo -----------------------------------------------------
     def extend(self) -> "SlabField":

@@ -27,8 +27,11 @@ the host and moved to the scene's device.
 
 Layout: the operators, the V-cycle and the outer PCG of the solvers run on
 channel-first fields (3, X, Y, Z) of the padded level grids, as the kernels
-take them; a solver's Newton loop stays channel-last on the scene lattice
-and crosses over once per Newton step (pad_cf / unpad_cf).
+take them; a solver's Newton loop on a whole state stays channel-last on
+the scene lattice and crosses over once per Newton step (pad_cf /
+unpad_cf, `WholeState`). A state placed in z-slabs by the distributed
+multigrid (parallel.lattice_mg_dist) is already channel-first on the
+padded level-0 grid, and its Newton loop runs there (`SlabState`).
 
 Every level, the fine one included, runs the kernels on its own padded
 lattice: the reference's routing of the fine level through the scene and
@@ -90,6 +93,34 @@ class LevelFields(NamedTuple):
     x0_cf: torch.Tensor      # (3, X, Y, Z) the rest grid, channel-first
     restrict_w: torch.Tensor | None  # (X, Y, Z) _restrict_w_cf of the
                              # level above (None on level 0)
+
+
+class WholeState:
+    """How the Newton solvers take a whole state (X, Y, Z, 3) on the scene
+    lattice: padded into the level-0 grid (pad, pad_cf) and back
+    (unpad_cf) once a Newton step, the vertex mask, the scene's residual
+    and energies. parallel.lattice_mg_dist.SlabState is the same for a
+    state placed in z-slabs; LatticeMG.state_ops picks by placement."""
+
+    def __init__(self, scene: LatticeScene, mg: "LatticeMG"):
+        self.scene = scene
+        self.pad, self.pad_cf, self.unpad_cf = mg.pad, mg.pad_cf, mg.unpad_cf
+        self.vmask3 = scene.vert_mask[..., None]
+
+    def dyn_force(self, x, x_tilde, inv_dt, gravity_scale):
+        return self.scene.dyn_force(x, x_tilde, inv_dt,
+                                    gravity_scale=gravity_scale)
+
+    def total_energy(self, x, gravity_scale):
+        return self.scene.total_energy(x, gravity_scale=gravity_scale)
+
+    def ie_energy(self, x, x_tilde, inv_dt, gravity_scale):
+        """The implicit-Euler incremental potential (dyn_force is minus its
+        gradient)."""
+        e = self.scene.total_energy(x, gravity_scale=gravity_scale)
+        di = (x - x_tilde) * self.vmask3
+        return e + 0.5 * inv_dt * inv_dt * torch.sum(
+            self.scene.mass[..., None] * di * di)
 
 
 def _pad_to(a: torch.Tensor, shape) -> torch.Tensor:
@@ -248,6 +279,11 @@ class LatticeMG:
         field where its level's fields live (slabs on a sharded level)."""
         return a
 
+    def state_ops(self, x) -> WholeState:
+        """The Newton solvers' operations on a state whose positions are x: a
+        whole state's here (DistLatticeMG adds the placed state's)."""
+        return WholeState(self.scene, self)
+
     # -- the fine lattice inside the padded level-0 grid ---------------------
     def pad(self, a: torch.Tensor) -> torch.Tensor:
         """A scene-lattice field zero-padded to the level-0 grid."""
@@ -299,7 +335,9 @@ class LatticeMG:
     # -- per-Newton linearization ------------------------------------------
     def linearize(self, x_pad, inv_dt=None, lmax_cache=None):
         """Per-level LevelOps at the fine positions x_pad (X, Y, Z, 3) on
-        the padded level-0 grid, taken channel-first once here. lmax, the
+        the padded level-0 grid, taken channel-first once here (a placed
+        state's positions, channel-first slabs already, as they are). lmax,
+        the
         Chebyshev upper bound for D^-1 A, is a host float32: lmax_cache[li]
         when given, else estimated here by power iteration (one lat_power
         launch a level, every level's bound read back in one device sync).
@@ -310,8 +348,9 @@ class LatticeMG:
         lmaxes = None
         if lmax_cache is None:
             lmaxes = torch.empty((self.n_levels,), dtype=torch.float32,
-                                 device=x_pad.device)
-        x_l = x_pad.permute(3, 0, 1, 2).contiguous()
+                                 device=self.levels[0].vert_mask.device)
+        x_l = (x_pad.permute(3, 0, 1, 2).contiguous() if torch.is_tensor(x_pad)
+               else x_pad)
         for li, fl in enumerate(self.fields):
             x_l = self.constrain(li, x_l)
             vm = fl.vert_mask
@@ -435,7 +474,12 @@ def step_to_tol_mg(scene: LatticeScene, mg: LatticeMG, st: LatState,
     a full step explodes). `dt`/`damping` override the config's and need a
     hierarchy built with dt=None (its levels take inv_dt^2 * mass at solve
     time). Returns (state, k, fn), plus the PCG matvec total with
-    return_cg=True."""
+    return_cg=True.
+
+    A state placed in z-slabs (parallel.lattice_mg_dist: `place` of
+    make_dist_mg_step) is stepped in its slabs, the predictor, residual,
+    outer PCG, Newton and velocity updates and the rescue's energy
+    included, and returned placed."""
     if dt is not None and mg.build_dt is not None:
         raise ValueError("dt override needs LatticeMG(..., dt=None): the "
                          "hierarchy's baked ctrl already holds a mass/dt^2 "
@@ -444,21 +488,18 @@ def step_to_tol_mg(scene: LatticeScene, mg: LatticeMG, st: LatState,
     damping = dyn.damping if damping is None else damping
     inv_dt = 1.0 / dt
     lin_inv_dt = inv_dt if mg.build_dt is None else None
+    so = mg.state_ops(st.x)
     x_old = st.x
     v = st.v * damping
     x = st.x + v * dt
     x_tilde = x
-    vmask3 = scene.vert_mask[..., None]
+    vmask3 = so.vmask3
 
     def resid(xx):
-        return scene.dyn_force(xx, x_tilde, inv_dt,
-                               gravity_scale=gravity_scale)
+        return so.dyn_force(xx, x_tilde, inv_dt, gravity_scale)
 
     def ie_energy(xe):
-        e = scene.total_energy(xe, gravity_scale=gravity_scale)
-        di = (xe - x_tilde) * vmask3
-        return e + 0.5 * inv_dt * inv_dt * torch.sum(
-            scene.mass[..., None] * di * di)
+        return so.ie_energy(xe, x_tilde, inv_dt, gravity_scale)
 
     tol32 = np.float32(tol)
     cond = cgmod.newton_cond(tol, max_newton)
@@ -466,13 +507,13 @@ def step_to_tol_mg(scene: LatticeScene, mg: LatticeMG, st: LatState,
     fmin, k, cg_tot, lmaxes = fn, 0, 0, None
     while cond((x, k, fn, fmin)):
         f = resid(x)
-        ops, lmaxes = mg.newton_ops(mg.pad(x), lin_inv_dt, lmaxes)
+        ops, lmaxes = mg.newton_ops(so.pad(x), lin_inv_dt, lmaxes)
         dx, cg_k = cgmod.pcg_operator(
-            ops[0].matvec, lambda r: mg.vcycle(ops, r), mg.pad_cf(f),
+            ops[0].matvec, lambda r: mg.vcycle(ops, r), so.pad_cf(f),
             iterations=cg_iterations, tol=cg_tol,
             flexible=mg.coarse_cg > 0, return_iters=True)
         cg_tot += cg_k - 1
-        dx = mg.unpad_cf(dx)
+        dx = so.unpad_cf(dx)
         x_full = x + dx * vmask3
         fn_full = host_inf_norm(resid(x_full))
         with np.errstate(over="ignore"):
@@ -496,8 +537,9 @@ def frame_adaptive_mg(scene: LatticeScene, mg: LatticeMG, st: LatState,
                       cg_iterations: int = 30, cg_tol: float = 1e-2,
                       max_halvings: int = 3, gravity_scale=1.0):
     """step_to_tol_mg with adaptive time substepping (the protocol of
-    lattice.frame_adaptive); needs a hierarchy built with dt=None. Returns
-    (state, max Newton, worst substep exit norm, n_substeps)."""
+    lattice.frame_adaptive); needs a hierarchy built with dt=None. A placed
+    state is stepped and returned placed. Returns (state, max Newton, worst
+    substep exit norm, n_substeps)."""
     if mg.build_dt is not None:
         raise ValueError("frame_adaptive_mg needs LatticeMG(..., dt=None)")
 
@@ -583,7 +625,13 @@ def quasistatic_fmg(scene: LatticeScene, mg: LatticeMG, tol: float = 1e-4,
     V-cycle). Middle levels get mid_max_newton: their output is only a
     start. Returns (x, k_total, fn), k_total summing every level's Newton
     iterations; return_stats=True appends the per-level counts, coarsest
-    first."""
+    first.
+
+    Every level solve, the fine corrector included, runs on whole fields,
+    also on a DistLatticeMG: `_solve_level_quasistatic`'s PCG stays
+    channel-last (its dots summed channel-first move the cantilever's
+    result, see there), and the fine solve starts from the prolonged
+    whole x."""
     if fine_solver not in ("mg", "jacobi"):
         raise ValueError(f"fine_solver {fine_solver!r}: 'mg' or 'jacobi'")
     ks = []
@@ -642,11 +690,15 @@ def quasistatic_to_tol_mg(scene: LatticeScene, mg: LatticeMG, x,
     PCG counts about flat. The Chebyshev bounds are estimated once per
     stage (at its first linearization) and reused by its later Newton
     iterations. load_steps, cg_forcing, return_trace and return_cg as in
-    lattice.quasistatic_to_tol. Returns (x, newton_iters, f_inf)."""
-    vmask3 = scene.vert_mask[..., None]
+    lattice.quasistatic_to_tol. Returns (x, newton_iters, f_inf). An x
+    placed in z-slabs (parallel.lattice_mg_dist: `place` of
+    make_dist_mg_quasistatic) is solved in its slabs, every load stage
+    included, and returned placed."""
+    so = mg.state_ops(x)
+    vmask3 = so.vmask3
 
     def resid(xx, gs):
-        return scene.dyn_force(xx, xx, 0.0, gravity_scale=gs)
+        return so.dyn_force(xx, xx, 0.0, gs)
 
     def solve_at(x0, gs):
         def resid_inf(xe):
@@ -656,18 +708,17 @@ def quasistatic_to_tol_mg(scene: LatticeScene, mg: LatticeMG, x,
         fmin, eta, cg_tot, lmaxes = fn, np.float32(0.5), 0, None
         while cond((xx, k, fn, fmin)):
             f = resid(xx, gs)
-            ops, lmaxes = mg.newton_ops(mg.pad(xx), None, lmaxes)
+            ops, lmaxes = mg.newton_ops(so.pad(xx), None, lmaxes)
             tol_rr = eta * eta if cg_forcing == "ew" else cg_tol
             dx, cg_k = cgmod.pcg_operator(
-                ops[0].matvec, lambda r: mg.vcycle(ops, r), mg.pad_cf(f),
+                ops[0].matvec, lambda r: mg.vcycle(ops, r), so.pad_cf(f),
                 iterations=cg_iterations, tol=tol_rr,
                 flexible=mg.coarse_cg > 0, return_iters=True)
             cg_tot += cg_k - 1
             fn_prev = fn
             xx, fn = newton_update(
-                xx, f, mg.unpad_cf(dx), vmask3, fn_prev,
-                lambda xe: scene.total_energy(xe, gravity_scale=gs),
-                resid_inf, line_search)
+                xx, f, so.unpad_cf(dx), vmask3, fn_prev,
+                lambda xe: so.total_energy(xe, gs), resid_inf, line_search)
             if cg_forcing == "ew":
                 eta = cgmod.ew_eta(fn, fn_prev)
             k += 1

@@ -144,9 +144,13 @@ def pcg_operator(matvec, minv, b, iterations: int = 50, tol: float = 1e-5,
 
     flexible=True takes the Polak-Ribiere beta z_new.(r_new - r_old) / rz,
     which a non-stationary minv needs (a V-cycle whose coarsest level is
-    itself a CG solve, LatticeMG coarse_cg > 0)."""
+    itself a CG solve, LatticeMG coarse_cg > 0).
+
+    b may be a field in z-slabs (parallel.slab_field.SlabField, the
+    distributed multigrid's placed state): the vectors then stay in slabs
+    and every dot product is a psum of the slabs' partials (ell.vdot)."""
     b, scale_back, _ = _normalize_rhs(b)
-    x = torch.zeros_like(b)
+    x = torch.zeros_like(b) if torch.is_tensor(b) else b.zeros_like()
     r = b
     z = minv(r)
     p = z

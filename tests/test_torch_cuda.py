@@ -12,12 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from fem_simulation_tpu_torch import hierarchy as thl
 from fem_simulation_tpu_torch import mesh as meshlib
 from fem_simulation_tpu_torch.config import (ClothConfig, SolverConfig,
                                              TrainInterpConfig)
 from fem_simulation_tpu_torch.ops import _cuda, ell
 from fem_simulation_tpu_torch.ops import ell_kernels as ek
 from fem_simulation_tpu_torch.ops import lattice_kernels as lk
+from fem_simulation_tpu_torch.ops import stencil as tstencil
 from fem_simulation_tpu_torch.models import train_interp as tti
 from fem_simulation_tpu_torch.parallel import dist as tdist
 from fem_simulation_tpu_torch.parallel import halo as thalo
@@ -1492,6 +1494,14 @@ def _dist_newton(m, **kw):
     return thalo.slab_scatter(part, sc.x0, grid.line("sp"))[0]
 
 
+def _stencil_values(m, **kw):
+    # the values come from the host, as the hierarchy hands them over
+    lvl = thl.build_level_topology(m.x, m.ijk, m.hexes, m.dx)
+    vals = np.zeros((lvl.n_verts, lvl.K, 3, 3), np.float32)
+    return tstencil.values_to_lattice(vals, lvl.nbr, lvl.nbr_mask, lvl,
+                                      tstencil.build_lattice_map(lvl), **kw)
+
+
 def _batched(m, **kw):
     sc = tscene.Scene(m, solver=SolverConfig(n_levels=2), **kw)
     grid = tdist.make_device_mesh(2, **kw)
@@ -1516,6 +1526,7 @@ _ENTRY_POINTS.update({
     "make_dist_step": _dist_step,
     "make_dist_newton_step": _dist_newton,
     "make_batched_step": _batched,
+    "stencil.values_to_lattice": _stencil_values,
 })
 
 

@@ -159,6 +159,44 @@ def test_dist_mg_step_matches_jax_and_whole(jax_ref, scene):
     np.testing.assert_allclose(st.x.numpy(), st1.x.numpy(), atol=1e-4)
 
 
+@pytest.mark.parametrize("entry", ("step", "quasistatic"))
+def test_undivided_z_stays_whole_and_matches_jax(jax_ref, scene, entry):
+    """Z = 25 vertex planes divide no slab count: place keeps the input
+    whole on the scene's device (the reference's replicated inputs), the
+    step and the solve run the whole-state code (WholeState; no place or
+    unplace crossing) and return whole fields, held to JAX's make_dist_mg_*
+    with its replicated state on the same input."""
+    grid = make_device_mesh(4, dp=1, device="cpu")
+    assert not mgd._state_sharding(grid, "sp", scene.vert_mask.shape[2])
+    if entry == "step":
+        run, place = mgd.make_dist_mg_step(scene, grid, n_levels=2)
+        given = scene.init_state()
+    else:
+        run, place = mgd.make_dist_mg_quasistatic(scene, grid, n_levels=3)
+        given = scene.x0
+    mg = run.mg
+    assert not mg.placed
+    placed = place(given)
+    if entry == "step":
+        assert all(a is b for a, b in zip(placed, given))
+        x_in = placed.x
+    else:
+        assert placed is given
+        x_in = placed
+    assert isinstance(mg.state_ops(x_in), tmg.WholeState)
+    out, k, fn = run(placed)
+    x = out.x if entry == "step" else out
+    assert torch.is_tensor(x) and x.shape == scene.x0.shape
+    assert mg.crossings["place"] == mg.crossings["unplace"] == 0
+    back = run.unplace(out)
+    assert (all(a is b for a, b in zip(back, out)) if entry == "step"
+            else back is out)
+    ref = jax_ref[entry]
+    assert fn <= 1e-4 and k == ref["k"]
+    assert_fn_close(fn, ref["f"])
+    np.testing.assert_allclose(x.numpy(), ref["x"], atol=1e-4)
+
+
 @pytest.mark.parametrize("D", (2, 4))
 def test_sharded_transfers_equal_whole_level(scene, D):
     """The slab restriction is the whole-level one bit for bit; the slab
@@ -270,7 +308,7 @@ def test_dist_mg_fields_stay_in_slabs(scene, D):
     r = torch.from_numpy(rng.normal(size=(3,) + mg.pad_shape)
                          .astype(np.float32))
     want = dict(split=1, join=1, gather=len(replicated),
-                scatter=len(replicated))
+                scatter=len(replicated), place=0, unplace=0)
     for nu, sweeps in ((1, 12), (3, 4)):
         mg.nu, mg.coarse_sweeps = nu, sweeps
         before = dict(mg.crossings)
