@@ -825,12 +825,11 @@ def phase2(scenes):
             f"(host clock {wall:.3f})  newton_mean {ks.mean():.3f} "
             f"newton_max {ks.max()}  cg_total {sum(cgs)}  "
             f"fn_max {fns.max():.3e}")
-    info = {}
+    tlat.reset_counts()
     st = kicked(kick_scene, kick_scene.init_state())
     kick_ks = []
     for i in range(6):
-        st, k, fn = tlat.step_to_tol(kick_scene, st, tol=TOL, max_newton=25,
-                                     info=info)
+        st, k, fn = tlat.step_to_tol(kick_scene, st, tol=TOL, max_newton=25)
         check(bool(torch.isfinite(st.x).all() & torch.isfinite(st.v).all()),
               f"kick frame {i} not finite")
         kick_ks.append(k)
@@ -838,16 +837,17 @@ def phase2(scenes):
     counts = dict(lk.launches)
     newton_total += sum(kick_ks)
     frames_total += len(kick_ks)
-    log(f"phase2 kick 2k newton {kick_ks} rescues {info.get('rescues', 0)}")
+    rescues = tlat.counts["rescues"]
+    log(f"phase2 kick 2k newton {kick_ks} rescues {rescues}")
     log(f"phase2 launches {counts}")
-    check(info.get("rescues", 0) >= 1, "the kick took no rescue step")
+    check(rescues >= 1, "the kick took no rescue step")
     check(counts["fused_newton"] == newton_total,
           f"fused_newton launches {counts['fused_newton']} != Newton "
           f"iterations {newton_total}")
     check(counts["force"] >= frames_total,
           f"force launches {counts['force']} < frames {frames_total}")
     check(counts["energy"] > 0, "the energy kernel never ran")
-    return results, counts, info.get("rescues", 0)
+    return results, counts, rescues
 
 
 # -- phase 3 -----------------------------------------------------------------

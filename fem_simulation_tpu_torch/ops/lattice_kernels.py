@@ -23,7 +23,8 @@ listed cells only (ops/stencil.py's `cells`).
 Dispatch: a wrapper runs its plain version (`*_plain`) only when its tensors
 lie on the CPU. For CUDA tensors it launches the kernel or raises; it never
 falls back. Every wrapper adds one to `launches[name]` where it launches its
-kernel, and nowhere else. No kernel here has a backward: a wrapper raises
+kernel, and nowhere else. `fused_newton` also sums each call's PCG count on
+the call's device, without a sync (`pcg`, read by `pcg_matvecs`). No kernel here has a backward: a wrapper raises
 when autograd records and one of its inputs requires grad, on either
 device, rather than return an output with no grad_fn.
 """
@@ -144,6 +145,7 @@ def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
     level_launches.clear()
+    pcg.clear()
 
 
 def _vertex_grid(x: torch.Tensor, cell_mask: torch.Tensor,
@@ -969,6 +971,24 @@ def _workspace(lib, X, Y, Z, device, stream: int):
                           X * Y * Z)
 
 
+# the fused_newton calls' PCG counts by device: {device: (the sum of their k,
+# a 0-d int64 tensor on the device; the calls)}. Each call stores a new
+# tensor, one device op and no sync, so a reference kept reads the sum as it
+# stood then.
+pcg: dict = {}
+
+
+def _count_pcg(k: torch.Tensor) -> None:
+    total, calls = pcg.get(k.device, (None, 0))
+    pcg[k.device] = (k.long() if total is None else total + k, calls + 1)
+
+
+def pcg_matvecs() -> int:
+    """The PCG matvecs of the fused_newton calls counted in `pcg` (k - 1 a
+    call), summed over the devices: one sync a device."""
+    return sum(int(total.item()) - calls for total, calls in pcg.values())
+
+
 def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
                  mu: float, la: float, iterations: int = 50, tol=1e-5,
                  cover=None):
@@ -983,12 +1003,14 @@ def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
     walk its active tiles only, under newton_tiling's plan over it, with
     the cover's own zeroed scratch; counted as "fused_newton_cover".
     Returns (dx_cf, f_cf, fn_full, k) with fn_full a 0-d float32 and k a
-    0-d int32 tensor (matvecs executed = k - 1)."""
+    0-d int32 tensor (matvecs executed = k - 1), which is added to `pcg`."""
     _cuda.refuse_grad("lattice_kernels.fused_newton",
                       u_cf, s_cf, cell_mask, ctrl, rc, vert_mask)
     if _cuda.on_cpu(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask):
-        return fused_newton_plain(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask,
-                                  dx, mu, la, iterations, tol, cover)
+        out = fused_newton_plain(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask,
+                                 dx, mu, la, iterations, tol, cover)
+        _count_pcg(out[3])
+        return out
     X, Y, Z = _vertex_grid(u_cf, cell_mask)
     _cuda.require(s_cf, u_cf.shape, "s_cf")
     for name, t in (("ctrl", ctrl), ("rc", rc), ("vert_mask", vert_mask)):
@@ -1019,6 +1041,7 @@ def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
                                    int(iterations), tail[-1])
     launches["fused_newton" if cover is None else "fused_newton_cover"] += 1
     _cuda.check(err, "lat_fused_newton")
+    _count_pcg(k)
     return dxc, fc, fn, k
 
 

@@ -10,9 +10,17 @@ its plain torch composition for CPU tensors.
 
 The Newton, Armijo, substepping and load-continuation loops run on the
 host. Each Newton iteration reads the trial residual norm back (one device
-sync); a solve reads its initial residual and its PCG total once more.
-Host-side scalar tests are made in float32, as the reference makes them on
-device scalars.
+sync); a solve reads its initial residual once more. Host-side scalar tests
+are made in float32, as the reference makes them on device scalars.
+
+Every blocking device-to-host read goes through `readback`. `counts` holds
+the frames, the fused Newton iterations, the reads and the rescues, always
+on (`reset_counts`). While tracing is on (`utils/profiling.py`), a frame is
+the span `lattice.frame` (its request id the frame's number in `counts`),
+with `lattice.setup` (the predictor and the frame-constant fields),
+`lattice.newton` (an iteration), `lattice.rescue` (the Armijo rescue) and
+`lattice.readback` (a read) inside it; a scene's build is the span
+`lattice.scene`, recorded always.
 
 Low-fill meshes (shells, thin plates, multi-part scenes) take the cover of
 `ops/boxes.py`, the counterpart of the reference's box cover: when the
@@ -38,6 +46,25 @@ from ..ops import boxes as boxlib
 from ..ops import ell, stencil
 from ..ops import lattice_kernels as lk
 from ..solvers import cg as cgmod
+from ..utils import profiling
+
+# frames: step_to_tol calls; newton: fused_newton iterations of step_to_tol
+# and quasistatic_to_tol; syncs: blocking reads through readback; rescues:
+# the Armijo rescues of step_to_tol
+counts = {"frames": 0, "newton": 0, "syncs": 0, "rescues": 0}
+
+
+def reset_counts() -> None:
+    for name in counts:
+        counts[name] = 0
+
+
+def readback(t: torch.Tensor):
+    """t.item(): a blocking device-to-host read, counted in counts["syncs"]
+    and traced as the span lattice.readback."""
+    counts["syncs"] += 1
+    with profiling.span("lattice.readback"):
+        return t.item()
 
 
 class LatState(NamedTuple):
@@ -63,6 +90,11 @@ class LatticeScene:
         self.mesh = mesh
         self.material = material
         self.device = device_or_cuda(device)
+        with profiling.span("lattice.scene", always=True):
+            self._build(mesh, material, pins, use_boxes, box_threshold)
+
+    def _build(self, mesh, material, pins, use_boxes, box_threshold):
+        """The lattice map, the fields on the device and the cover."""
         lvl = hl.build_level_topology(mesh.x, mesh.ijk, mesh.hexes, mesh.dx)
         self.lvl = lvl
         self.shape, lat, _, self.fill = stencil.build_lattice_map(lvl)
@@ -186,7 +218,7 @@ def step_to_tol(scene: LatticeScene, st: LatState,
                 tol: float = 1e-4, max_newton: int = 20,
                 cg_iterations: int = 60, cg_tol: float = 1e-2,
                 dt=None, damping=None, gravity_scale=1.0,
-                return_cg: bool = False, info: dict | None = None):
+                return_cg: bool = False):
     """One frame: predictor + Newton with block-Jacobi PCG to ||f||_inf <= tol.
 
     Every Newton iteration is one `fused_newton` call. A full step that
@@ -194,87 +226,100 @@ def step_to_tol(scene: LatticeScene, st: LatState,
     backtrack on the incremental potential (the blowup rescue).
 
     Returns (state, newton iterations, exit norm), plus the frame's total
-    PCG matvec count with return_cg=True. When `info` is given, its
-    "rescues" entry counts the rescue steps taken.
+    PCG matvec count with return_cg=True. The frame, its iterations, its
+    reads and its rescues are counted in `counts`.
     """
-    dt = dyn.dt if dt is None else dt
-    damping = dyn.damping if damping is None else damping
-    inv_dt = 1.0 / dt
-    mat = scene.material
-    x_old = st.x
-    v = st.v * damping
-    x = st.x + v * dt
-    x_tilde = x
+    counts["frames"] += 1
+    with profiling.span("lattice.frame", request=counts["frames"]):
+        with profiling.span("lattice.setup"):
+            dt = dyn.dt if dt is None else dt
+            damping = dyn.damping if damping is None else damping
+            inv_dt = 1.0 / dt
+            mat = scene.material
+            x_old = st.x
+            v = st.v * damping
+            x = st.x + v * dt
+            x_tilde = x
 
-    def resid(xx):
-        return scene.dyn_force(xx, x_tilde, inv_dt, drag_mask=st.drag_mask,
-                               drag_pos=st.drag_pos,
-                               gravity_scale=gravity_scale)
+            def resid(xx):
+                return scene.dyn_force(xx, x_tilde, inv_dt,
+                                       drag_mask=st.drag_mask,
+                                       drag_pos=st.drag_pos,
+                                       gravity_scale=gravity_scale)
 
-    ctrl = (mat.control_mag * torch.maximum(scene.pin_mask, st.drag_mask)
-            + scene.mass * inv_dt * inv_dt
-            # empty lattice rows get identity so the 3x3 solve is benign
-            + (1.0 - scene.vert_mask))
-    vmask3 = scene.vert_mask[..., None]
+            ctrl = (mat.control_mag * torch.maximum(scene.pin_mask,
+                                                    st.drag_mask)
+                    + scene.mass * inv_dt * inv_dt
+                    # empty lattice rows get identity so the 3x3 solve is
+                    # benign
+                    + (1.0 - scene.vert_mask))
+            vmask3 = scene.vert_mask[..., None]
 
-    def ie_energy(xe):
-        """Implicit-Euler incremental potential (resid == -grad of this)."""
-        e = scene.total_energy(xe, gravity_scale=gravity_scale)
-        dd = (xe - st.drag_pos) * vmask3
-        e = e + 0.5 * mat.control_mag * torch.sum(
-            st.drag_mask[..., None] * dd * dd)
-        di = (xe - x_tilde) * vmask3
-        return e + 0.5 * inv_dt * inv_dt * torch.sum(
-            scene.mass[..., None] * di * di)
+            def ie_energy(xe):
+                """Implicit-Euler incremental potential (resid == -grad of
+                this)."""
+                e = scene.total_energy(xe, gravity_scale=gravity_scale)
+                dd = (xe - st.drag_pos) * vmask3
+                e = e + 0.5 * mat.control_mag * torch.sum(
+                    st.drag_mask[..., None] * dd * dd)
+                di = (xe - x_tilde) * vmask3
+                return e + 0.5 * inv_dt * inv_dt * torch.sum(
+                    scene.mass[..., None] * di * di)
 
-    # frame-constant affine residual: f(x) = f_el(u) + s - rc*u, u = x - x0;
-    # rc is the exact SUM of penalty/inertia coefficients, distinct from
-    # ctrl's max(pin, drag) Hessian shift
-    rc = (mat.control_mag * (scene.pin_mask + st.drag_mask)
-          + scene.mass * inv_dt * inv_dt)
-    s_aff = (mat.control_mag * (scene.pin_mask[..., None] * scene.pin_pos
-                                + st.drag_mask[..., None] * st.drag_pos)
-             + (scene.mass * inv_dt * inv_dt)[..., None] * x_tilde)
-    s_aff[..., 1] += scene.mass * mat.gravity * gravity_scale
-    s_cf = (s_aff - rc[..., None] * scene.x0).permute(3, 0, 1, 2).contiguous()
+            # frame-constant affine residual: f(x) = f_el(u) + s - rc*u,
+            # u = x - x0; rc is the exact SUM of penalty/inertia
+            # coefficients, distinct from ctrl's max(pin, drag) Hessian shift
+            rc = (mat.control_mag * (scene.pin_mask + st.drag_mask)
+                  + scene.mass * inv_dt * inv_dt)
+            s_aff = (mat.control_mag
+                     * (scene.pin_mask[..., None] * scene.pin_pos
+                        + st.drag_mask[..., None] * st.drag_pos)
+                     + (scene.mass * inv_dt * inv_dt)[..., None] * x_tilde)
+            s_aff[..., 1] += scene.mass * mat.gravity * gravity_scale
+            s_cf = (s_aff - rc[..., None] * scene.x0).permute(
+                3, 0, 1, 2).contiguous()
 
-    tol32 = np.float32(tol)
-    cond = cgmod.newton_cond(tol, max_newton)
-    fn = np.float32(ell.inf_norm(resid(x)).item())
-    fmin = fn
-    k = 0
-    cg_tot = torch.zeros((), dtype=torch.int32, device=scene.device)
-    rescues = 0
-    while cond((x, k, fn, fmin)):
-        dx_cf, f_cf, fn_full, cg_k = lk.fused_newton(
-            (x - scene.x0).permute(3, 0, 1, 2).contiguous(), s_cf,
-            scene.cell_mask, ctrl, rc, scene.vert_mask, scene.mesh.dx,
-            mat.lame_mu, mat.lame_la, iterations=cg_iterations, tol=cg_tol,
-            cover=scene.cover)
-        # pcg's iteration count starts at 1: matvecs executed = cg_k - 1
-        cg_tot = cg_tot + cg_k - 1
-        dx = dx_cf.permute(1, 2, 3, 0)
-        fn_full = np.float32(fn_full.item())
-        with np.errstate(over="ignore"):
-            bad = (not np.isfinite(fn_full)
-                   or fn_full > np.float32(30.0) * max(fn, tol32))
-        if bad:
-            # Rescue: a full step on a fast-swinging StVK body can blow up;
-            # Armijo on the incremental potential guarantees descent.
-            f = f_cf.permute(1, 2, 3, 0)
-            x = armijo_step(ie_energy, x, f, dx, vmask3)
-            fn = np.float32(ell.inf_norm(resid(x)).item())
-            rescues += 1
-        else:
-            x = x + dx * vmask3
-            fn = fn_full
-        k += 1
-        fmin = np.minimum(fmin, fn)
-    v = (x - x_old) * inv_dt
-    if info is not None:
-        info["rescues"] = info.get("rescues", 0) + rescues
-    out = st._replace(x=x, v=v), k, cgmod.newton_exit_norm(fn, fmin)
-    return out + (int(cg_tot.item()),) if return_cg else out
+        tol32 = np.float32(tol)
+        cond = cgmod.newton_cond(tol, max_newton)
+        fn = host_inf_norm(resid(x))
+        fmin = fn
+        k = 0
+        cg_tot = (torch.zeros((), dtype=torch.int32, device=scene.device)
+                  if return_cg else None)
+        while cond((x, k, fn, fmin)):
+            counts["newton"] += 1
+            with profiling.span("lattice.newton"):
+                dx_cf, f_cf, fn_full, cg_k = lk.fused_newton(
+                    (x - scene.x0).permute(3, 0, 1, 2).contiguous(), s_cf,
+                    scene.cell_mask, ctrl, rc, scene.vert_mask,
+                    scene.mesh.dx, mat.lame_mu, mat.lame_la,
+                    iterations=cg_iterations, tol=cg_tol, cover=scene.cover)
+                if return_cg:
+                    # pcg's iteration count starts at 1: matvecs executed =
+                    # cg_k - 1
+                    cg_tot = cg_tot + cg_k - 1
+                dx = dx_cf.permute(1, 2, 3, 0)
+                fn_full = np.float32(readback(fn_full))
+                with np.errstate(over="ignore"):
+                    bad = (not np.isfinite(fn_full)
+                           or fn_full > np.float32(30.0) * max(fn, tol32))
+                if bad:
+                    # Rescue: a full step on a fast-swinging StVK body can
+                    # blow up; Armijo on the incremental potential
+                    # guarantees descent.
+                    counts["rescues"] += 1
+                    with profiling.span("lattice.rescue"):
+                        f = f_cf.permute(1, 2, 3, 0)
+                        x = armijo_step(ie_energy, x, f, dx, vmask3)
+                        fn = host_inf_norm(resid(x))
+                else:
+                    x = x + dx * vmask3
+                    fn = fn_full
+                k += 1
+                fmin = np.minimum(fmin, fn)
+        v = (x - x_old) * inv_dt
+        out = st._replace(x=x, v=v), k, cgmod.newton_exit_norm(fn, fmin)
+        return out + (int(readback(cg_tot)),) if return_cg else out
 
 
 def adaptive_frame(step, st: LatState, dyn: DynamicsConfig, tol: float,
@@ -330,7 +375,7 @@ def armijo_step(energy_fn, xx, f, dx, vmask3, n_back: int = 16,
     direction is not a descent direction."""
     d = dx * vmask3
     gTd = -ell.vdot(f, d)
-    if bool(gTd >= 0.0):
+    if readback(gTd >= 0.0):
         d = f
         gTd = -ell.vdot(f, f)
     e0 = energy_fn(xx)
@@ -339,7 +384,7 @@ def armijo_step(energy_fn, xx, f, dx, vmask3, n_back: int = 16,
     k = 0
     while not done and k < n_back:
         e1 = energy_fn(xx + t * d)
-        done = bool(e1 <= e0 + c1 * t * gTd)
+        done = readback(e1 <= e0 + c1 * t * gTd)
         if not done:
             t = t * 0.5
         k += 1
@@ -393,7 +438,7 @@ class LatticeDynamicSim:
 
 def host_inf_norm(t: torch.Tensor) -> np.float32:
     """max |t| read back to the host as a float32 (one device sync)."""
-    return np.float32(ell.inf_norm(t).item())
+    return np.float32(readback(ell.inf_norm(t)))
 
 
 def newton_update(xx, f, dx, vmask3, fn_prev, energy_fn, resid_inf,
@@ -531,28 +576,31 @@ def quasistatic_to_tol(scene: LatticeScene, x, tol: float = 1e-4,
         cond = cgmod.newton_cond(tol, max_newton)
         xx, k, fn = x0, 0, resid_inf(x0, gs)
         fmin, eta = fn, np.float32(0.5)
-        cg_tot = torch.zeros((), dtype=torch.int32, device=scene.device)
+        cg_tot = (torch.zeros((), dtype=torch.int32, device=scene.device)
+                  if return_cg else None)
         while cond((xx, k, fn, fmin)):
+            counts["newton"] += 1
             tol_rr = eta * eta if cg_forcing == "ew" else cg_tol
             dx_cf, f_cf, fn_full, cg_k = lk.fused_newton(
                 (xx - scene.x0).permute(3, 0, 1, 2).contiguous(), s_cf,
                 scene.cell_mask, ctrl, rc, scene.vert_mask, scene.mesh.dx,
                 mat.lame_mu, mat.lame_la, iterations=cg_iterations,
                 tol=tol_rr, cover=scene.cover)
-            cg_tot = cg_tot + cg_k - 1
+            if return_cg:
+                cg_tot = cg_tot + cg_k - 1
             fn_prev = fn
             xx, fn = newton_update(
                 xx, f_cf.permute(1, 2, 3, 0), dx_cf.permute(1, 2, 3, 0),
                 vmask3, fn_prev,
                 lambda xe: scene.total_energy(xe, gravity_scale=gs),
                 lambda xe: resid_inf(xe, gs), line_search,
-                fn_full=fn_full.item())
+                fn_full=readback(fn_full))
             if cg_forcing == "ew":
                 eta = cgmod.ew_eta(fn, fn_prev)
             k += 1
             fmin = np.minimum(fmin, fn)
         out = xx, k, cgmod.newton_exit_norm(fn, fmin)
-        return out + (int(cg_tot.item()),) if return_cg else out
+        return out + (int(readback(cg_tot)),) if return_cg else out
 
     if return_cg:
         if load_steps != 1 or return_trace:
