@@ -93,7 +93,13 @@
 //   cover never writes (inactive tiles' vertices of the outputs) the kernel
 //   zeroes; what it never writes in scratch (partial sums of inactive
 //   exchange tiles, the cells the two passes skip) is the cover's own
-//   zeroed workspace. Bound: as the dense kernels, over the real cells.
+//   zeroed workspace. Under a cover the fused Newton kernel's PCG update
+//   phase also walks only the vertices with vm != 0 (the body's), each
+//   thread its own grid-stride vertices in the same order: at the others
+//   every field is +-0 by construction, so with finite inputs the skipped
+//   work would add +-0 to the dots and rewrite zeros, and dx, f, fn and k
+//   keep their bits (the set-up phase still walks every vertex; see `walk`
+//   in fused_newton_kernel). Bound: as the dense kernels, over the real cells.
 //
 // No --use_fast_math: the build keeps IEEE division and square root.
 #include <cooperative_groups.h>
@@ -802,6 +808,10 @@ __device__ __forceinline__ void tile_partial(float& acc, float* tpart, int t,
 // kPcg = false: one Newton iteration (_make_newton_kernel).
 // kPcg = true: the PCG solve alone on the right-hand side s
 // (_make_pcg_kernel): no residual phase, no trial phase.
+// Under a cover (P.T.tiles) the cell passes walk the active tiles and, in
+// the Newton form, the PCG update phase the vertices with vm != 0 (see
+// `walk`), with the bits of the walk over every tile and vertex under the
+// same tiling and grid (finite inputs).
 template <bool kPcg>
 __global__ void __launch_bounds__(kFusedThreads, 1)
 fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
@@ -895,6 +905,29 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
             a_rr += r[c] * r[c];
         }
     }
+    // Under a cover the Newton form's PCG updates walk the body's vertices
+    // only: bit j of `walk` is clear where this thread's j-th vertex (t0 +
+    // j gstride) has vm = 0, and a thread walks every vertex past its 32nd
+    // (all ones without a cover, and in the PCG form, whose b = s is not
+    // masked by vm). At a vertex with vm = 0 the phase above leaves r and z
+    // +-0 (b is f = (...) vm there, z is masked by vm) and xacc +0, and the
+    // HVP's vertex pass writes ap = (...) vm = +-0 and p = +-0, so an update
+    // there would add +-0 to xacc and to the thread's dots and write +-0 to
+    // r and z. A float sum that starts at +0 is never -0, so adding +-0
+    // leaves it as it was: skipping the vertex leaves every dot, every
+    // branch, xacc, dx, f, fn and k with the same bits as walking it. Only
+    // the signs of the zeros left in r and z may differ, and they reach no
+    // output: p stays +-0 there, the cell chains (products and sums) give
+    // the same nonzero values from either zero, and every vertex sum starts
+    // at +0. That holds for finite inputs: a NaN off the body (NaN times vm
+    // = 0 is NaN) that would stop the walk over every vertex through
+    // isfinite(rr) is skipped here. This phase keeps walking every vertex,
+    // so nothing an earlier call left in the cover's scratch reaches a
+    // skipped one.
+    unsigned walk = ~0u;
+    if (!kPcg && P.T.tiles)
+        for (int v = t0, j = 0; v < N && j < 32; v += gstride, ++j)
+            if (P.vm[v] == 0.f) walk &= ~(1u << j);
     block_sum2(a_rz, a_rr, sh);
     if (threadIdx.x == 0) {
         part_rz0[blockIdx.x] = a_rz;
@@ -940,7 +973,9 @@ fused_newton_kernel(const __grid_constant__ NewtonArgs P) {
         const float alpha = ok ? rz / pap : 0.f;
         a_rz = 0.f;
         a_rr = 0.f;
-        for (int v = t0; v < N; v += gstride) {
+        // under a cover, the body's vertices only (see `walk`)
+        for (int v = t0, j = 0; v < N; v += gstride, ++j) {
+            if (j < 32 && !((walk >> j) & 1u)) continue;
             const float vm = P.vm[v];
             float r[3], z[3];
 #pragma unroll

@@ -17,7 +17,8 @@ the host from the static cell mask:
 * for a tiling, the active tiles, sorted: those whose vertices touch a real
   cell (the cells a halo tile computes). The one-launch kernels walk these
   only. Every real vertex lies in an active tile, and an inactive tile's
-  vertices get zero.
+  vertices get zero. The fused Newton kernel's PCG updates walk the body's
+  vertices too (`vm` != 0), not the whole lattice.
 
 Each op stays one launch, as on the dense grid: no launch per box. The
 result is what the box path computes: a partition of the real cells, then
@@ -67,6 +68,7 @@ class Cover:
         self.plans: dict = {}
         self._orders: dict = {}
         self._tensors: dict = {}
+        self._walked = None
 
     @property
     def sparse(self) -> bool:
@@ -123,6 +125,19 @@ class Cover:
         _, dense = lk.newton_tiling(X, Y, Z, sms)
         _, covered = lk.newton_tiling(X, Y, Z, sms, cover=self)
         return covered / dense
+
+    def walked(self, vert_mask, count=None) -> int:
+        """The vertices with vert_mask != 0: those the fused Newton kernel's
+        PCG updates walk under this cover. Kept for the last mask counted,
+        so that the scene's, given once with its `count`, costs nothing
+        after; another mask costs one sync."""
+        kept = self._walked
+        if (kept is None or kept[0] is not vert_mask
+                or kept[1] != vert_mask._version):
+            n = (int(torch.count_nonzero(vert_mask)) if count is None
+                 else int(count))
+            self._walked = kept = (vert_mask, vert_mask._version, n)
+        return kept[2]
 
     def tensor(self, name: str, device, make):
         """make() as an int32 tensor on `device`, made once per name and

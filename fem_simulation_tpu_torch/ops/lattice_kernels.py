@@ -24,7 +24,9 @@ Dispatch: a wrapper runs its plain version (`*_plain`) only when its tensors
 lie on the CPU. For CUDA tensors it launches the kernel or raises; it never
 falls back. Every wrapper adds one to `launches[name]` where it launches its
 kernel, and nowhere else. `fused_newton` also sums each call's PCG count on
-the call's device, without a sync (`pcg`, read by `pcg_matvecs`). No kernel here has a backward: a wrapper raises
+the call's device, without a sync (`pcg`, read by `pcg_matvecs`), and a
+covered call adds the vertices its PCG updates walk, and the lattice's, to
+`cover_vertices`. No kernel here has a backward: a wrapper raises
 when autograd records and one of its inputs requires grad, on either
 device, rather than return an output with no grad_fn.
 """
@@ -60,6 +62,11 @@ CHEBY_MAX_SWEEPS = 32
 launches = {"force": 0, "hvp": 0, "diag": 0, "energy": 0, "fused_newton": 0,
             "fused_pcg": 0, "cheby": 0, "diag_shift": 0, "power": 0,
             "force_cover": 0, "energy_cover": 0, "fused_newton_cover": 0}
+# The vertices the covered fused_newton launches' PCG updates walk (those
+# of the vertex mask passed, ops/boxes.Cover.walked) and the lattices'
+# vertices, summed over the launches: a dense launch walks every vertex and
+# adds nothing.
+cover_vertices = {"walked": 0, "lattice": 0}
 
 # Launch shapes of csrc/lattice_kernels.cu (kForceThreads, kForceRows,
 # kForceSmem, kEnergyThreads).
@@ -144,6 +151,7 @@ _starts: dict = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    cover_vertices.update(walked=0, lattice=0)
     level_launches.clear()
     pcg.clear()
 
@@ -1000,8 +1008,9 @@ def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
     -rc*x0 shift; rc is the residual's linear coefficient (pin + drag +
     m/dt^2, a SUM) and ctrl the Hessian diagonal shift (max(pin, drag) +
     m/dt^2 + (1 - vm)). With a cover (ops/boxes.Cover), the cell passes
-    walk its active tiles only, under newton_tiling's plan over it, with
-    the cover's own zeroed scratch; counted as "fused_newton_cover".
+    walk its active tiles only and the PCG updates the vertices with vm !=
+    0, under newton_tiling's plan over it, with the cover's own zeroed
+    scratch; counted as "fused_newton_cover" and in `cover_vertices`.
     Returns (dx_cf, f_cf, fn_full, k) with fn_full a 0-d float32 and k a
     0-d int32 tensor (matvecs executed = k - 1), which is added to `pcg`."""
     _cuda.refuse_grad("lattice_kernels.fused_newton",
@@ -1039,7 +1048,12 @@ def fused_newton(u_cf, s_cf, cell_mask, ctrl, rc, vert_mask, dx: float,
         err = lib.lat_fused_newton(float(tol), *ptrs, *scratch, tiles,
                                    n_active, *plan, *tail[:-1],
                                    int(iterations), tail[-1])
-    launches["fused_newton" if cover is None else "fused_newton_cover"] += 1
+    if cover is None:
+        launches["fused_newton"] += 1
+    else:
+        launches["fused_newton_cover"] += 1
+        cover_vertices["walked"] += cover.walked(vert_mask)
+        cover_vertices["lattice"] += X * Y * Z
     _cuda.check(err, "lat_fused_newton")
     _count_pcg(k)
     return dxc, fc, fn, k

@@ -150,6 +150,9 @@ class LatticeScene:
         self.box_cost_ratio = cover.cost_ratio(sms) if cover.sparse else 1.0
         self.cover = (cover if use_boxes and cover.sparse
                       and self.box_cost_ratio < box_threshold else None)
+        if self.cover is not None:
+            # the vertices the covered Newton kernel walks: the lattice map's
+            self.cover.walked(self.vert_mask, len(lat))
 
     # -- elastic ops (displacement form: u = x - x0 is taken here, once) ----
     def elastic_force(self, x):

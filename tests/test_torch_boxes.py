@@ -189,6 +189,27 @@ def test_shell_engages_at_demo_scale():
     assert plan[0] == min(n_active, boxes.PLAN_SMS)
 
 
+@pytest.mark.parametrize("cells", [(20, 20, 20), (64, 64, 64)])
+def test_cover_counts_the_body_vertices(cells):
+    """The vertices the fused Newton kernel's PCG updates walk under a cover
+    are those of the vertex mask passed: the scene's (its lattice map's,
+    69,246 of the 64^3 shell's 274,625), or another mask's, counted anew,
+    also after the mask changes in place."""
+    sc = tlat.LatticeScene(meshlib.shell(*cells, thickness=2, dx=DX),
+                           device="cpu", box_threshold=2.0)
+    assert sc.cover is not None
+    n = int(np.prod(sc.shape))
+    body = int(sc.vert_mask.sum())
+    assert sc.cover.walked(sc.vert_mask) == body == sc.lat.shape[0]
+    if cells == (64, 64, 64):
+        assert (body, n) == (69246, 274625)
+    ones = torch.ones_like(sc.vert_mask)
+    assert sc.cover.walked(ones) == n
+    ones[0, 0, 0] = 0.0
+    assert sc.cover.walked(ones) == n - 1
+    assert sc.cover.walked(sc.vert_mask) == body
+
+
 def test_newton_plan_mirror_on_the_main_path_beams():
     """newton_tiling mirrors lat_newton_plan: on an H100 (132 blocks) halo
     tiles at the 2k and 19k beams and exchange tiles at 74k, as the kernel's

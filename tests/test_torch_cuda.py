@@ -1746,6 +1746,60 @@ def test_cover_fused_newton_matches_plain_and_dense(shells, shell):
 
 
 @pytest.mark.cuda
+def test_cover_fused_newton_after_a_call_on_every_vertex(shells):
+    """The covered kernel's PCG updates skip the vertices with vm = 0; its
+    set-up phase rewrites r, z and xacc at every vertex, so state that an
+    earlier call left at those vertices of the cover's kept scratch does
+    not reach them. On the 64^3 shell a call with vm = 1 everywhere and a
+    right-hand side there leaves nonzero dx off the body; the next call,
+    on the scene's vertex mask, gives dx, f, fn and k equal to the dense
+    kernel's (torch.equal: +-0 equal)."""
+    sc, _ = shells["64"]
+    args = _newton_args(sc, 34)
+    body = sc.vert_mask > 0
+    rng = np.random.default_rng(35)
+    noise = torch.from_numpy(rng.standard_normal(
+        (3,) + tuple(sc.shape)).astype(np.float32)).cuda()
+    every = list(args)
+    every[1] = args[1] + 0.1 * noise
+    every[5] = torch.ones_like(sc.vert_mask)
+    dx1, _, _, k1 = lk.fused_newton(*every, cover=sc.cover)
+    torch.cuda.synchronize()
+    assert int(k1) > 2 and float(dx1[:, ~body].abs().max()) > 0
+    got = lk.fused_newton(*args, cover=sc.cover)
+    ref = lk.fused_newton(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "f", "fn", "k"), got, ref):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shell", sorted(_SHELLS))
+def test_cover_vertices_count_the_body(shells, shell):
+    """A covered fused_newton call adds the vertices of the mask it is
+    given and the lattice's to lattice_kernels.cover_vertices (69,246 of
+    274,625 on the 64^3 shell's own mask, every vertex with vm = 1); a
+    dense call adds nothing."""
+    sc, _ = shells[shell]
+    args = _newton_args(sc, 36)
+    lk.reset_launches()
+    lk.fused_newton(*args, cover=sc.cover)
+    n = int(np.prod(sc.shape))
+    body = int(sc.vert_mask.sum())
+    assert lk.cover_vertices == {"walked": body, "lattice": n}
+    if shell == "64":
+        assert lk.cover_vertices == {"walked": 69246, "lattice": 274625}
+    lk.fused_newton(*args)
+    every = list(args)
+    every[5] = torch.ones_like(sc.vert_mask)
+    lk.fused_newton(*every, cover=sc.cover)
+    torch.cuda.synchronize()
+    assert lk.cover_vertices == {"walked": body + n, "lattice": 2 * n}
+    lk.reset_launches()
+    assert lk.cover_vertices == {"walked": 0, "lattice": 0}
+
+
+@pytest.mark.cuda
 def test_covered_frames_launch_only_cover_modes(shells):
     """Two frames of the covered 20^3 shell launch fused_newton_cover once a
     Newton iteration and force_cover at least once a frame, and never the
